@@ -1,0 +1,29 @@
+"""Carry state from the JAX package's objects into the port.
+
+The exact-SGBM path has no weights; its state is the matcher parameters,
+the rectification maps and Q.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stereo_vision_tpu_torch.device import resolve_device
+from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
+
+
+def sgbm_params_from_reference(p) -> StereoSGBMParams:
+    """A ``StereoSGBMParams`` from anything with ``_asdict()`` (the JAX
+    NamedTuple) or from a dict; ``backend`` is dropped (the device decides)."""
+    d = dict(p._asdict() if hasattr(p, "_asdict") else p)
+    d.pop("backend", None)
+    return StereoSGBMParams(**d)
+
+
+def pipeline_inputs_from_numpy(maps, Q, device=None):
+    """(mx1, my1, mx2, my2) maps and Q as float32 tensors on ``device``
+    (None = the CUDA card)."""
+    dev = resolve_device(device)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+    return tuple(as_t(m) for m in maps), as_t(Q)

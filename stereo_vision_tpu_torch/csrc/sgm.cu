@@ -1,0 +1,346 @@
+// Semi-global aggregation and winner-take-all for exact SGBM.
+//
+// Replaces the three kernel bodies of
+// stereo_vision_tpu/stereo/sgm_pallas.py::sgm_reduce_pallas:
+//   _vertical_kernel   -> vertical_step  (3 down + 3 up directions)
+//   _horizontal_kernel -> horizontal_scan (L->R, or R->L)
+//   _wta4_kernel       -> wta_kernel     (sum of 2-4 direction volumes ->
+//                                         min/argmin/uniqueness/subpixel samples)
+//
+// Layout: one warp owns the D disparities of one pixel, VPL = D/32 (rounded
+// up to 1, 2, 4 or 8) consecutive disparities per lane, d = lane*VPL + k.
+// The d +- 1 neighbours of an SGM step come from the lane's own registers or
+// one shuffle; min over d is a 5-step shuffle reduction, so no step needs a
+// block barrier. Disparities d >= D hold a large sentinel that no min takes.
+// All arithmetic is int32 (the TPU kernels' float32 was a Mosaic workaround).
+// Direction volumes are stored int16: the wrappers check that
+// 3 * (cost_bound + P2) (or cost_bound + P2 for a single direction) fits.
+//
+// What bounds them on an H100 (720p, D=128, per frame, int16 volumes of
+// 212 MB): vertical reads the cost once and writes two volumes (637 MB,
+// ~190 us); each horizontal reads the cost and writes one volume (425 MB,
+// ~127 us); WTA reads four volumes (850 MB, ~254 us). The scans are also
+// latency-bound chains: H (or W) dependent steps.
+//
+// Vertical design: a diagonal moves one column per row, so no block can own
+// a column strip, and blocks carry nothing between them. One launch per row
+// step (row i for the down set, row H-1-i for the up set, both in the same
+// launch) with the six carries ping-ponged in global memory: a carry set is
+// 6*B*W*D int16 (7 MB at 720p, B=4), which stays in the 50 MB L2. This was
+// chosen over a persistent cooperative kernel with a grid-wide barrier per
+// row because it needs no co-residency limit on the grid and is simple;
+// its cost is one launch (a few us) per row.
+//
+// Horizontal design: one warp per (frame, row) keeps its carry in registers
+// and walks the W columns, prefetching the next column's costs.
+//
+// WTA design: one warp per pixel sums the volumes in registers; ties in the
+// argmin go to the smallest d.
+
+#include "common.cuh"
+
+namespace {
+
+using svt::kFullMask;
+using svt::warp_min;
+using svt::warp_sum;
+
+constexpr int kBig = 1 << 29;  // out-of-range d±1 neighbour
+constexpr int kWarps = 8;      // warps per block
+
+// Load the lane's VPL values of one pixel's D-vector; entries d >= D get fill.
+template <int VPL>
+__device__ __forceinline__ void load_vec(const int16_t* __restrict__ p, int D, int lane, int (&v)[VPL], int fill) {
+  const int d0 = lane * VPL;
+  if (d0 + VPL <= D && D % VPL == 0) {  // aligned vector access
+    if constexpr (VPL == 8) {
+      const int4 w = *reinterpret_cast<const int4*>(p + d0);
+      const int16_t* s = reinterpret_cast<const int16_t*>(&w);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = s[k];
+    } else if constexpr (VPL == 4) {
+      const int2 w = *reinterpret_cast<const int2*>(p + d0);
+      const int16_t* s = reinterpret_cast<const int16_t*>(&w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = s[k];
+    } else if constexpr (VPL == 2) {
+      const int w = *reinterpret_cast<const int*>(p + d0);
+      const int16_t* s = reinterpret_cast<const int16_t*>(&w);
+      v[0] = s[0];
+      v[1] = s[1];
+    } else {
+      v[0] = p[d0];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) v[k] = d0 + k < D ? p[d0 + k] : fill;
+  }
+}
+
+template <int VPL>
+__device__ __forceinline__ void store_vec(int16_t* __restrict__ p, int D, int lane, const int (&v)[VPL]) {
+  const int d0 = lane * VPL;
+  if (d0 + VPL <= D && D % VPL == 0) {
+    alignas(16) int16_t s[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) s[k] = static_cast<int16_t>(v[k]);
+    if constexpr (VPL == 8) {
+      *reinterpret_cast<int4*>(p + d0) = *reinterpret_cast<const int4*>(s);
+    } else if constexpr (VPL == 4) {
+      *reinterpret_cast<int2*>(p + d0) = *reinterpret_cast<const int2*>(s);
+    } else if constexpr (VPL == 2) {
+      *reinterpret_cast<int*>(p + d0) = *reinterpret_cast<const int*>(s);
+    } else {
+      p[d0] = s[0];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (d0 + k < D) p[d0 + k] = static_cast<int16_t>(v[k]);
+  }
+}
+
+// Zero carry (the border rule): L = 0 for real d, sentinel for padding.
+template <int VPL>
+__device__ __forceinline__ void zero_carry(int D, int lane, int (&L)[VPL]) {
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) L[k] = lane * VPL + k < D ? 0 : kBig;
+}
+
+// One SGM step: L'[d] = c[d] + min(L[d], L[d-1]+P1, L[d+1]+P1, minL+P2) - minL.
+// Returns min over d of L'. Padding entries of L' keep the sentinel.
+template <int VPL>
+__device__ __forceinline__ int sgm_step(const int (&c)[VPL], const int (&L)[VPL], int minL, int P1, int P2,
+                                        int D, int lane, int (&Ln)[VPL]) {
+  int below = __shfl_up_sync(kFullMask, L[VPL - 1], 1);  // L at d = lane*VPL - 1
+  int above = __shfl_down_sync(kFullMask, L[0], 1);      // L at d = lane*VPL + VPL
+  if (lane == 0) below = kBig;
+  if (lane == 31) above = kBig;
+  int m = kBig;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int Lm = k == 0 ? below : L[k - 1];
+    const int Lp = k == VPL - 1 ? above : L[k + 1];
+    const int cand = min(min(L[k], minL + P2), min(Lm, Lp) + P1);
+    Ln[k] = lane * VPL + k < D ? c[k] + cand - minL : kBig;
+    m = min(m, Ln[k]);
+  }
+  return warp_min(m);
+}
+
+// Row step i of the vertical scans. blockIdx.z = 0: down set on row i;
+// 1: up set on row H-1-i (the reference's y-flipped scan, with the SAME
+// column-shift directions). Carry slots: [set*3 + dir][b][x][d], dir 0 =
+// vertical, 1 = predecessor at x-1, 2 = predecessor at x+1; a predecessor
+// outside the image is a zero carry, as is every carry at i = 0.
+template <int VPL>
+__global__ void __launch_bounds__(kWarps * 32)
+vertical_step(const int16_t* __restrict__ C, int16_t* __restrict__ s_dn, int16_t* __restrict__ s_up,
+              const int16_t* __restrict__ Lin, int16_t* __restrict__ Lout, const int* __restrict__ min_in,
+              int* __restrict__ min_out, int B, int H, int W, int D, int P1, int P2, int with_diag, int i) {
+  const int lane = threadIdx.x & 31;
+  const int x = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int b = blockIdx.y, set = blockIdx.z;
+  if (x >= W) return;  // whole warp
+  const int row = set == 0 ? i : H - 1 - i;
+  int c[VPL];
+  load_vec<VPL>(C + (((size_t)b * H + row) * W + x) * D, D, lane, c, 0);
+  int acc[VPL];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) acc[k] = 0;
+  const int ndir = with_diag ? 3 : 1;
+  for (int dir = 0; dir < ndir; ++dir) {
+    const int px = x - (dir == 1) + (dir == 2);
+    const size_t slot = ((size_t)(set * 3 + dir) * B + b) * W;
+    int L[VPL], Ln[VPL];
+    int m = 0;
+    if (i == 0 || px < 0 || px >= W) {
+      zero_carry<VPL>(D, lane, L);
+    } else {
+      load_vec<VPL>(Lin + (slot + px) * D, D, lane, L, kBig);
+      m = min_in[slot + px];
+    }
+    const int mn = sgm_step<VPL>(c, L, m, P1, P2, D, lane, Ln);
+    store_vec<VPL>(Lout + (slot + x) * D, D, lane, Ln);
+    if (lane == 0) min_out[slot + x] = mn;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) acc[k] += Ln[k];
+  }
+  store_vec<VPL>((set == 0 ? s_dn : s_up) + (((size_t)b * H + row) * W + x) * D, D, lane, acc);
+}
+
+// One warp per (frame, row): the L->R (reverse: R->L) scan over W columns.
+template <int VPL>
+__global__ void __launch_bounds__(kWarps * 32)
+horizontal_scan(const int16_t* __restrict__ C, int16_t* __restrict__ out, int rows, int W, int D, int P1,
+                int P2, int reverse) {
+  const int lane = threadIdx.x & 31;
+  const int rid = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (rid >= rows) return;  // whole warp
+  const int16_t* crow = C + (size_t)rid * W * D;
+  int16_t* orow = out + (size_t)rid * W * D;
+  int L[VPL], c[VPL], cn[VPL];
+  zero_carry<VPL>(D, lane, L);
+  int m = 0;
+  load_vec<VPL>(crow + (size_t)(reverse ? W - 1 : 0) * D, D, lane, cn, 0);
+  for (int t = 0; t < W; ++t) {
+    const int x = reverse ? W - 1 - t : t;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) c[k] = cn[k];
+    if (t + 1 < W) load_vec<VPL>(crow + (size_t)(reverse ? x - 1 : x + 1) * D, D, lane, cn, 0);
+    int Ln[VPL];
+    m = sgm_step<VPL>(c, L, m, P1, P2, D, lane, Ln);
+    store_vec<VPL>(orow + (size_t)x * D, D, lane, Ln);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) L[k] = Ln[k];
+  }
+}
+
+// One warp per pixel: S = sum of nvol volumes; min, argmin (ties -> smallest
+// d), the uniqueness verdict and S at d0-1, d0, d0+1 with d0 = clip(best, 1, D-2).
+template <int VPL>
+__global__ void __launch_bounds__(kWarps * 32)
+wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const int16_t* __restrict__ v2,
+           const int16_t* __restrict__ v3, int nvol, int* __restrict__ minS, int* __restrict__ best,
+           int* __restrict__ sm, int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok,
+           long long npix, int D, int uniq) {
+  const int lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= npix) return;  // whole warp
+  const size_t base = (size_t)p * D;
+  const int16_t* vols[4] = {v0, v1, v2, v3};
+  int S[VPL], t[VPL];
+  load_vec<VPL>(vols[0] + base, D, lane, S, kBig);
+  for (int j = 1; j < nvol; ++j) {
+    load_vec<VPL>(vols[j] + base, D, lane, t, 0);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) S[k] += t[k];
+  }
+  int m = kBig;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) m = min(m, S[k]);
+  const int mn = warp_min(m);
+  int bl = D;
+#pragma unroll
+  for (int k = VPL - 1; k >= 0; --k)
+    if (S[k] == mn) bl = lane * VPL + k;  // padding holds kBig > mn
+  const int bst = warp_min(bl);
+  bool offend = false;
+  if (uniq > 0) {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int d = lane * VPL + k;
+      offend |= d < D && abs(d - bst) > 1 && mn * (100 + uniq) > S[k] * 100;
+    }
+  }
+  const bool ok = !__any_sync(kFullMask, offend);
+  const int d0 = min(max(bst, 1), D - 2);
+  int a = 0, z = 0, c = 0;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int d = lane * VPL + k;
+    a += d == d0 - 1 ? S[k] : 0;
+    z += d == d0 ? S[k] : 0;
+    c += d == d0 + 1 ? S[k] : 0;
+  }
+  a = warp_sum(a);
+  z = warp_sum(z);
+  c = warp_sum(c);
+  if (lane == 0) {
+    minS[p] = mn;
+    best[p] = bst;
+    sm[p] = a;
+    s0[p] = z;
+    sp[p] = c;
+    uok[p] = ok ? 1 : 0;
+  }
+}
+
+template <int VPL>
+cudaError_t vertical(const int16_t* C, int16_t* s_dn, int16_t* s_up, int16_t* Lbuf, int* mbuf, int B, int H,
+                     int W, int D, int P1, int P2, int with_diag, cudaStream_t stream) {
+  const size_t lset = (size_t)6 * B * W * D, mset = (size_t)6 * B * W;
+  const dim3 grid((W + kWarps - 1) / kWarps, B, 2);
+  for (int i = 0; i < H; ++i) {
+    const int src = (i + 1) & 1, dst = i & 1;
+    vertical_step<VPL><<<grid, kWarps * 32, 0, stream>>>(C, s_dn, s_up, Lbuf + src * lset, Lbuf + dst * lset,
+                                                         mbuf + src * mset, mbuf + dst * mset, B, H, W, D, P1,
+                                                         P2, with_diag, i);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <int VPL>
+cudaError_t horizontal(const int16_t* C, int16_t* out, int rows, int W, int D, int P1, int P2, int reverse,
+                       cudaStream_t stream) {
+  horizontal_scan<VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(C, out, rows, W, D, P1, P2,
+                                                                                 reverse);
+  return cudaGetLastError();
+}
+
+template <int VPL>
+cudaError_t wta(const int16_t* const* v, int nvol, int* const* maps, uint8_t* uok, int npix, int D, int uniq,
+                cudaStream_t stream) {
+  wta_kernel<VPL><<<(npix + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+      v[0], v[1], v[2], v[3], nvol, maps[0], maps[1], maps[2], maps[3], maps[4], uok, npix, D, uniq);
+  return cudaGetLastError();
+}
+
+// Values per lane for D disparities: 1, 2, 4 or 8 (D <= 256).
+int vpl_for(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 8; }
+
+}  // namespace
+
+// (B, H, W, D) int16 cost -> down-set and up-set sums (int16), H launches.
+// Lbuf: 2 x 6 x B x W x D int16 carries; mbuf: 2 x 6 x B x W int32 minima.
+SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* Lbuf, void* mbuf, int B, int H,
+                                int W, int D, int P1, int P2, int with_diag, void* stream) {
+  if (D > 256) return cudaErrorInvalidValue;
+  const auto c = static_cast<const int16_t*>(C);
+  const auto dn = static_cast<int16_t*>(s_dn), up = static_cast<int16_t*>(s_up), L = static_cast<int16_t*>(Lbuf);
+  const auto m = static_cast<int*>(mbuf);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (vpl_for(D)) {
+    case 1: return vertical<1>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
+    case 2: return vertical<2>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
+    case 4: return vertical<4>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
+    default: return vertical<8>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
+  }
+}
+
+// (B, H, W, D) int16 cost -> one horizontal direction volume (int16).
+SVT_EXPORT int svt_sgm_horizontal(const void* C, void* out, int B, int H, int W, int D, int P1, int P2,
+                                  int reverse, void* stream) {
+  if (D > 256) return cudaErrorInvalidValue;
+  const auto c = static_cast<const int16_t*>(C);
+  const auto o = static_cast<int16_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (vpl_for(D)) {
+    case 1: return horizontal<1>(c, o, B * H, W, D, P1, P2, reverse, st);
+    case 2: return horizontal<2>(c, o, B * H, W, D, P1, P2, reverse, st);
+    case 4: return horizontal<4>(c, o, B * H, W, D, P1, P2, reverse, st);
+    default: return horizontal<8>(c, o, B * H, W, D, P1, P2, reverse, st);
+  }
+}
+
+// nvol (2-4) int16 (npix, D) volumes -> six per-pixel maps (v2, v3 may be
+// null when nvol is smaller).
+SVT_EXPORT int svt_sgm_wta(const void* v0, const void* v1, const void* v2, const void* v3, int nvol,
+                           void* minS, void* best, void* sm, void* s0, void* sp, void* uok, int npix, int D,
+                           int uniq, void* stream) {
+  if (D > 256 || D < 3 || nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
+  const int16_t* v[4] = {static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1),
+                         static_cast<const int16_t*>(v2), static_cast<const int16_t*>(v3)};
+  int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
+                  static_cast<int*>(s0), static_cast<int*>(sp)};
+  const auto u = static_cast<uint8_t*>(uok);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (vpl_for(D)) {
+    case 1: return wta<1>(v, nvol, maps, u, npix, D, uniq, st);
+    case 2: return wta<2>(v, nvol, maps, u, npix, D, uniq, st);
+    case 4: return wta<4>(v, nvol, maps, u, npix, D, uniq, st);
+    default: return wta<8>(v, nvol, maps, u, npix, D, uniq, st);
+  }
+}

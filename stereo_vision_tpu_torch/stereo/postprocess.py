@@ -1,0 +1,111 @@
+"""Disparity speckle filter: exact cv2.filterSpeckles semantics in PyTorch.
+
+Port of ``stereo_vision_tpu/stereo/postprocess.py::speckle_filter``: the
+same gather-free five-phase algorithm, written as shifted elementwise
+torch ops (the proof of exactness is in the JAX docstring). It runs as
+plain PyTorch on every device: at window S it takes about 5(S-1) rounds of
+small ops, so on the card it is launch-bound; a CUDA connected-components
+kernel is queued for it (``speckle_pallas.py`` in the port's roadmap).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_OFFS = ((1, 0), (-1, 0), (0, 1), (0, -1))
+_OPP = (1, 0, 3, 2)
+
+
+def _nb(a: torch.Tensor, i: int, fill) -> torch.Tensor:
+    """Value of ``a`` at p + _OFFS[i] over the last two axes (``fill``
+    outside the image)."""
+    dy, dx = _OFFS[i]
+    H, W = a.shape[-2:]
+    out = torch.full_like(a, fill)
+    ys, yd = slice(max(dy, 0), H + min(dy, 0)), slice(max(-dy, 0), H + min(-dy, 0))
+    xs, xd = slice(max(dx, 0), W + min(dx, 0)), slice(max(-dx, 0), W + min(-dx, 0))
+    out[..., yd, xd] = a[..., ys, xs]
+    return out
+
+
+def speckle_filter(
+    disp: torch.Tensor,
+    max_diff: float = 1.0,
+    max_speckle_size: int = 100,
+    invalid_value: float = -1.0,
+    max_diameter: int | None = None,
+) -> torch.Tensor:
+    """Remove small disparity blobs from (..., H, W) maps.
+
+    4-connected components of valid pixels (``disp > invalid_value``)
+    joined where neighbour disparities differ by <= ``max_diff``;
+    components of size <= ``max_speckle_size`` become ``invalid_value``.
+
+    With R = S - 1 (S = max_speckle_size): R rounds of label
+    min-propagation recording the arrival round; a BFS parent forest with
+    R rounds of child-sum up-sweep and R rounds of down-broadcast of the
+    root's count; 2R rounds of taint spreading from differing-label edges
+    (non-converged components are large and always kept).
+
+    max_diameter: optional cap on R. Blobs of graph diameter <= R are
+    still decided exactly; thinner, longer blobs of size <= S are kept
+    where cv2 would remove them. None gives exact cv2 semantics.
+    """
+    H, W = disp.shape[-2:]
+    S = int(max_speckle_size)
+    if S <= 0:
+        return disp
+    R = S - 1 if max_diameter is None else min(S - 1, int(max_diameter))
+    R = max(R, 1)
+    valid = disp > invalid_value
+    masks = [
+        valid & _nb(valid, i, False) & ((_nb(disp, i, float("inf")) - disp).abs() <= max_diff)
+        for i in range(4)
+    ]
+    big = H * W
+    lab = torch.arange(H * W, dtype=torch.int32, device=disp.device).reshape(H, W).expand(disp.shape).clone()
+    A = torch.zeros(disp.shape, dtype=torch.int32, device=disp.device)
+
+    # Phase 1: R rounds of min-propagation, tracking the arrival round A.
+    for r in range(1, R + 1):
+        new = lab
+        for i in range(4):
+            new = torch.where(masks[i], torch.minimum(new, _nb(lab, i, big)), new)
+        A = torch.where(new < lab, r, A)
+        lab = new
+
+    # Phase 2: parent direction (4 = root): the first qualifying neighbour.
+    pdir = torch.full(disp.shape, 4, dtype=torch.int32, device=disp.device)
+    for i in (3, 2, 1, 0):
+        ok = masks[i] & (_nb(lab, i, big) == lab) & (_nb(A, i, big) < A)
+        pdir = torch.where(ok, i, pdir)
+    child = [_nb(pdir, i, 4) == _OPP[i] for i in range(4)]
+
+    # Phase 3: up-sweep — s[p] = descendants of p within t levels.
+    s = torch.ones(disp.shape, dtype=torch.int32, device=disp.device)
+    for _ in range(R):
+        out = torch.ones_like(s)
+        for i in range(4):
+            out = out + torch.where(child[i], _nb(s, i, 0), 0)
+        s = out
+
+    # Phase 4: down-broadcast the root's exact tree size.
+    total = torch.where(pdir == 4, s, 0)
+    for _ in range(R):
+        out = total
+        for i in range(4):
+            out = torch.where(pdir == i, _nb(total, i, 0), out)
+        total = out
+
+    # Phase 5: taint — seed at differing-label same-blob edges, OR-spread.
+    taint = torch.zeros(disp.shape, dtype=torch.bool, device=disp.device)
+    for i in range(4):
+        taint = taint | (masks[i] & (_nb(lab, i, big) != lab))
+    for _ in range(2 * R):
+        out = taint
+        for i in range(4):
+            out = out | (masks[i] & _nb(taint, i, False))
+        taint = out
+
+    remove = valid & ~taint & (total <= S)
+    return torch.where(remove, torch.as_tensor(invalid_value, dtype=disp.dtype, device=disp.device), disp)

@@ -1,0 +1,273 @@
+"""Semi-global aggregation + winner-take-all: plain PyTorch forms + CUDA kernels.
+
+Replaces ``stereo_vision_tpu/stereo/sgm_pallas.py::sgm_reduce_pallas`` and
+its three kernel bodies:
+
+- ``_vertical_kernel``  -> :func:`vertical`   (``csrc/sgm.cu`` vertical_step)
+- ``_horizontal_kernel`` -> :func:`horizontal` (``csrc/sgm.cu`` horizontal_scan)
+- ``_wta4_kernel``      -> :func:`wta4`       (``csrc/sgm.cu`` wta_kernel)
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain form
+(the scan reference of ``stereo_vision_tpu/stereo/sgbm.py``) for CPU ones.
+The kernels serve every ``num_paths`` in {2, 3, 4, 8}: 2 = vertical pair
+without diagonals, 3 adds L->R, 4 adds R->L, 8 adds the four diagonals.
+
+Integer ranges: with P1, P2 >= 0 every aggregated value satisfies
+``c <= L <= c + P2`` (the candidate min never exceeds ``minL + P2``), so a
+direction volume is bounded by ``cost_bound + P2`` and the three-direction
+set sum by ``3 * (cost_bound + P2)``. The kernels store direction volumes
+as int16 and the wrappers check that bound; the plain forms keep int32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stereo_vision_tpu_torch import _build
+
+_BIG = 1 << 29  # out-of-range d±1 neighbour: far above any reachable L
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # C, s_dn, s_up, L scratch, min scratch, B, H, W, D, P1, P2, with_diag, stream
+    "svt_sgm_vertical": [_P] * 5 + [_I] * 7 + [_P],
+    # C, out, B, H, W, D, P1, P2, reverse, stream
+    "svt_sgm_horizontal": [_P] * 2 + [_I] * 7 + [_P],
+    # v0..v3, nvol, minS, best, sm, s0, sp, uok, npix, D, uniq, stream
+    "svt_sgm_wta": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("sgm")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------- plain forms
+
+
+def _sgm_update(c, L, minL, P1: int, P2: int):
+    """One SGM step: L' = c + min(L, L(d-1)+P1, L(d+1)+P1, minL+P2) - minL."""
+    big = torch.full_like(L[..., :1], _BIG)
+    Lm = torch.cat([big, L[..., :-1]], dim=-1)
+    Lp = torch.cat([L[..., 1:], big], dim=-1)
+    cand = torch.minimum(torch.minimum(L, minL + P2), torch.minimum(Lm, Lp) + P1)
+    Lnew = c + cand - minL
+    return Lnew, Lnew.amin(dim=-1, keepdim=True)
+
+
+def _shift_cols(a, direction: int):
+    """Shift along the column axis (-2) of (..., W, D), zero fill:
+    direction > 0 moves column x-1 to x, < 0 moves x+1 to x."""
+    if direction == 0:
+        return a
+    z = torch.zeros_like(a[..., :1, :])
+    if direction > 0:
+        return torch.cat([z, a[..., :-1, :]], dim=-2)
+    return torch.cat([a[..., 1:, :], z], dim=-2)
+
+
+def _aggregate_down(C, P1: int, P2: int, with_diagonals: bool = True):
+    """Sum of the downward direction volumes over (N, H, W, D) int32 costs:
+    (0,1) plus, with diagonals, (1,1) and (-1,1). A zero carry (L = 0,
+    min = 0) makes the first row's L equal its cost row."""
+    N, H, W, D = C.shape
+    zero = torch.zeros((N, W, D), dtype=C.dtype, device=C.device)
+    zmin = torch.zeros((N, W, 1), dtype=C.dtype, device=C.device)
+    (Lv, mv), (Ld, md), (Lu, mu) = (zero, zmin), (zero, zmin), (zero, zmin)
+    S = torch.empty_like(C)
+    for y in range(H):
+        c = C[:, y]
+        Lv, mv = _sgm_update(c, Lv, mv, P1, P2)
+        if with_diagonals:
+            Ld, md = _sgm_update(c, _shift_cols(Ld, 1), _shift_cols(md, 1), P1, P2)
+            Lu, mu = _sgm_update(c, _shift_cols(Lu, -1), _shift_cols(mu, -1), P1, P2)
+            S[:, y] = Lv + Ld + Lu
+        else:
+            S[:, y] = Lv
+    return S
+
+
+def _aggregate_horiz(C, P1: int, P2: int):
+    """Left-to-right direction volume over (N, H, W, D) int32 costs."""
+    N, H, W, D = C.shape
+    L = torch.zeros((N, H, D), dtype=C.dtype, device=C.device)
+    m = torch.zeros((N, H, 1), dtype=C.dtype, device=C.device)
+    S = torch.empty_like(C)
+    for x in range(W):
+        L, m = _sgm_update(C[:, :, x], L, m, P1, P2)
+        S[:, :, x] = L
+    return S
+
+
+def vertical_plain(C, P1: int, P2: int, with_diagonals: bool = True):
+    """Plain form of :func:`vertical`: (down-set sum, up-set sum), int32.
+    The up set scans the y-flipped volume with the SAME column shifts."""
+    C = C.to(torch.int32)
+    S = _aggregate_down(torch.cat([C, C.flip(-3)]), P1, P2, with_diagonals)
+    B = C.shape[0]
+    return S[:B], S[B:].flip(-3)
+
+
+def horizontal_plain(C, P1: int, P2: int, reverse: bool = False):
+    """Plain form of :func:`horizontal`: the L->R (or R->L) volume, int32."""
+    C = C.to(torch.int32)
+    if reverse:
+        return _aggregate_horiz(C.flip(-2), P1, P2).flip(-2)
+    return _aggregate_horiz(C, P1, P2)
+
+
+def wta_scan(S, ndisp: int, uniqueness_ratio: int):
+    """WTA + uniqueness + subpixel samples from an aggregated (..., D)
+    volume: (minS, best, sm, s0, sp, unique_ok); ties go to the smallest d."""
+    minS, best = S.min(dim=-1)  # torch returns the first minimal index
+    if uniqueness_ratio > 0:
+        ds = torch.arange(ndisp, device=S.device)
+        offender = (minS[..., None] * (100 + uniqueness_ratio) > S * 100) & (
+            (ds - best[..., None]).abs() > 1
+        )
+        unique_ok = ~offender.any(dim=-1)
+    else:
+        unique_ok = torch.ones_like(best, dtype=torch.bool)
+    d0 = best.clamp(1, ndisp - 2)
+    take = lambda i: torch.gather(S, -1, i[..., None])[..., 0]
+    s0, sm, sp = take(d0), take(d0 - 1), take(d0 + 1)
+    i32 = lambda a: a.to(torch.int32)
+    return i32(minS), i32(best), i32(sm), i32(s0), i32(sp), unique_ok
+
+
+def wta4_plain(volumes, uniqueness_ratio: int):
+    """Plain form of :func:`wta4`: WTA stats over the sum of the volumes."""
+    S = volumes[0].to(torch.int32)
+    for v in volumes[1:]:
+        S = S + v.to(torch.int32)
+    return wta_scan(S, S.shape[-1], uniqueness_ratio)
+
+
+def _aggregate_8(C, P1: int, P2: int, num_paths: int = 8):
+    """Aggregated int32 volume over 8, 4, 3 or 2 directions (the scan
+    reference's ``_aggregate_8``; :func:`sgm_reduce` never forms it)."""
+    s_dn, s_up = vertical_plain(C, P1, P2, with_diagonals=num_paths >= 8)
+    S = s_dn + s_up
+    if num_paths >= 3:
+        S = S + horizontal_plain(C, P1, P2)
+    if num_paths >= 4:
+        S = S + horizontal_plain(C, P1, P2, reverse=True)
+    return S
+
+
+def sgm_reduce_plain(C, P1: int, P2: int, uniqueness_ratio: int, num_paths: int = 8):
+    """Plain form of :func:`sgm_reduce`."""
+    return wta_scan(_aggregate_8(C, P1, P2, num_paths), C.shape[-1], uniqueness_ratio)
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def _check_volume(C: torch.Tensor, P1: int, P2: int, cost_bound: int, ndir: int) -> None:
+    if C.dim() != 4:
+        raise ValueError(f"expected a (B, H, W, D) cost volume, got {tuple(C.shape)}")
+    if P1 < 0 or P2 < 0:
+        raise ValueError("P1 and P2 must be >= 0")
+    if C.device.type == "cuda":
+        if C.dtype != torch.int16 or not C.is_contiguous():
+            raise TypeError("the CUDA SGM kernels take a contiguous int16 cost volume")
+        if C.shape[-1] > 256:
+            raise ValueError("the CUDA SGM kernels take D <= 256")
+        if ndir * (cost_bound + P2) >= 1 << 15:
+            raise ValueError(
+                f"{ndir} * (cost_bound {cost_bound} + P2 {P2}) does not fit the int16 direction volumes"
+            )
+    elif C.device.type != "cpu":
+        raise ValueError(f"unsupported device {C.device}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def vertical(C, P1: int, P2: int, with_diagonals: bool, cost_bound: int):
+    """(B, H, W, D) cost -> (down-set sum, up-set sum) volumes.
+
+    One wrapper call runs the H-step row scan (one kernel launch per row
+    step on CUDA, counted once in ``vertical.launches``)."""
+    _check_volume(C, P1, P2, cost_bound, 3 if with_diagonals else 1)
+    if C.device.type == "cpu":
+        return vertical_plain(C, P1, P2, with_diagonals)
+    B, H, W, D = C.shape
+    s_dn = torch.empty_like(C)
+    s_up = torch.empty_like(C)
+    Lbuf = torch.empty((2, 6, B, W, D), dtype=torch.int16, device=C.device)
+    mbuf = torch.empty((2, 6, B, W), dtype=torch.int32, device=C.device)
+    lib = _lib()
+    err = lib.svt_sgm_vertical(C.data_ptr(), s_dn.data_ptr(), s_up.data_ptr(), Lbuf.data_ptr(),
+                               mbuf.data_ptr(), B, H, W, D, P1, P2, int(with_diagonals), _stream(C))
+    _build.check(lib, err, "svt_sgm_vertical")
+    vertical.launches += 1
+    return s_dn, s_up
+
+
+def horizontal(C, P1: int, P2: int, reverse: bool, cost_bound: int):
+    """(B, H, W, D) cost -> the L->R (``reverse``: R->L) direction volume."""
+    _check_volume(C, P1, P2, cost_bound, 1)
+    if C.device.type == "cpu":
+        return horizontal_plain(C, P1, P2, reverse)
+    B, H, W, D = C.shape
+    out = torch.empty_like(C)
+    lib = _lib()
+    err = lib.svt_sgm_horizontal(C.data_ptr(), out.data_ptr(), B, H, W, D, P1, P2, int(reverse), _stream(C))
+    _build.check(lib, err, "svt_sgm_horizontal")
+    horizontal.launches += 1
+    return out
+
+
+def wta4(volumes, uniqueness_ratio: int):
+    """Sum 2-4 (B, H, W, D) direction volumes and reduce over D to
+    (minS, best, sm, s0, sp, unique_ok): int32 maps and a bool map.
+    ``best`` takes the smallest d on ties; ``sm/s0/sp`` sample the sum at
+    ``clip(best, 1, D-2)`` and its neighbours; ``unique_ok`` is false when
+    some d with |d - best| > 1 has ``minS*(100+U) > S*100``."""
+    volumes = list(volumes)
+    v0 = volumes[0]
+    if not 2 <= len(volumes) <= 4 or any(v.shape != v0.shape or v.device != v0.device for v in volumes):
+        raise ValueError("wta4 takes 2-4 direction volumes of one shape on one device")
+    if v0.dim() != 4 or v0.shape[-1] < 3:
+        raise ValueError(f"expected (B, H, W, D>=3) volumes, got {tuple(v0.shape)}")
+    if v0.device.type == "cpu":
+        return wta4_plain(volumes, uniqueness_ratio)
+    if any(v.dtype != torch.int16 or not v.is_contiguous() for v in volumes) or v0.shape[-1] > 256:
+        raise TypeError("the CUDA WTA kernel takes contiguous int16 volumes with D <= 256")
+    B, H, W, D = v0.shape
+    maps = [torch.empty((B, H, W), dtype=torch.int32, device=v0.device) for _ in range(5)]
+    uok = torch.empty((B, H, W), dtype=torch.bool, device=v0.device)
+    ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
+    lib = _lib()
+    err = lib.svt_sgm_wta(*ptrs, len(volumes), *(m.data_ptr() for m in maps), uok.data_ptr(),
+                          B * H * W, D, uniqueness_ratio, _stream(v0))
+    _build.check(lib, err, "svt_sgm_wta")
+    wta4.launches += 1
+    return (*maps, uok)
+
+
+def sgm_reduce(C, P1: int, P2: int, uniqueness_ratio: int, *, cost_bound: int, num_paths: int = 8):
+    """Aggregation over ``num_paths`` in {2, 3, 4, 8} + WTA, the port of
+    ``sgm_reduce_pallas`` (which took only 4 and 8): six (B, H, W) maps as
+    :func:`wta4` returns them. ``cost_bound`` bounds the values of ``C``
+    (the CUDA kernels check that the int16 volumes hold the sums)."""
+    if num_paths not in (2, 3, 4, 8):
+        raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {num_paths}")
+    vols = list(vertical(C, P1, P2, num_paths >= 8, cost_bound))
+    if num_paths >= 3:
+        vols.append(horizontal(C, P1, P2, False, cost_bound))
+    if num_paths >= 4:
+        vols.append(horizontal(C, P1, P2, True, cost_bound))
+    return wta4(vols, uniqueness_ratio)
+
+
+vertical.launches = 0
+horizontal.launches = 0
+wta4.launches = 0
