@@ -14,7 +14,26 @@ Phases, in order (any failure raises and the script exits nonzero):
      4 frames, the bench's exact8 parameters: every kernel's launch count
      must move; valid share and within-1px share against the scene's true
      disparity must clear floors; ms per 4-frame call and Mpx/s, plus a
-     per-stage breakdown.
+     per-stage breakdown;
+  6. the hier main path, batched_stereo_pipeline(matcher="sgbm_hier") at
+     1280x720, 32 frames, HIER4_FAST with the bench's p3 parameters: every
+     hier kernel's launch count must move; the same quality floors; ms per
+     32-frame call, Mpx/s and frames/s;
+  7. two more such calls with their stages recorded (CUDA events around
+     the path's own functions, swapped for recording wrappers): the first
+     gives the per-stage breakdown, the second keeps the arguments each
+     kernel wrapper was given;
+  8. per hier kernel (downsample, banded cost, vertical, horizontal, wta,
+     LR check) on those arguments, at the three levels of the path (coarse
+     180x320 K=32, mid 360x640 K=8, full 720x1280 K=4): the kernel on all
+     32 frames against its plain form on the first 4, exact; a 6-stat WTA
+     case at K=16; CUDA-event times (kernel at 32 frames, plain at 4) and
+     bounds;
+  9. batched_stereo_pipeline(matcher="sgbm_hier") at 64x256, D=128,
+     32 frames (HIER4_FAST, 3 paths) on CUDA and on the CPU: disparity
+     exactly equal, points within float32 rtol 1e-6;
+ 10. the bench's agreement gate: hier4x3 (32 copies of a scene per call)
+     against exact8 on the first frame of three scenes, >= 0.98 each.
 The next-to-last line is the kernels' JSON, the last the device JSON.
 Imports torch, numpy and the port only.
 """
@@ -31,12 +50,13 @@ import torch
 
 from stereo_vision_tpu_torch import _build
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
+from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import cost_cuda, sgm_cuda
+from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, hier, lr_cuda, sgm_cuda
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.postprocess import speckle_filter
-from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, subpixel_disp16
-from stereo_vision_tpu_torch.synth.scenes import scene, scene_truth
+from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm, subpixel_disp16
+from stereo_vision_tpu_torch.synth.scenes import agreement, scene, scene_occ, scene_truth
 
 H, W, D, B = 720, 1280, 128, 4
 # bench.py's exact8 mode (BASELINE config #2).
@@ -51,7 +71,41 @@ VALID_FLOOR, WITHIN1_FLOOR = 0.90, 0.98
 # no int32 rate; int32 issues at most that fast, so the bound stays a bound).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-SOURCES = {"cost": "stereo_vision_tpu_torch/csrc/cost.cu", "sgm": "stereo_vision_tpu_torch/csrc/sgm.cu"}
+SOURCES = {"cost": "stereo_vision_tpu_torch/csrc/cost.cu", "sgm": "stereo_vision_tpu_torch/csrc/sgm.cu",
+           "banded": "stereo_vision_tpu_torch/csrc/banded.cu", "lr": "stereo_vision_tpu_torch/csrc/lr.cu"}
+# The hier main path: bench.py's hier4x3 mode (HIER4_FAST with p3, 32 frames
+# per call, bench.py:162-188).
+HIER_P, HP = 32, hier.HIER4_FAST
+P3 = PARAMS._replace(num_paths=3)
+PLAIN_FRAMES = 4  # frames the plain forms run on beside the 32-frame kernel calls
+# BENCH_r05.json's hier4x3 agreement against exact8 (the round-5 run of bench.py).
+BENCH_R05_AGREEMENT = {"rampbox": 0.9952, "occl": 0.9966, "jump110": 0.9923}
+# The hier path's kernels: wrapper, source, the TPU kernel it replaces.
+HIER_KERNELS = {
+    "downsample_box": (banded_cuda.downsample_box, SOURCES["banded"],
+                       "stereo_vision_tpu/stereo/banded_pallas.py:395 _downsample_kernel"),
+    "banded_cost": (banded_cuda.banded_cost, SOURCES["banded"],
+                    "stereo_vision_tpu/stereo/banded_pallas.py:152 _pix_kernel + :512 _aligned_box_kernel_srows"),
+    "banded_vertical": (banded_cuda.banded_vertical, SOURCES["banded"],
+                        "stereo_vision_tpu/stereo/banded_pallas.py:666 _vert_kernel"),
+    "banded_horizontal": (banded_cuda.banded_horizontal, SOURCES["banded"],
+                          "stereo_vision_tpu/stereo/banded_pallas.py:759 _horiz_kernel"),
+    "banded_wta": (banded_cuda.banded_wta, SOURCES["banded"],
+                   "stereo_vision_tpu/stereo/banded_pallas.py:815 _wta_kernel"),
+    "lr_fail_packed": (lr_cuda.lr_fail_packed, SOURCES["lr"], "stereo_vision_tpu/stereo/lr_pallas.py:30 _lr_kernel"),
+}
+KERNEL_NAMES = tuple(HIER_KERNELS)
+# Each hier kernel's plain form, called with the wrapper's arguments.
+PLAIN = {
+    "downsample_box": banded_cuda.downsample_box_plain,
+    "banded_cost": banded_cuda.banded_cost_plain,
+    "banded_vertical": lambda C, s, G, P1, P2, *, cost_bound, with_diagonals=False:
+        banded_cuda.vertical_plain(C, s, G, P1, P2, with_diagonals),
+    "banded_horizontal": lambda C, s, G, P1, P2, *, cost_bound, reverse=False:
+        banded_cuda.horizontal_plain(C, s, G, P1, P2, reverse),
+    "banded_wta": banded_cuda.banded_wta_plain,
+    "lr_fail_packed": lr_cuda.lr_fail_packed_plain,
+}
 
 
 def rig(h: int, w: int):
@@ -245,6 +299,253 @@ def phase_breakdown(dev) -> dict:
     return {k: round(v, 4) for k, v in st.items()}
 
 
+def hier_frames(dev):
+    """The hier main path's 32 frames (ramp+box scene, seeds 0-31), on the card."""
+    frames = [scene(seed=s) for s in range(HIER_P)]
+    return (torch.from_numpy(np.stack([f[0] for f in frames])).to(dev),
+            torch.from_numpy(np.stack([f[1] for f in frames])).to(dev))
+
+
+class Recorder:
+    """Swaps functions of the port's modules for wrappers that record each
+    call's arguments, result and CUDA events around it, for one real call
+    of the path; restores the functions on exit. ``targets`` maps a stage
+    name to (module, attribute). The first downsample or banded core call
+    after a level's core (``core``) starts the next level, so every record
+    carries the level it ran in. With ``keep`` False a record holds no
+    tensor, so that the caching allocator reuses memory as in an
+    unrecorded call."""
+
+    def __init__(self, targets: dict, levels: tuple[str, ...], keep: bool):
+        self.targets, self.levels, self.keep, self.calls = targets, levels, keep, []
+        self.level, self.core_done = 0, False
+
+    def _wrap(self, name, fn):
+        def wrapper(*args, **kwargs):
+            if name in ("downsample_box", "core") and self.core_done:
+                self.level, self.core_done = self.level + 1, False
+            level = self.levels[self.level]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.core_done |= name == "core"
+            self.calls.append(dict(name=name, level=level, fn=fn, start=start, end=end))
+            if self.keep:
+                self.calls[-1].update(args=args, kwargs=kwargs, out=out)
+            return out
+
+        # The wrapped kernel wrappers count their launches on the name they are
+        # bound to, which is this wrapper while it is swapped in.
+        wrapper.launches = 0
+        return wrapper
+
+    def __enter__(self):
+        self.saved = [(mod, attr, getattr(mod, attr)) for mod, attr in self.targets.values()]
+        for (name, (mod, attr)), (_, _, fn) in zip(self.targets.items(), self.saved):
+            setattr(mod, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool) -> tuple[dict, list[dict]]:
+    """One 32-frame hier main-path call with its stages recorded: the
+    per-stage CUDA-event ms (summed per stage and level) and the records
+    of every kernel wrapper's calls, with (``keep``) the arguments the
+    kernel checks reuse. The call's disparity must equal the main path's."""
+    maps, Q = rig(H, W)
+    targets = {
+        "matcher": (streaming, "stereo_sgbm_hier_batch"), "reproject": (streaming, "reproject_disparity_to_3d"),
+        "downsample_box": (hier, "downsample_box"), "core": (hier, "banded_stats_pack"),
+        "shift maps (plain)": (hier, "shift_map"), "splice (plain)": (hier, "_splice_coarse"),
+        "assemble (plain, with the LR kernel)": (hier, "_assemble_disparity"),
+        "lr_fail_packed": (hier, "lr_fail_packed"),
+        "speckle cap 4 (plain)": (hier, "speckle_filter"),
+        **{k: (banded_cuda, k) for k in ("banded_cost", "banded_vertical", "banded_horizontal", "banded_wta")},
+    }
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with Recorder(targets, ("coarse", "mid", "full"), keep) as rec:
+        start.record()
+        disp, _ = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
+        end.record()
+    torch.cuda.synchronize()
+    if not torch.equal(disp, disp_main):
+        raise AssertionError("the recorded hier call differs from the main path")
+    st = {"call": start.elapsed_time(end)}
+    for c in rec.calls:
+        key = f"{c['level']} {c['name']}" if c["name"] in KERNEL_NAMES + ("core",) else c["name"]
+        st[key] = st.get(key, 0.0) + c["start"].elapsed_time(c["end"])
+    matcher = next(c for c in rec.calls if c["name"] == "matcher")
+    st["remap + round (with the maps' upload)"] = start.elapsed_time(matcher["start"])
+    return {k: round(v, 4) for k, v in st.items()}, [c for c in rec.calls if c["name"] in KERNEL_NAMES]
+
+
+def _head(x, n: int):
+    """The first n frames of every tensor in x (tensors, lists, tuples, dicts)."""
+    if isinstance(x, torch.Tensor):
+        return x[:n]
+    if isinstance(x, (list, tuple)):
+        return type(x)(_head(e, n) for e in x)
+    if isinstance(x, dict):
+        return {k: _head(v, n) for k, v in x.items()}
+    return x
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(e) for e in x)
+    if isinstance(x, dict):
+        return sum(_nbytes(v) for v in x.values())
+    return 0
+
+
+def _ops(name: str, args, kwargs, elems: int) -> int:
+    """32-bit integer operations of one hier kernel call (``elems``: its
+    first output's elements): banded cost ~20 + 4 bs per lane, a scan step
+    ~10 per lane and direction, WTA ~10 per lane, LR ~20 per pixel,
+    downsample one add per input pixel."""
+    if name == "banded_cost":
+        return elems * (20 + 4 * kwargs["block_size"])
+    if name == "banded_vertical":
+        return 2 * elems * 10
+    if name == "banded_wta":
+        return args[0][0].numel() * 10
+    if name == "downsample_box":
+        return args[0].numel()
+    return elems * (20 if name == "lr_fail_packed" else 10)
+
+
+def phase_hier_kernels(records: list[dict], counts: dict) -> list[dict]:
+    """Each hier kernel on the arguments the recorded main-path call gave
+    it: the kernel on all 32 frames against its plain form on the first
+    PLAIN_FRAMES, exact; kernel ms, plain ms and bound summed over the
+    call's launches. Bound: the bytes of every input and output once over
+    the HBM rate, or the operations (:func:`_ops`) over the peak rate."""
+    n = PLAIN_FRAMES
+    acc = {k: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, nops=0.0, err=0) for k in KERNEL_NAMES}
+    for c in records:
+        name, fn, args, kwargs = c["name"], c["fn"], c["args"], c["kwargs"]
+        plain = PLAIN[name]
+        out, ref = fn(*args, **kwargs), plain(*_head(args, n), **_head(kwargs, n))
+        torch.cuda.synchronize()
+        outs, refs = (out if isinstance(out, tuple) else (out,)), (ref if isinstance(ref, tuple) else (ref,))
+        head = _head(outs, n)
+        err = max_abs_err(head, refs)
+        if err != 0 or len(head) != len(refs) or any(a.shape != b.shape for a, b in zip(head, refs)):
+            raise AssertionError(f"{name} ({c['level']}): kernel differs from its plain form (max abs err {err})")
+        if not all(torch.equal(a, b) for a, b in zip(outs, c["out"] if isinstance(c["out"], tuple) else (c["out"],))):
+            raise AssertionError(f"{name} ({c['level']}): a second launch differs from the main path's")
+        ms = event_ms(lambda: fn(*args, **kwargs), 5)
+        plain_ms = event_ms(lambda: plain(*_head(args, n), **_head(kwargs, n)), 1)
+        nbytes = _nbytes(args) + _nbytes(kwargs) + _nbytes(outs)
+        nops = _ops(name, args, kwargs, outs[0].numel())
+        a = acc[name]
+        a["ms"] += ms
+        a["plain_ms"] += plain_ms
+        a["nbytes"] += nbytes
+        a["nops"] += nops
+        print(f"kernel {name} {c['level']}: exact, {ms:.3f} ms at {outs[0].shape[0]} frames "
+              f"(plain {plain_ms:.3f} ms at {n} frames, bound {bound_ms(nbytes, nops)[0]:.3f} ms)", flush=True)
+
+    # The 6-stat WTA at K=16 (HIER_FAST's and HierParams()'s full-res form),
+    # on 4 frames of the full level's images; not on the hier4x3 path, so not timed.
+    full = next(c for c in records if c["name"] == "banded_cost" and c["level"] == "full")
+    l, r, s = _head(full["args"], n)
+    p, mx = P3, full["kwargs"]["min_x"]
+    kw = dict(full["kwargs"], band=16, G=8)
+    s16 = torch.div(s, 8, rounding_mode="floor").mul(8).clamp(max=p.num_disparities - 16)
+    C16 = banded_cuda.banded_cost(l, r, s16, **kw)
+    sv = s16[:, :, mx:].contiguous()
+    v16 = list(banded_cuda.banded_vertical(C16, sv, 8, p.P1, p.P2, cost_bound=p.cost_bound))
+    v16.append(banded_cuda.banded_horizontal(C16, sv, 8, p.P1, p.P2, cost_bound=p.cost_bound))
+    err = max_abs_err(banded_cuda.banded_wta(v16, p.uniqueness_ratio),
+                      banded_cuda.banded_wta_plain(v16, p.uniqueness_ratio))
+    if err != 0:
+        raise AssertionError(f"banded_wta 6-stat K=16 differs from its plain form (max abs err {err})")
+    print("kernel banded_wta 6-stat K=16 (4 frames, 720x1152): exact", flush=True)
+    del C16, v16
+
+    rows = []
+    for name, a in acc.items():
+        b_ms, b_by = bound_ms(a["nbytes"], a["nops"])
+        src, replaces = HIER_KERNELS[name][1:]
+        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=counts[name],
+                         max_abs_err=0, ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, frames=HIER_P, plain_frames=n))
+    return rows
+
+
+def phase_hier_small_pipeline(dev) -> None:
+    h, w = 64, 256
+    maps, Q = rig(h, w)
+    frames = [scene(seed=s, H=h, W=w) for s in range(HIER_P)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
+    d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=P3, device="cpu")
+    if not torch.equal(d_gpu.cpu(), d_cpu):
+        raise AssertionError("CUDA and CPU hier disparities differ at 64x256")
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+    print(f"hier pipeline 64x256 D=128 P=32: CUDA == CPU (valid share {float((d_cpu > -1).float().mean()):.4f})",
+          flush=True)
+
+
+def phase_hier_main_path(dev, lt, rt) -> tuple[dict, dict, torch.Tensor]:
+    maps, Q = rig(H, W)
+    wrappers = {name: HIER_KERNELS[name][0] for name in KERNEL_NAMES}
+    for fn in wrappers.values():
+        fn.launches = 0
+    disp, pts = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    print("hier main path launches:", json.dumps(counts), flush=True)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a kernel of the hier main path never launched: {counts}")
+
+    d = disp.cpu().numpy()
+    if d.shape != (HIER_P, H, W) or pts.shape != (HIER_P, H, W, 3) or not np.isfinite(d).all():
+        raise AssertionError(f"bad hier output: disparity {d.shape}, points {tuple(pts.shape)}")
+    if not np.isfinite(pts[..., 2].cpu().numpy()[d > 0]).all():
+        raise AssertionError("non-finite depth at a positive disparity")
+    valid_share, within1 = quality(d, scene_truth(H, W), D)
+    print(f"hier main path quality: valid share {valid_share:.4f} (floor {VALID_FLOOR}), "
+          f"within 1 px {within1:.4f} (floor {WITHIN1_FLOOR})", flush=True)
+    if valid_share < VALID_FLOOR or within1 < WITHIN1_FLOOR:
+        raise AssertionError("hier main path quality below its floor")
+
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    return dict(ms_per_call=ms, frames_per_call=HIER_P, mpx_per_s=HIER_P * H * W / ms / 1e3,
+                frames_per_s=HIER_P / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
+
+
+def phase_agreement(dev) -> dict:
+    """bench.py's gate: hier4x3 (32 copies per call) against exact8 on the
+    first frame of each scene, straight to the matchers (no remap)."""
+    scenes = {"rampbox": scene(0), "occl": scene_occ(2), "jump110": scene(3, box_disp=110.0)}
+    out = {}
+    for name, (l, r) in scenes.items():
+        lt, rt = torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev)
+        exact = stereo_sgbm(lt[None], rt[None], PARAMS)[0]
+        hier4x3 = hier.stereo_sgbm_hier_batch(lt.expand(HIER_P, -1, -1), rt.expand(HIER_P, -1, -1), P3, HP)[0]
+        out[name] = agreement(hier4x3.cpu().numpy(), exact.cpu().numpy())
+        print(f"agreement hier4x3 vs exact8, {name}: {out[name]:.4f} (BENCH_r05.json {BENCH_R05_AGREEMENT[name]})",
+              flush=True)
+    if min(out.values()) < 0.98:
+        raise AssertionError(f"hier4x3 agreement below the bench gate 0.98: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -271,7 +572,22 @@ def main() -> int:
           f"{e2e['mpx_per_s']:.2f} Mpx/s, {e2e['frames_per_s']:.2f} frames/s on {card}", flush=True)
     breakdown = phase_breakdown(dev)
     print("breakdown ms per 4-frame call:", json.dumps(breakdown), flush=True)
-    print(json.dumps({"card": card, "main_path": e2e}), flush=True)
+    torch.cuda.empty_cache()
+
+    lt, rt = hier_frames(dev)
+    hier_e2e, counts, hier_disp = phase_hier_main_path(dev, lt, rt)
+    print(f"hier main path 1280x720 D={D} P={HIER_P}: {hier_e2e['ms_per_call']:.2f} ms per call, "
+          f"{hier_e2e['mpx_per_s']:.2f} Mpx/s, {hier_e2e['frames_per_s']:.2f} frames/s on {card}", flush=True)
+    hier_breakdown, _ = record_hier_call(dev, lt, rt, hier_disp, keep=False)
+    _, records = record_hier_call(dev, lt, rt, hier_disp, keep=True)
+    print(f"hier breakdown ms per {HIER_P}-frame call:", json.dumps(hier_breakdown), flush=True)
+    rows += phase_hier_kernels(records, counts)
+    del lt, rt, hier_disp, records
+    torch.cuda.empty_cache()
+    phase_hier_small_pipeline(dev)
+    agree = phase_agreement(dev)
+    print(json.dumps({"card": card, "main_path": e2e, "hier_main_path": hier_e2e, "hier_breakdown": hier_breakdown,
+                      "agreement": agree}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

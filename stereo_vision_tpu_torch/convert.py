@@ -1,7 +1,7 @@
 """Carry state from the JAX package's objects into the port.
 
-The exact-SGBM path has no weights; its state is the matcher parameters,
-the rectification maps and Q.
+The SGBM paths have no weights; their state is the matcher parameters
+(and the hierarchical configuration), the rectification maps and Q.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from stereo_vision_tpu_torch.device import resolve_device
+from stereo_vision_tpu_torch.stereo.hier import HierParams, MidLevel
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
 
 
@@ -19,6 +20,16 @@ def sgbm_params_from_reference(p) -> StereoSGBMParams:
     d = dict(p._asdict() if hasattr(p, "_asdict") else p)
     d.pop("backend", None)
     return StereoSGBMParams(**d)
+
+
+def hier_params_from_reference(hp) -> HierParams:
+    """A ``HierParams`` from the JAX NamedTuple (or a dict), field by field;
+    each entry of ``mid_levels`` becomes a :class:`MidLevel`."""
+    d = dict(hp._asdict() if hasattr(hp, "_asdict") else hp)
+    d["mid_levels"] = tuple(
+        MidLevel(**(lv._asdict() if hasattr(lv, "_asdict") else dict(lv))) for lv in d.get("mid_levels", ())
+    )
+    return HierParams(**d)
 
 
 def pipeline_inputs_from_numpy(maps, Q, device=None):

@@ -1,0 +1,554 @@
+// Band-limited SGBM core of the hierarchical matcher (matcher="sgbm_hier").
+//
+// Replaces the kernel bodies of stereo_vision_tpu/stereo/banded_pallas.py
+// that banded_stats_pack chains:
+//   _pix_kernel + _aligned_box_kernel(_srows) -> banded_cost_kernel
+//   _vert_kernel (without diagonals)          -> banded_vertical_kernel
+//   _horiz_kernel                             -> banded_horizontal_kernel
+//   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel
+// and the image pyramid's box mean:
+//   _downsample_kernel (downsample_box_pack)  -> downsample_box_kernel
+//
+// Lane k at pixel p is the absolute disparity s(p) + k. Every
+// cross-pixel term is first re-indexed into p's band by the shift delta,
+// with the semantics of stereo_vision_tpu/stereo/banded.py for ANY shift
+// map (the TPU kernels realign only at tile entries, which needs
+// tile-constant maps): per-step deltas s(p) - s(predecessor), 0 at a
+// scan's first row or column.
+//   carries: delta == +-G shifts the lanes (no source -> kBig, so that
+//     lane's candidate is exactly minL + P2), |delta| > G fills the row
+//     with kBig and the update resets to the border rule L = c, any other
+//     delta leaves the lanes as they are;
+//   window: the same shifts, but a lane with no source, or |delta| > G,
+//     takes the centre pixel's own value.
+// Layout: banded volumes (P, H, Wv, K) int16, frames on the grid. The TPU
+// kernels' 128-lane frame packing, float32-for-int and tile-entry delta
+// rows are not carried over.
+//
+// What bounds them on an H100 (hier4x3 full-res level, 32 frames of
+// 1280x720, K=4, 1152 valid columns; one int16 volume = 212 MB): the cost
+// kernel writes one volume (~63 us at 3.35 TB/s); vertical reads one and
+// writes two (~190 us); each horizontal reads one and writes one
+// (~127 us); the WTA reads three and writes four int32 maps and a bool map
+// (~318 us). The scans are also dependent chains of H (or Wv) steps.
+//
+// Design (right and simple first):
+//   cost: one block per (frame, output row, tile of TX columns). The block
+//     stages the shift map of its bs x (TX + bs - 1) window, then, one
+//     source row at a time, the left row's and the needed right columns'
+//     values and BT half-extrema (both channels), and forms every per-pixel
+//     banded cost of the window in shared memory (each neighbour at its OWN
+//     band s(q) + j, a direct indexed load). The aligned row pass and then
+//     the aligned column pass (centre = the row-pass sum) run from shared
+//     memory. Rows and columns clamp at the image edge, for cost and s.
+//   vertical: one thread per (frame, column, direction) walks the rows with
+//     its K carries in registers (no diagonals: the down and up scans are
+//     independent per column), prefetching the next row.
+//   horizontal: one thread per (frame, row) walks the columns with its K
+//     carries in registers; tiles of columns are staged through shared
+//     memory so that the loads and stores of a block are coalesced.
+//   wta: one thread per pixel sums the 2-4 volumes in int32 and reduces
+//     over the K lanes.
+//   downsample: one thread per output pixel; the TPU kernel's 0/1 pooling
+//     matmul becomes an integer sum, the float32 division and the
+//     half-to-even round stay.
+// Lane shifts by a runtime delta use a barrel shifter over compile-time
+// offsets (log2 K stages), so the carries stay in registers.
+
+#include <climits>
+
+#include "common.cuh"
+
+namespace {
+
+using svt::bt;
+using svt::clampi;
+using svt::extrema;
+using svt::xsobel;
+
+constexpr int kBig = 1 << 29;  // out-of-band carry lane
+constexpr int kCostThreads = 256;
+constexpr int kScanThreads = 128;
+constexpr int kRowsPerBlock = 64;  // horizontal: rows (threads) per block
+
+// ------------------------------------------------------------------ cost
+
+// align_window for one lane: a neighbour's value re-indexed into the centre
+// pixel's band, or the centre's own value where there is no source.
+__device__ __forceinline__ int window_lane(const int* a, int delta, const int* ctr, int lane, int G, int K) {
+  if (delta > G || delta < -G) return ctr[lane];
+  if (delta == G) return lane + G < K ? a[lane + G] : ctr[lane];
+  if (delta == -G) return lane - G >= 0 ? a[lane - G] : ctr[lane];
+  return a[lane];
+}
+
+__global__ void __launch_bounds__(kCostThreads)
+banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, const int* __restrict__ shift,
+                   int16_t* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs, int ftzero,
+                   int min_x, int TX, int NRcap) {
+  extern __shared__ int smem[];
+  __shared__ int dlo, dhi;
+  const int r = bs / 2, NC = TX + 2 * r;
+  int* sS = smem;               // [bs][NC] shift at (clamped row, clamped column)
+  int* sL = sS + bs * NC;       // [6][NC] left: sobel v/u0/u1, raw v/u0/u1
+  int* sR = sL + 6 * NC;        // [6][NRcap] right, the same channels
+  int* pix = sR + 6 * NRcap;    // [bs][NC][K] per-pixel banded cost
+  int* acc = pix + bs * NC * K; // [NC][K] aligned row-pass sums
+
+  const int b = blockIdx.z, y = blockIdx.y;
+  const int x0 = min_x + blockIdx.x * TX;
+  const int Wo = W - min_x;
+  const int* L = left + (size_t)b * H * W;
+  const int* R = right + (size_t)b * H * W;
+  const int* S = shift + (size_t)b * H * W;
+
+  if (threadIdx.x == 0) {
+    dlo = INT_MAX;
+    dhi = INT_MIN;
+  }
+  __syncthreads();
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int i = threadIdx.x; i < bs * NC; i += blockDim.x) {
+    const int k = i / NC, j = i - k * NC;
+    const int sv = S[clampi(y + k - r, 0, H - 1) * W + clampi(x0 - r + j, 0, W - 1)];
+    sS[i] = sv;
+    lo = min(lo, clampi(sv, 0, ndisp - 1));
+    hi = max(hi, clampi(sv + K - 1, 0, ndisp - 1));
+  }
+  if (lo <= hi) {
+    atomicMin(&dlo, lo);
+    atomicMax(&dhi, hi);
+  }
+  __syncthreads();
+  // Right columns c - d for c in [cmin, cmax], d in [dlo, dhi]: NR <= NC + ndisp - 1.
+  const int cmin = clampi(x0 - r, 0, W - 1), cmax = clampi(x0 + TX - 1 + r, 0, W - 1);
+  const int qlo = cmin - dhi;
+  const int NR = cmax - dlo - qlo + 1;
+
+  for (int k = 0; k < bs; ++k) {
+    const int yy = clampi(y + k - r, 0, H - 1);
+    if (k > 0) __syncthreads();  // the previous row's staging is consumed
+    for (int j = threadIdx.x; j < NC; j += blockDim.x) {
+      const int c = clampi(x0 - r + j, 0, W - 1);
+      const int cm = max(c - 1, 0), cp = min(c + 1, W - 1);
+      extrema(xsobel(L, H, W, yy, c, ftzero), xsobel(L, H, W, yy, cm, ftzero), xsobel(L, H, W, yy, cp, ftzero),
+              sL + j, NC);
+      const int* row = L + yy * W;
+      extrema(row[c], row[cm], row[cp], sL + 3 * NC + j, NC);
+    }
+    // Right samples left of column 0 replicate column 0 (the reference pads
+    // the row by edge replication before taking the half-extrema).
+    for (int i = threadIdx.x; i < NR; i += blockDim.x) {
+      const int q = qlo + i;
+      const int qc = clampi(q, 0, W - 1), qm = clampi(q - 1, 0, W - 1), qp = clampi(q + 1, 0, W - 1);
+      extrema(xsobel(R, H, W, yy, qc, ftzero), xsobel(R, H, W, yy, qm, ftzero), xsobel(R, H, W, yy, qp, ftzero),
+              sR + i, NRcap);
+      const int* row = R + yy * W;
+      extrema(row[qc], row[qm], row[qp], sR + 3 * NRcap + i, NRcap);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < NC * K; idx += blockDim.x) {
+      const int j = idx / K, lane = idx - j * K;
+      const int c = clampi(x0 - r + j, 0, W - 1);
+      const int d = clampi(sS[k * NC + j] + lane, 0, ndisp - 1);
+      const int i = c - d - qlo;
+      const int cs = bt(sL[j], sL[NC + j], sL[2 * NC + j], sR[i], sR[NRcap + i], sR[2 * NRcap + i]);
+      const int cr = bt(sL[3 * NC + j], sL[4 * NC + j], sL[5 * NC + j], sR[3 * NRcap + i], sR[4 * NRcap + i],
+                        sR[5 * NRcap + i]);
+      pix[(k * NC + j) * K + lane] = cs + (cr >> 2);
+    }
+  }
+  __syncthreads();
+  // Row pass: acc(y, c) = sum over window rows of the aligned pixel costs;
+  // the centre is the pixel's own cost.
+  for (int idx = threadIdx.x; idx < NC * K; idx += blockDim.x) {
+    const int j = idx / K, lane = idx - j * K;
+    const int* ctr = pix + (r * NC + j) * K;
+    const int sc = sS[r * NC + j];
+    int sum = 0;
+    for (int k = 0; k < bs; ++k) sum += window_lane(pix + (k * NC + j) * K, sc - sS[k * NC + j], ctr, lane, G, K);
+    acc[idx] = sum;
+  }
+  __syncthreads();
+  // Column pass over the row-pass sums; the centre is the row-pass sum at p.
+  for (int idx = threadIdx.x; idx < TX * K; idx += blockDim.x) {
+    const int t = idx / K, lane = idx - t * K;
+    const int x = x0 + t;
+    if (x >= W) continue;
+    const int* ctr = acc + (t + r) * K;
+    const int sc = sS[r * NC + t + r];
+    int sum = 0;
+    for (int dx = 0; dx < bs; ++dx) sum += window_lane(acc + (t + dx) * K, sc - sS[r * NC + t + dx], ctr, lane, G, K);
+    out[(((size_t)b * H + y) * Wo + (x - min_x)) * K + lane] = static_cast<int16_t>(sum);
+  }
+}
+
+// ----------------------------------------------------------------- scans
+
+template <int K>
+__device__ __forceinline__ void load_lanes(const int16_t* __restrict__ p, int (&v)[K]) {
+  if constexpr (K % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < K / 8; ++i) {
+      const int4 w = reinterpret_cast<const int4*>(p)[i];
+      const int16_t* h = reinterpret_cast<const int16_t*>(&w);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[8 * i + k] = h[k];
+    }
+  } else {
+    static_assert(K == 4, "K is 4 or a multiple of 8");
+    const int2 w = *reinterpret_cast<const int2*>(p);
+    const int16_t* h = reinterpret_cast<const int16_t*>(&w);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = h[k];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_lanes(int16_t* __restrict__ p, const int (&v)[K]) {
+  if constexpr (K % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < K / 8; ++i) {
+      alignas(16) int16_t h[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) h[k] = static_cast<int16_t>(v[8 * i + k]);
+      reinterpret_cast<int4*>(p)[i] = *reinterpret_cast<const int4*>(h);
+    }
+  } else {
+    alignas(8) int16_t h[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = static_cast<int16_t>(v[k]);
+    *reinterpret_cast<int2*>(p) = *reinterpret_cast<const int2*>(h);
+  }
+}
+
+template <int K>
+__host__ __device__ constexpr int log2_of() {
+  int n = 0;
+  while ((1 << n) < K) ++n;
+  return n;
+}
+
+// a[k] <- a[k + sh], kBig where k + sh is outside [0, K): a barrel shifter
+// over the bits of |sh|, each stage a shift by a compile-time offset.
+template <int K>
+__device__ __forceinline__ void shift_lanes(int (&a)[K], int sh) {
+  if (sh >= K || sh <= -K) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = kBig;
+    return;
+  }
+  constexpr int kBits = log2_of<K>();
+  if (sh > 0) {
+#pragma unroll
+    for (int i = 0; i < kBits; ++i) {
+      const int bit = 1 << i;
+      if (sh & bit) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) a[k] = k + bit < K ? a[k + bit] : kBig;
+      }
+    }
+  } else if (sh < 0) {
+    const int m = -sh;
+#pragma unroll
+    for (int i = 0; i < kBits; ++i) {
+      const int bit = 1 << i;
+      if (m & bit) {
+#pragma unroll
+        for (int k = K - 1; k >= 0; --k) a[k] = k - bit >= 0 ? a[k - bit] : kBig;
+      }
+    }
+  }
+}
+
+// align_band (fill kBig) then _update_banded, in place on the carry L.
+template <int K>
+__device__ __forceinline__ void banded_step(const int (&c)[K], int (&L)[K], int delta, int G, int P1, int P2) {
+  if (delta > G || delta < -G) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) L[k] = c[k];  // no lane in band: the border rule
+    return;
+  }
+  if (delta == G) {
+    shift_lanes<K>(L, G);
+  } else if (delta == -G) {
+    shift_lanes<K>(L, -G);
+  }
+  int m = L[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) m = min(m, L[k]);
+  if (m >= kBig) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) L[k] = c[k];
+    return;
+  }
+  int prev = kBig;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int cur = L[k];
+    const int nxt = k + 1 < K ? L[k + 1] : kBig;
+    const int cand = min(min(cur, m + P2), min(prev, nxt) + P1);
+    L[k] = c[k] + cand - m;
+    prev = cur;
+  }
+}
+
+// One thread per (frame, column, direction): blockIdx.z = 0 scans down,
+// 1 scans up; the delta is s(y) - s(previous row visited).
+template <int K>
+__global__ void __launch_bounds__(kScanThreads)
+banded_vertical_kernel(const int16_t* __restrict__ C, const int* __restrict__ shift, int16_t* __restrict__ out_dn,
+                       int16_t* __restrict__ out_up, int H, int Wv, int G, int P1, int P2) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= Wv) return;
+  const int b = blockIdx.y, up = blockIdx.z;
+  const int16_t* Cb = C + (size_t)b * H * Wv * K;
+  int16_t* Ob = (up ? out_up : out_dn) + (size_t)b * H * Wv * K;
+  const int* Sb = shift + (size_t)b * H * Wv;
+  const int step = up ? -1 : 1;
+  int y = up ? H - 1 : 0;
+  int L[K], c[K], cn[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) L[k] = 0;
+  load_lanes<K>(Cb + ((size_t)y * Wv + x) * K, cn);
+  int sn = Sb[(size_t)y * Wv + x], sprev = sn;
+  for (int t = 0; t < H; ++t, y += step) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) c[k] = cn[k];
+    const int sy = sn;
+    if (t + 1 < H) {
+      load_lanes<K>(Cb + ((size_t)(y + step) * Wv + x) * K, cn);
+      sn = Sb[(size_t)(y + step) * Wv + x];
+    }
+    banded_step<K>(c, L, sy - sprev, G, P1, P2);
+    store_lanes<K>(Ob + ((size_t)y * Wv + x) * K, L);
+    sprev = sy;
+  }
+}
+
+// One thread per (frame, row): the L->R (reverse: R->L) scan. Tiles of T
+// columns of the block's rows are staged through shared memory.
+template <int K>
+__global__ void __launch_bounds__(kRowsPerBlock)
+banded_horizontal_kernel(const int16_t* __restrict__ C, const int* __restrict__ shift, int16_t* __restrict__ out,
+                         int rows, int Wv, int G, int P1, int P2, int reverse) {
+  constexpr int T = K >= 128 ? 1 : 128 / K;  // columns per tile
+  constexpr int PITCH = T * K + 2;           // int16 per staged row: an odd word pitch
+  __shared__ int16_t tile[kRowsPerBlock * PITCH];
+  __shared__ int stile[kRowsPerBlock * (T + 1)];
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int nrows = min(kRowsPerBlock, rows - row0);
+  const int me = threadIdx.x;
+  const int ntiles = (Wv + T - 1) / T;
+  int L[K], c[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) L[k] = 0;
+  int sprev = 0;
+  for (int ti = 0; ti < ntiles; ++ti) {
+    const int xs = (reverse ? ntiles - 1 - ti : ti) * T;
+    const int nx = min(T, Wv - xs), per = nx * K;
+    __syncthreads();  // the previous tile is written out
+    for (int i = threadIdx.x; i < nrows * per; i += blockDim.x) {
+      const int rr = i / per, e = i - rr * per;
+      tile[rr * PITCH + e] = C[((size_t)(row0 + rr) * Wv + xs) * K + e];
+    }
+    for (int i = threadIdx.x; i < nrows * nx; i += blockDim.x) {
+      const int rr = i / nx, e = i - rr * nx;
+      stile[rr * (T + 1) + e] = shift[(size_t)(row0 + rr) * Wv + xs + e];
+    }
+    __syncthreads();
+    if (me < nrows) {
+      for (int j = 0; j < nx; ++j) {
+        const int e = reverse ? nx - 1 - j : j;
+        int16_t* cell = tile + me * PITCH + e * K;
+#pragma unroll
+        for (int k = 0; k < K; ++k) c[k] = cell[k];
+        const int sx = stile[me * (T + 1) + e];
+        banded_step<K>(c, L, ti == 0 && j == 0 ? 0 : sx - sprev, G, P1, P2);
+#pragma unroll
+        for (int k = 0; k < K; ++k) cell[k] = static_cast<int16_t>(L[k]);
+        sprev = sx;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrows * per; i += blockDim.x) {
+      const int rr = i / per, e = i - rr * per;
+      out[((size_t)(row0 + rr) * Wv + xs) * K + e] = tile[rr * PITCH + e];
+    }
+  }
+}
+
+// One thread per pixel: S = sum of nvol volumes (int32); min, argmin (ties
+// -> smallest k), band-local uniqueness, and either the samples at
+// d0 - 1, d0, d0 + 1 (d0 = clip(best, 1, K - 2)) or, with sub, the
+// subpixel parabola in lane units (edges keep 16 * best).
+template <int K>
+__global__ void __launch_bounds__(kScanThreads)
+banded_wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const int16_t* __restrict__ v2,
+                  const int16_t* __restrict__ v3, int nvol, int npix, int uniq, int sub, int* __restrict__ minS,
+                  int* __restrict__ best, int* __restrict__ m2, int* __restrict__ m3, int* __restrict__ m4,
+                  uint8_t* __restrict__ uok) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npix) return;
+  const int16_t* vols[4] = {v0, v1, v2, v3};
+  int S[K], t[K];
+  load_lanes<K>(v0 + (size_t)p * K, S);
+  for (int j = 1; j < nvol; ++j) {
+    load_lanes<K>(vols[j] + (size_t)p * K, t);
+#pragma unroll
+    for (int k = 0; k < K; ++k) S[k] += t[k];
+  }
+  int mn = S[0], bst = 0;
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (S[k] < mn) {
+      mn = S[k];
+      bst = k;
+    }
+  bool ok = true;
+  if (uniq > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) ok &= !(abs(k - bst) > 1 && mn * (100 + uniq) > S[k] * 100);
+  }
+  const int d0 = min(max(bst, 1), K - 2);
+  int a = 0, z = 0, c = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    a = k == d0 - 1 ? S[k] : a;
+    z = k == d0 ? S[k] : z;
+    c = k == d0 + 1 ? S[k] : c;
+  }
+  minS[p] = mn;
+  best[p] = bst;
+  uok[p] = ok ? 1 : 0;
+  if (sub) {
+    const int denom2 = max(a + c - 2 * z, 1);
+    const int q = ((a - c) * 16 + denom2) / (2 * denom2);  // C division truncates, as the reference
+    m2[p] = bst > 0 && bst < K - 1 ? bst * 16 + q : bst * 16;
+  } else {
+    m2[p] = a;
+    m3[p] = z;
+    m4[p] = c;
+  }
+}
+
+template <int K>
+cudaError_t scans(int which, const int16_t* C, const int* s, int16_t* o0, int16_t* o1, int P, int H, int Wv,
+                  int G, int P1, int P2, int reverse, cudaStream_t st) {
+  if (which == 0) {
+    const dim3 grid((Wv + kScanThreads - 1) / kScanThreads, P, 2);
+    banded_vertical_kernel<K><<<grid, kScanThreads, 0, st>>>(C, s, o0, o1, H, Wv, G, P1, P2);
+  } else {
+    const int rows = P * H;
+    banded_horizontal_kernel<K><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kRowsPerBlock, 0, st>>>(
+        C, s, o0, rows, Wv, G, P1, P2, reverse);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t scans_for(int K, int which, const int16_t* C, const int* s, int16_t* o0, int16_t* o1, int P, int H,
+                      int Wv, int G, int P1, int P2, int reverse, cudaStream_t st) {
+  switch (K) {
+    case 4: return scans<4>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
+    case 8: return scans<8>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
+    case 16: return scans<16>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
+    case 32: return scans<32>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
+    case 64: return scans<64>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int K>
+cudaError_t wta(const int16_t* const* v, int nvol, int npix, int uniq, int sub, int* const* maps, uint8_t* uok,
+                cudaStream_t st) {
+  banded_wta_kernel<K><<<(npix + kScanThreads - 1) / kScanThreads, kScanThreads, 0, st>>>(
+      v[0], v[1], v[2], v[3], nvol, npix, uniq, sub, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- downsample
+
+// One thread per output pixel of (P, H / fy, W / fx): the integer sum of its
+// fy x fx block, then round(sum / (fy * fx)) in float32, half to even (the
+// reference's float32 division and round; the sum is exact).
+__global__ void __launch_bounds__(kCostThreads)
+downsample_box_kernel(const int* __restrict__ in, int* __restrict__ out, int H, int W, int Hc, int Wc, int fy, int fx,
+                      int npix) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npix) return;
+  const int b = p / (Hc * Wc), rem = p - b * Hc * Wc;
+  const int y = rem / Wc, x = rem - y * Wc;
+  const int* src = in + ((size_t)b * H + (size_t)y * fy) * W + (size_t)x * fx;
+  int sum = 0;
+  for (int i = 0; i < fy; ++i)
+    for (int j = 0; j < fx; ++j) sum += src[(size_t)i * W + j];
+  out[p] = static_cast<int>(rintf(__fdiv_rn(static_cast<float>(sum), static_cast<float>(fy * fx))));
+}
+
+}  // namespace
+
+// (P, H, W) int32 left/right + (P, H, W) int32 shift map -> (P, H, W - min_x, K)
+// int16 windowed banded cost at disparity clamp(s + k, 0, ndisp - 1).
+SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
+                               int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, void* stream) {
+  const int TX = K <= 8 ? 64 : K == 16 ? 32 : K == 32 ? 16 : 8;
+  const int NC = TX + 2 * (bs / 2), NRcap = NC + ndisp;
+  const size_t smem = (size_t)(bs * NC + 6 * NC + 6 * NRcap + bs * NC * K + NC * K) * sizeof(int);
+  cudaError_t e = cudaFuncSetAttribute(banded_cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((W - min_x + TX - 1) / TX, H, P);
+  banded_cost_kernel<<<grid, kCostThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(left), static_cast<const int*>(right), static_cast<const int*>(shift),
+      static_cast<int16_t*>(out), H, W, K, G, ndisp, bs, ftzero, min_x, TX, NRcap);
+  return cudaGetLastError();
+}
+
+// (P, H, Wv, K) int16 cost + (P, H, Wv) shift map -> the down and up vertical
+// direction volumes (int16).
+SVT_EXPORT int svt_banded_vertical(const void* C, const void* shift, void* dn, void* up, int P, int H, int Wv, int K,
+                                   int G, int P1, int P2, void* stream) {
+  return scans_for(K, 0, static_cast<const int16_t*>(C), static_cast<const int*>(shift), static_cast<int16_t*>(dn),
+                   static_cast<int16_t*>(up), P, H, Wv, G, P1, P2, 0, static_cast<cudaStream_t>(stream));
+}
+
+// (P, H, Wv, K) int16 cost + (P, H, Wv) shift map -> one horizontal direction volume.
+SVT_EXPORT int svt_banded_horizontal(const void* C, const void* shift, void* out, int P, int H, int Wv, int K, int G,
+                                     int P1, int P2, int reverse, void* stream) {
+  return scans_for(K, 1, static_cast<const int16_t*>(C), static_cast<const int*>(shift), static_cast<int16_t*>(out),
+                   nullptr, P, H, Wv, G, P1, P2, reverse, static_cast<cudaStream_t>(stream));
+}
+
+// nvol (2-4) int16 (npix, K) volumes -> minS, best and either sub16 (sub) or
+// sm, s0, sp (int32), and the uniqueness verdict (uint8). m3/m4 and v2/v3
+// may be null when unused.
+SVT_EXPORT int svt_banded_wta(const void* v0, const void* v1, const void* v2, const void* v3, int nvol, void* minS,
+                              void* best, void* m2, void* m3, void* m4, void* uok, int npix, int K, int uniq,
+                              int sub, void* stream) {
+  if (nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
+  const int16_t* v[4] = {static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1),
+                         static_cast<const int16_t*>(v2), static_cast<const int16_t*>(v3)};
+  int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(m2), static_cast<int*>(m3),
+                  static_cast<int*>(m4)};
+  const auto u = static_cast<uint8_t*>(uok);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (K) {
+    case 4: return wta<4>(v, nvol, npix, uniq, sub, maps, u, st);
+    case 8: return wta<8>(v, nvol, npix, uniq, sub, maps, u, st);
+    case 16: return wta<16>(v, nvol, npix, uniq, sub, maps, u, st);
+    case 32: return wta<32>(v, nvol, npix, uniq, sub, maps, u, st);
+    case 64: return wta<64>(v, nvol, npix, uniq, sub, maps, u, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// (P, H, W) int32 image -> (P, H / fy, W / fx) int32 box mean (trailing rows and
+// columns that fill no block are dropped).
+SVT_EXPORT int svt_downsample_box(const void* in, void* out, int P, int H, int W, int fy, int fx, void* stream) {
+  if (fy < 1 || fx < 1 || fy * fx > (1 << 16)) return cudaErrorInvalidValue;
+  const int Hc = H / fy, Wc = W / fx, npix = P * Hc * Wc;
+  if (npix == 0) return cudaSuccess;
+  downsample_box_kernel<<<(npix + kCostThreads - 1) / kCostThreads, kCostThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(static_cast<const int*>(in), static_cast<int*>(out),
+                                                               H, W, Hc, Wc, fy, fx, npix);
+  return cudaGetLastError();
+}

@@ -27,35 +27,12 @@
 
 namespace {
 
+using svt::bt;
 using svt::clampi;
+using svt::extrema;
+using svt::xsobel;
 
 constexpr int kThreads = 256;
-
-// SGBM's clipped x-Sobel of image row y at column x; columns 0 and W-1 are
-// ftzero (stereo_vision_tpu/stereo/sgbm.py::_xsobel_clipped).
-__device__ __forceinline__ int xsobel(const int* __restrict__ img, int H, int W, int y, int x, int ftzero) {
-  if (x <= 0 || x >= W - 1) return ftzero;
-  const int* rm = img + clampi(y - 1, 0, H - 1) * W;
-  const int* r0 = img + y * W;
-  const int* rp = img + clampi(y + 1, 0, H - 1) * W;
-  const int d = 2 * (r0[x + 1] - r0[x - 1]) + (rm[x + 1] - rm[x - 1]) + (rp[x + 1] - rp[x - 1]);
-  return clampi(d, -ftzero, ftzero) + ftzero;
-}
-
-// Value, low and high BT half-sample extrema from a sample and its two
-// (edge-clamped) neighbours: vl = (v + v[-1]) >> 1, vr = (v + v[+1]) >> 1.
-__device__ __forceinline__ void extrema(int v, int vm, int vp, int* out, int stride) {
-  const int vl = (v + vm) >> 1, vr = (v + vp) >> 1;
-  out[0] = v;
-  out[stride] = min(min(vl, vr), v);
-  out[2 * stride] = max(max(vl, vr), v);
-}
-
-__device__ __forceinline__ int bt(int l, int l0, int l1, int v, int v0, int v1) {
-  const int c0 = max(max(0, l - v1), v0 - l);
-  const int c1 = max(max(0, v - l1), l0 - v);
-  return min(c0, c1);
-}
 
 __global__ void __launch_bounds__(kThreads)
 cost_kernel(const int* __restrict__ left, const int* __restrict__ right, int16_t* __restrict__ out,

@@ -1,8 +1,9 @@
 """Batched stereo-stream processing: (B, H, W) raw pairs -> disparity -> 3D.
 
 Port of ``stereo_vision_tpu/parallel/streaming.py::batched_stereo_pipeline``
-and ``_frame_stats``. The batch of frames runs through one set of kernel
-launches (frames on the CUDA grid, not a Python loop). Mesh sharding,
+and ``_frame_stats`` for the exact matcher (``"sgbm"``) and the
+hierarchical one (``"sgbm_hier"``). The batch of frames runs through one
+set of kernel launches (frames on the CUDA grid, not a Python loop). Mesh sharding,
 ``make_sharded_pipeline``, ``StereoStreamProcessor`` and
 ``stream_video_pair`` belong to later slices of the port.
 """
@@ -14,6 +15,7 @@ import torch
 from stereo_vision_tpu_torch.device import resolve_device
 from stereo_vision_tpu_torch.ops.remap import make_remap
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
+from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER8_FAST, HIER_FAST, HierParams, stereo_sgbm_hier_batch
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm
 
 
@@ -56,9 +58,13 @@ def batched_stereo_pipeline(
     """(B, H, W) raw pairs -> (disparity (B, H, W), points3d (B, H, W, 3)).
 
     Remaps both views with the rectification ``maps`` (mx1, my1, mx2, my2),
-    rounds to integer intensities, runs the exact 8-path SGBM matcher and
-    reprojects through ``Q``. With ``stats_only`` it returns the (B, 2)
-    per-frame [valid_fraction, median_depth] instead.
+    rounds to integer intensities, runs the matcher and reprojects through
+    ``Q``. ``matcher="sgbm"`` is the exact 8-path SGBM; ``"sgbm_hier"`` the
+    hierarchical banded one, which needs B == 128 // band frames: without
+    ``hier_params`` the preset follows the batch size (8: HIER_FAST,
+    16: HIER8_FAST, 32: HIER4_FAST, else the band-32 default). With
+    ``stats_only`` it returns the (B, 2) per-frame [valid_fraction,
+    median_depth] instead.
 
     Inputs may be numpy arrays or tensors; they are moved to ``device``
     (None = the CUDA card; raises when there is none). Maps and Q are used
@@ -66,11 +72,9 @@ def batched_stereo_pipeline(
     """
     if matcher == "bm":
         raise NotImplementedError("matcher='bm' is ROADMAP queue A item 8 (stereo/bm.py) of the port")
-    if matcher == "sgbm_hier":
-        raise NotImplementedError("matcher='sgbm_hier' is the port's next slice (ROADMAP queue A items 3-5)")
-    if matcher != "sgbm":
+    if matcher not in ("sgbm", "sgbm_hier"):
         raise ValueError(f"unknown matcher: {matcher}")
-    if hier_params is not None:
+    if hier_params is not None and matcher != "sgbm_hier":
         raise ValueError("hier_params applies only to matcher='sgbm_hier'")
     dev = resolve_device(device)
     mx1, my1, mx2, my2 = (_to(m, dev, torch.float32) for m in maps)
@@ -82,7 +86,12 @@ def batched_stereo_pipeline(
     # integer-cost matcher; torch.round is half-to-even like jnp.round.
     lr = torch.round(remap_l(_to(left, dev, torch.float32))).to(torch.int32)
     rr = torch.round(remap_r(_to(right, dev, torch.float32))).to(torch.int32)
-    disp = stereo_sgbm(lr, rr, params or StereoSGBMParams())
+    if matcher == "sgbm_hier":
+        if hier_params is None:
+            hier_params = {8: HIER_FAST, 16: HIER8_FAST, 32: HIER4_FAST}.get(lr.shape[0], HierParams())
+        disp = stereo_sgbm_hier_batch(lr, rr, params or StereoSGBMParams(), hier_params)
+    else:
+        disp = stereo_sgbm(lr, rr, params or StereoSGBMParams())
     pts = reproject_disparity_to_3d(disp, Q)
     if stats_only:
         return _frame_stats(disp, pts)

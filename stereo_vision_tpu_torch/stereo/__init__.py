@@ -1,1 +1,2 @@
-"""Dense stereo: exact SGBM (cost + SGM kernels), speckle filter, depth."""
+"""Dense stereo: exact SGBM (cost + SGM kernels), hierarchical banded SGBM
+(banded-core kernels), speckle filter, depth."""

@@ -1,0 +1,290 @@
+"""Banded SGBM core of the hierarchical matcher: wrappers over ``csrc/banded.cu``.
+
+Replaces ``stereo_vision_tpu/stereo/banded_pallas.py::banded_stats_pack``
+and the kernel bodies it chains:
+
+- ``_pix_kernel`` + ``_aligned_box_kernel(_srows)`` -> :func:`banded_cost`
+- ``_vert_kernel`` (without diagonals)              -> :func:`banded_vertical`
+- ``_horiz_kernel``                                 -> :func:`banded_horizontal`
+- ``_wta_kernel`` (6-stat and 4-stat ``sub``)       -> :func:`banded_wta`
+
+and the hier image pyramid's ``downsample_box_pack`` (``_downsample_kernel``)
+-> :func:`downsample_box`.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain form
+(built from :mod:`.banded`, the port of the JAX scan reference) for CPU
+tensors; ``launches`` on each wrapper counts kernel launches. The layout
+is the port's own: banded volumes are (P, H, Wv, K) int16 with the frames
+on the CUDA grid. The kernels take K in {4, 8, 16, 32, 64}.
+
+Integer ranges: a windowed cost is at most ``cost_bound`` (block_size^2 *
+(2*ftzero + 63)); a banded SGM update keeps c <= L <= c + P2, so one
+direction volume is at most cost_bound + P2, which the wrappers check
+against int16 before a launch. The WTA sums the volumes in int32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.stereo.banded import banded_cost_volume, horizontal_plain, vertical_plain
+from stereo_vision_tpu_torch.stereo.sgbm import subpixel_disp16
+from stereo_vision_tpu_torch.stereo.sgm_cuda import wta_scan
+
+KERNEL_BANDS = (4, 8, 16, 32, 64)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # left, right, s, out, P, H, W, K, G, ndisp, bs, ftzero, min_x, stream
+    "svt_banded_cost": [_P] * 4 + [_I] * 9 + [_P],
+    # C, s, dn, up, P, H, Wv, K, G, P1, P2, stream
+    "svt_banded_vertical": [_P] * 4 + [_I] * 7 + [_P],
+    # C, s, out, P, H, Wv, K, G, P1, P2, reverse, stream
+    "svt_banded_horizontal": [_P] * 3 + [_I] * 8 + [_P],
+    # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, stream
+    "svt_banded_wta": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    # in, out, P, H, W, fy, fx, stream
+    "svt_downsample_box": [_P] * 2 + [_I] * 5 + [_P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("banded")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def _check_band(K: int) -> None:
+    if K not in KERNEL_BANDS:
+        raise ValueError(f"the CUDA banded kernels take K in {KERNEL_BANDS}, got {K}")
+
+
+def _check_shift(s: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """s: (P, H, Wv) int32 on C's device; returned contiguous."""
+    if s.shape != C.shape[:3] or s.dtype != torch.int32 or s.device != C.device:
+        raise ValueError(f"expected an int32 shift map of shape {tuple(C.shape[:3])}, got {tuple(s.shape)} {s.dtype}")
+    return s.contiguous()
+
+
+def _check_volume(C: torch.Tensor, P2: int, cost_bound: int) -> None:
+    if C.dim() != 4:
+        raise ValueError(f"expected a (P, H, Wv, K) banded volume, got {tuple(C.shape)}")
+    if _on_cuda(C):
+        _check_band(C.shape[-1])
+        if C.dtype != torch.int16 or not C.is_contiguous() or C.data_ptr() % 16:
+            raise TypeError("the CUDA banded scans take a contiguous, 16-byte aligned int16 volume")
+        if cost_bound + P2 >= 1 << 15:
+            raise ValueError(f"cost_bound {cost_bound} + P2 {P2} does not fit the int16 direction volumes")
+
+
+# ------------------------------------------------------------------- cost
+
+
+def banded_cost_plain(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int, block_size: int,
+                      min_x: int) -> torch.Tensor:
+    """Plain form of :func:`banded_cost` (int16, contiguous)."""
+    C = banded_cost_volume(left, right, s, band=band, G=G, ndisp=ndisp, ftzero=ftzero, block_size=block_size)
+    return C[:, :, min_x:].to(torch.int16).contiguous()
+
+
+def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 15, block_size: int = 5,
+                min_x: int = 0) -> torch.Tensor:
+    """(P, H, W) int32 image pairs and shift map -> (P, H, W - min_x, band)
+    int16 windowed banded cost: BT pixel cost at disparity s(q) + j
+    for every window pixel q, aligned into the centre's band (rows, then
+    columns), for columns x >= min_x. ``ndisp`` is the level's full
+    disparity range (the lane index is clamped to it)."""
+    if not (left.shape == right.shape == s.shape) or left.dim() != 3:
+        raise ValueError(f"expected (P, H, W) images and shift map, got {tuple(left.shape)}, "
+                         f"{tuple(right.shape)}, {tuple(s.shape)}")
+    if left.dtype != torch.int32 or right.dtype != torch.int32 or s.dtype != torch.int32:
+        raise TypeError("banded_cost takes int32 images and an int32 shift map")
+    if not left.device == right.device == s.device:
+        raise ValueError("images and shift map lie on different devices")
+    P, H, W = left.shape
+    if not 0 <= min_x < W or ndisp < 1 or band < 1 or G < 0:
+        raise ValueError(f"bad min_x={min_x} / ndisp={ndisp} / band={band} / G={G}")
+    if block_size % 2 != 1 or block_size * block_size * (2 * ftzero + 63) >= 1 << 15:
+        raise ValueError(f"block_size {block_size} must be odd and its window must fit int16")
+    kw = dict(band=band, G=G, ndisp=ndisp, ftzero=ftzero, block_size=block_size, min_x=min_x)
+    if not _on_cuda(left):
+        return banded_cost_plain(left, right, s, **kw)
+    _check_band(band)
+    left, right, s = left.contiguous(), right.contiguous(), s.contiguous()
+    out = torch.empty((P, H, W - min_x, band), dtype=torch.int16, device=left.device)
+    lib = _lib()
+    err = lib.svt_banded_cost(left.data_ptr(), right.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, W, band, G,
+                              ndisp, block_size, ftzero, min_x, _stream(left))
+    _build.check(lib, err, "svt_banded_cost")
+    banded_cost.launches += 1
+    return out
+
+
+# ------------------------------------------------------------------ scans
+
+
+def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_diagonals: bool = False):
+    """(P, H, Wv, K) banded cost + (P, H, Wv) shift map -> (down, up)
+    direction volumes (int16 on CUDA, int32 plain). With diagonals (8
+    paths, plain form only) each volume is the sum of its set of three."""
+    _check_volume(C, P2, cost_bound)
+    if P1 < 0 or P2 < 0:
+        raise ValueError("P1 and P2 must be >= 0")
+    if not _on_cuda(C):
+        return vertical_plain(C, s, G, P1, P2, with_diagonals)
+    if with_diagonals:
+        raise NotImplementedError(
+            "8-path banded aggregation (diagonal carries) on CUDA is ROADMAP queue B item 16 of the port; "
+            "use num_paths 2, 3 or 4, or CPU tensors for the plain form")
+    s = _check_shift(s, C)
+    P, H, Wv, K = C.shape
+    dn, up = torch.empty_like(C), torch.empty_like(C)
+    lib = _lib()
+    err = lib.svt_banded_vertical(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(), P, H, Wv, K, G, P1, P2,
+                                  _stream(C))
+    _build.check(lib, err, "svt_banded_vertical")
+    banded_vertical.launches += 1
+    return dn, up
+
+
+def banded_horizontal(C, s, G: int, P1: int, P2: int, *, cost_bound: int, reverse: bool = False):
+    """(P, H, Wv, K) banded cost + shift map -> the L->R (``reverse``:
+    R->L) direction volume (int16 on CUDA, int32 plain)."""
+    _check_volume(C, P2, cost_bound)
+    if P1 < 0 or P2 < 0:
+        raise ValueError("P1 and P2 must be >= 0")
+    if not _on_cuda(C):
+        return horizontal_plain(C, s, G, P1, P2, reverse)
+    s = _check_shift(s, C)
+    P, H, Wv, K = C.shape
+    out = torch.empty_like(C)
+    lib = _lib()
+    err = lib.svt_banded_horizontal(C.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, Wv, K, G, P1, P2,
+                                    int(reverse), _stream(C))
+    _build.check(lib, err, "svt_banded_horizontal")
+    banded_horizontal.launches += 1
+    return out
+
+
+# -------------------------------------------------------------------- WTA
+
+
+def banded_wta_plain(volumes, uniqueness_ratio: int, sub: bool = False):
+    """Plain form of :func:`banded_wta`."""
+    S = volumes[0].to(torch.int32)
+    for v in volumes[1:]:
+        S = S + v.to(torch.int32)
+    K = S.shape[-1]
+    minS, best, sm, s0, sp, uok = wta_scan(S, K, uniqueness_ratio)
+    if sub:
+        return minS, best, subpixel_disp16(best, sm, s0, sp, K), uok
+    return minS, best, sm, s0, sp, uok
+
+
+def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
+    """Sum 2-4 (P, H, Wv, K) direction volumes and reduce over the K lanes:
+    (minS, best_k, sm, s0, sp, unique_ok), or with ``sub`` (minS, best_k,
+    sub16, unique_ok) where sub16 is the subpixel parabola in lane units
+    (``ndisp = K``). Maps are int32, ``unique_ok`` bool; ties go to the
+    smallest k, uniqueness is band-local (|k - best| > 1)."""
+    volumes = list(volumes)
+    v0 = volumes[0]
+    if not 2 <= len(volumes) <= 4 or any(v.shape != v0.shape or v.device != v0.device for v in volumes):
+        raise ValueError("banded_wta takes 2-4 direction volumes of one shape on one device")
+    if v0.dim() != 4 or v0.shape[-1] < 3:
+        raise ValueError(f"expected (P, H, Wv, K>=3) volumes, got {tuple(v0.shape)}")
+    if not _on_cuda(v0):
+        return banded_wta_plain(volumes, uniqueness_ratio, sub)
+    _check_band(v0.shape[-1])
+    if any(v.dtype != torch.int16 or not v.is_contiguous() or v.data_ptr() % 16 for v in volumes):
+        raise TypeError("the CUDA WTA kernel takes contiguous, 16-byte aligned int16 volumes")
+    P, H, Wv, K = v0.shape
+    if P * H * Wv >= 1 << 31:
+        raise ValueError("the CUDA WTA kernel takes fewer than 2^31 pixels a call")
+    maps = [torch.empty((P, H, Wv), dtype=torch.int32, device=v0.device) for _ in range(3 if sub else 5)]
+    uok = torch.empty((P, H, Wv), dtype=torch.bool, device=v0.device)
+    ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
+    mptrs = [m.data_ptr() for m in maps] + [None] * (5 - len(maps))
+    lib = _lib()
+    err = lib.svt_banded_wta(*ptrs, len(volumes), *mptrs, uok.data_ptr(), P * H * Wv, K, uniqueness_ratio,
+                             int(sub), _stream(v0))
+    _build.check(lib, err, "svt_banded_wta")
+    banded_wta.launches += 1
+    return (*maps, uok)
+
+
+def banded_stats_pack(left, right, s, params, band: int, G: int, min_x: int, sub: bool = False):
+    """Banded core of P frames: cost + aggregation over ``params.num_paths``
+    (2: vertical pair, 3: + L->R, 4: + R->L, 8: + diagonals, plain form
+    only) + WTA on columns x >= min_x. (P, H, W) int32 images and shift map
+    -> the maps of :func:`banded_wta`, shape (P, H, W - min_x)."""
+    if params.num_paths not in (2, 3, 4, 8):
+        raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {params.num_paths}")
+    C = banded_cost(left, right, s, band=band, G=G, ndisp=params.num_disparities, ftzero=params.ftzero,
+                    block_size=params.block_size, min_x=min_x)
+    sv = s[:, :, min_x:].contiguous()
+    P1, P2, bound = params.P1, params.P2, params.cost_bound
+    vols = list(banded_vertical(C, sv, G, P1, P2, cost_bound=bound, with_diagonals=params.num_paths == 8))
+    if params.num_paths >= 3:
+        vols.append(banded_horizontal(C, sv, G, P1, P2, cost_bound=bound))
+    if params.num_paths in (4, 8):
+        vols.append(banded_horizontal(C, sv, G, P1, P2, cost_bound=bound, reverse=True))
+    return banded_wta(vols, params.uniqueness_ratio, sub)
+
+
+# ------------------------------------------------------------- downsample
+
+
+def downsample_box_plain(img: torch.Tensor, f: int, fx: int | None = None) -> torch.Tensor:
+    """Plain form of :func:`downsample_box`: the sum is an exact integer and
+    the division float32, as in the reference."""
+    fy, fx = f, f if fx is None else fx
+    H, W = img.shape[-2:]
+    Hc, Wc = H // fy, W // fx
+    x = img[..., : Hc * fy, : Wc * fx].to(torch.int32)
+    u = x.reshape(*x.shape[:-2], Hc, fy, Wc, fx).sum(dim=(-3, -1), dtype=torch.int32)
+    return torch.round(u.to(torch.float32) / (fy * fx)).to(torch.int32)
+
+
+def downsample_box(img: torch.Tensor, f: int, fx: int | None = None) -> torch.Tensor:
+    """(P, H, W) int32 frames -> (P, H // f, W // fx) int32 box mean,
+    round(sum / (f * fx)) half to even; trailing rows and columns that
+    fill no block are dropped."""
+    fy, fx = f, f if fx is None else fx
+    if img.dim() != 3 or img.dtype != torch.int32:
+        raise ValueError(f"expected (P, H, W) int32 frames, got {tuple(img.shape)} {img.dtype}")
+    if fy < 1 or fx < 1:
+        raise ValueError(f"bad factors {fy} x {fx}")
+    if not _on_cuda(img):
+        return downsample_box_plain(img, fy, fx)
+    P, H, W = img.shape
+    img = img.contiguous()
+    out = torch.empty((P, H // fy, W // fx), dtype=torch.int32, device=img.device)
+    lib = _lib()
+    err = lib.svt_downsample_box(img.data_ptr(), out.data_ptr(), P, H, W, fy, fx, _stream(img))
+    _build.check(lib, err, "svt_downsample_box")
+    downsample_box.launches += 1
+    return out
+
+
+banded_cost.launches = 0
+banded_vertical.launches = 0
+banded_horizontal.launches = 0
+banded_wta.launches = 0
+downsample_box.launches = 0

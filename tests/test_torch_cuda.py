@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import cost_cuda, sgm_cuda
+from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, lr_cuda, sgm_cuda
+from stereo_vision_tpu_torch.stereo.hier import HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
 from stereo_vision_tpu_torch.synth.scenes import scene
 
@@ -96,3 +97,130 @@ def test_pipeline_cuda_matches_cpu(dev):
     assert d_gpu.device.type == "cuda"
     assert torch.equal(d_gpu.cpu(), d_cpu)
     torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+
+
+def _shift_map(seed, P, H, W, D, K, G, tile):
+    """Random shift maps on the G grid in [0, D - K]: tile-constant for
+    tile > 0 (deltas beyond +-G included), per pixel for tile == 0."""
+    rng = np.random.default_rng(seed)
+    if tile == 0:
+        return torch.from_numpy((rng.integers(0, (D - K) // G + 1, (P, H, W)) * G).astype(np.int32))
+    v = rng.integers(0, (D - K) // G + 1, (P, -(-H // tile), -(-W // tile))) * G
+    return torch.from_numpy(np.repeat(np.repeat(v, tile, 1), tile, 2)[:, :H, :W].astype(np.int32))
+
+
+@pytest.mark.parametrize(
+    "K,G,D,min_x,tile",
+    [(4, 2, 128, 128, 4), (4, 4, 16, 3, 4), (8, 4, 64, 64, 0), (16, 8, 64, 20, 8), (32, 2, 32, 32, 4),
+     (64, 16, 128, 64, 8), (8, 2, 64, 10, 4)],
+)
+def test_banded_cost_kernel_matches_plain(dev, K, G, D, min_x, tile):
+    P, H, W = 3, 13, 150
+    left, right = _images(K + G, P, H, W)
+    s = _shift_map(K, P, H, W, D, K, G, tile)
+    kw = dict(band=K, G=G, ndisp=D, ftzero=15, block_size=5, min_x=min_x)
+    ref = banded_cuda.banded_cost_plain(left, right, s, **kw)
+    n = banded_cuda.banded_cost.launches
+    out = banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert banded_cuda.banded_cost.launches == n + 1
+    assert out.dtype == torch.int16 and out.shape == ref.shape
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("K,G", [(4, 2), (8, 4), (16, 8), (32, 2), (64, 16), (4, 4), (8, 16)])
+@pytest.mark.parametrize("tile", [4, 0])
+def test_banded_scans_match_plain(dev, K, G, tile):
+    P, H, Wv = 2, 11, 45
+    rng = np.random.default_rng(K * 7 + tile)
+    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int16))
+    s = _shift_map(K + tile, P, H, Wv + 5, 128, K, max(G, 1), tile)[:, :, 5:]  # a column slice, as the core passes
+    P1, P2 = 200, 800
+    Cd, sd = C.to(dev), s.to(dev)
+    dn, up = banded_cuda.banded_vertical(Cd, sd, G, P1, P2, cost_bound=2325)
+    ref_dn, ref_up = banded_cuda.vertical_plain(C, s, G, P1, P2)
+    assert torch.equal(dn.cpu().to(torch.int32), ref_dn) and torch.equal(up.cpu().to(torch.int32), ref_up)
+    for rev in (False, True):
+        h = banded_cuda.banded_horizontal(Cd, sd, G, P1, P2, cost_bound=2325, reverse=rev)
+        assert torch.equal(h.cpu().to(torch.int32), banded_cuda.horizontal_plain(C, s, G, P1, P2, rev))
+
+
+@pytest.mark.parametrize("K", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("nvol,sub", [(2, True), (3, True), (4, False), (3, False)])
+def test_banded_wta_matches_plain(dev, K, nvol, sub):
+    rng = np.random.default_rng(K + nvol)
+    vols = [torch.from_numpy(rng.integers(0, 3000, (2, 7, 33, K)).astype(np.int16)) for _ in range(nvol)]
+    ref = banded_cuda.banded_wta_plain(vols, 10, sub)
+    out = banded_cuda.banded_wta([v.to(dev) for v in vols], 10, sub)
+    torch.cuda.synchronize()
+    assert len(out) == len(ref)
+    for a, b in zip(out, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("num_paths", [2, 3, 4])
+def test_banded_stats_pack_cuda_matches_cpu(dev, num_paths):
+    P, H, W, D, K, G = 2, 16, 96, 64, 8, 4
+    left, right = _images(num_paths, P, H, W)
+    s = _shift_map(num_paths, P, H, W, D, K, G, 4)
+    p = StereoSGBMParams(num_disparities=D, uniqueness_ratio=10, num_paths=num_paths)
+    for sub in (False, True):
+        ref = banded_cuda.banded_stats_pack(left, right, s, p, K, G, min_x=D, sub=sub)
+        out = banded_cuda.banded_stats_pack(left.to(dev), right.to(dev), s.to(dev), p, K, G, min_x=D, sub=sub)
+        for a, b in zip(out, ref):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_banded_eight_paths_raise_on_cuda(dev):
+    P, H, W, D, K, G = 1, 8, 80, 64, 8, 4
+    left, right = (t.to(dev) for t in _images(0, P, H, W))
+    s = torch.zeros((P, H, W), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        banded_cuda.banded_stats_pack(left, right, s, StereoSGBMParams(num_disparities=D, num_paths=8), K, G, D)
+
+
+def test_hier_pipeline_cuda_matches_cpu(dev):
+    H, W, B = 48, 192, 8
+    frames = [scene(seed=s, H=H, W=W) for s in range(B)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    maps = (xx + 0.3 * np.sin(yy / 11.0), yy + 0.2 * np.cos(xx / 13.0), xx - 0.1, yy)
+    Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
+    p = StereoSGBMParams(num_disparities=128, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=20,
+                         speckle_range=2, num_paths=4)
+    n_ds, n_lr = banded_cuda.downsample_box.launches, lr_cuda.lr_fail_packed.launches
+    d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, hier_params=HIER_FAST)
+    assert banded_cuda.downsample_box.launches == n_ds + 2 and lr_cuda.lr_fail_packed.launches == n_lr + 1
+    d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, hier_params=HIER_FAST,
+                                           device="cpu")
+    assert d_gpu.device.type == "cuda" and (d_cpu > -1).float().mean() > 0.2
+    assert torch.equal(d_gpu.cpu(), d_cpu)
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("f,fx,H,W", [(2, None, 48, 97), (4, None, 45, 130), (4, 8, 32, 64), (3, 2, 17, 26)])
+def test_downsample_kernel_matches_plain(dev, f, fx, H, W):
+    img = next(_images(f * H, 3, H, W))
+    img[0, :2, :4] = torch.tensor([[0, 1, 1, 2], [1, 0, 1, 2]])  # .5 ties at f=2
+    ref = banded_cuda.downsample_box_plain(img, f, fx)
+    n = banded_cuda.downsample_box.launches
+    out = banded_cuda.downsample_box(img.to(dev), f, fx)
+    torch.cuda.synchronize()
+    assert banded_cuda.downsample_box.launches == n + 1
+    assert out.dtype == torch.int32 and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("H,W,ndisp,max_diff", [(40, 256, 64, 1), (7, 1280, 128, 1), (13, 100, 32, 0), (5, 96, 16, 2)])
+def test_lr_kernel_matches_plain(dev, H, W, ndisp, max_diff):
+    rng = np.random.default_rng(W + ndisp)
+    shape = (3, H, W - ndisp)
+    best = rng.integers(0, ndisp, shape)
+    pack = torch.from_numpy((rng.integers(0, 60, shape) * 2048 + best).astype(np.int32))
+    d16 = torch.from_numpy((best * 16 + rng.integers(-8, 9, shape)).astype(np.int32))
+    kw = dict(W=W, ndisp=ndisp, max_diff=max_diff)
+    ref = lr_cuda.lr_fail_packed_plain(pack, d16, **kw)
+    n = lr_cuda.lr_fail_packed.launches
+    out = lr_cuda.lr_fail_packed(pack.to(dev), d16.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert lr_cuda.lr_fail_packed.launches == n + 1
+    assert out.dtype == torch.bool and torch.equal(out.cpu(), ref) and ref.any()

@@ -20,6 +20,7 @@ from stereo_vision_tpu.parallel import streaming as jstream
 from stereo_vision_tpu.stereo.sgbm import StereoSGBMParams as JParams
 from stereo_vision_tpu_torch import convert
 from stereo_vision_tpu_torch.parallel import streaming as tstream
+from stereo_vision_tpu_torch.stereo import banded_cuda, hier
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
 from stereo_vision_tpu_torch.synth import scenes
 
@@ -91,9 +92,23 @@ def test_frame_stats_median_averages_middle_values():
 
 def test_other_matchers_name_their_roadmap_item():
     left, right, maps, Q = _inputs()
-    for matcher in ("bm", "sgbm_hier"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstream.batched_stereo_pipeline(left, right, maps, Q, matcher=matcher, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
+        tstream.batched_stereo_pipeline(left, right, maps, Q, matcher="bm", device="cpu")
+
+
+@pytest.mark.parametrize("option", ["banded_8_paths_on_cuda", "coarse_stride"])
+def test_unported_hier_options_name_their_roadmap_item(option, monkeypatch):
+    if option == "coarse_stride":
+        frames = torch.zeros((4, 48, 192), dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
+            hier.stereo_sgbm_hier_batch(frames, frames, StereoSGBMParams(), hier.HierParams(coarse_stride=2))
+    else:
+        # A CPU tensor stands in for a CUDA one: the wrapper refuses before any launch.
+        monkeypatch.setattr(banded_cuda, "_on_cuda", lambda t: True)
+        C = torch.zeros((1, 4, 8, 8), dtype=torch.int16)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue B item 16"):
+            banded_cuda.banded_vertical(C, torch.zeros((1, 4, 8), dtype=torch.int32), 4, 8, 32, cost_bound=100,
+                                        with_diagonals=True)
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
@@ -127,7 +142,7 @@ def test_port_imports_no_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 15
 
 
 def test_scenes_match_bench():
