@@ -5,16 +5,19 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order (any failure raises and the script exits nonzero):
   1. print the card's name and power limit (nvidia-smi);
   2. build every csrc/*.cu with nvcc for sm_90a (one process per source);
-  3. per kernel, at the main path's shapes (1280x720, D=128, 4 frames):
-     the CUDA wrapper against its plain PyTorch form on the card, exact
-     equality; CUDA-event times of both and the kernel's bound;
+  3. per exact-path kernel, at the main path's shapes (1280x720, D=128,
+     4 frames): the CUDA wrapper against its plain PyTorch form on the
+     card, exact equality; CUDA-event times of both and the kernel's
+     bound; the unpacked LR kernel also at min_disparity 16, ndisp 64;
   4. the pipeline at 240x320, D=64, 2 frames on CUDA and on the CPU:
      disparity exactly equal, points within float32 rtol 1e-6;
   5. the main path, batched_stereo_pipeline(matcher="sgbm") at 1280x720,
      4 frames, the bench's exact8 parameters: every kernel's launch count
-     must move; valid share and within-1px share against the scene's true
-     disparity must clear floors; ms per 4-frame call and Mpx/s, plus a
-     per-stage breakdown;
+     (cost, vertical, horizontal, wta4, LR, speckle) must move; valid share
+     and within-1px share against the scene's true disparity must clear
+     floors; ms per 4-frame call and Mpx/s, plus a per-stage breakdown;
+     one more call recorded (see 7) gives the LR and speckle kernels'
+     arguments, on which each is held to its plain form (S=100, uncapped);
   6. the hier main path, batched_stereo_pipeline(matcher="sgbm_hier") at
      1280x720, 32 frames, HIER4_FAST with the bench's p3 parameters: every
      hier kernel's launch count must move; the same quality floors; ms per
@@ -24,16 +27,26 @@ Phases, in order (any failure raises and the script exits nonzero):
      gives the per-stage breakdown, the second keeps the arguments each
      kernel wrapper was given;
   8. per hier kernel (downsample, banded cost, vertical, horizontal, wta,
-     LR check) on those arguments, at the three levels of the path (coarse
-     180x320 K=32, mid 360x640 K=8, full 720x1280 K=4): the kernel on all
-     32 frames against its plain form on the first 4, exact; a 6-stat WTA
-     case at K=16; CUDA-event times (kernel at 32 frames, plain at 4) and
-     bounds;
-  9. batched_stereo_pipeline(matcher="sgbm_hier") at 64x256, D=128,
-     32 frames (HIER4_FAST, 3 paths) on CUDA and on the CPU: disparity
-     exactly equal, points within float32 rtol 1e-6;
- 10. the bench's agreement gate: hier4x3 (32 copies of a scene per call)
-     against exact8 on the first frame of three scenes, >= 0.98 each.
+     LR check, speckle cap 4) on those arguments, at the three levels of
+     the path (coarse 180x320 K=32, mid 360x640 K=8, full 720x1280 K=4):
+     the kernel on all 32 frames against its plain form on the first 4,
+     exact; a 6-stat WTA case at K=16; CUDA-event times (kernel at 32
+     frames, plain at 4) and bounds;
+  9. the hier4x8 main path: the same with num_paths=8 (the full level
+     runs the diagonal vertical kernel, both horizontals and a 4-volume
+     WTA): launch counts, floors, ms per call, a recorded breakdown, and
+     every hier kernel on the arguments of a recorded call against its
+     plain form as in 8 (one row each in the kernels line); the diagonal
+     kernel also on per-pixel random shift maps (deltas 0, +-G, +-2G and
+     beyond);
+ 10. batched_stereo_pipeline(matcher="sgbm_hier") at 64x256, D=128,
+     32 frames (HIER4_FAST) on CUDA and on the CPU, at 3 paths, at
+     StereoSGBMParams() (8 paths) and at 8 paths with the bench's speckle
+     and LR settings: disparity exactly equal, points within float32
+     rtol 1e-6;
+ 11. the bench's agreement gate: hier4x3 and hier4x8 (32 copies of a scene
+     per call) against exact8 on the first frame of three scenes, >= 0.98
+     each.
 The next-to-last line is the kernels' JSON, the last the device JSON.
 Imports torch, numpy and the port only.
 """
@@ -52,10 +65,9 @@ from stereo_vision_tpu_torch import _build
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, hier, lr_cuda, sgm_cuda
+from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, hier, lr_cuda, sgbm, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
-from stereo_vision_tpu_torch.stereo.postprocess import speckle_filter
-from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm, subpixel_disp16
+from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
 from stereo_vision_tpu_torch.synth.scenes import agreement, scene, scene_occ, scene_truth
 
 H, W, D, B = 720, 1280, 128, 4
@@ -71,17 +83,19 @@ VALID_FLOOR, WITHIN1_FLOOR = 0.90, 0.98
 # no int32 rate; int32 issues at most that fast, so the bound stays a bound).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-SOURCES = {"cost": "stereo_vision_tpu_torch/csrc/cost.cu", "sgm": "stereo_vision_tpu_torch/csrc/sgm.cu",
-           "banded": "stereo_vision_tpu_torch/csrc/banded.cu", "lr": "stereo_vision_tpu_torch/csrc/lr.cu"}
+SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu" for name in ("cost", "sgm", "banded", "lr", "speckle")}
 # The hier main path: bench.py's hier4x3 mode (HIER4_FAST with p3, 32 frames
 # per call, bench.py:162-188).
 HIER_P, HP = 32, hier.HIER4_FAST
 P3 = PARAMS._replace(num_paths=3)
+P8 = PARAMS  # hier4x8: the same parameters at num_paths=8
 PLAIN_FRAMES = 4  # frames the plain forms run on beside the 32-frame kernel calls
 # BENCH_r05.json's hier4x3 agreement against exact8 (the round-5 run of bench.py).
 BENCH_R05_AGREEMENT = {"rampbox": 0.9952, "occl": 0.9966, "jump110": 0.9923}
-# The hier path's kernels: wrapper, source, the TPU kernel it replaces.
-HIER_KERNELS = {
+# The kernels checked on recorded main-path arguments: wrapper, source, the
+# TPU kernel it replaces. banded_vertical_diag is banded_vertical called with
+# with_diagonals=True.
+KERNELS = {
     "downsample_box": (banded_cuda.downsample_box, SOURCES["banded"],
                        "stereo_vision_tpu/stereo/banded_pallas.py:395 _downsample_kernel"),
     "banded_cost": (banded_cuda.banded_cost, SOURCES["banded"],
@@ -93,9 +107,16 @@ HIER_KERNELS = {
     "banded_wta": (banded_cuda.banded_wta, SOURCES["banded"],
                    "stereo_vision_tpu/stereo/banded_pallas.py:815 _wta_kernel"),
     "lr_fail_packed": (lr_cuda.lr_fail_packed, SOURCES["lr"], "stereo_vision_tpu/stereo/lr_pallas.py:30 _lr_kernel"),
+    "speckle_filter": (speckle_cuda.speckle_filter, SOURCES["speckle"],
+                       "stereo_vision_tpu/stereo/speckle_pallas.py:81 _speckle_kernel"),
+    "lr_fail": (lr_cuda.lr_fail, SOURCES["lr"],
+                "stereo_vision_tpu/stereo/lr_pallas.py:30 _lr_kernel (lr_fail_pallas:137)"),
+    "banded_vertical_diag": (banded_cuda.banded_vertical, SOURCES["banded"],
+                             "stereo_vision_tpu/stereo/banded_pallas.py:666 _vert_kernel (with_diag)"),
 }
-KERNEL_NAMES = tuple(HIER_KERNELS)
-# Each hier kernel's plain form, called with the wrapper's arguments.
+HIER_KERNEL_NAMES = ("downsample_box", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
+                     "lr_fail_packed", "speckle_filter")
+# Each kernel's plain form, called with the wrapper's arguments.
 PLAIN = {
     "downsample_box": banded_cuda.downsample_box_plain,
     "banded_cost": banded_cuda.banded_cost_plain,
@@ -105,7 +126,10 @@ PLAIN = {
         banded_cuda.horizontal_plain(C, s, G, P1, P2, reverse),
     "banded_wta": banded_cuda.banded_wta_plain,
     "lr_fail_packed": lr_cuda.lr_fail_packed_plain,
+    "speckle_filter": speckle_cuda.speckle_filter_plain,
+    "lr_fail": sgbm.lr_fail,
 }
+PLAIN["banded_vertical_diag"] = PLAIN["banded_vertical"]
 
 
 def rig(h: int, w: int):
@@ -175,7 +199,7 @@ def phase_kernels(dev) -> list[dict]:
         ms, plain_ms = event_ms(kern, reps), event_ms(plain, 1)
         b_ms, b_by = bound_ms(nbytes, nops)
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, path="exact8"))
         print(f"kernel {name}: exact, {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by})",
               flush=True)
         return out
@@ -203,6 +227,22 @@ def phase_kernels(dev) -> list[dict]:
           lambda: sgm_cuda.wta4(vols, p.uniqueness_ratio),
           lambda: sgm_cuda.wta4_plain(vols, p.uniqueness_ratio),
           4 * vol + B * H * Wv * (5 * 4 + 1), n * 10, 10)
+
+    # The unpacked LR kernel at min_disparity 16, ndisp 64 (the main path runs
+    # min_disparity 0; it is checked on the path's own arguments later).
+    rng = np.random.default_rng(16)
+    nd, md = 64, 16
+    shape = (B, H, W - nd - md)
+    best = rng.integers(0, nd, shape)
+    disp = (best * 16 + rng.integers(-8, 9, shape)) / 16.0 + md
+    disp[rng.random(shape) < 0.05] = md - 1
+    minS, best, disp = (torch.from_numpy(a).to(dev) for a in (rng.integers(0, 60, shape).astype(np.int32),
+                                                               best.astype(np.int32), disp.astype(np.float32)))
+    kw = dict(W=W, min_x=nd + md, ndisp=nd, mindisp=md, max_diff=1)
+    out, ref = lr_cuda.lr_fail(minS, best, disp, **kw), sgbm.lr_fail(minS, best, disp, **kw)
+    if not torch.equal(out, ref) or not ref.any():
+        raise AssertionError("lr_fail at min_disparity 16 differs from its plain form")
+    print(f"kernel lr_fail min_disparity {md}, ndisp {nd}, {B}x{H}x{shape[-1]}: exact", flush=True)
     return rows
 
 
@@ -221,12 +261,12 @@ def phase_small_pipeline(dev) -> None:
           flush=True)
 
 
-def phase_main_path(dev, rows: list[dict]) -> dict:
+def phase_main_path(dev, rows: list[dict]) -> tuple[dict, dict, torch.Tensor]:
     maps, Q = rig(H, W)
     frames = [scene(seed=s) for s in range(B)]
     lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
-    wrappers = {"cost": cost_cuda.cost_volume, "vertical": sgm_cuda.vertical,
-                "horizontal": sgm_cuda.horizontal, "wta4": sgm_cuda.wta4}
+    wrappers = {"cost": cost_cuda.cost_volume, "vertical": sgm_cuda.vertical, "horizontal": sgm_cuda.horizontal,
+                "wta4": sgm_cuda.wta4, "lr_fail": lr_cuda.lr_fail, "speckle_filter": speckle_cuda.speckle_filter}
     for fn in wrappers.values():
         fn.launches = 0
     disp, pts = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
@@ -260,7 +300,22 @@ def phase_main_path(dev, rows: list[dict]) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
     return dict(ms_per_call=ms, frames_per_call=B, mpx_per_s=B * H * W / ms / 1e3,
-                frames_per_s=B / ms * 1e3, valid_share=valid_share, within1_share=within1)
+                frames_per_s=B / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
+
+
+def record_exact_call(dev, disp_main: torch.Tensor) -> list[dict]:
+    """One more exact main-path call with the LR and speckle kernels'
+    arguments recorded; its disparity must equal the main path's."""
+    maps, Q = rig(H, W)
+    frames = [scene(seed=s) for s in range(B)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    targets = {"lr_fail": (lr_cuda, "lr_fail"), "speckle_filter": (sgbm, "speckle_filter")}
+    with Recorder(targets, ("exact8",), keep=True) as rec:
+        disp, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
+    torch.cuda.synchronize()
+    if not torch.equal(disp, disp_main):
+        raise AssertionError("the recorded exact call differs from the main path")
+    return rec.calls
 
 
 def phase_breakdown(dev) -> dict:
@@ -290,11 +345,11 @@ def phase_breakdown(dev) -> dict:
     vols = vols[:2] + list(vols[2])
     minS, best, sm, s0, sp, uok = stage("wta4", lambda: sgm_cuda.wta4(vols, p.uniqueness_ratio))
     disp = stage("subpixel", lambda: subpixel_disp16(best, sm, s0, sp, D).float() / 16.0)
-    fail = stage("lr_check (plain)", lambda: lr_fail(minS, best, disp, W=W, min_x=minX1, ndisp=D, mindisp=0,
+    fail = stage("lr_check", lambda: lr_cuda.lr_fail(minS, best, disp, W=W, min_x=minX1, ndisp=D, mindisp=0,
                                                      max_diff=p.disp12_max_diff))
     full = torch.full((B, H, W), -1.0, device=dev)
     full[..., minX1:] = torch.where(uok & ~fail, disp, -1.0)
-    out = stage("speckle (plain)", lambda: speckle_filter(full, 2.0, 100, -1.0))
+    out = stage("speckle", lambda: speckle_cuda.speckle_filter(full, 2.0, 100, -1.0))
     stage("reproject", lambda: reproject_disparity_to_3d(out, Qt))
     return {k: round(v, 4) for k, v in st.items()}
 
@@ -337,7 +392,9 @@ class Recorder:
 
         # The wrapped kernel wrappers count their launches on the name they are
         # bound to, which is this wrapper while it is swapped in.
-        wrapper.launches = 0
+        for k, v in vars(fn).items():
+            if isinstance(v, int):
+                setattr(wrapper, k, 0)
         return wrapper
 
     def __enter__(self):
@@ -351,7 +408,8 @@ class Recorder:
             setattr(mod, attr, fn)
 
 
-def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool) -> tuple[dict, list[dict]]:
+def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool,
+                     params: StereoSGBMParams = P3) -> tuple[dict, list[dict]]:
     """One 32-frame hier main-path call with its stages recorded: the
     per-stage CUDA-event ms (summed per stage and level) and the records
     of every kernel wrapper's calls, with (``keep``) the arguments the
@@ -362,26 +420,25 @@ def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool) -> tuple[
         "downsample_box": (hier, "downsample_box"), "core": (hier, "banded_stats_pack"),
         "shift maps (plain)": (hier, "shift_map"), "splice (plain)": (hier, "_splice_coarse"),
         "assemble (plain, with the LR kernel)": (hier, "_assemble_disparity"),
-        "lr_fail_packed": (hier, "lr_fail_packed"),
-        "speckle cap 4 (plain)": (hier, "speckle_filter"),
+        "lr_fail_packed": (hier, "lr_fail_packed"), "speckle_filter": (hier, "speckle_filter"),
         **{k: (banded_cuda, k) for k in ("banded_cost", "banded_vertical", "banded_horizontal", "banded_wta")},
     }
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with Recorder(targets, ("coarse", "mid", "full"), keep) as rec:
         start.record()
-        disp, _ = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
+        disp, _ = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev)
         end.record()
     torch.cuda.synchronize()
     if not torch.equal(disp, disp_main):
         raise AssertionError("the recorded hier call differs from the main path")
     st = {"call": start.elapsed_time(end)}
     for c in rec.calls:
-        key = f"{c['level']} {c['name']}" if c["name"] in KERNEL_NAMES + ("core",) else c["name"]
+        key = f"{c['level']} {c['name']}" if c["name"] in HIER_KERNEL_NAMES + ("core",) else c["name"]
         st[key] = st.get(key, 0.0) + c["start"].elapsed_time(c["end"])
     matcher = next(c for c in rec.calls if c["name"] == "matcher")
     st["remap + round (with the maps' upload)"] = start.elapsed_time(matcher["start"])
-    return {k: round(v, 4) for k, v in st.items()}, [c for c in rec.calls if c["name"] in KERNEL_NAMES]
+    return {k: round(v, 4) for k, v in st.items()}, [c for c in rec.calls if c["name"] in HIER_KERNEL_NAMES]
 
 
 def _head(x, n: int):
@@ -406,31 +463,46 @@ def _nbytes(x) -> int:
 
 
 def _ops(name: str, args, kwargs, elems: int) -> int:
-    """32-bit integer operations of one hier kernel call (``elems``: its
-    first output's elements): banded cost ~20 + 4 bs per lane, a scan step
-    ~10 per lane and direction, WTA ~10 per lane, LR ~20 per pixel,
-    downsample one add per input pixel."""
+    """32-bit operations of one kernel call (``elems``: its first output's
+    elements): banded cost ~20 + 4 bs per lane, a scan step ~10 per lane
+    and carry (two directions; three carries each with diagonals), WTA ~10
+    per lane, LR ~20 per pixel, downsample one add per input pixel, speckle
+    ~30 per pixel: uncapped it is cv2.filterSpeckles, which a union-find
+    labelling computes in O(1) work a pixel, and the capped form is held to
+    the same count, which can only lower its bound (the round-by-round
+    design's own work and state traffic grow with R; PERF.md has them)."""
     if name == "banded_cost":
         return elems * (20 + 4 * kwargs["block_size"])
     if name == "banded_vertical":
         return 2 * elems * 10
+    if name == "banded_vertical_diag":
+        return 6 * elems * 10
+    if name == "speckle_filter":
+        return elems * 30
     if name == "banded_wta":
         return args[0][0].numel() * 10
     if name == "downsample_box":
         return args[0].numel()
-    return elems * (20 if name == "lr_fail_packed" else 10)
+    return elems * (20 if name in ("lr_fail_packed", "lr_fail") else 10)
 
 
-def phase_hier_kernels(records: list[dict], counts: dict) -> list[dict]:
-    """Each hier kernel on the arguments the recorded main-path call gave
-    it: the kernel on all 32 frames against its plain form on the first
-    PLAIN_FRAMES, exact; kernel ms, plain ms and bound summed over the
-    call's launches. Bound: the bytes of every input and output once over
-    the HBM rate, or the operations (:func:`_ops`) over the peak rate."""
-    n = PLAIN_FRAMES
-    acc = {k: dict(ms=0.0, plain_ms=0.0, nbytes=0.0, nops=0.0, err=0) for k in KERNEL_NAMES}
+def _kernel_name(call: dict) -> str:
+    """A record's kernel: banded_vertical with diagonals is its own kernel."""
+    if call["name"] == "banded_vertical" and call["kwargs"].get("with_diagonals"):
+        return "banded_vertical_diag"
+    return call["name"]
+
+
+def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str) -> list[dict]:
+    """Each kernel on the arguments a recorded main-path call gave it: the
+    kernel on all frames against its plain form on the first ``n``, exact;
+    kernel ms, plain ms and bound summed over the call's launches. Bound:
+    the bytes of every input and output once over the HBM rate, or the
+    operations (:func:`_ops`) over the peak rate. One row per kernel, with
+    the launches of the main path's run (``counts``)."""
+    acc = {}
     for c in records:
-        name, fn, args, kwargs = c["name"], c["fn"], c["args"], c["kwargs"]
+        name, fn, args, kwargs = _kernel_name(c), c["fn"], c["args"], c["kwargs"]
         plain = PLAIN[name]
         out, ref = fn(*args, **kwargs), plain(*_head(args, n), **_head(kwargs, n))
         torch.cuda.synchronize()
@@ -445,7 +517,7 @@ def phase_hier_kernels(records: list[dict], counts: dict) -> list[dict]:
         plain_ms = event_ms(lambda: plain(*_head(args, n), **_head(kwargs, n)), 1)
         nbytes = _nbytes(args) + _nbytes(kwargs) + _nbytes(outs)
         nops = _ops(name, args, kwargs, outs[0].numel())
-        a = acc[name]
+        a = acc.setdefault(name, dict(ms=0.0, plain_ms=0.0, nbytes=0.0, nops=0.0, frames=outs[0].shape[0]))
         a["ms"] += ms
         a["plain_ms"] += plain_ms
         a["nbytes"] += nbytes
@@ -453,10 +525,21 @@ def phase_hier_kernels(records: list[dict], counts: dict) -> list[dict]:
         print(f"kernel {name} {c['level']}: exact, {ms:.3f} ms at {outs[0].shape[0]} frames "
               f"(plain {plain_ms:.3f} ms at {n} frames, bound {bound_ms(nbytes, nops)[0]:.3f} ms)", flush=True)
 
-    # The 6-stat WTA at K=16 (HIER_FAST's and HierParams()'s full-res form),
-    # on 4 frames of the full level's images; not on the hier4x3 path, so not timed.
+    rows = []
+    for name, a in acc.items():
+        b_ms, b_by = bound_ms(a["nbytes"], a["nops"])
+        src, replaces = KERNELS[name][1:]
+        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=counts[name],
+                         max_abs_err=0, ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, path=path, frames=a["frames"], plain_frames=n))
+    return rows
+
+
+def check_wta16(records: list[dict]) -> None:
+    """The 6-stat WTA at K=16 (HIER_FAST's and HierParams()'s full-res form),
+    on 4 frames of the full level's images; on no timed path."""
     full = next(c for c in records if c["name"] == "banded_cost" and c["level"] == "full")
-    l, r, s = _head(full["args"], n)
+    l, r, s = _head(full["args"], PLAIN_FRAMES)
     p, mx = P3, full["kwargs"]["min_x"]
     kw = dict(full["kwargs"], band=16, G=8)
     s16 = torch.div(s, 8, rounding_mode="floor").mul(8).clamp(max=p.num_disparities - 16)
@@ -469,80 +552,102 @@ def phase_hier_kernels(records: list[dict], counts: dict) -> list[dict]:
     if err != 0:
         raise AssertionError(f"banded_wta 6-stat K=16 differs from its plain form (max abs err {err})")
     print("kernel banded_wta 6-stat K=16 (4 frames, 720x1152): exact", flush=True)
-    del C16, v16
 
-    rows = []
-    for name, a in acc.items():
-        b_ms, b_by = bound_ms(a["nbytes"], a["nops"])
-        src, replaces = HIER_KERNELS[name][1:]
-        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=counts[name],
-                         max_abs_err=0, ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, frames=HIER_P, plain_frames=n))
-    return rows
+
+def check_diag_random(dev) -> None:
+    """The diagonal vertical kernel on per-pixel random shift maps (deltas
+    0, +-G, +-2G and beyond, on the G grid and off it): at the full level's
+    shape (K=4, G=2, where +-2G resets) and at K=8, G=2 (where +-2G shifts)."""
+    p = P8
+    for K, G, P, h in ((4, 2, PLAIN_FRAMES, H), (8, 2, 2, 64)):
+        rng = np.random.default_rng(K)
+        Wv = W - D
+        C = torch.from_numpy(rng.integers(0, p.cost_bound + 1, (P, h, Wv, K)).astype(np.int16)).to(dev)
+        s = rng.integers(0, 6, (P, h, Wv)) * G + (rng.random((P, h, Wv)) < 0.1) * rng.integers(1, 3, (P, h, Wv))
+        s = torch.from_numpy(s.astype(np.int32)).to(dev)
+        out = banded_cuda.banded_vertical(C, s, G, p.P1, p.P2, cost_bound=p.cost_bound, with_diagonals=True)
+        ref = banded_cuda.vertical_plain(C, s, G, p.P1, p.P2, True)
+        err = max_abs_err(out, ref)
+        if err != 0:
+            raise AssertionError(f"banded_vertical_diag K={K} on random shift maps: max abs err {err}")
+        print(f"kernel banded_vertical_diag K={K} G={G}, {P}x{h}x{Wv}, per-pixel random shifts: exact", flush=True)
 
 
 def phase_hier_small_pipeline(dev) -> None:
+    """CUDA == CPU for the hier pipeline at 64x256, 32 frames: the bench's
+    p3 (3 paths), StereoSGBMParams() (8 paths; no LR, no speckle) and the
+    bench's parameters at 8 paths."""
     h, w = 64, 256
     maps, Q = rig(h, w)
     frames = [scene(seed=s, H=h, W=w) for s in range(HIER_P)]
     lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
-    d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
-    d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=P3, device="cpu")
-    if not torch.equal(d_gpu.cpu(), d_cpu):
-        raise AssertionError("CUDA and CPU hier disparities differ at 64x256")
-    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
-    print(f"hier pipeline 64x256 D=128 P=32: CUDA == CPU (valid share {float((d_cpu > -1).float().mean()):.4f})",
-          flush=True)
+    for label, params in (("p3", P3), ("StereoSGBMParams()", StereoSGBMParams()), ("p3 at 8 paths", P8)):
+        d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=params, device=dev)
+        d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=params, device="cpu")
+        if not torch.equal(d_gpu.cpu(), d_cpu):
+            raise AssertionError(f"CUDA and CPU hier disparities differ at 64x256 ({label})")
+        torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+        print(f"hier pipeline 64x256 D=128 P=32, {label}: CUDA == CPU "
+              f"(valid share {float((d_cpu > -1).float().mean()):.4f})", flush=True)
 
 
-def phase_hier_main_path(dev, lt, rt) -> tuple[dict, dict, torch.Tensor]:
+def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str) -> tuple[dict, dict, torch.Tensor]:
     maps, Q = rig(H, W)
-    wrappers = {name: HIER_KERNELS[name][0] for name in KERNEL_NAMES}
+    wrappers = {name: KERNELS[name][0] for name in HIER_KERNEL_NAMES}
     for fn in wrappers.values():
         fn.launches = 0
-    disp, pts = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
+    banded_cuda.banded_vertical.diagonal_launches = 0
+    disp, pts = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    print("hier main path launches:", json.dumps(counts), flush=True)
+    if params.num_paths == 8:  # banded_vertical counts both kernels: split them
+        counts["banded_vertical_diag"] = banded_cuda.banded_vertical.diagonal_launches
+        counts["banded_vertical"] -= counts["banded_vertical_diag"]
+    print(f"{label} main path launches:", json.dumps(counts), flush=True)
     if min(counts.values()) == 0:
-        raise AssertionError(f"a kernel of the hier main path never launched: {counts}")
+        raise AssertionError(f"a kernel of the {label} main path never launched: {counts}")
 
     d = disp.cpu().numpy()
     if d.shape != (HIER_P, H, W) or pts.shape != (HIER_P, H, W, 3) or not np.isfinite(d).all():
-        raise AssertionError(f"bad hier output: disparity {d.shape}, points {tuple(pts.shape)}")
+        raise AssertionError(f"bad {label} output: disparity {d.shape}, points {tuple(pts.shape)}")
     if not np.isfinite(pts[..., 2].cpu().numpy()[d > 0]).all():
         raise AssertionError("non-finite depth at a positive disparity")
     valid_share, within1 = quality(d, scene_truth(H, W), D)
-    print(f"hier main path quality: valid share {valid_share:.4f} (floor {VALID_FLOOR}), "
+    print(f"{label} main path quality: valid share {valid_share:.4f} (floor {VALID_FLOOR}), "
           f"within 1 px {within1:.4f} (floor {WITHIN1_FLOOR})", flush=True)
     if valid_share < VALID_FLOOR or within1 < WITHIN1_FLOOR:
-        raise AssertionError("hier main path quality below its floor")
+        raise AssertionError(f"{label} main path quality below its floor")
 
     reps = 3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=P3, device=dev)
+        batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"{label} main path 1280x720 D={D} P={HIER_P}: {ms:.2f} ms per call, {HIER_P * H * W / ms / 1e3:.2f} "
+          f"Mpx/s, {HIER_P / ms * 1e3:.2f} frames/s", flush=True)
     return dict(ms_per_call=ms, frames_per_call=HIER_P, mpx_per_s=HIER_P * H * W / ms / 1e3,
                 frames_per_s=HIER_P / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
 
 
 def phase_agreement(dev) -> dict:
-    """bench.py's gate: hier4x3 (32 copies per call) against exact8 on the
-    first frame of each scene, straight to the matchers (no remap)."""
+    """bench.py's gate: hier4x3 and hier4x8 (32 copies per call) against
+    exact8 on the first frame of each scene, straight to the matchers (no
+    remap)."""
     scenes = {"rampbox": scene(0), "occl": scene_occ(2), "jump110": scene(3, box_disp=110.0)}
-    out = {}
+    out = {"hier4x3": {}, "hier4x8": {}}
     for name, (l, r) in scenes.items():
         lt, rt = torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev)
-        exact = stereo_sgbm(lt[None], rt[None], PARAMS)[0]
-        hier4x3 = hier.stereo_sgbm_hier_batch(lt.expand(HIER_P, -1, -1), rt.expand(HIER_P, -1, -1), P3, HP)[0]
-        out[name] = agreement(hier4x3.cpu().numpy(), exact.cpu().numpy())
-        print(f"agreement hier4x3 vs exact8, {name}: {out[name]:.4f} (BENCH_r05.json {BENCH_R05_AGREEMENT[name]})",
-              flush=True)
-    if min(out.values()) < 0.98:
-        raise AssertionError(f"hier4x3 agreement below the bench gate 0.98: {out}")
+        exact = stereo_sgbm(lt[None], rt[None], PARAMS)[0].cpu().numpy()
+        for mode, params in (("hier4x3", P3), ("hier4x8", P8)):
+            disp = hier.stereo_sgbm_hier_batch(lt.expand(HIER_P, -1, -1), rt.expand(HIER_P, -1, -1), params, HP)[0]
+            out[mode][name] = agreement(disp.cpu().numpy(), exact)
+        print(f"agreement vs exact8, {name}: hier4x3 {out['hier4x3'][name]:.4f} (BENCH_r05.json "
+              f"{BENCH_R05_AGREEMENT[name]}), hier4x8 {out['hier4x8'][name]:.4f}", flush=True)
+    for mode, agree in out.items():
+        if min(agree.values()) < 0.98:
+            raise AssertionError(f"{mode} agreement below the bench gate 0.98: {agree}")
     return out
 
 
@@ -561,32 +666,49 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports) or 'nothing (already built)'}", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  {name}: {line.strip()}", file=sys.stderr)
 
     rows = phase_kernels(dev)
     torch.cuda.empty_cache()
     phase_small_pipeline(dev)
-    e2e = phase_main_path(dev, rows)
+    e2e, counts, disp = phase_main_path(dev, rows)
     print(f"main path 1280x720 D={D} B={B}: {e2e['ms_per_call']:.2f} ms per call, "
           f"{e2e['mpx_per_s']:.2f} Mpx/s, {e2e['frames_per_s']:.2f} frames/s on {card}", flush=True)
+    rows += phase_recorded_kernels(record_exact_call(dev, disp), counts, B, "exact8")
     breakdown = phase_breakdown(dev)
     print("breakdown ms per 4-frame call:", json.dumps(breakdown), flush=True)
+    del disp
     torch.cuda.empty_cache()
 
     lt, rt = hier_frames(dev)
-    hier_e2e, counts, hier_disp = phase_hier_main_path(dev, lt, rt)
-    print(f"hier main path 1280x720 D={D} P={HIER_P}: {hier_e2e['ms_per_call']:.2f} ms per call, "
-          f"{hier_e2e['mpx_per_s']:.2f} Mpx/s, {hier_e2e['frames_per_s']:.2f} frames/s on {card}", flush=True)
+    hier_e2e, counts, hier_disp = phase_hier_main_path(dev, lt, rt, P3, "hier4x3")
     hier_breakdown, _ = record_hier_call(dev, lt, rt, hier_disp, keep=False)
     _, records = record_hier_call(dev, lt, rt, hier_disp, keep=True)
-    print(f"hier breakdown ms per {HIER_P}-frame call:", json.dumps(hier_breakdown), flush=True)
-    rows += phase_hier_kernels(records, counts)
-    del lt, rt, hier_disp, records
+    print(f"hier4x3 breakdown ms per {HIER_P}-frame call:", json.dumps(hier_breakdown), flush=True)
+    rows += phase_recorded_kernels(records, counts, PLAIN_FRAMES, "hier4x3")
+    check_wta16(records)
+    del hier_disp, records
     torch.cuda.empty_cache()
+
+    h8_e2e, counts, h8_disp = phase_hier_main_path(dev, lt, rt, P8, "hier4x8")
+    h8_breakdown, _ = record_hier_call(dev, lt, rt, h8_disp, keep=False, params=P8)
+    _, records = record_hier_call(dev, lt, rt, h8_disp, keep=True, params=P8)
+    print(f"hier4x8 breakdown ms per {HIER_P}-frame call:", json.dumps(h8_breakdown), flush=True)
+    rows += phase_recorded_kernels(records, counts, PLAIN_FRAMES, "hier4x8")
+    del lt, rt, h8_disp, records
+    torch.cuda.empty_cache()
+    check_diag_random(dev)
+    torch.cuda.empty_cache()
+
     phase_hier_small_pipeline(dev)
     agree = phase_agreement(dev)
-    print(json.dumps({"card": card, "main_path": e2e, "hier_main_path": hier_e2e, "hier_breakdown": hier_breakdown,
+    names = [r["name"] for r in rows]
+    for r in rows:  # a kernel that runs on several paths: one row each
+        if names.count(r["name"]) > 1:
+            r["name"] = f"{r['name']} ({r['path']})"
+    print(json.dumps({"card": card, "main_path": e2e, "breakdown": breakdown, "hier_main_path": hier_e2e,
+                      "hier_breakdown": hier_breakdown, "hier4x8_main_path": h8_e2e, "hier4x8_breakdown": h8_breakdown,
                       "agreement": agree}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@
 // that banded_stats_pack chains:
 //   _pix_kernel + _aligned_box_kernel(_srows) -> banded_cost_kernel
 //   _vert_kernel (without diagonals)          -> banded_vertical_kernel
+//   _vert_kernel (with diagonals, 8 paths)    -> banded_vertical_diag_kernel
 //   _horiz_kernel                             -> banded_horizontal_kernel
 //   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel
 // and the image pyramid's box mean:
@@ -18,7 +19,9 @@
 //   carries: delta == +-G shifts the lanes (no source -> kBig, so that
 //     lane's candidate is exactly minL + P2), |delta| > G fills the row
 //     with kBig and the update resets to the border rule L = c, any other
-//     delta leaves the lanes as they are;
+//     delta leaves the lanes as they are; the diagonal carries also shift
+//     by +-2G when 2G < K (and reset only beyond it), and a diagonal
+//     predecessor outside the frame is a zero carry (L = c);
 //   window: the same shifts, but a lane with no source, or |delta| > G,
 //     takes the centre pixel's own value.
 // Layout: banded volumes (P, H, Wv, K) int16, frames on the grid. The TPU
@@ -30,7 +33,9 @@
 // kernel writes one volume (~63 us at 3.35 TB/s); vertical reads one and
 // writes two (~190 us); each horizontal reads one and writes one
 // (~127 us); the WTA reads three and writes four int32 maps and a bool map
-// (~318 us). The scans are also dependent chains of H (or Wv) steps.
+// (~318 us). The scans are also dependent chains of H (or Wv) steps. The
+// 8-path vertical (hier4x8) reads one volume and writes two, as vertical
+// does, with three carry sets per direction.
 //
 // Design (right and simple first):
 //   cost: one block per (frame, output row, tile of TX columns). The block
@@ -44,6 +49,15 @@
 //   vertical: one thread per (frame, column, direction) walks the rows with
 //     its K carries in registers (no diagonals: the down and up scans are
 //     independent per column), prefetching the next row.
+//   vertical with diagonals: a diagonal carry moves one column per row, so
+//     one block per (frame, direction) walks the rows; each thread owns CPT
+//     columns (CPT = ceil(Wv / 1024)), keeps their vertical carries in
+//     registers, prefetches the next row's cost, and exchanges the two
+//     diagonal carry sets with its neighbours through a ping-pong pair of
+//     rows (one __syncthreads per row) in shared memory, or in an
+//     L2-resident device scratch where 8 * Wv * K bytes exceed it. One
+//     launch replaces the per-row launches a row-parallel design would take
+//     (the exact path's vertical takes 720).
 //   horizontal: one thread per (frame, row) walks the columns with its K
 //     carries in registers; tiles of columns are staged through shared
 //     memory so that the loads and stores of a block are coalesced.
@@ -56,6 +70,7 @@
 // offsets (log2 K stages), so the carries stay in registers.
 
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -185,27 +200,40 @@ banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, 
 
 // ----------------------------------------------------------------- scans
 
+// K int16 lanes as raw 8- or 16-byte words: a load kept in flight while
+// other work runs, unpacked to int32 lanes where it is used.
 template <int K>
-__device__ __forceinline__ void load_lanes(const int16_t* __restrict__ p, int (&v)[K]) {
-  if constexpr (K % 8 == 0) {
+struct RawLanes {
+  static_assert(K == 4 || K % 8 == 0, "K is 4 or a multiple of 8");
+  static constexpr int kPer = K == 4 ? 4 : 8;  // lanes per word
+  using Word = typename std::conditional<K == 4, int2, int4>::type;
+  Word w[K / kPer];
+
+  __device__ __forceinline__ void load(const int16_t* p) {
 #pragma unroll
-    for (int i = 0; i < K / 8; ++i) {
-      const int4 w = reinterpret_cast<const int4*>(p)[i];
-      const int16_t* h = reinterpret_cast<const int16_t*>(&w);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[8 * i + k] = h[k];
-    }
-  } else {
-    static_assert(K == 4, "K is 4 or a multiple of 8");
-    const int2 w = *reinterpret_cast<const int2*>(p);
-    const int16_t* h = reinterpret_cast<const int16_t*>(&w);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = h[k];
+    for (int i = 0; i < K / kPer; ++i) w[i] = reinterpret_cast<const Word*>(p)[i];
   }
+  __device__ __forceinline__ void unpack(int (&v)[K]) const {
+#pragma unroll
+    for (int i = 0; i < K / kPer; ++i) {
+      const int16_t* h = reinterpret_cast<const int16_t*>(&w[i]);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) v[kPer * i + k] = h[k];
+    }
+  }
+};
+
+// No __restrict__ on the pointers of these two: the diagonal scan reads
+// carries that other threads of its block wrote.
+template <int K>
+__device__ __forceinline__ void load_lanes(const int16_t* p, int (&v)[K]) {
+  RawLanes<K> r;
+  r.load(p);
+  r.unpack(v);
 }
 
 template <int K>
-__device__ __forceinline__ void store_lanes(int16_t* __restrict__ p, const int (&v)[K]) {
+__device__ __forceinline__ void store_lanes(int16_t* p, const int (&v)[K]) {
   if constexpr (K % 8 == 0) {
 #pragma unroll
     for (int i = 0; i < K / 8; ++i) {
@@ -261,10 +289,13 @@ __device__ __forceinline__ void shift_lanes(int (&a)[K], int sh) {
   }
 }
 
-// align_band (fill kBig) then _update_banded, in place on the carry L.
-template <int K>
+// align_band (fill kBig; kDiag: align_band(diag=True), which also shifts
+// by +-2G when 2G < K) then _update_banded, in place on the carry L.
+template <int K, bool kDiag = false>
 __device__ __forceinline__ void banded_step(const int (&c)[K], int (&L)[K], int delta, int G, int P1, int P2) {
-  if (delta > G || delta < -G) {
+  const bool two = kDiag && 2 * G < K;
+  const int reach = two ? 2 * G : G;
+  if (delta > reach || delta < -reach) {
 #pragma unroll
     for (int k = 0; k < K; ++k) L[k] = c[k];  // no lane in band: the border rule
     return;
@@ -273,6 +304,10 @@ __device__ __forceinline__ void banded_step(const int (&c)[K], int (&L)[K], int 
     shift_lanes<K>(L, G);
   } else if (delta == -G) {
     shift_lanes<K>(L, -G);
+  } else if (two && delta == 2 * G) {
+    shift_lanes<K>(L, 2 * G);
+  } else if (two && delta == -2 * G) {
+    shift_lanes<K>(L, -2 * G);
   }
   int m = L[0];
 #pragma unroll
@@ -323,6 +358,101 @@ banded_vertical_kernel(const int16_t* __restrict__ C, const int* __restrict__ sh
     banded_step<K>(c, L, sy - sprev, G, P1, P2);
     store_lanes<K>(Ob + ((size_t)y * Wv + x) * K, L);
     sprev = sy;
+  }
+}
+
+constexpr int kDiagMaxThreads = 1024;
+
+// One block per (frame, direction): blockIdx.y = 0 scans down, 1 up (the
+// y-flipped volume with the same column shifts). Thread t owns the columns
+// x = t + j * blockDim.x, j < CPT. Per row, each column updates its vertical
+// carry (predecessor (y', x)), its (1,1) diagonal carry (predecessor
+// (y', x - 1)) and its (-1,1) one (predecessor (y', x + 1)), y' the row
+// visited before, and stores their sum. Carry buffer: [2 rows][2 sets][Wv][K]
+// int16 (a carry is at most cost_bound + P2), in shared memory, or at
+// scratch + (frame * 2 + direction) * 4 * Wv * K when scratch is given.
+template <int K, int CPT>
+__global__ void __launch_bounds__(kDiagMaxThreads)
+banded_vertical_diag_kernel(const int16_t* __restrict__ C, const int* __restrict__ shift,
+                            int16_t* __restrict__ out_dn, int16_t* __restrict__ out_up, int16_t* scratch, int H,
+                            int Wv, int G, int P1, int P2) {
+  extern __shared__ __align__(16) int16_t carry_smem[];
+  const int b = blockIdx.x, up = blockIdx.y;
+  const size_t plane = (size_t)Wv * K;
+  int16_t* carry = scratch ? scratch + ((size_t)b * 2 + up) * 4 * plane : carry_smem;
+  const int16_t* Cb = C + (size_t)b * H * plane;
+  int16_t* Ob = (up ? out_up : out_dn) + (size_t)b * H * plane;
+  const int* Sb = shift + (size_t)b * H * Wv;
+  const int step = up ? -1 : 1;
+  int y = up ? H - 1 : 0;
+
+  int Lv[CPT][K], sprev[CPT];
+  RawLanes<K> nxt[CPT];
+  int snxt[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int x = threadIdx.x + j * blockDim.x;
+    if (x < Wv) {
+      nxt[j].load(Cb + ((size_t)y * Wv + x) * K);
+      snxt[j] = Sb[(size_t)y * Wv + x];
+    }
+  }
+  for (int t = 0; t < H; ++t, y += step) {
+    RawLanes<K> cur[CPT];
+    int scur[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      cur[j] = nxt[j];
+      scur[j] = snxt[j];
+    }
+    if (t + 1 < H) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int x = threadIdx.x + j * blockDim.x;
+        if (x < Wv) {
+          nxt[j].load(Cb + ((size_t)(y + step) * Wv + x) * K);
+          snxt[j] = Sb[(size_t)(y + step) * Wv + x];
+        }
+      }
+    }
+    const int16_t* rd = carry + (size_t)(t & 1) * 2 * plane;  // the previous row's diagonal carries
+    int16_t* wr = carry + (size_t)((t + 1) & 1) * 2 * plane;
+    const int* sp = Sb + (size_t)(y - step) * Wv;  // the previous row's shifts (t > 0)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int x = threadIdx.x + j * blockDim.x;
+      if (x >= Wv) continue;
+      int c[K], Ld[K], Lu[K];
+      cur[j].unpack(c);
+      const int sy = scur[j];
+      if (t == 0) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) Lv[j][k] = Ld[k] = Lu[k] = c[k];
+      } else {
+        banded_step<K>(c, Lv[j], sy - sprev[j], G, P1, P2);
+        if (x > 0) {
+          load_lanes<K>(rd + (size_t)(x - 1) * K, Ld);
+          banded_step<K, true>(c, Ld, sy - sp[x - 1], G, P1, P2);
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k) Ld[k] = c[k];  // a zero carry from outside the frame
+        }
+        if (x + 1 < Wv) {
+          load_lanes<K>(rd + plane + (size_t)(x + 1) * K, Lu);
+          banded_step<K, true>(c, Lu, sy - sp[x + 1], G, P1, P2);
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k) Lu[k] = c[k];
+        }
+      }
+      sprev[j] = sy;
+      store_lanes<K>(wr + (size_t)x * K, Ld);
+      store_lanes<K>(wr + plane + (size_t)x * K, Lu);
+#pragma unroll
+      for (int k = 0; k < K; ++k) Ld[k] += Lv[j][k] + Lu[k];
+      store_lanes<K>(Ob + ((size_t)y * Wv + x) * K, Ld);
+    }
+    __syncthreads();
   }
 }
 
@@ -458,6 +588,31 @@ cudaError_t scans_for(int K, int which, const int16_t* C, const int* s, int16_t*
   }
 }
 
+template <int K, int CPT>
+cudaError_t diag_launch(const int16_t* C, const int* s, int16_t* dn, int16_t* up, int16_t* scratch, int P, int H,
+                        int Wv, int G, int P1, int P2, cudaStream_t st) {
+  const int threads = ((Wv + CPT - 1) / CPT + 31) / 32 * 32;
+  const size_t smem = scratch ? 0 : (size_t)8 * Wv * K;
+  cudaError_t e = cudaFuncSetAttribute(banded_vertical_diag_kernel<K, CPT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  banded_vertical_diag_kernel<K, CPT><<<dim3(P, 2), threads, smem, st>>>(C, s, dn, up, scratch, H, Wv, G, P1, P2);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t diag_for_cpt(const int16_t* C, const int* s, int16_t* dn, int16_t* up, int16_t* scratch, int P, int H,
+                         int Wv, int G, int P1, int P2, cudaStream_t st) {
+  const int cpt = (Wv + kDiagMaxThreads - 1) / kDiagMaxThreads;
+  switch (cpt) {
+    case 1: return diag_launch<K, 1>(C, s, dn, up, scratch, P, H, Wv, G, P1, P2, st);
+    case 2: return diag_launch<K, 2>(C, s, dn, up, scratch, P, H, Wv, G, P1, P2, st);
+    case 3:
+    case 4: return diag_launch<K, 4>(C, s, dn, up, scratch, P, H, Wv, G, P1, P2, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int K>
 cudaError_t wta(const int16_t* const* v, int nvol, int npix, int uniq, int sub, int* const* maps, uint8_t* uok,
                 cudaStream_t st) {
@@ -509,6 +664,41 @@ SVT_EXPORT int svt_banded_vertical(const void* C, const void* shift, void* dn, v
                                    int G, int P1, int P2, void* stream) {
   return scans_for(K, 0, static_cast<const int16_t*>(C), static_cast<const int*>(shift), static_cast<int16_t*>(dn),
                    static_cast<int16_t*>(up), P, H, Wv, G, P1, P2, 0, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of device scratch that svt_banded_vertical_diag needs for P frames on
+// `device`: 0 where a block's carries (8 * Wv * K bytes) fit the device's
+// opt-in shared memory per block, else those bytes for each (frame,
+// direction) block; -1 for a width the kernel does not take (Wv > 4096) or a
+// failed device query.
+SVT_EXPORT long long svt_banded_vertical_diag_scratch_bytes(int P, int Wv, int K, int device) {
+  if (Wv < 1 || Wv > 4 * kDiagMaxThreads) return -1;
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
+  const long long carries = 8LL * Wv * K;
+  return carries <= optin ? 0 : 2LL * P * carries;
+}
+
+// (P, H, Wv, K) int16 cost + (P, H, Wv) shift map -> the down and up sets of the
+// 8-path vertical (each the int16 sum of its vertical and two diagonal
+// carries). scratch: null for the carries in shared memory, else the device
+// memory that svt_banded_vertical_diag_scratch_bytes asks for. Wv <= 4096.
+SVT_EXPORT int svt_banded_vertical_diag(const void* C, const void* shift, void* dn, void* up, void* scratch, int P,
+                                        int H, int Wv, int K, int G, int P1, int P2, void* stream) {
+  if (Wv < 1 || Wv > 4 * kDiagMaxThreads) return cudaErrorInvalidValue;
+  if (P == 0 || H == 0) return cudaSuccess;
+  const auto c = static_cast<const int16_t*>(C);
+  const auto s = static_cast<const int*>(shift);
+  const auto d = static_cast<int16_t*>(dn), u = static_cast<int16_t*>(up), w = static_cast<int16_t*>(scratch);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (K) {
+    case 4: return diag_for_cpt<4>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
+    case 8: return diag_for_cpt<8>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
+    case 16: return diag_for_cpt<16>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
+    case 32: return diag_for_cpt<32>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
+    case 64: return diag_for_cpt<64>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // (P, H, Wv, K) int16 cost + (P, H, Wv) shift map -> one horizontal direction volume.

@@ -4,7 +4,7 @@ Replaces ``stereo_vision_tpu/stereo/banded_pallas.py::banded_stats_pack``
 and the kernel bodies it chains:
 
 - ``_pix_kernel`` + ``_aligned_box_kernel(_srows)`` -> :func:`banded_cost`
-- ``_vert_kernel`` (without diagonals)              -> :func:`banded_vertical`
+- ``_vert_kernel`` (without and with diagonals)     -> :func:`banded_vertical`
 - ``_horiz_kernel``                                 -> :func:`banded_horizontal`
 - ``_wta_kernel`` (6-stat and 4-stat ``sub``)       -> :func:`banded_wta`
 
@@ -19,7 +19,8 @@ on the CUDA grid. The kernels take K in {4, 8, 16, 32, 64}.
 
 Integer ranges: a windowed cost is at most ``cost_bound`` (block_size^2 *
 (2*ftzero + 63)); a banded SGM update keeps c <= L <= c + P2, so one
-direction volume is at most cost_bound + P2, which the wrappers check
+direction volume is at most cost_bound + P2, and an 8-path vertical set
+(the sum of three carries) 3 * (cost_bound + P2), which the wrappers check
 against int16 before a launch. The WTA sums the volumes in int32.
 """
 
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "svt_banded_cost": [_P] * 4 + [_I] * 9 + [_P],
     # C, s, dn, up, P, H, Wv, K, G, P1, P2, stream
     "svt_banded_vertical": [_P] * 4 + [_I] * 7 + [_P],
+    # C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, stream
+    "svt_banded_vertical_diag": [_P] * 5 + [_I] * 7 + [_P],
     # C, s, out, P, H, Wv, K, G, P1, P2, reverse, stream
     "svt_banded_horizontal": [_P] * 3 + [_I] * 8 + [_P],
     # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, stream
@@ -55,6 +58,9 @@ def _lib() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    # P, Wv, K, device -> bytes of scratch the diagonal scan needs (-1: refused)
+    fn = lib.svt_banded_vertical_diag_scratch_bytes
+    fn.argtypes, fn.restype = [_I] * 4, ctypes.c_longlong
     return lib
 
 
@@ -82,15 +88,18 @@ def _check_shift(s: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return s.contiguous()
 
 
-def _check_volume(C: torch.Tensor, P2: int, cost_bound: int) -> None:
+def _check_volume(C: torch.Tensor, P2: int, cost_bound: int, summed: int = 1) -> None:
+    """``summed``: how many carries each stored value adds up (3 for the
+    8-path vertical sets)."""
     if C.dim() != 4:
         raise ValueError(f"expected a (P, H, Wv, K) banded volume, got {tuple(C.shape)}")
     if _on_cuda(C):
         _check_band(C.shape[-1])
         if C.dtype != torch.int16 or not C.is_contiguous() or C.data_ptr() % 16:
             raise TypeError("the CUDA banded scans take a contiguous, 16-byte aligned int16 volume")
-        if cost_bound + P2 >= 1 << 15:
-            raise ValueError(f"cost_bound {cost_bound} + P2 {P2} does not fit the int16 direction volumes")
+        if summed * (cost_bound + P2) >= 1 << 15:
+            raise ValueError(f"{summed} x (cost_bound {cost_bound} + P2 {P2}) does not fit the int16 direction "
+                             "volumes")
 
 
 # ------------------------------------------------------------------- cost
@@ -142,23 +151,35 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
 def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_diagonals: bool = False):
     """(P, H, Wv, K) banded cost + (P, H, Wv) shift map -> (down, up)
     direction volumes (int16 on CUDA, int32 plain). With diagonals (8
-    paths, plain form only) each volume is the sum of its set of three."""
-    _check_volume(C, P2, cost_bound)
+    paths) each volume is the sum of its set of three: vertical, (1,1)
+    and (-1,1) carries (the up set scans the y-flipped volume with the same
+    column shifts). ``launches`` counts both kernels, ``diagonal_launches``
+    the diagonal one."""
+    _check_volume(C, P2, cost_bound, 3 if with_diagonals else 1)
     if P1 < 0 or P2 < 0:
         raise ValueError("P1 and P2 must be >= 0")
     if not _on_cuda(C):
         return vertical_plain(C, s, G, P1, P2, with_diagonals)
-    if with_diagonals:
-        raise NotImplementedError(
-            "8-path banded aggregation (diagonal carries) on CUDA is ROADMAP queue B item 16 of the port; "
-            "use num_paths 2, 3 or 4, or CPU tensors for the plain form")
     s = _check_shift(s, C)
     P, H, Wv, K = C.shape
     dn, up = torch.empty_like(C), torch.empty_like(C)
     lib = _lib()
-    err = lib.svt_banded_vertical(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(), P, H, Wv, K, G, P1, P2,
-                                  _stream(C))
-    _build.check(lib, err, "svt_banded_vertical")
+    if with_diagonals:
+        # The kernel keeps its carry rows in shared memory where they fit and
+        # says how much device scratch it needs where they do not.
+        nbytes = lib.svt_banded_vertical_diag_scratch_bytes(P, Wv, K, C.device.index)
+        if nbytes < 0:
+            raise ValueError(f"the CUDA diagonal scan does not take {Wv} columns on {C.device}")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
+        err = lib.svt_banded_vertical_diag(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(),
+                                           None if scratch is None else scratch.data_ptr(), P, H, Wv, K, G, P1, P2,
+                                           _stream(C))
+        _build.check(lib, err, "svt_banded_vertical_diag")
+        banded_vertical.diagonal_launches += 1
+    else:
+        err = lib.svt_banded_vertical(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(), P, H, Wv, K, G, P1,
+                                      P2, _stream(C))
+        _build.check(lib, err, "svt_banded_vertical")
     banded_vertical.launches += 1
     return dn, up
 
@@ -231,8 +252,8 @@ def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
 
 def banded_stats_pack(left, right, s, params, band: int, G: int, min_x: int, sub: bool = False):
     """Banded core of P frames: cost + aggregation over ``params.num_paths``
-    (2: vertical pair, 3: + L->R, 4: + R->L, 8: + diagonals, plain form
-    only) + WTA on columns x >= min_x. (P, H, W) int32 images and shift map
+    (2: vertical pair, 3: + L->R, 4: + R->L, 8: + diagonals in the vertical
+    sets) + WTA on columns x >= min_x. (P, H, W) int32 images and shift map
     -> the maps of :func:`banded_wta`, shape (P, H, W - min_x)."""
     if params.num_paths not in (2, 3, 4, 8):
         raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {params.num_paths}")
@@ -285,6 +306,7 @@ def downsample_box(img: torch.Tensor, f: int, fx: int | None = None) -> torch.Te
 
 banded_cost.launches = 0
 banded_vertical.launches = 0
+banded_vertical.diagonal_launches = 0
 banded_horizontal.launches = 0
 banded_wta.launches = 0
 downsample_box.launches = 0

@@ -6,15 +6,17 @@ on a ``coarse_factor``-downsampled pair with the full disparity range
 prior with their own band, shift maps s(y, x) built from the prior, a
 full-resolution search over ``band`` lanes around s (:mod:`.banded_cuda`,
 whose kernels run for CUDA tensors), then assembly with the full-range
-LR check (:mod:`.lr_cuda`) and the speckle filter. The image pyramid is
-:func:`.banded_cuda.downsample_box`.
+LR check (:mod:`.lr_cuda`) and the speckle filter (:mod:`.speckle_cuda`).
+The image pyramid is :func:`.banded_cuda.downsample_box`.
 
-The TPU path's kernels all have CUDA counterparts here: the banded core,
-the box downsample (the JAX package's ``_DS_PALLAS``) and the packed LR
-check (its ``lr_fail_pallas_packed``, which it runs on the TPU for the
-4-stat levels; the port runs it at every level that checks LR, 4- or
-6-stat: it is bit-identical to the shift-chain form the JAX package runs
-elsewhere).
+The TPU path's kernels all have CUDA counterparts here: the banded core
+(with the diagonal carries at 8 paths), the box downsample (the JAX
+package's ``_DS_PALLAS``) and the packed LR check (its
+``lr_fail_pallas_packed``, which it runs on the TPU for the 4-stat levels;
+the port runs it at every level that checks LR, 4- or 6-stat: it is
+bit-identical to the shift-chain form the JAX package runs elsewhere).
+The speckle filter runs the CUDA form of the JAX package's
+``speckle_filter_pallas`` (the JAX path runs its XLA form, bit-identical).
 
 Every frame of the batch runs through one set of kernel launches: the
 TPU package's lane packing (P * band == 128), seam stacking and row
@@ -38,8 +40,9 @@ import torch
 from stereo_vision_tpu_torch.stereo.banded import _clamped
 from stereo_vision_tpu_torch.stereo.banded_cuda import banded_stats_pack, downsample_box
 from stereo_vision_tpu_torch.stereo.lr_cuda import lr_fail_packed
-from stereo_vision_tpu_torch.stereo.postprocess import _nb, speckle_filter
+from stereo_vision_tpu_torch.stereo.postprocess import _nb
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, subpixel_disp16
+from stereo_vision_tpu_torch.stereo.speckle_cuda import speckle_filter
 
 
 class MidLevel(NamedTuple):

@@ -2,10 +2,10 @@
 
 Port of ``stereo_vision_tpu/stereo/postprocess.py::speckle_filter``: the
 same gather-free five-phase algorithm, written as shifted elementwise
-torch ops (the proof of exactness is in the JAX docstring). It runs as
-plain PyTorch on every device: at window S it takes about 5(S-1) rounds of
-small ops, so on the card it is launch-bound; a CUDA connected-components
-kernel is queued for it (``speckle_pallas.py`` in the port's roadmap).
+torch ops (the proof of exactness is in the JAX docstring). It is the
+plain form of the CUDA kernel's wrapper,
+:func:`.speckle_cuda.speckle_filter`, which both matchers call: at window S
+it takes about 5(S-1) rounds of small ops.
 """
 
 from __future__ import annotations
@@ -26,6 +26,12 @@ def _nb(a: torch.Tensor, i: int, fill) -> torch.Tensor:
     xs, xd = slice(max(dx, 0), W + min(dx, 0)), slice(max(-dx, 0), W + min(-dx, 0))
     out[..., yd, xd] = a[..., ys, xs]
     return out
+
+
+def speckle_rounds(max_speckle_size: int, max_diameter: int | None = None) -> int:
+    """R, the rounds of each phase: S - 1, capped at ``max_diameter``, at least 1."""
+    S = int(max_speckle_size)
+    return max(S - 1 if max_diameter is None else min(S - 1, int(max_diameter)), 1)
 
 
 def speckle_filter(
@@ -55,8 +61,7 @@ def speckle_filter(
     S = int(max_speckle_size)
     if S <= 0:
         return disp
-    R = S - 1 if max_diameter is None else min(S - 1, int(max_diameter))
-    R = max(R, 1)
+    R = speckle_rounds(S, max_diameter)
     valid = disp > invalid_value
     masks = [
         valid & _nb(valid, i, False) & ((_nb(disp, i, float("inf")) - disp).abs() <= max_diff)

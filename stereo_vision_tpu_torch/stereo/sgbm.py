@@ -6,9 +6,11 @@ aggregation + WTA stage are the two kernel modules
 reference (``_xsobel_clipped``, ``_bt_channel_cost``, ``_box_filter_same``,
 ``_sgm_update``, ``_aggregate_down``, ``_aggregate_horiz``, ``_aggregate_8``,
 ``wta_scan``);
-this module composes them with the subpixel parabola, the LR check and the
-speckle filter. The tensors' device decides where everything runs: CUDA
-tensors launch the kernels, CPU tensors run the plain forms.
+this module composes them with the subpixel parabola, the LR check
+(:func:`lr_fail` here is its plain form, :func:`.lr_cuda.lr_fail` the
+kernel's wrapper) and the speckle filter (:mod:`.speckle_cuda`). The
+tensors' device decides where everything runs: CUDA tensors launch the
+kernels, CPU tensors run the plain forms.
 
 Images are (H, W) or (B, H, W) 8-bit intensities (any integer dtype); a
 batch of frames runs in one set of kernel launches.
@@ -25,8 +27,8 @@ from stereo_vision_tpu_torch.stereo.cost_cuda import (
     compute_pixel_cost as _pixel_cost,
     cost_volume,
 )
-from stereo_vision_tpu_torch.stereo.postprocess import speckle_filter
 from stereo_vision_tpu_torch.stereo.sgm_cuda import _aggregate_8, sgm_reduce
+from stereo_vision_tpu_torch.stereo.speckle_cuda import speckle_filter
 
 
 class StereoSGBMParams(NamedTuple):
@@ -110,7 +112,8 @@ def subpixel_disp16(best, sm, s0, sp, ndisp: int) -> torch.Tensor:
 
 
 def lr_fail(minS, best, disp, *, W: int, min_x: int, ndisp: int, mindisp: int, max_diff: int) -> torch.Tensor:
-    """cv2 LR-consistency failure mask on (B, H, Wv) valid-region maps.
+    """cv2 LR-consistency failure mask on (B, H, Wv) valid-region maps (the
+    plain form of :func:`.lr_cuda.lr_fail`).
 
     ``best`` is the integer WTA disparity (without mindisp), ``disp`` the
     float disparity (with mindisp); ``ndisp`` is the full range. The right
@@ -180,8 +183,11 @@ def stereo_sgbm(left, right, params: StereoSGBMParams = StereoSGBMParams()) -> t
 
     valid = unique_ok
     if params.disp12_max_diff >= 0:
-        valid = valid & ~lr_fail(minS, best, disp, W=W, min_x=minX1, ndisp=ndisp,
-                                 mindisp=mindisp, max_diff=params.disp12_max_diff)
+        # lr_cuda imports this module (its plain form is lr_fail above).
+        from stereo_vision_tpu_torch.stereo import lr_cuda
+
+        valid = valid & ~lr_cuda.lr_fail(minS, best, disp, W=W, min_x=minX1, ndisp=ndisp,
+                                         mindisp=mindisp, max_diff=params.disp12_max_diff)
     invalid_val = float(mindisp - 1)
     full = torch.full((B, H, W), invalid_val, dtype=torch.float32, device=left.device)
     full[..., minX1:] = torch.where(valid, disp, invalid_val)

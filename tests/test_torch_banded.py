@@ -163,3 +163,18 @@ def test_cuda_only_limits_raise(monkeypatch):
         banded_cuda.banded_horizontal(torch.zeros((1, 4, 8, 12), dtype=torch.int16), s, 4, 8, 32, cost_bound=100)
     with pytest.raises(TypeError):
         banded_cuda.banded_wta([C.to(torch.int32)] * 2, 10)
+
+
+def test_eight_path_int16_bound(monkeypatch):
+    """An 8-path vertical set stores the sum of three carries: the CUDA
+    wrapper refuses a configuration whose 3 x (cost_bound + P2) leaves int16,
+    though one carry fits (a CPU tensor stands in for a CUDA one)."""
+    C = torch.zeros((1, 4, 8, 8), dtype=torch.int16)
+    s = torch.zeros((1, 4, 8), dtype=torch.int32)
+    bound, P2 = 2325, 9000  # 11325 fits int16, 33975 does not
+    dn, up = banded_cuda.banded_vertical(C, s, 4, 8, P2, cost_bound=bound, with_diagonals=True)  # plain: int32
+    assert dn.dtype == torch.int32 and not dn.any()
+    monkeypatch.setattr(banded_cuda, "_on_cuda", lambda t: True)
+    banded_cuda._check_volume(C, P2, bound)
+    with pytest.raises(ValueError, match="3 x"):
+        banded_cuda.banded_vertical(C, s, 4, 8, P2, cost_bound=bound, with_diagonals=True)

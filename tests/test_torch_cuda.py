@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, lr_cuda, sgm_cuda
-from stereo_vision_tpu_torch.stereo.hier import HIER_FAST
-from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
+from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, lr_cuda, sgm_cuda, speckle_cuda
+from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
+from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail
 from stereo_vision_tpu_torch.synth.scenes import scene
 
 pytestmark = pytest.mark.cuda
@@ -158,7 +158,7 @@ def test_banded_wta_matches_plain(dev, K, nvol, sub):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("num_paths", [2, 3, 4])
+@pytest.mark.parametrize("num_paths", [2, 3, 4, 8])
 def test_banded_stats_pack_cuda_matches_cpu(dev, num_paths):
     P, H, W, D, K, G = 2, 16, 96, 64, 8, 4
     left, right = _images(num_paths, P, H, W)
@@ -172,11 +172,15 @@ def test_banded_stats_pack_cuda_matches_cpu(dev, num_paths):
 
 
 def test_banded_eight_paths_raise_on_cuda(dev):
+    """8 paths store the sum of three carries: a P2 that fits int16 for one
+    carry but not for three is refused at 8 paths only."""
     P, H, W, D, K, G = 1, 8, 80, 64, 8, 4
     left, right = (t.to(dev) for t in _images(0, P, H, W))
     s = torch.zeros((P, H, W), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        banded_cuda.banded_stats_pack(left, right, s, StereoSGBMParams(num_disparities=D, num_paths=8), K, G, D)
+    p = StereoSGBMParams(num_disparities=D, p2=9000)
+    banded_cuda.banded_stats_pack(left, right, s, p._replace(num_paths=4), K, G, D)
+    with pytest.raises(ValueError, match="3 x"):
+        banded_cuda.banded_stats_pack(left, right, s, p._replace(num_paths=8), K, G, D)
 
 
 def test_hier_pipeline_cuda_matches_cpu(dev):
@@ -224,3 +228,111 @@ def test_lr_kernel_matches_plain(dev, H, W, ndisp, max_diff):
     torch.cuda.synchronize()
     assert lr_cuda.lr_fail_packed.launches == n + 1
     assert out.dtype == torch.bool and torch.equal(out.cpu(), ref) and ref.any()
+
+
+def _speckle_maps(seed, P, H, W, kind):
+    """Float32 disparity maps (invalid -1): random quantised blobs, snakes
+    of one blob, single valid pixels, or one full-frame blob."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        d = rng.integers(0, 6, (P, H, W)).astype(np.float32) * 1.5
+        d[rng.random(d.shape) < 0.35] = -1.0
+    elif kind == "snake":
+        d = np.full((P, H, W), -1.0, np.float32)
+        for y in range(1, H - 1, 4):
+            d[:, y, 1:-1] = 10.0
+            d[:, y: y + 4, -2 if (y // 4) % 2 == 0 else 1] = 10.0
+        d[:, H - 1] = -1.0
+    elif kind == "single":
+        d = np.full((P, H, W), -1.0, np.float32)
+        d[rng.random(d.shape) < 0.2] = 7.0
+    else:  # one blob filling the frame, with a few fractional steps
+        d = np.full((P, H, W), 20.0) + (rng.random((P, H, W)) < 0.1) * 0.5
+    return torch.from_numpy(d.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["random", "snake", "single", "full"])
+@pytest.mark.parametrize("S,cap", [(1, None), (8, None), (30, 1), (30, 4), (30, 8), (100, None)])
+def test_speckle_kernel_matches_plain(dev, kind, S, cap):
+    disp = _speckle_maps(S + len(kind), 3, 37, 150, kind)
+    ref = speckle_cuda.speckle_filter_plain(disp, 2.0, S, -1.0, max_diameter=cap)
+    n = speckle_cuda.speckle_filter.launches
+    out = speckle_cuda.speckle_filter(disp.to(dev), 2.0, S, -1.0, max_diameter=cap)
+    torch.cuda.synchronize()
+    assert speckle_cuda.speckle_filter.launches == n + 1
+    assert out.dtype == torch.float32 and torch.equal(out.cpu(), ref)
+
+
+def test_speckle_kernel_single_frame_and_fractions(dev):
+    disp = _speckle_maps(3, 1, 64, 96, "random")[0] / 16.0  # (H, W), steps of 3/32
+    for md in (0.09375, 0.1):
+        ref = speckle_cuda.speckle_filter_plain(disp, md, 12, -1.0 / 16.0)
+        out = speckle_cuda.speckle_filter(disp.to(dev), md, 12, -1.0 / 16.0)
+        assert out.shape == disp.shape and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("H,W,ndisp,mindisp,max_diff", [(40, 256, 64, 0, 1), (7, 1280, 128, 0, 1),
+                                                         (13, 200, 64, 16, 1), (5, 96, 16, 16, 0)])
+def test_lr_unpacked_kernel_matches_plain(dev, H, W, ndisp, mindisp, max_diff):
+    rng = np.random.default_rng(W + mindisp)
+    min_x = ndisp + mindisp
+    shape = (3, H, W - min_x)
+    best = rng.integers(0, ndisp, shape)
+    best[:, :, :2] = [0, ndisp - 1]  # edge columns at both ends of the range
+    best[:, :, -2:] = [ndisp - 1, 0]
+    minS = torch.from_numpy(rng.integers(0, 60, shape).astype(np.int32))
+    disp = (best * 16 + rng.integers(-8, 9, shape)) / 16.0 + mindisp
+    disp[rng.random(shape) < 0.05] = mindisp - 1
+    best, disp = torch.from_numpy(best.astype(np.int32)), torch.from_numpy(disp.astype(np.float32))
+    kw = dict(W=W, min_x=min_x, ndisp=ndisp, mindisp=mindisp, max_diff=max_diff)
+    ref = lr_fail(minS, best, disp, **kw)
+    n = lr_cuda.lr_fail.launches
+    out = lr_cuda.lr_fail(minS.to(dev), best.to(dev), disp.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert lr_cuda.lr_fail.launches == n + 1
+    assert out.dtype == torch.bool and torch.equal(out.cpu(), ref) and ref.any()
+
+
+@pytest.mark.parametrize("K,G,Wv", [(4, 2, 45), (4, 1, 1152), (8, 2, 45), (8, 4, 2100), (16, 4, 300), (32, 2, 45),
+                                    (32, 8, 1000), (64, 16, 45)])
+def test_banded_diagonal_vertical_matches_plain(dev, K, G, Wv):
+    """Per-pixel random shift maps: deltas of 0, +-G, +-2G and beyond, on
+    the G grid and off it; wide rows take several columns a thread, and
+    large K * Wv the device-memory carry rows."""
+    P, H = 2, 11
+    rng = np.random.default_rng(K * Wv + G)
+    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int16))
+    s = rng.integers(0, 5, (P, H, Wv)) * G + (rng.random((P, H, Wv)) < 0.1) * rng.integers(1, 3, (P, H, Wv))
+    s = torch.from_numpy(s.astype(np.int32))
+    P1, P2 = 200, 800
+    n, nd = banded_cuda.banded_vertical.launches, banded_cuda.banded_vertical.diagonal_launches
+    dn, up = banded_cuda.banded_vertical(C.to(dev), s.to(dev), G, P1, P2, cost_bound=2325, with_diagonals=True)
+    torch.cuda.synchronize()
+    assert banded_cuda.banded_vertical.launches == n + 1 and banded_cuda.banded_vertical.diagonal_launches == nd + 1
+    ref_dn, ref_up = banded_cuda.vertical_plain(C, s, G, P1, P2, True)
+    assert dn.dtype == torch.int16
+    assert torch.equal(dn.cpu().to(torch.int32), ref_dn) and torch.equal(up.cpu().to(torch.int32), ref_up)
+
+
+def test_banded_diagonal_vertical_refuses_wide_rows(dev):
+    C = torch.zeros((1, 2, 4097, 4), dtype=torch.int16, device=dev)
+    s = torch.zeros((1, 2, 4097), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="does not take 4097 columns"):
+        banded_cuda.banded_vertical(C, s, 2, 200, 800, cost_bound=2325, with_diagonals=True)
+
+
+def test_hier_pipeline_eight_paths_cuda_matches_cpu(dev):
+    H, W, B = 48, 192, 32
+    frames = [scene(seed=s, H=H, W=W) for s in range(B)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    maps = (xx + 0.3 * np.sin(yy / 11.0), yy + 0.2 * np.cos(xx / 13.0), xx - 0.1, yy)
+    Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
+    p = StereoSGBMParams(num_disparities=128, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=100,
+                         speckle_range=2)
+    nd, ns = banded_cuda.banded_vertical.diagonal_launches, speckle_cuda.speckle_filter.launches
+    d_gpu, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, hier_params=HIER4_FAST)
+    assert banded_cuda.banded_vertical.diagonal_launches == nd + 1 and speckle_cuda.speckle_filter.launches == ns + 1
+    d_cpu, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, hier_params=HIER4_FAST,
+                                       device="cpu")
+    assert (d_cpu > -1).float().mean() > 0.2 and torch.equal(d_gpu.cpu(), d_cpu)

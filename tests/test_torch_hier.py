@@ -28,7 +28,10 @@ from stereo_vision_tpu_torch.stereo import hier as th
 from stereo_vision_tpu_torch.synth.scenes import scene
 
 H, W, D = 48, 192, 128
-PRESETS = {"HIER_FAST": (8, 4), "HIER4_FAST": (32, 3)}  # name -> (frames per call, num_paths)
+# case -> (preset, frames per call, num_paths); HIER4_FAST_8paths runs the
+# full level's 8-path aggregation (diagonal carries).
+PRESETS = {"HIER_FAST": ("HIER_FAST", 8, 4), "HIER4_FAST": ("HIER4_FAST", 32, 3),
+           "HIER4_FAST_8paths": ("HIER4_FAST", 32, 8)}
 
 
 def _t(a):
@@ -54,7 +57,7 @@ def reference():
     per-frame hier disparity and points on the first and last frame."""
     maps, Q = _rig()
     out = {}
-    for name, (P, npaths) in PRESETS.items():
+    for name, (preset, P, npaths) in PRESETS.items():
         frames = [scene(seed=s, H=H, W=W) for s in range(P)]
         raw_l, raw_r = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
         rl = jremap.make_remap(jnp.asarray(maps[0]), jnp.asarray(maps[1]), (H, W))
@@ -62,7 +65,7 @@ def reference():
         prep = lambda m, x: jnp.round(m(x.astype(jnp.float32))).astype(jnp.int32)
         lr = np.asarray(jax.vmap(lambda x: prep(rl, x))(jnp.asarray(raw_l)))
         rr_ = np.asarray(jax.vmap(lambda x: prep(rr, x))(jnp.asarray(raw_r)))
-        jp, hp = _jparams(npaths), getattr(jh, name)
+        jp, hp = _jparams(npaths), getattr(jh, preset)
         pick = [0, P - 1]
         disp = jax.jit(jax.vmap(lambda a, b: jh.stereo_sgbm_hier(a, b, jp, hp)))(lr[pick], rr_[pick])
         pts = jax.vmap(lambda d: jdepth.reproject_disparity_to_3d(d, jnp.asarray(Q)))(disp)

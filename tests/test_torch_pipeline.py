@@ -103,11 +103,13 @@ def test_unported_hier_options_name_their_roadmap_item(option, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
             hier.stereo_sgbm_hier_batch(frames, frames, StereoSGBMParams(), hier.HierParams(coarse_stride=2))
     else:
-        # A CPU tensor stands in for a CUDA one: the wrapper refuses before any launch.
+        # The 8-path option is ported now: the CUDA wrapper takes the diagonal
+        # carries and checks their tripled int16 range before any launch (a
+        # CPU tensor stands in for a CUDA one).
         monkeypatch.setattr(banded_cuda, "_on_cuda", lambda t: True)
         C = torch.zeros((1, 4, 8, 8), dtype=torch.int16)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue B item 16"):
-            banded_cuda.banded_vertical(C, torch.zeros((1, 4, 8), dtype=torch.int32), 4, 8, 32, cost_bound=100,
+        with pytest.raises(ValueError, match="3 x"):
+            banded_cuda.banded_vertical(C, torch.zeros((1, 4, 8), dtype=torch.int32), 4, 8, 9000, cost_bound=2325,
                                         with_diagonals=True)
 
 
