@@ -46,7 +46,25 @@ Phases, in order (any failure raises and the script exits nonzero):
      rtol 1e-6;
  11. the bench's agreement gate: hier4x3 and hier4x8 (32 copies of a scene
      per call) against exact8 on the first frame of three scenes, >= 0.98
-     each.
+     each;
+ 12. the exact8 main path with sgm_cuda._FUSED_RL_WTA set (the R->L scan
+     fused with the WTA): launch counts (horizontal_rl_wta 1, wta4 0), its
+     disparity equal to the unfused call's, the fused kernel on a recorded
+     call's arguments against its plain form, and ms per call of both forms
+     in turns (unfused, fused, fused, unfused);
+ 13. aggregate_8 (the aggregate_8_pallas sites) at 8 and 4 paths and
+     wta_stats (wta_stats_pallas) on one 1280x720, D=128 exact8 cost volume
+     against their plain forms, exact, then one counted two-stage call
+     (aggregate_8, then wta_stats) whose maps must equal sgm_reduce's;
+ 14. the BM kernel against its plain form at BASELINE config #1 (640x480,
+     StereoBMParams()) and at min_disparity 16; the BM pipeline at 240x320,
+     2 frames, on CUDA and on the CPU: disparity exactly equal;
+ 15. the BM main path, batched_stereo_pipeline(matcher="bm") at 1920x1080,
+     8 frames, D=128, block 5 (`stream --matcher bm` at BASELINE config #5):
+     the BM kernel's launch count (1), valid and within-1px floors, ms per
+     call, Mpx/s and frames/s; two recorded calls: the stage breakdown
+     (remap + round, prefilter, kernel, paste, reproject), then the kernel
+     on the call's arguments (8 frames) against its plain form (2 frames).
 The next-to-last line is the kernels' JSON, the last the device JSON.
 Imports torch, numpy and the port only.
 """
@@ -65,7 +83,8 @@ from stereo_vision_tpu_torch import _build
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, hier, lr_cuda, sgbm, sgm_cuda, speckle_cuda
+from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgbm, sgm_cuda, speckle_cuda
+from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
 from stereo_vision_tpu_torch.synth.scenes import agreement, scene, scene_occ, scene_truth
@@ -83,13 +102,23 @@ VALID_FLOOR, WITHIN1_FLOOR = 0.90, 0.98
 # no int32 rate; int32 issues at most that fast, so the bound stays a bound).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu" for name in ("cost", "sgm", "banded", "lr", "speckle")}
+SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu" for name in ("cost", "sgm", "banded", "lr", "speckle", "bm")}
 # The hier main path: bench.py's hier4x3 mode (HIER4_FAST with p3, 32 frames
 # per call, bench.py:162-188).
 HIER_P, HP = 32, hier.HIER4_FAST
 P3 = PARAMS._replace(num_paths=3)
 P8 = PARAMS  # hier4x8: the same parameters at num_paths=8
 PLAIN_FRAMES = 4  # frames the plain forms run on beside the 32-frame kernel calls
+# The BM main path: `stream --matcher bm`'s defaults (D 128, block 5, windows
+# of 8 frames; stereo_vision_tpu/pipeline/cli.py:292, 311-314) at BASELINE
+# config #5's 1080p; the other StereoBMParams at their defaults.
+BM_H, BM_W, BM_B = 1080, 1920, 8
+BM_PARAMS = StereoBMParams(num_disparities=128, block_size=5)
+BM_PLAIN_FRAMES = 2  # frames the plain form runs on beside the 8-frame kernel call
+# Floors for the ramp+box scene, from a CPU run of the plain forms at 240x480
+# with these parameters and rig() maps (valid 0.8739, within-1px 0.9089 over
+# the window centres that see the full disparity range), lowered by a margin.
+BM_VALID_FLOOR, BM_WITHIN1_FLOOR = 0.80, 0.85
 # BENCH_r05.json's hier4x3 agreement against exact8 (the round-5 run of bench.py).
 BENCH_R05_AGREEMENT = {"rampbox": 0.9952, "occl": 0.9966, "jump110": 0.9923}
 # The kernels checked on recorded main-path arguments: wrapper, source, the
@@ -113,6 +142,10 @@ KERNELS = {
                 "stereo_vision_tpu/stereo/lr_pallas.py:30 _lr_kernel (lr_fail_pallas:137)"),
     "banded_vertical_diag": (banded_cuda.banded_vertical, SOURCES["banded"],
                              "stereo_vision_tpu/stereo/banded_pallas.py:666 _vert_kernel (with_diag)"),
+    "horizontal_rl_wta": (sgm_cuda.horizontal_rl_wta, SOURCES["sgm"],
+                          "stereo_vision_tpu/stereo/sgm_pallas.py:538 _horizontal_rl_wta_kernel:360"),
+    "bm_disparity": (bm_cuda.bm_disparity, SOURCES["bm"],
+                     "stereo_vision_tpu/stereo/bm_pallas.py:183 bm_stats_pallas:135 (_bm_kernel:27)"),
 }
 HIER_KERNEL_NAMES = ("downsample_box", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
                      "lr_fail_packed", "speckle_filter")
@@ -128,6 +161,8 @@ PLAIN = {
     "lr_fail_packed": lr_cuda.lr_fail_packed_plain,
     "speckle_filter": speckle_cuda.speckle_filter_plain,
     "lr_fail": sgbm.lr_fail,
+    "horizontal_rl_wta": sgm_cuda.horizontal_rl_wta_plain,
+    "bm_disparity": bm.valid_disparity_plain,
 }
 PLAIN["banded_vertical_diag"] = PLAIN["banded_vertical"]
 
@@ -163,15 +198,47 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def max_abs_err(out, ref) -> int:
+def max_abs_err(out, ref) -> float:
+    """Largest |out - ref| over the tensors, in float64 (exact for the
+    int32 maps and volumes and for float32 disparities)."""
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(outs, refs))
+    return max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max()) for a, b in zip(outs, refs))
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Host-clock ms per call of ``fn()`` over ``reps`` calls ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_kernel(name, src, replaces, kern, plain, nbytes, nops, reps: int, path: str):
+    """``kern()`` against ``plain()``: exact, same shapes. Then CUDA-event ms
+    of both (``reps`` kernel runs, one plain run) and the bound. Returns a
+    kernels-line row (launches 0 until a path's count is read) and the
+    kernel's output."""
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    outs, refs = (out if isinstance(out, tuple) else (out,)), (ref if isinstance(ref, tuple) else (ref,))
+    err = max_abs_err(outs, refs)
+    if err != 0 or len(outs) != len(refs) or any(a.shape != b.shape for a, b in zip(outs, refs)):
+        raise AssertionError(f"{name} ({path}): kernel differs from its plain form (max abs err {err})")
+    del ref, refs
+    ms, plain_ms = event_ms(kern, reps), event_ms(plain, 1)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    print(f"kernel {name} ({path}): exact, {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})",
+          flush=True)
+    return dict(name=name, route="cuda", source=src, replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path), out
 
 
 def phase_kernels(dev) -> list[dict]:
@@ -189,19 +256,8 @@ def phase_kernels(dev) -> list[dict]:
     rows = []
 
     def check(name, src, replaces, kern, plain, nbytes, nops, reps):
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(out, ref)
-        shapes_ok = all(a.shape == b.shape for a, b in zip(out if isinstance(out, tuple) else (out,),
-                                                            ref if isinstance(ref, tuple) else (ref,)))
-        if err != 0 or not shapes_ok:
-            raise AssertionError(f"{name}: kernel differs from its plain form (max abs err {err})")
-        ms, plain_ms = event_ms(kern, reps), event_ms(plain, 1)
-        b_ms, b_by = bound_ms(nbytes, nops)
-        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, path="exact8"))
-        print(f"kernel {name}: exact, {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by})",
-              flush=True)
+        row, out = check_kernel(name, src, replaces, kern, plain, nbytes, nops, reps, "exact8")
+        rows.append(row)
         return out
 
     # Operation counts per element, 32-bit integer ops: BT cost of two
@@ -291,14 +347,8 @@ def phase_main_path(dev, rows: list[dict]) -> tuple[dict, dict, torch.Tensor]:
     if valid_share < VALID_FLOOR or within1 < WITHIN1_FLOOR:
         raise AssertionError("main path quality below its floor")
 
-    reps = 3
     lt, rt = torch.from_numpy(lb).to(dev), torch.from_numpy(rb).to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / reps * 1e3
+    ms = host_ms(lambda: batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm", params=PARAMS, device=dev))
     return dict(ms_per_call=ms, frames_per_call=B, mpx_per_s=B * H * W / ms / 1e3,
                 frames_per_s=B / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
 
@@ -464,8 +514,11 @@ def _nbytes(x) -> int:
 
 def _ops(name: str, args, kwargs, elems: int) -> int:
     """32-bit operations of one kernel call (``elems``: its first output's
-    elements): banded cost ~20 + 4 bs per lane, a scan step ~10 per lane
-    and carry (two directions; three carries each with diagonals), WTA ~10
+    elements): BM ~8 per (valid pixel, disparity) (an absolute difference,
+    vertical and horizontal running sums, min and argmin), the fused R->L
+    scan + WTA ~21 per (pixel, disparity), banded cost ~20 + 4 bs per lane,
+    a scan step ~10 per lane and carry (two directions; three carries each
+    with diagonals), WTA ~10
     per lane, LR ~20 per pixel, downsample one add per input pixel, speckle
     ~30 per pixel: uncapped it is cv2.filterSpeckles, which a union-find
     labelling computes in O(1) work a pixel, and the capped form is held to
@@ -483,6 +536,10 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
         return args[0][0].numel() * 10
     if name == "downsample_box":
         return args[0].numel()
+    if name == "horizontal_rl_wta":  # per (pixel, d): scan step ~8, three adds, WTA ~10
+        return args[0].numel() * 21
+    if name == "bm_disparity":  # per (valid pixel, d), with running sums both ways
+        return elems * kwargs["ndisp"] * 8
     return elems * (20 if name in ("lr_fail_packed", "lr_fail") else 10)
 
 
@@ -618,13 +675,7 @@ def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str) -> t
     if valid_share < VALID_FLOOR or within1 < WITHIN1_FLOOR:
         raise AssertionError(f"{label} main path quality below its floor")
 
-    reps = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / reps * 1e3
+    ms = host_ms(lambda: batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev))
     print(f"{label} main path 1280x720 D={D} P={HIER_P}: {ms:.2f} ms per call, {HIER_P * H * W / ms / 1e3:.2f} "
           f"Mpx/s, {HIER_P / ms * 1e3:.2f} frames/s", flush=True)
     return dict(ms_per_call=ms, frames_per_call=HIER_P, mpx_per_s=HIER_P * H * W / ms / 1e3,
@@ -649,6 +700,183 @@ def phase_agreement(dev) -> dict:
         if min(agree.values()) < 0.98:
             raise AssertionError(f"{mode} agreement below the bench gate 0.98: {agree}")
     return out
+
+
+def phase_fused_rl(dev, disp_main: torch.Tensor) -> tuple[dict, list[dict]]:
+    """The exact8 main path with ``sgm_cuda._FUSED_RL_WTA`` set: its launch
+    counts, its disparity against the unfused main path's, the fused kernel
+    on a recorded call's arguments against its plain form, and ms per call
+    of both forms in turns (5 calls each, frames on the card as in
+    :func:`phase_main_path`'s timing). The flag is restored."""
+    maps, Q = rig(H, W)
+    frames = [scene(seed=s) for s in range(B)]
+    lt, rt = (torch.from_numpy(np.stack([f[i] for f in frames])).to(dev) for i in (0, 1))
+    run = lambda: batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
+    wrappers = {"vertical": sgm_cuda.vertical, "horizontal": sgm_cuda.horizontal, "wta4": sgm_cuda.wta4,
+                "horizontal_rl_wta": sgm_cuda.horizontal_rl_wta}
+    prev = sgm_cuda._FUSED_RL_WTA
+    try:
+        sgm_cuda._FUSED_RL_WTA = True
+        for fn in wrappers.values():
+            fn.launches = 0
+        disp, _ = run()
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        print("exact8 fused main path launches:", json.dumps(counts), flush=True)
+        if counts["horizontal_rl_wta"] != 1 or counts["horizontal"] != 1 or counts["wta4"] != 0:
+            raise AssertionError(f"the fused exact8 call did not take the fused R->L kernel: {counts}")
+        if not torch.equal(disp.cpu(), disp_main):
+            raise AssertionError("the fused exact8 disparity differs from the unfused one")
+        with Recorder({"horizontal_rl_wta": (sgm_cuda, "horizontal_rl_wta")}, ("exact8 fused",), keep=True) as rec:
+            run()
+        rows = phase_recorded_kernels(rec.calls, counts, B, "exact8 fused")
+        del rec
+        torch.cuda.empty_cache()
+        timings = {"unfused": [], "fused": []}
+        for fused in (False, True, True, False):
+            sgm_cuda._FUSED_RL_WTA = fused
+            timings["fused" if fused else "unfused"].append(host_ms(run, reps=5))
+    finally:
+        sgm_cuda._FUSED_RL_WTA = prev
+    out = {k: sum(v) / len(v) for k, v in timings.items()}
+    print(f"exact8 ms per {B}-frame call: unfused {timings['unfused']}, fused {timings['fused']}", flush=True)
+    return {**out, "runs": timings}, rows
+
+
+def phase_sgm_sites(dev) -> tuple[dict, list[dict]]:
+    """aggregate_8 (8 and 4 paths) and wta_stats on one 1280x720, D=128
+    exact8 cost volume, each against its plain form, exact; then one
+    two-stage call (aggregate_8 then wta_stats) with the counts set to 0
+    before it, whose maps must equal sgm_reduce's. The 4-path row goes to
+    the summary: the two-stage call runs 8 paths."""
+    left, right = (torch.from_numpy(a)[None].to(dev) for a in scene(seed=0))
+    p = PARAMS
+    C = cost_cuda.cost_volume(left, right, ndisp=D, block_size=p.block_size, ftzero=p.ftzero, x_offset=D)
+    n = C.numel()
+    agg = {}
+    for paths in (8, 4):
+        # Bytes: the int16 cost in, the int32 volume out; operations: ~8 a
+        # direction step and the adds of the directions, per element.
+        agg[paths], _ = check_kernel(
+            "aggregate_8", SOURCES["sgm"], "stereo_vision_tpu/stereo/sgm_pallas.py:202 + :240 aggregate_8_pallas:171 "
+            "(_vertical_kernel:70, _horizontal_kernel:143)",
+            lambda: sgm_cuda.aggregate_8(C, p.P1, p.P2, paths, cost_bound=p.cost_bound),
+            lambda: sgm_cuda._aggregate_8(C, p.P1, p.P2, paths), n * 6, n * (9 * paths - 1), 3, f"{paths} paths")
+        torch.cuda.empty_cache()
+    S = sgm_cuda.aggregate_8(C, p.P1, p.P2, 8, cost_bound=p.cost_bound)
+    wta, _ = check_kernel("wta_stats", SOURCES["sgm"],
+                          "stereo_vision_tpu/stereo/sgm_pallas.py:320 wta_stats_pallas:296 (_wta_kernel:265)",
+                          lambda: sgm_cuda.wta_stats(S, p.uniqueness_ratio),
+                          lambda: sgm_cuda.wta_scan(S, D, p.uniqueness_ratio), n * 4 + (n // D) * (5 * 4 + 1),
+                          n * 10, 10, "two-stage")
+    del S
+    rows = [dict(agg[8], path="two-stage"), wta]
+
+    counted = (sgm_cuda.aggregate_8, sgm_cuda.wta_stats)
+    for fn in counted:
+        fn.launches = 0
+    maps = sgm_cuda.wta_stats(sgm_cuda.aggregate_8(C, p.P1, p.P2, 8, cost_bound=p.cost_bound), p.uniqueness_ratio)
+    torch.cuda.synchronize()
+    counts = {"aggregate_8": counted[0].launches, "wta_stats": counted[1].launches}
+    print("two-stage reduce launches:", json.dumps(counts), flush=True)
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a kernel of the two-stage reduce never launched: {counts}")
+    fused = sgm_cuda.sgm_reduce(C, p.P1, p.P2, p.uniqueness_ratio, cost_bound=p.cost_bound)
+    if not all(torch.equal(a, b) for a, b in zip(maps, fused)):
+        raise AssertionError("the two-stage reduce differs from sgm_reduce")
+    print("two-stage reduce (aggregate_8, wta_stats) == sgm_reduce", flush=True)
+    return {"aggregate_8 (4 paths)": {k: agg[4][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}, rows
+
+
+def check_bm_kernel(dev) -> dict:
+    """The BM kernel against its plain form on one 640x480 frame: BASELINE
+    config #1 (StereoBMParams(): D 64, block 15) and min_disparity 16."""
+    out = {}
+    for label, p in (("bm480", StereoBMParams()), ("bm480 min_disparity 16", StereoBMParams(min_disparity=16))):
+        lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a)[None].to(dev), p.prefilter_cap)
+                  for a in scene(seed=0, H=480, W=640))
+        kw = dict(ndisp=p.num_disparities, mindisp=p.min_disparity, block_size=p.block_size, cap=p.prefilter_cap,
+                  uniq=p.uniqueness_ratio, tex_thr=p.texture_threshold)
+        npix = (480 - p.block_size + 1) * (640 - p.block_size + 1)
+        row, res = check_kernel("bm_disparity", SOURCES["bm"], KERNELS["bm_disparity"][2],
+                                lambda: bm_cuda.bm_disparity(lp, rp, **kw),
+                                lambda: bm.valid_disparity_plain(lp, rp, **kw), 2 * lp.numel() * 4 + npix * 4,
+                                npix * p.num_disparities * 8, 10, label)
+        out[label] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        out[label]["valid_share"] = float((res > p.min_disparity - 1).float().mean())
+    return out
+
+
+def phase_bm_small_pipeline(dev) -> None:
+    h, w, b = 240, 320, 2
+    maps, Q = rig(h, w)
+    frames = [scene(seed=s, H=h, W=w) for s in range(b)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    p = StereoBMParams()
+    d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="bm", params=p, device=dev)
+    d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="bm", params=p, device="cpu")
+    if not torch.equal(d_gpu.cpu(), d_cpu):
+        raise AssertionError("CUDA and CPU BM disparities differ at 240x320")
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+    print(f"bm pipeline 240x320 StereoBMParams() B=2: CUDA == CPU "
+          f"(valid share {float((d_cpu > -1).float().mean()):.4f})", flush=True)
+
+
+def phase_bm_main_path(dev, lt, rt) -> tuple[dict, dict, torch.Tensor]:
+    maps, Q = rig(BM_H, BM_W)
+    bm_cuda.bm_disparity.launches = 0
+    disp, pts = batched_stereo_pipeline(lt, rt, maps, Q, matcher="bm", params=BM_PARAMS, device=dev)
+    torch.cuda.synchronize()
+    counts = {"bm_disparity": bm_cuda.bm_disparity.launches}
+    print("bm1080 main path launches:", json.dumps(counts), flush=True)
+    if counts["bm_disparity"] != 1:
+        raise AssertionError(f"the BM main path launched its kernel {counts['bm_disparity']} times, not once")
+    d = disp.cpu().numpy()
+    if d.shape != (BM_B, BM_H, BM_W) or pts.shape != (BM_B, BM_H, BM_W, 3) or not np.isfinite(d).all():
+        raise AssertionError(f"bad bm output: disparity {d.shape}, points {tuple(pts.shape)}")
+    if not np.isfinite(pts[..., 2].cpu().numpy()[d > 0]).all():
+        raise AssertionError("non-finite depth at a positive disparity")
+    # Over the window centres that see the full disparity range.
+    r = BM_PARAMS.block_size // 2
+    valid_share, within1 = quality(d[:, r : BM_H - r], scene_truth(BM_H, BM_W)[r : BM_H - r],
+                                   r + BM_PARAMS.min_disparity + BM_PARAMS.num_disparities - 1)
+    print(f"bm1080 main path quality: valid share {valid_share:.4f} (floor {BM_VALID_FLOOR}), "
+          f"within 1 px {within1:.4f} (floor {BM_WITHIN1_FLOOR})", flush=True)
+    if valid_share < BM_VALID_FLOOR or within1 < BM_WITHIN1_FLOOR:
+        raise AssertionError("bm1080 main path quality below its floor")
+    ms = host_ms(lambda: batched_stereo_pipeline(lt, rt, maps, Q, matcher="bm", params=BM_PARAMS, device=dev))
+    px = BM_B * BM_H * BM_W
+    print(f"bm1080 main path {BM_W}x{BM_H} D={BM_PARAMS.num_disparities} block {BM_PARAMS.block_size} B={BM_B}: "
+          f"{ms:.2f} ms per call, {px / ms / 1e3:.2f} Mpx/s, {BM_B / ms * 1e3:.2f} frames/s", flush=True)
+    return dict(ms_per_call=ms, frames_per_call=BM_B, mpx_per_s=px / ms / 1e3, frames_per_s=BM_B / ms * 1e3,
+                valid_share=valid_share, within1_share=within1), counts, disp
+
+
+def record_bm_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool) -> tuple[dict, list[dict]]:
+    """One BM main-path call with its stages recorded: CUDA-event ms of
+    remap + round, prefilter (both views), the kernel, the paste (the
+    matcher less the two) and reproject, and the kernel call's record."""
+    maps, Q = rig(BM_H, BM_W)
+    targets = {"matcher": (streaming, "stereo_bm"), "reproject": (streaming, "reproject_disparity_to_3d"),
+               "prefilter": (bm, "prefilter_xsobel"), "bm_disparity": (bm_cuda, "bm_disparity")}
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with Recorder(targets, ("bm1080",), keep) as rec:
+        start.record()
+        disp, _ = batched_stereo_pipeline(lt, rt, maps, Q, matcher="bm", params=BM_PARAMS, device=dev)
+        end.record()
+    torch.cuda.synchronize()
+    if not torch.equal(disp, disp_main):
+        raise AssertionError("the recorded BM call differs from the main path")
+    st = {"call": start.elapsed_time(end)}
+    for c in rec.calls:
+        st[c["name"]] = st.get(c["name"], 0.0) + c["start"].elapsed_time(c["end"])
+    matcher = next(c for c in rec.calls if c["name"] == "matcher")
+    st["remap + round (with the maps' upload)"] = start.elapsed_time(matcher["start"])
+    st["paste (matcher less prefilter and kernel)"] = st["matcher"] - st["prefilter"] - st["bm_disparity"]
+    return {k: round(v, 4) for k, v in st.items()}, [c for c in rec.calls if c["name"] == "bm_disparity"]
 
 
 def main() -> int:
@@ -678,6 +906,7 @@ def main() -> int:
     rows += phase_recorded_kernels(record_exact_call(dev, disp), counts, B, "exact8")
     breakdown = phase_breakdown(dev)
     print("breakdown ms per 4-frame call:", json.dumps(breakdown), flush=True)
+    disp_exact = disp.cpu()  # the fused R->L phase compares with it later
     del disp
     torch.cuda.empty_cache()
 
@@ -703,13 +932,36 @@ def main() -> int:
 
     phase_hier_small_pipeline(dev)
     agree = phase_agreement(dev)
+    torch.cuda.empty_cache()
+
+    fused, fused_rows = phase_fused_rl(dev, disp_exact)
+    rows += fused_rows
+    del disp_exact
+    torch.cuda.empty_cache()
+    sites, site_rows = phase_sgm_sites(dev)
+    rows += site_rows
+    torch.cuda.empty_cache()
+
+    bm480 = check_bm_kernel(dev)
+    phase_bm_small_pipeline(dev)
+    frames = [scene(seed=s, H=BM_H, W=BM_W) for s in range(BM_B)]
+    lt, rt = (torch.from_numpy(np.stack([f[i] for f in frames])).to(dev) for i in (0, 1))
+    bm_e2e, counts, bm_disp = phase_bm_main_path(dev, lt, rt)
+    bm_breakdown, _ = record_bm_call(dev, lt, rt, bm_disp, keep=False)
+    print(f"bm1080 breakdown ms per {BM_B}-frame call:", json.dumps(bm_breakdown), flush=True)
+    _, records = record_bm_call(dev, lt, rt, bm_disp, keep=True)
+    rows += phase_recorded_kernels(records, counts, BM_PLAIN_FRAMES, "bm1080")
+    del lt, rt, bm_disp, records
+    torch.cuda.empty_cache()
+
     names = [r["name"] for r in rows]
     for r in rows:  # a kernel that runs on several paths: one row each
         if names.count(r["name"]) > 1:
             r["name"] = f"{r['name']} ({r['path']})"
     print(json.dumps({"card": card, "main_path": e2e, "breakdown": breakdown, "hier_main_path": hier_e2e,
                       "hier_breakdown": hier_breakdown, "hier4x8_main_path": h8_e2e, "hier4x8_breakdown": h8_breakdown,
-                      "agreement": agree}), flush=True)
+                      "agreement": agree, "exact8_fused_rl_wta": fused, "sgm_sites": sites, "bm480": bm480,
+                      "bm_main_path": bm_e2e, "bm_breakdown": bm_breakdown}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

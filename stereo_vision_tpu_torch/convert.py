@@ -1,6 +1,6 @@
 """Carry state from the JAX package's objects into the port.
 
-The SGBM paths have no weights; their state is the matcher parameters
+The stereo paths have no weights; their state is the matcher parameters
 (and the hierarchical configuration), the rectification maps and Q.
 """
 
@@ -10,16 +10,28 @@ import numpy as np
 import torch
 
 from stereo_vision_tpu_torch.device import resolve_device
+from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
 from stereo_vision_tpu_torch.stereo.hier import HierParams, MidLevel
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
 
 
-def sgbm_params_from_reference(p) -> StereoSGBMParams:
-    """A ``StereoSGBMParams`` from anything with ``_asdict()`` (the JAX
-    NamedTuple) or from a dict; ``backend`` is dropped (the device decides)."""
+def _fields(p) -> dict:
+    """The fields of a JAX params NamedTuple (or a dict) without ``backend``
+    (the device decides)."""
     d = dict(p._asdict() if hasattr(p, "_asdict") else p)
     d.pop("backend", None)
-    return StereoSGBMParams(**d)
+    return d
+
+
+def sgbm_params_from_reference(p) -> StereoSGBMParams:
+    """A ``StereoSGBMParams`` from anything with ``_asdict()`` (the JAX
+    NamedTuple) or from a dict; ``backend`` is dropped."""
+    return StereoSGBMParams(**_fields(p))
+
+
+def bm_params_from_reference(p) -> StereoBMParams:
+    """A ``StereoBMParams`` from the JAX NamedTuple or a dict; ``backend`` is dropped."""
+    return StereoBMParams(**_fields(p))
 
 
 def hier_params_from_reference(hp) -> HierParams:

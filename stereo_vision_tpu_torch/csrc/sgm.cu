@@ -1,11 +1,15 @@
 // Semi-global aggregation and winner-take-all for exact SGBM.
 //
-// Replaces the three kernel bodies of
-// stereo_vision_tpu/stereo/sgm_pallas.py::sgm_reduce_pallas:
-//   _vertical_kernel   -> vertical_step  (3 down + 3 up directions)
-//   _horizontal_kernel -> horizontal_scan (L->R, or R->L)
+// Replaces the kernel bodies of stereo_vision_tpu/stereo/sgm_pallas.py:
+//   _vertical_kernel   -> vertical_step  (3 down + 3 up directions; the
+//                         sgm_reduce_pallas and aggregate_8_pallas sites)
+//   _horizontal_kernel -> horizontal_scan (L->R, or R->L; both sites)
 //   _wta4_kernel       -> wta_kernel     (sum of 2-4 direction volumes ->
 //                                         min/argmin/uniqueness/subpixel samples)
+//   _wta_kernel        -> wta_stats_kernel (the same from one int32 volume,
+//                                         wta_stats_pallas)
+//   _horizontal_rl_wta_kernel -> horizontal_rl_wta (the R->L scan fused with
+//                                         the WTA over four directions)
 //
 // Layout: one warp owns the D disparities of one pixel, VPL = D/32 (rounded
 // up to 1, 2, 4 or 8) consecutive disparities per lane, d = lane*VPL + k.
@@ -19,8 +23,10 @@
 // What bounds them on an H100 (720p, D=128, per frame, int16 volumes of
 // 212 MB): vertical reads the cost once and writes two volumes (637 MB,
 // ~190 us); each horizontal reads the cost and writes one volume (425 MB,
-// ~127 us); WTA reads four volumes (850 MB, ~254 us). The scans are also
-// latency-bound chains: H (or W) dependent steps.
+// ~127 us); WTA reads four volumes (850 MB, ~254 us); the one-volume WTA
+// reads an int32 volume (425 MB, ~127 us); the fused R->L scan + WTA reads
+// the cost and three volumes (850 MB) and writes only the maps. The scans
+// are also latency-bound chains: H (or W) dependent steps.
 //
 // Vertical design: a diagonal moves one column per row, so no block can own
 // a column strip, and blocks carry nothing between them. One launch per row
@@ -35,7 +41,10 @@
 // and walks the W columns, prefetching the next column's costs.
 //
 // WTA design: one warp per pixel sums the volumes in registers; ties in the
-// argmin go to the smallest d.
+// argmin go to the smallest d. The fused R->L kernel is the horizontal scan
+// with that reduction at every column: the fourth direction volume stays in
+// registers, and the reduction's shuffles lengthen the scan's serial chain
+// (the trade the reference measured; sgm_cuda._FUSED_RL_WTA picks the form).
 
 #include "common.cuh"
 
@@ -97,6 +106,29 @@ __device__ __forceinline__ void store_vec(int16_t* __restrict__ p, int D, int la
 #pragma unroll
     for (int k = 0; k < VPL; ++k)
       if (d0 + k < D) p[d0 + k] = static_cast<int16_t>(v[k]);
+  }
+}
+
+// load_vec for an int32 vector (the one-volume WTA's aggregated costs).
+template <int VPL>
+__device__ __forceinline__ void load_vec32(const int* __restrict__ p, int D, int lane, int (&v)[VPL], int fill) {
+  const int d0 = lane * VPL;
+  if (d0 + VPL <= D && D % VPL == 0) {  // aligned vector access
+    if constexpr (VPL == 8) {
+      const int4 a = *reinterpret_cast<const int4*>(p + d0), b = *reinterpret_cast<const int4*>(p + d0 + 4);
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    } else if constexpr (VPL == 4) {
+      const int4 a = *reinterpret_cast<const int4*>(p + d0);
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    } else if constexpr (VPL == 2) {
+      const int2 a = *reinterpret_cast<const int2*>(p + d0);
+      v[0] = a.x, v[1] = a.y;
+    } else {
+      v[0] = p[d0];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) v[k] = d0 + k < D ? p[d0 + k] : fill;
   }
 }
 
@@ -196,26 +228,13 @@ horizontal_scan(const int16_t* __restrict__ C, int16_t* __restrict__ out, int ro
   }
 }
 
-// One warp per pixel: S = sum of nvol volumes; min, argmin (ties -> smallest
-// d), the uniqueness verdict and S at d0-1, d0, d0+1 with d0 = clip(best, 1, D-2).
+// The WTA reduction of one pixel's aggregated vector S (entries d >= D hold
+// kBig): min, argmin (ties -> smallest d), the uniqueness verdict and S at
+// d0-1, d0, d0+1 with d0 = clip(best, 1, D-2); lane 0 writes them at p.
 template <int VPL>
-__global__ void __launch_bounds__(kWarps * 32)
-wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const int16_t* __restrict__ v2,
-           const int16_t* __restrict__ v3, int nvol, int* __restrict__ minS, int* __restrict__ best,
-           int* __restrict__ sm, int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok,
-           long long npix, int D, int uniq) {
-  const int lane = threadIdx.x & 31;
-  const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= npix) return;  // whole warp
-  const size_t base = (size_t)p * D;
-  const int16_t* vols[4] = {v0, v1, v2, v3};
-  int S[VPL], t[VPL];
-  load_vec<VPL>(vols[0] + base, D, lane, S, kBig);
-  for (int j = 1; j < nvol; ++j) {
-    load_vec<VPL>(vols[j] + base, D, lane, t, 0);
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) S[k] += t[k];
-  }
+__device__ __forceinline__ void wta_store(const int (&S)[VPL], int D, int lane, int uniq, long long p,
+                                          int* __restrict__ minS, int* __restrict__ best, int* __restrict__ sm,
+                                          int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok) {
   int m = kBig;
 #pragma unroll
   for (int k = 0; k < VPL; ++k) m = min(m, S[k]);
@@ -256,6 +275,79 @@ wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const
   }
 }
 
+// One warp per pixel: S = sum of nvol int16 volumes, then wta_store.
+template <int VPL>
+__global__ void __launch_bounds__(kWarps * 32)
+wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const int16_t* __restrict__ v2,
+           const int16_t* __restrict__ v3, int nvol, int* __restrict__ minS, int* __restrict__ best,
+           int* __restrict__ sm, int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok,
+           long long npix, int D, int uniq) {
+  const int lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= npix) return;  // whole warp
+  const size_t base = (size_t)p * D;
+  const int16_t* vols[4] = {v0, v1, v2, v3};
+  int S[VPL], t[VPL];
+  load_vec<VPL>(vols[0] + base, D, lane, S, kBig);
+  for (int j = 1; j < nvol; ++j) {
+    load_vec<VPL>(vols[j] + base, D, lane, t, 0);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) S[k] += t[k];
+  }
+  wta_store<VPL>(S, D, lane, uniq, p, minS, best, sm, s0, sp, uok);
+}
+
+// One warp per pixel of one aggregated int32 volume.
+template <int VPL>
+__global__ void __launch_bounds__(kWarps * 32)
+wta_stats_kernel(const int* __restrict__ S, int* __restrict__ minS, int* __restrict__ best, int* __restrict__ sm,
+                 int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok, long long npix, int D,
+                 int uniq) {
+  const int lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= npix) return;  // whole warp
+  int v[VPL];
+  load_vec32<VPL>(S + (size_t)p * D, D, lane, v, kBig);
+  wta_store<VPL>(v, D, lane, uniq, p, minS, best, sm, s0, sp, uok);
+}
+
+// One warp per (frame, row): the R->L scan over W columns; at each column
+// its L plus the three stored direction volumes is the aggregated vector,
+// reduced in place by wta_store (the R->L volume is never stored).
+template <int VPL>
+__global__ void __launch_bounds__(kWarps * 32)
+horizontal_rl_wta(const int16_t* __restrict__ C, const int16_t* __restrict__ v0, const int16_t* __restrict__ v1,
+                  const int16_t* __restrict__ v2, int rows, int W, int D, int P1, int P2, int uniq,
+                  int* __restrict__ minS, int* __restrict__ best, int* __restrict__ sm, int* __restrict__ s0,
+                  int* __restrict__ sp, uint8_t* __restrict__ uok) {
+  const int lane = threadIdx.x & 31;
+  const int rid = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (rid >= rows) return;  // whole warp
+  const int16_t* crow = C + (size_t)rid * W * D;
+  int L[VPL], c[VPL], cn[VPL], S[VPL], t[VPL];
+  zero_carry<VPL>(D, lane, L);
+  int m = 0;
+  load_vec<VPL>(crow + (size_t)(W - 1) * D, D, lane, cn, 0);
+  for (int x = W - 1; x >= 0; --x) {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) c[k] = cn[k];
+    if (x > 0) load_vec<VPL>(crow + (size_t)(x - 1) * D, D, lane, cn, 0);
+    m = sgm_step<VPL>(c, L, m, P1, P2, D, lane, S);  // padding entries keep kBig
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) L[k] = S[k];
+    const long long p = (long long)rid * W + x;
+    const size_t base = (size_t)p * D;
+    const int16_t* vols[3] = {v0, v1, v2};
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      load_vec<VPL>(vols[j] + base, D, lane, t, 0);
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) S[k] += t[k];
+    }
+    wta_store<VPL>(S, D, lane, uniq, p, minS, best, sm, s0, sp, uok);
+  }
+}
+
 template <int VPL>
 cudaError_t vertical(const int16_t* C, int16_t* s_dn, int16_t* s_up, int16_t* Lbuf, int* mbuf, int B, int H,
                      int W, int D, int P1, int P2, int with_diag, cudaStream_t stream) {
@@ -285,6 +377,22 @@ cudaError_t wta(const int16_t* const* v, int nvol, int* const* maps, uint8_t* uo
                 cudaStream_t stream) {
   wta_kernel<VPL><<<(npix + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
       v[0], v[1], v[2], v[3], nvol, maps[0], maps[1], maps[2], maps[3], maps[4], uok, npix, D, uniq);
+  return cudaGetLastError();
+}
+
+template <int VPL>
+cudaError_t wta_stats(const int* S, int* const* maps, uint8_t* uok, long long npix, int D, int uniq,
+                      cudaStream_t stream) {
+  wta_stats_kernel<VPL><<<(npix + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+      S, maps[0], maps[1], maps[2], maps[3], maps[4], uok, npix, D, uniq);
+  return cudaGetLastError();
+}
+
+template <int VPL>
+cudaError_t rl_wta(const int16_t* C, const int16_t* const* v, int rows, int W, int D, int P1, int P2, int uniq,
+                   int* const* maps, uint8_t* uok, cudaStream_t stream) {
+  horizontal_rl_wta<VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+      C, v[0], v[1], v[2], rows, W, D, P1, P2, uniq, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
   return cudaGetLastError();
 }
 
@@ -342,5 +450,43 @@ SVT_EXPORT int svt_sgm_wta(const void* v0, const void* v1, const void* v2, const
     case 2: return wta<2>(v, nvol, maps, u, npix, D, uniq, st);
     case 4: return wta<4>(v, nvol, maps, u, npix, D, uniq, st);
     default: return wta<8>(v, nvol, maps, u, npix, D, uniq, st);
+  }
+}
+
+// One int32 (npix, D) aggregated volume -> six per-pixel maps.
+SVT_EXPORT int svt_sgm_wta_stats(const void* S, void* minS, void* best, void* sm, void* s0, void* sp, void* uok,
+                                 long long npix, int D, int uniq, void* stream) {
+  if (D > 256 || D < 3) return cudaErrorInvalidValue;
+  const auto s = static_cast<const int*>(S);
+  int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
+                  static_cast<int*>(s0), static_cast<int*>(sp)};
+  const auto u = static_cast<uint8_t*>(uok);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (vpl_for(D)) {
+    case 1: return wta_stats<1>(s, maps, u, npix, D, uniq, st);
+    case 2: return wta_stats<2>(s, maps, u, npix, D, uniq, st);
+    case 4: return wta_stats<4>(s, maps, u, npix, D, uniq, st);
+    default: return wta_stats<8>(s, maps, u, npix, D, uniq, st);
+  }
+}
+
+// (B, H, W, D) int16 cost + three int16 direction volumes -> six per-pixel
+// maps of the four-direction sum, the R->L direction scanned in place.
+SVT_EXPORT int svt_sgm_horizontal_rl_wta(const void* C, const void* v0, const void* v1, const void* v2, void* minS,
+                                         void* best, void* sm, void* s0, void* sp, void* uok, int B, int H, int W,
+                                         int D, int P1, int P2, int uniq, void* stream) {
+  if (D > 256 || D < 3) return cudaErrorInvalidValue;
+  const auto c = static_cast<const int16_t*>(C);
+  const int16_t* v[3] = {static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1),
+                         static_cast<const int16_t*>(v2)};
+  int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
+                  static_cast<int*>(s0), static_cast<int*>(sp)};
+  const auto u = static_cast<uint8_t*>(uok);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (vpl_for(D)) {
+    case 1: return rl_wta<1>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
+    case 2: return rl_wta<2>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
+    case 4: return rl_wta<4>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
+    default: return rl_wta<8>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
   }
 }

@@ -1,11 +1,12 @@
 """Batched stereo-stream processing: (B, H, W) raw pairs -> disparity -> 3D.
 
 Port of ``stereo_vision_tpu/parallel/streaming.py::batched_stereo_pipeline``
-and ``_frame_stats`` for the exact matcher (``"sgbm"``) and the
-hierarchical one (``"sgbm_hier"``). The batch of frames runs through one
-set of kernel launches (frames on the CUDA grid, not a Python loop). Mesh sharding,
-``make_sharded_pipeline``, ``StereoStreamProcessor`` and
-``stream_video_pair`` belong to later slices of the port.
+and ``_frame_stats`` for its three matchers: block matching (``"bm"``), the
+exact SGBM (``"sgbm"``) and the hierarchical one (``"sgbm_hier"``). The
+batch of frames runs through one set of kernel launches (frames on the CUDA
+grid, not a Python loop). Mesh sharding, ``make_sharded_pipeline``,
+``StereoStreamProcessor`` and ``stream_video_pair`` belong to later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from stereo_vision_tpu_torch.device import resolve_device
 from stereo_vision_tpu_torch.ops.remap import make_remap
+from stereo_vision_tpu_torch.stereo.bm import StereoBMParams, stereo_bm
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER8_FAST, HIER_FAST, HierParams, stereo_sgbm_hier_batch
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm
@@ -50,7 +52,7 @@ def batched_stereo_pipeline(
     maps,
     Q,
     matcher: str = "sgbm",
-    params: StereoSGBMParams | None = None,
+    params: StereoBMParams | StereoSGBMParams | None = None,
     hier_params=None,
     stats_only: bool = False,
     device: str | torch.device | None = None,
@@ -59,7 +61,8 @@ def batched_stereo_pipeline(
 
     Remaps both views with the rectification ``maps`` (mx1, my1, mx2, my2),
     rounds to integer intensities, runs the matcher and reprojects through
-    ``Q``. ``matcher="sgbm"`` is the exact 8-path SGBM; ``"sgbm_hier"`` the
+    ``Q``. ``matcher="bm"`` is block matching (``params``: a
+    :class:`StereoBMParams`); ``"sgbm"`` the exact 8-path SGBM; ``"sgbm_hier"`` the
     hierarchical banded one, which needs B == 128 // band frames: without
     ``hier_params`` the preset follows the batch size (8: HIER_FAST,
     16: HIER8_FAST, 32: HIER4_FAST, else the band-32 default). With
@@ -70,10 +73,11 @@ def batched_stereo_pipeline(
     (None = the CUDA card; raises when there is none). Maps and Q are used
     as float32.
     """
-    if matcher == "bm":
-        raise NotImplementedError("matcher='bm' is ROADMAP queue A item 8 (stereo/bm.py) of the port")
-    if matcher not in ("sgbm", "sgbm_hier"):
+    if matcher not in ("bm", "sgbm", "sgbm_hier"):
         raise ValueError(f"unknown matcher: {matcher}")
+    want = StereoBMParams if matcher == "bm" else StereoSGBMParams
+    if params is not None and not isinstance(params, want):
+        raise TypeError(f"matcher={matcher!r} takes {want.__name__} params, got {type(params).__name__}")
     if hier_params is not None and matcher != "sgbm_hier":
         raise ValueError("hier_params applies only to matcher='sgbm_hier'")
     dev = resolve_device(device)
@@ -90,6 +94,8 @@ def batched_stereo_pipeline(
         if hier_params is None:
             hier_params = {8: HIER_FAST, 16: HIER8_FAST, 32: HIER4_FAST}.get(lr.shape[0], HierParams())
         disp = stereo_sgbm_hier_batch(lr, rr, params or StereoSGBMParams(), hier_params)
+    elif matcher == "bm":
+        disp = stereo_bm(lr, rr, params or StereoBMParams())
     else:
         disp = stereo_sgbm(lr, rr, params or StereoSGBMParams())
     pts = reproject_disparity_to_3d(disp, Q)

@@ -1,2 +1,3 @@
-"""Dense stereo: exact SGBM (cost + SGM kernels), hierarchical banded SGBM
-(banded-core kernels), speckle filter, depth."""
+"""Dense stereo: block matching (one fused kernel), exact SGBM (cost + SGM
+kernels), hierarchical banded SGBM (banded-core kernels), LR check, speckle
+filter, depth."""

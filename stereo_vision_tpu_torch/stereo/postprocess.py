@@ -1,11 +1,15 @@
-"""Disparity speckle filter: exact cv2.filterSpeckles semantics in PyTorch.
+"""Disparity post-processing: left-right consistency and speckle filtering.
 
-Port of ``stereo_vision_tpu/stereo/postprocess.py::speckle_filter``: the
-same gather-free five-phase algorithm, written as shifted elementwise
-torch ops (the proof of exactness is in the JAX docstring). It is the
-plain form of the CUDA kernel's wrapper,
-:func:`.speckle_cuda.speckle_filter`, which both matchers call: at window S
-it takes about 5(S-1) rounds of small ops.
+Port of ``stereo_vision_tpu/stereo/postprocess.py``:
+
+- :func:`left_right_check`, cv2 validateDisparity against a precomputed
+  right disparity (the LR filter for block matching, which has none of its
+  own); plain torch, as in JAX (no Pallas kernel);
+- :func:`speckle_filter`, exact cv2.filterSpeckles: the same gather-free
+  five-phase algorithm, written as shifted elementwise torch ops (the proof
+  of exactness is in the JAX docstring). It is the plain form of the CUDA
+  kernel's wrapper, :func:`.speckle_cuda.speckle_filter`, which both SGBM
+  matchers call: at window S it takes about 5(S-1) rounds of small ops.
 """
 
 from __future__ import annotations
@@ -14,6 +18,41 @@ import torch
 
 _OFFS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 _OPP = (1, 0, 3, 2)
+
+
+def left_right_check(
+    disp_left: torch.Tensor,
+    disp_right: torch.Tensor,
+    max_diff: float = 1.0,
+    invalid_value: float = -1.0,
+    max_disparity: int | None = None,
+) -> torch.Tensor:
+    """Invalidate left-disparity pixels of (..., H, W) maps that fail LR
+    consistency: left pixel x with disparity d matches right pixel
+    x - round(d), and needs |disp_right[x - round(d)] - d| <= max_diff and
+    d >= 0 (cv2 validateDisparity with a precomputed right disparity).
+
+    ``max_disparity``: an upper bound on round(disp_left); the lookup then
+    runs as max_disparity + 1 shifts + selects, as the JAX function does
+    (a round(d) above the bound fails). Rounding is half-to-even.
+    """
+    W = disp_left.shape[-1]
+    xr_off = torch.round(disp_left).to(torch.int32)  # right pixel = x - off
+    if max_disparity is not None:
+        Dm = int(max_disparity)
+        oob = torch.full((*disp_right.shape[:-1], Dm), float("inf"), dtype=disp_right.dtype,
+                         device=disp_right.device)  # |inf - d| > max_diff: fails like out of range
+        d2p = torch.cat([oob, disp_right], dim=-1)
+        d2 = torch.full_like(disp_right, float("inf"))
+        for dd in range(Dm + 1):
+            d2 = torch.where(xr_off == dd, d2p[..., Dm - dd : Dm - dd + W], d2)
+        in_range = (xr_off >= 0) & (xr_off <= Dm)
+    else:
+        xr = torch.arange(W, dtype=torch.int32, device=disp_left.device) - xr_off
+        in_range = (xr >= 0) & (xr < W)
+        d2 = torch.gather(disp_right, -1, xr.clamp(0, W - 1).to(torch.int64))
+    ok = in_range & ((d2 - disp_left).abs() <= max_diff) & (disp_left >= 0)
+    return torch.where(ok, disp_left, torch.as_tensor(invalid_value, dtype=disp_left.dtype, device=disp_left.device))
 
 
 def _nb(a: torch.Tensor, i: int, fill) -> torch.Tensor:

@@ -1,11 +1,18 @@
 """Semi-global aggregation + winner-take-all: plain PyTorch forms + CUDA kernels.
 
-Replaces ``stereo_vision_tpu/stereo/sgm_pallas.py::sgm_reduce_pallas`` and
-its three kernel bodies:
+Replaces the entry points of ``stereo_vision_tpu/stereo/sgm_pallas.py``
+(``sgm_reduce_pallas``, ``aggregate_8_pallas``, ``wta_stats_pallas``) and
+their kernel bodies:
 
 - ``_vertical_kernel``  -> :func:`vertical`   (``csrc/sgm.cu`` vertical_step)
 - ``_horizontal_kernel`` -> :func:`horizontal` (``csrc/sgm.cu`` horizontal_scan)
 - ``_wta4_kernel``      -> :func:`wta4`       (``csrc/sgm.cu`` wta_kernel)
+- ``_wta_kernel``       -> :func:`wta_stats`  (``csrc/sgm.cu`` wta_stats_kernel)
+- ``_horizontal_rl_wta_kernel`` -> :func:`horizontal_rl_wta`
+  (``csrc/sgm.cu`` horizontal_rl_wta), taken by :func:`sgm_reduce` when
+  ``_FUSED_RL_WTA`` is set
+- ``aggregate_8_pallas`` -> :func:`aggregate_8` (the vertical and horizontal
+  kernels, their int16 volumes summed into one int32 volume)
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain form
 (the scan reference of ``stereo_vision_tpu/stereo/sgbm.py``) for CPU ones.
@@ -36,7 +43,16 @@ _SIGNATURES = {
     "svt_sgm_horizontal": [_P] * 2 + [_I] * 7 + [_P],
     # v0..v3, nvol, minS, best, sm, s0, sp, uok, npix, D, uniq, stream
     "svt_sgm_wta": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P],
+    # S, minS, best, sm, s0, sp, uok, npix, D, uniq, stream
+    "svt_sgm_wta_stats": [_P] * 7 + [ctypes.c_longlong] + [_I] * 2 + [_P],
+    # C, v0, v1, v2, minS, best, sm, s0, sp, uok, B, H, W, D, P1, P2, uniq, stream
+    "svt_sgm_horizontal_rl_wta": [_P] * 10 + [_I] * 7 + [_P],
 }
+# Fuse the R->L scan with the WTA in sgm_reduce (horizontal_rl_wta), as
+# sgm_pallas._FUSED_RL_WTA does in the JAX package, and off by default as
+# there: the fused form saves the fourth direction volume's write and read
+# but puts the WTA's reductions inside the scan's serial column chain.
+_FUSED_RL_WTA = False
 
 
 def _lib() -> ctypes.CDLL:
@@ -149,8 +165,9 @@ def wta4_plain(volumes, uniqueness_ratio: int):
 
 
 def _aggregate_8(C, P1: int, P2: int, num_paths: int = 8):
-    """Aggregated int32 volume over 8, 4, 3 or 2 directions (the scan
-    reference's ``_aggregate_8``; :func:`sgm_reduce` never forms it)."""
+    """Aggregated int32 volume over 8, 4, 3 or 2 directions: the scan
+    reference's ``_aggregate_8`` and the plain form of :func:`aggregate_8`
+    (:func:`sgm_reduce` never forms it)."""
     s_dn, s_up = vertical_plain(C, P1, P2, with_diagonals=num_paths >= 8)
     S = s_dn + s_up
     if num_paths >= 3:
@@ -158,6 +175,12 @@ def _aggregate_8(C, P1: int, P2: int, num_paths: int = 8):
     if num_paths >= 4:
         S = S + horizontal_plain(C, P1, P2, reverse=True)
     return S
+
+
+def horizontal_rl_wta_plain(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: int):
+    """Plain form of :func:`horizontal_rl_wta`: the R->L volume, then the
+    WTA over the four volumes."""
+    return wta4_plain([s_dn, s_up, s_lr, horizontal_plain(C, P1, P2, reverse=True)], uniqueness_ratio)
 
 
 def sgm_reduce_plain(C, P1: int, P2: int, uniqueness_ratio: int, num_paths: int = 8):
@@ -188,6 +211,13 @@ def _check_volume(C: torch.Tensor, P1: int, P2: int, cost_bound: int, ndir: int)
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _maps(like: torch.Tensor):
+    """Five int32 (B, H, W) maps and a bool one for a (B, H, W, D) volume."""
+    shape = like.shape[:-1]
+    return [torch.empty(shape, dtype=torch.int32, device=like.device) for _ in range(5)], \
+        torch.empty(shape, dtype=torch.bool, device=like.device)
 
 
 def vertical(C, P1: int, P2: int, with_diagonals: bool, cost_bound: int):
@@ -242,8 +272,7 @@ def wta4(volumes, uniqueness_ratio: int):
     if any(v.dtype != torch.int16 or not v.is_contiguous() for v in volumes) or v0.shape[-1] > 256:
         raise TypeError("the CUDA WTA kernel takes contiguous int16 volumes with D <= 256")
     B, H, W, D = v0.shape
-    maps = [torch.empty((B, H, W), dtype=torch.int32, device=v0.device) for _ in range(5)]
-    uok = torch.empty((B, H, W), dtype=torch.bool, device=v0.device)
+    maps, uok = _maps(v0)
     ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
     lib = _lib()
     err = lib.svt_sgm_wta(*ptrs, len(volumes), *(m.data_ptr() for m in maps), uok.data_ptr(),
@@ -253,17 +282,90 @@ def wta4(volumes, uniqueness_ratio: int):
     return (*maps, uok)
 
 
+def wta_stats(S, uniqueness_ratio: int):
+    """WTA stats of one aggregated (B, H, W, D) int32 volume: the six maps
+    :func:`wta4` returns (the port of ``wta_stats_pallas``)."""
+    if S.dim() != 4 or S.shape[-1] < 3:
+        raise ValueError(f"expected a (B, H, W, D>=3) volume, got {tuple(S.shape)}")
+    if S.device.type == "cpu":
+        return wta_scan(S, S.shape[-1], uniqueness_ratio)
+    if S.device.type != "cuda":
+        raise ValueError(f"unsupported device {S.device}")
+    if S.dtype != torch.int32 or not S.is_contiguous() or S.shape[-1] > 256:
+        raise TypeError("the CUDA WTA kernel takes a contiguous int32 volume with D <= 256")
+    B, H, W, D = S.shape
+    maps, uok = _maps(S)
+    lib = _lib()
+    err = lib.svt_sgm_wta_stats(S.data_ptr(), *(m.data_ptr() for m in maps), uok.data_ptr(), B * H * W, D,
+                                uniqueness_ratio, _stream(S))
+    _build.check(lib, err, "svt_sgm_wta_stats")
+    wta_stats.launches += 1
+    return (*maps, uok)
+
+
+def aggregate_8(C, P1: int, P2: int, num_paths: int = 8, *, cost_bound: int):
+    """(B, H, W, D) cost -> the int32 volume aggregated over ``num_paths``
+    in {2, 3, 4, 8} directions: the port of ``aggregate_8_pallas`` (4 and 8
+    paths) and of the scan ``_aggregate_8`` (2 and 3). On CUDA it runs the
+    vertical and horizontal kernels and sums their int16 volumes into int32
+    (``cost_bound`` bounds C, for the volumes' int16 range)."""
+    if num_paths not in (2, 3, 4, 8):
+        raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {num_paths}")
+    _check_volume(C, P1, P2, cost_bound, 3 if num_paths >= 8 else 1)
+    if C.device.type == "cpu":
+        return _aggregate_8(C, P1, P2, num_paths)
+    s_dn, s_up = vertical(C, P1, P2, num_paths >= 8, cost_bound)
+    S = s_dn.to(torch.int32)
+    S += s_up
+    if num_paths >= 3:
+        S += horizontal(C, P1, P2, False, cost_bound)
+    if num_paths >= 4:
+        S += horizontal(C, P1, P2, True, cost_bound)
+    aggregate_8.launches += 1
+    return S
+
+
+def horizontal_rl_wta(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: int):
+    """The R->L scan of the (B, H, W, D) cost fused with the WTA over the
+    four directions (``s_dn``, ``s_up``, ``s_lr`` and the scan's own): the
+    six maps :func:`wta4` returns, the R->L volume never stored."""
+    vols = (s_dn, s_up, s_lr)
+    if C.dim() != 4 or C.shape[-1] < 3 or any(v.shape != C.shape or v.device != C.device for v in vols):
+        raise ValueError(f"expected a (B, H, W, D>=3) cost and three volumes of its shape on its device, got "
+                         f"{tuple(C.shape)}, {[tuple(v.shape) for v in vols]}")
+    if P1 < 0 or P2 < 0:
+        raise ValueError("P1 and P2 must be >= 0")
+    if C.device.type == "cpu":
+        return horizontal_rl_wta_plain(C, s_dn, s_up, s_lr, P1, P2, uniqueness_ratio)
+    if C.device.type != "cuda":
+        raise ValueError(f"unsupported device {C.device}")
+    if any(t.dtype != torch.int16 or not t.is_contiguous() for t in (C, *vols)) or C.shape[-1] > 256:
+        raise TypeError("the fused R->L WTA kernel takes contiguous int16 tensors with D <= 256")
+    B, H, W, D = C.shape
+    maps, uok = _maps(C)
+    lib = _lib()
+    err = lib.svt_sgm_horizontal_rl_wta(C.data_ptr(), *(v.data_ptr() for v in vols),
+                                        *(m.data_ptr() for m in maps), uok.data_ptr(), B, H, W, D, P1, P2,
+                                        uniqueness_ratio, _stream(C))
+    _build.check(lib, err, "svt_sgm_horizontal_rl_wta")
+    horizontal_rl_wta.launches += 1
+    return (*maps, uok)
+
+
 def sgm_reduce(C, P1: int, P2: int, uniqueness_ratio: int, *, cost_bound: int, num_paths: int = 8):
     """Aggregation over ``num_paths`` in {2, 3, 4, 8} + WTA, the port of
     ``sgm_reduce_pallas`` (which took only 4 and 8): six (B, H, W) maps as
     :func:`wta4` returns them. ``cost_bound`` bounds the values of ``C``
-    (the CUDA kernels check that the int16 volumes hold the sums)."""
+    (the CUDA kernels check that the int16 volumes hold the sums). With
+    ``_FUSED_RL_WTA`` set, 4 and 8 paths end in :func:`horizontal_rl_wta`."""
     if num_paths not in (2, 3, 4, 8):
         raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {num_paths}")
     vols = list(vertical(C, P1, P2, num_paths >= 8, cost_bound))
     if num_paths >= 3:
         vols.append(horizontal(C, P1, P2, False, cost_bound))
     if num_paths >= 4:
+        if _FUSED_RL_WTA:
+            return horizontal_rl_wta(C, *vols, P1, P2, uniqueness_ratio)
         vols.append(horizontal(C, P1, P2, True, cost_bound))
     return wta4(vols, uniqueness_ratio)
 
@@ -271,3 +373,6 @@ def sgm_reduce(C, P1: int, P2: int, uniqueness_ratio: int, *, cost_bound: int, n
 vertical.launches = 0
 horizontal.launches = 0
 wta4.launches = 0
+wta_stats.launches = 0
+aggregate_8.launches = 0
+horizontal_rl_wta.launches = 0

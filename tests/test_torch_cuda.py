@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import banded_cuda, cost_cuda, lr_cuda, sgm_cuda, speckle_cuda
+from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
-from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail
+from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
 from stereo_vision_tpu_torch.synth.scenes import scene
 
 pytestmark = pytest.mark.cuda
@@ -336,3 +336,114 @@ def test_hier_pipeline_eight_paths_cuda_matches_cpu(dev):
     d_cpu, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, hier_params=HIER4_FAST,
                                        device="cpu")
     assert (d_cpu > -1).float().mean() > 0.2 and torch.equal(d_gpu.cpu(), d_cpu)
+
+
+@pytest.mark.parametrize(
+    "W,D,bs,mindisp,uniq,tex",
+    [(101, 16, 9, 0, 15, 10), (163, 64, 15, 0, 15, 10), (301, 128, 5, 0, 15, 10), (95, 48, 7, 16, 0, 0),
+     (77, 32, 11, -4, 15, 10), (333, 200, 5, 3, 10, 5), (400, 256, 3, 0, 0, 10), (40, 64, 5, 0, 15, 10),
+     (71, 1, 5, 2, 15, 10), (65, 2, 1, -1, 15, 10)],
+)
+def test_bm_kernel_matches_plain(dev, W, D, bs, mindisp, uniq, tex):
+    """Odd widths, ranges wider than the frame, D of 1-256, negative and
+    positive minimum disparities, against the plain form."""
+    rng = np.random.default_rng(W + D)
+    base = rng.integers(0, 256, (2, 37, W + 40))
+    left, right = base[..., 20 : 20 + W], base[..., 13 : 13 + W] + rng.integers(-3, 4, (2, 37, W))
+    lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a.astype(np.int32))) for a in (left, right))
+    kw = dict(ndisp=D, mindisp=mindisp, block_size=bs, cap=31, uniq=uniq, tex_thr=tex)
+    ref = bm_cuda.bm_disparity(lp, rp, **kw)
+    n = bm_cuda.bm_disparity.launches
+    out = bm_cuda.bm_disparity(lp.to(dev), rp.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert bm_cuda.bm_disparity.launches == n + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_bm_kernel_refuses_what_it_does_not_take(dev):
+    lp = torch.zeros((1, 16, 300), dtype=torch.int32, device=dev)
+    kw = dict(ndisp=16, mindisp=0, block_size=5, cap=31, uniq=15, tex_thr=10)
+    with pytest.raises(ValueError, match="256"):
+        bm_cuda.bm_disparity(lp, lp, **dict(kw, ndisp=272))
+    with pytest.raises(TypeError, match="int32"):
+        bm_cuda.bm_disparity(lp.to(torch.int16), lp.to(torch.int16), **kw)
+
+
+def test_bm_pipeline_cuda_matches_cpu(dev):
+    H, W, B = 96, 200, 2
+    left, right = scene(H=H, W=W)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    maps = (xx + 0.3 * np.sin(yy / 11.0), yy + 0.2 * np.cos(xx / 13.0), xx - 0.1, yy)
+    Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
+    lb, rb = np.stack([left] * B), np.stack([right] * B)
+    for p in (bm.StereoBMParams(), bm.StereoBMParams(num_disparities=128, block_size=5),
+              bm.StereoBMParams(num_disparities=48, block_size=9, min_disparity=8)):
+        n = bm_cuda.bm_disparity.launches
+        d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="bm", params=p)
+        assert bm_cuda.bm_disparity.launches == n + 1
+        d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="bm", params=p, device="cpu")
+        assert d_gpu.device.type == "cuda" and (d_cpu > p.min_disparity - 1).float().mean() > 0.2
+        assert torch.equal(d_gpu.cpu(), d_cpu)
+        torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("D", [16, 48, 128, 200])
+@pytest.mark.parametrize("num_paths", [2, 3, 4, 8])
+def test_aggregate_8_matches_plain(dev, D, num_paths):
+    C = torch.from_numpy(np.random.default_rng(D * num_paths).integers(0, 2326, (2, 11, 31, D)).astype(np.int16))
+    ref = sgm_cuda._aggregate_8(C, 200, 800, num_paths)
+    n = sgm_cuda.aggregate_8.launches
+    out = sgm_cuda.aggregate_8(C.to(dev), 200, 800, num_paths, cost_bound=2325)
+    torch.cuda.synchronize()
+    assert sgm_cuda.aggregate_8.launches == n + 1
+    assert out.dtype == torch.int32 and torch.equal(out.cpu(), ref)
+
+
+def test_aggregate_8_int16_bound_is_enforced(dev):
+    """The direction volumes are int16: 8 paths store three-direction sums,
+    so a P2 that fits one direction but not three is refused at 8 only."""
+    C = torch.zeros((1, 4, 8, 32), dtype=torch.int16, device=dev)
+    sgm_cuda.aggregate_8(C, 8, 9000, 4, cost_bound=2325)
+    n = (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.launches)
+    with pytest.raises(ValueError, match="int16"):
+        sgm_cuda.aggregate_8(C, 8, 9000, 8, cost_bound=2325)
+    assert (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.launches) == n
+
+
+@pytest.mark.parametrize("D", [16, 48, 64, 128, 200])
+@pytest.mark.parametrize("uniq", [0, 10])
+def test_wta_stats_and_fused_rl_wta_match_plain(dev, D, uniq):
+    rng = np.random.default_rng(D + uniq)
+    C = torch.from_numpy(rng.integers(0, 2326, (2, 9, 37, D)).astype(np.int16))
+    S = sgm_cuda._aggregate_8(C, 200, 800, 8)
+    S[:, :, :5, D // 2] = S[:, :, :5].amin(dim=-1)  # ties
+    ref = sgm_cuda.wta_scan(S, D, uniq)
+    n = sgm_cuda.wta_stats.launches
+    out = sgm_cuda.wta_stats(S.to(dev), uniq)
+    torch.cuda.synchronize()
+    assert sgm_cuda.wta_stats.launches == n + 1
+    for name, a, b in zip(("minS", "best", "sm", "s0", "sp", "uok"), out, ref):
+        assert torch.equal(a.cpu(), b), name
+
+    Cd = C.to(dev)
+    vols = list(sgm_cuda.vertical(Cd, 200, 800, True, 2325)) + [sgm_cuda.horizontal(Cd, 200, 800, False, 2325)]
+    ref = sgm_cuda.horizontal_rl_wta_plain(C, *(v.cpu() for v in vols), 200, 800, uniq)
+    n = sgm_cuda.horizontal_rl_wta.launches
+    out = sgm_cuda.horizontal_rl_wta(Cd, *vols, 200, 800, uniq)
+    torch.cuda.synchronize()
+    assert sgm_cuda.horizontal_rl_wta.launches == n + 1
+    for name, a, b in zip(("minS", "best", "sm", "s0", "sp", "uok"), out, ref):
+        assert torch.equal(a.cpu(), b), name
+
+
+def test_fused_rl_wta_pipeline_equals_unfused(dev, monkeypatch):
+    H, W, B = 64, 200, 2
+    left, right = scene(H=H, W=W)
+    lb, rb = (torch.from_numpy(np.stack([a] * B)).to(dev) for a in (left, right))
+    p = StereoSGBMParams(num_disparities=64, uniqueness_ratio=10, disp12_max_diff=1)
+    ref = stereo_sgbm(lb, rb, p)
+    monkeypatch.setattr(sgm_cuda, "_FUSED_RL_WTA", True)
+    n = sgm_cuda.horizontal_rl_wta.launches
+    out = stereo_sgbm(lb, rb, p)
+    assert sgm_cuda.horizontal_rl_wta.launches == n + 1 and torch.equal(out, ref)

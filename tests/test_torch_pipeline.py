@@ -91,9 +91,21 @@ def test_frame_stats_median_averages_middle_values():
 
 
 def test_other_matchers_name_their_roadmap_item():
+    """Every matcher of the JAX pipeline is ported: ``bm`` runs (against JAX
+    in tests/test_torch_bm.py), takes only its own params, and an unknown
+    matcher is refused."""
+    from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
+
     left, right, maps, Q = _inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
-        tstream.batched_stereo_pipeline(left, right, maps, Q, matcher="bm", device="cpu")
+    disp, pts = tstream.batched_stereo_pipeline(left, right, maps, Q, matcher="bm",
+                                                params=StereoBMParams(num_disparities=16, block_size=9), device="cpu")
+    assert disp.shape == (B, H, W) and pts.shape == (B, H, W, 3) and (disp > -1).any()
+    with pytest.raises(TypeError, match="StereoBMParams"):
+        tstream.batched_stereo_pipeline(left, right, maps, Q, matcher="bm", params=_JP, device="cpu")
+    with pytest.raises(TypeError, match="StereoSGBMParams"):
+        tstream.batched_stereo_pipeline(left, right, maps, Q, params=StereoBMParams(), device="cpu")
+    with pytest.raises(ValueError, match="unknown matcher"):
+        tstream.batched_stereo_pipeline(left, right, maps, Q, matcher="census", device="cpu")
 
 
 @pytest.mark.parametrize("option", ["banded_8_paths_on_cuda", "coarse_stride"])
