@@ -65,6 +65,26 @@ Phases, in order (any failure raises and the script exits nonzero):
      call, Mpx/s and frames/s; two recorded calls: the stage breakdown
      (remap + round, prefilter, kernel, paste, reproject), then the kernel
      on the call's arguments (8 frames) against its plain form (2 frames).
+Between 9 and 10 (numbers by the order they were added):
+ 16. geometry: stereo_rectify and init_undistort_rectify_map of a distorted
+     1920x1080 rig (alpha -1 and 0, float64) on the card and on the CPU,
+     R1/R2/P1/P2/Q within rtol 1e-9 and the maps within 1e-3 px, and 10^5
+     synthetic matches triangulated on both;
+ 17. the hier16x3 main path: batched_stereo_pipeline(matcher="sgbm_hier") at
+     1280x720, 8 frames (seeds 0-7; HIER_FAST, picked by batch size, with
+     p3), its maps and Q from stereo_rectify + init_undistort_rectify_map
+     of an undistorted parallel rig on the card. Unfused (launch counts,
+     floors, ms per call, a recorded breakdown, every kernel on a recorded
+     call's arguments), then with hier._FUSED_STATS set: the fused WTA
+     (#19) launches once and the 6-stat WTA only at the coarse level, the
+     disparity equals the unfused one, the fused kernel on a recorded
+     call's arguments against its plain form; ms per call of both forms in
+     turns (unfused, fused, fused, unfused);
+ 18. the per-frame stereo_sgbm_hier at 64x256 on the card and on the CPU
+     (HIER_FAST, HIER4_FAST, coarse_stride 2), exact, and the strided banded
+     cost kernel at the hier16x3 coarse shape against its plain form.
+Phase 11 also gates hier16x3, unfused and fused (8 copies a call): hier4x3
+and both hier16x3 forms must equal BENCH_r05.json's per-scene values.
 The next-to-last line is the kernels' JSON, the last the device JSON.
 Imports torch, numpy and the port only.
 """
@@ -79,7 +99,7 @@ import time
 import numpy as np
 import torch
 
-from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch import _build, ops
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
@@ -119,8 +139,19 @@ BM_PLAIN_FRAMES = 2  # frames the plain form runs on beside the 8-frame kernel c
 # with these parameters and rig() maps (valid 0.8739, within-1px 0.9089 over
 # the window centres that see the full disparity range), lowered by a margin.
 BM_VALID_FLOOR, BM_WITHIN1_FLOOR = 0.80, 0.85
-# BENCH_r05.json's hier4x3 agreement against exact8 (the round-5 run of bench.py).
-BENCH_R05_AGREEMENT = {"rampbox": 0.9952, "occl": 0.9966, "jump110": 0.9923}
+# BENCH_r05.json's agreement against exact8 (the round-5 run of bench.py), per scene.
+BENCH_R05_AGREEMENT = {"hier4x3": {"rampbox": 0.9952, "occl": 0.9966, "jump110": 0.9923},
+                       "hier16x3": {"rampbox": 0.9953, "occl": 0.9974, "jump110": 0.9935}}
+# The hier16x3 path: bench.py's hier16x3 mode (HIER_FAST with p3, 8 frames a
+# call, bench.py:185-186), which matcher="sgbm_hier" picks for 8 frames.
+H16_P, H16_HP = 8, hier.HIER_FAST
+# The distorted 1920x1080 rig of tests/test_rectify_remap.py.
+RIG_K1 = np.array([[1400.0, 0, 960], [0, 1410.0, 540], [0, 0, 1]])
+RIG_K2 = np.array([[1390.0, 0, 955], [0, 1402.0, 545], [0, 0, 1]])
+RIG_D1 = np.array([-0.28, 0.09, 1.2e-3, -8e-4, -0.012])
+RIG_D2 = np.array([-0.25, 0.07, -9e-4, 6e-4, -0.010])
+RIG_RVEC, RIG_T, RIG_SIZE = [0.02, -0.35, 0.015], [-3500.0, 25.0, 120.0], (1920, 1080)
+GEOMETRY_MATCHES = 100_000  # synthetic matches triangulated on the card and on the CPU
 # The kernels checked on recorded main-path arguments: wrapper, source, the
 # TPU kernel it replaces. banded_vertical_diag is banded_vertical called with
 # with_diagonals=True.
@@ -146,9 +177,12 @@ KERNELS = {
                           "stereo_vision_tpu/stereo/sgm_pallas.py:538 _horizontal_rl_wta_kernel:360"),
     "bm_disparity": (bm_cuda.bm_disparity, SOURCES["bm"],
                      "stereo_vision_tpu/stereo/bm_pallas.py:183 bm_stats_pallas:135 (_bm_kernel:27)"),
+    "banded_wta_fused": (banded_cuda.banded_wta_fused, SOURCES["banded"],
+                         "stereo_vision_tpu/stereo/banded_pallas.py:1204 _wta_fused_kernel:888"),
 }
 HIER_KERNEL_NAMES = ("downsample_box", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
                      "lr_fail_packed", "speckle_filter")
+RECORDED_HIER_KERNELS = HIER_KERNEL_NAMES + ("banded_wta_fused",)
 # Each kernel's plain form, called with the wrapper's arguments.
 PLAIN = {
     "downsample_box": banded_cuda.downsample_box_plain,
@@ -163,6 +197,7 @@ PLAIN = {
     "lr_fail": sgbm.lr_fail,
     "horizontal_rl_wta": sgm_cuda.horizontal_rl_wta_plain,
     "bm_disparity": bm.valid_disparity_plain,
+    "banded_wta_fused": lambda volumes, s, uniq, *, ndisp: banded_cuda.banded_wta_fused_plain(volumes, s, uniq),
 }
 PLAIN["banded_vertical_diag"] = PLAIN["banded_vertical"]
 
@@ -458,24 +493,27 @@ class Recorder:
             setattr(mod, attr, fn)
 
 
-def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool,
-                     params: StereoSGBMParams = P3) -> tuple[dict, list[dict]]:
-    """One 32-frame hier main-path call with its stages recorded: the
-    per-stage CUDA-event ms (summed per stage and level) and the records
-    of every kernel wrapper's calls, with (``keep``) the arguments the
-    kernel checks reuse. The call's disparity must equal the main path's."""
-    maps, Q = rig(H, W)
+def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool, params: StereoSGBMParams = P3,
+                     maps_q=None, levels=("coarse", "mid", "full")) -> tuple[dict, list[dict]]:
+    """One hier main-path call with its stages recorded: the per-stage
+    CUDA-event ms (summed per stage and level) and the records of every
+    kernel wrapper's calls, with (``keep``) the arguments the kernel checks
+    reuse. The call's disparity must equal the main path's. ``maps_q``:
+    the (maps, Q) of the call (default: :func:`rig`)."""
+    maps, Q = maps_q or rig(H, W)
     targets = {
         "matcher": (streaming, "stereo_sgbm_hier_batch"), "reproject": (streaming, "reproject_disparity_to_3d"),
         "downsample_box": (hier, "downsample_box"), "core": (hier, "banded_stats_pack"),
         "shift maps (plain)": (hier, "shift_map"), "splice (plain)": (hier, "_splice_coarse"),
         "assemble (plain, with the LR kernel)": (hier, "_assemble_disparity"),
+        "assemble fused (plain, with the LR kernel)": (hier, "_assemble_fused"),
         "lr_fail_packed": (hier, "lr_fail_packed"), "speckle_filter": (hier, "speckle_filter"),
-        **{k: (banded_cuda, k) for k in ("banded_cost", "banded_vertical", "banded_horizontal", "banded_wta")},
+        **{k: (banded_cuda, k) for k in ("banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
+                                         "banded_wta_fused")},
     }
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with Recorder(targets, ("coarse", "mid", "full"), keep) as rec:
+    with Recorder(targets, levels, keep) as rec:
         start.record()
         disp, _ = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev)
         end.record()
@@ -484,11 +522,11 @@ def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool,
         raise AssertionError("the recorded hier call differs from the main path")
     st = {"call": start.elapsed_time(end)}
     for c in rec.calls:
-        key = f"{c['level']} {c['name']}" if c["name"] in HIER_KERNEL_NAMES + ("core",) else c["name"]
+        key = f"{c['level']} {c['name']}" if c["name"] in RECORDED_HIER_KERNELS + ("core",) else c["name"]
         st[key] = st.get(key, 0.0) + c["start"].elapsed_time(c["end"])
     matcher = next(c for c in rec.calls if c["name"] == "matcher")
     st["remap + round (with the maps' upload)"] = start.elapsed_time(matcher["start"])
-    return {k: round(v, 4) for k, v in st.items()}, [c for c in rec.calls if c["name"] in HIER_KERNEL_NAMES]
+    return {k: round(v, 4) for k, v in st.items()}, [c for c in rec.calls if c["name"] in RECORDED_HIER_KERNELS]
 
 
 def _head(x, n: int):
@@ -532,7 +570,7 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
         return 6 * elems * 10
     if name == "speckle_filter":
         return elems * 30
-    if name == "banded_wta":
+    if name in ("banded_wta", "banded_wta_fused"):
         return args[0][0].numel() * 10
     if name == "downsample_box":
         return args[0].numel()
@@ -648,9 +686,15 @@ def phase_hier_small_pipeline(dev) -> None:
               f"(valid share {float((d_cpu > -1).float().mean()):.4f})", flush=True)
 
 
-def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str) -> tuple[dict, dict, torch.Tensor]:
-    maps, Q = rig(H, W)
-    wrappers = {name: KERNELS[name][0] for name in HIER_KERNEL_NAMES}
+def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str, maps_q=None,
+                         names: tuple[str, ...] = HIER_KERNEL_NAMES) -> tuple[dict, dict, torch.Tensor]:
+    """One hier main-path call of ``lt.shape[0]`` frames with the counts of
+    the kernels ``names`` set to 0 before it and read after it (each must
+    have launched), its output's shape and quality floors, then ms per call
+    over 3 calls. ``maps_q``: the (maps, Q) of the call (default: :func:`rig`)."""
+    maps, Q = maps_q or rig(H, W)
+    P = lt.shape[0]
+    wrappers = {name: KERNELS[name][0] for name in names}
     for fn in wrappers.values():
         fn.launches = 0
     banded_cuda.banded_vertical.diagonal_launches = 0
@@ -665,7 +709,7 @@ def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str) -> t
         raise AssertionError(f"a kernel of the {label} main path never launched: {counts}")
 
     d = disp.cpu().numpy()
-    if d.shape != (HIER_P, H, W) or pts.shape != (HIER_P, H, W, 3) or not np.isfinite(d).all():
+    if d.shape != (P, H, W) or pts.shape != (P, H, W, 3) or not np.isfinite(d).all():
         raise AssertionError(f"bad {label} output: disparity {d.shape}, points {tuple(pts.shape)}")
     if not np.isfinite(pts[..., 2].cpu().numpy()[d > 0]).all():
         raise AssertionError("non-finite depth at a positive disparity")
@@ -676,29 +720,42 @@ def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str) -> t
         raise AssertionError(f"{label} main path quality below its floor")
 
     ms = host_ms(lambda: batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev))
-    print(f"{label} main path 1280x720 D={D} P={HIER_P}: {ms:.2f} ms per call, {HIER_P * H * W / ms / 1e3:.2f} "
-          f"Mpx/s, {HIER_P / ms * 1e3:.2f} frames/s", flush=True)
-    return dict(ms_per_call=ms, frames_per_call=HIER_P, mpx_per_s=HIER_P * H * W / ms / 1e3,
-                frames_per_s=HIER_P / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
+    print(f"{label} main path 1280x720 D={D} P={P}: {ms:.2f} ms per call, {P * H * W / ms / 1e3:.2f} "
+          f"Mpx/s, {P / ms * 1e3:.2f} frames/s", flush=True)
+    return dict(ms_per_call=ms, frames_per_call=P, mpx_per_s=P * H * W / ms / 1e3,
+                frames_per_s=P / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
 
 
 def phase_agreement(dev) -> dict:
-    """bench.py's gate: hier4x3 and hier4x8 (32 copies per call) against
+    """bench.py's gate: hier4x3 and hier4x8 (32 copies per call) and
+    hier16x3 (8 copies, unfused and with ``hier._FUSED_STATS`` set) against
     exact8 on the first frame of each scene, straight to the matchers (no
-    remap)."""
+    remap). hier4x3 and both hier16x3 forms must equal BENCH_r05.json's
+    values to its four decimals."""
     scenes = {"rampbox": scene(0), "occl": scene_occ(2), "jump110": scene(3, box_disp=110.0)}
-    out = {"hier4x3": {}, "hier4x8": {}}
-    for name, (l, r) in scenes.items():
-        lt, rt = torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev)
-        exact = stereo_sgbm(lt[None], rt[None], PARAMS)[0].cpu().numpy()
-        for mode, params in (("hier4x3", P3), ("hier4x8", P8)):
-            disp = hier.stereo_sgbm_hier_batch(lt.expand(HIER_P, -1, -1), rt.expand(HIER_P, -1, -1), params, HP)[0]
-            out[mode][name] = agreement(disp.cpu().numpy(), exact)
-        print(f"agreement vs exact8, {name}: hier4x3 {out['hier4x3'][name]:.4f} (BENCH_r05.json "
-              f"{BENCH_R05_AGREEMENT[name]}), hier4x8 {out['hier4x8'][name]:.4f}", flush=True)
+    modes = {"hier4x3": (P3, HP, HIER_P, False), "hier4x8": (P8, HP, HIER_P, False),
+             "hier16x3": (P3, H16_HP, H16_P, False), "hier16x3 fused": (P3, H16_HP, H16_P, True)}
+    out = {mode: {} for mode in modes}
+    prev = hier._FUSED_STATS
+    try:
+        for name, (l, r) in scenes.items():
+            lt, rt = torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev)
+            exact = stereo_sgbm(lt[None], rt[None], PARAMS)[0].cpu().numpy()
+            for mode, (params, hp, n, fused) in modes.items():
+                hier._FUSED_STATS = fused
+                disp = hier.stereo_sgbm_hier_batch(lt.expand(n, -1, -1), rt.expand(n, -1, -1), params, hp)[0]
+                out[mode][name] = agreement(disp.cpu().numpy(), exact)
+            print(f"agreement vs exact8, {name}: " + ", ".join(f"{m} {a[name]:.4f}" for m, a in out.items())
+                  + f" (BENCH_r05.json hier4x3 {BENCH_R05_AGREEMENT['hier4x3'][name]}, hier16x3 "
+                  f"{BENCH_R05_AGREEMENT['hier16x3'][name]})", flush=True)
+    finally:
+        hier._FUSED_STATS = prev
     for mode, agree in out.items():
         if min(agree.values()) < 0.98:
             raise AssertionError(f"{mode} agreement below the bench gate 0.98: {agree}")
+        want = BENCH_R05_AGREEMENT.get(mode.split()[0]) if mode != "hier4x8" else None
+        if want and {k: round(v, 4) for k, v in agree.items()} != want:
+            raise AssertionError(f"{mode} agreement {agree} differs from BENCH_r05.json's {want}")
     return out
 
 
@@ -879,6 +936,145 @@ def record_bm_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool) -> tuple[di
     return {k: round(v, 4) for k, v in st.items()}, [c for c in rec.calls if c["name"] == "bm_disparity"]
 
 
+def phase_geometry(dev) -> dict:
+    """stereo_rectify and init_undistort_rectify_map of the distorted
+    1920x1080 rig (float64, alpha -1 and 0) on the card and on the CPU:
+    R1/R2/P1/P2/Q within rtol 1e-9, the float32 maps within 1e-3 px; then
+    ``GEOMETRY_MATCHES`` synthetic matches triangulated on both, rtol 1e-9."""
+    cpu = [torch.tensor(a, dtype=torch.float64) for a in (RIG_K1, RIG_D1, RIG_K2, RIG_D2, RIG_T)]
+    R = ops.rodrigues(torch.tensor(RIG_RVEC, dtype=torch.float64))
+    out = {}
+    for alpha in (-1.0, 0.0):
+        ref = ops.stereo_rectify(*cpu[:4], RIG_SIZE, R, cpu[4], alpha=alpha)
+        res = ops.stereo_rectify(*(a.to(dev) for a in cpu[:4]), RIG_SIZE, R.to(dev), cpu[4].to(dev), alpha=alpha)
+        for name, a, b in zip(ref._fields, res, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-9, msg=f"stereo_rectify {name}")
+        err = 0.0
+        for K, dist, Rk, Pk in ((cpu[0], cpu[1], ref.R1, ref.P1), (cpu[2], cpu[3], ref.R2, ref.P2)):
+            maps = ops.init_undistort_rectify_map(K.to(dev), dist.to(dev), Rk.to(dev), Pk.to(dev), RIG_SIZE)
+            for a, b in zip(maps, ops.init_undistort_rectify_map(K, dist, Rk, Pk, RIG_SIZE)):
+                if a.dtype != torch.float32 or a.shape != (RIG_SIZE[1], RIG_SIZE[0]):
+                    raise AssertionError(f"bad map {a.dtype} {tuple(a.shape)}")
+                err = max(err, float((a.cpu() - b).abs().max()))
+        if err > 1e-3:
+            raise AssertionError(f"rectification maps differ by {err} px between the card and the CPU")
+        out[f"maps alpha {alpha} max px err"] = err
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.uniform([-800, -500, 1800], [800, 500, 4000], (GEOMETRY_MATCHES, 3)))
+    p1, p2 = (ops.project_homogeneous(P, X) + torch.from_numpy(rng.normal(0, 0.3, (GEOMETRY_MATCHES, 2)))
+              for P in (ref.P1, ref.P2))
+    Xc = ops.triangulate_points(ref.P1, ref.P2, p1, p2)
+    Xg = ops.triangulate_points(ref.P1.to(dev), ref.P2.to(dev), p1.to(dev), p2.to(dev))
+    torch.testing.assert_close(Xg.cpu(), Xc, rtol=1e-9, atol=1e-9, msg="triangulate_points")
+    out["triangulation max mm err vs truth"] = float((Xc - X).abs().max())
+    print(f"geometry 1920x1080 rig: card == CPU (rtol 1e-9; maps {out}); {GEOMETRY_MATCHES} matches triangulated",
+          flush=True)
+    return out
+
+
+def parallel_rig(h: int, w: int, dev):
+    """Maps and Q of an undistorted parallel rig (K1 = K2, f = 1000 px, zero
+    distortion, R = I, a 0.1 m baseline along x) through stereo_rectify and
+    init_undistort_rectify_map on the card, as the stream command builds
+    its maps: the rectification is the identity up to rounding, so the
+    scene's true disparity survives. The maps stay on the card."""
+    K = torch.tensor([[1000.0, 0, (w - 1) / 2], [0, 1000.0, (h - 1) / 2], [0, 0, 1]], dtype=torch.float64)
+    zero = torch.zeros(5, dtype=torch.float64)
+    eye = torch.eye(3, dtype=torch.float64)
+    res = ops.stereo_rectify(K, zero, K, zero, (w, h), eye, torch.tensor([-0.1, 0.0, 0.0], dtype=torch.float64),
+                             device=dev)
+    if res.Q.device.type != torch.device(dev).type:
+        raise AssertionError("stereo_rectify left the card")
+    maps = (*ops.init_undistort_rectify_map(K, zero, res.R1, res.P1, (w, h), device=dev),
+            *ops.init_undistort_rectify_map(K, zero, res.R2, res.P2, (w, h), device=dev))
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    err = max(float((m - g).abs().max()) for m, g in zip(maps, (xx, yy, xx, yy)))
+    if err > 1e-3:
+        raise AssertionError(f"the parallel rig's maps are {err} px off the identity")
+    return maps, res.Q.to(torch.float32)
+
+
+def phase_hier16(dev) -> tuple[dict, list[dict]]:
+    """The hier16x3 main path (bench.py's hier16x3: 8 frames, HIER_FAST
+    picked by batch size, p3) with the parallel rig's maps: unfused, then
+    with ``hier._FUSED_STATS`` set (the fused WTA #19 at the full level).
+    Each: launch counts (fused: banded_wta_fused 1, banded_wta 1 for the
+    coarse level only), floors, ms per call; a recorded breakdown and every
+    kernel on a recorded call's arguments, 8 frames against the plain form
+    on ``PLAIN_FRAMES``. The two forms' disparities must be equal; then ms
+    per call in turns (unfused, fused, fused, unfused; 5 calls each). The
+    flag is restored."""
+    maps_q = parallel_rig(H, W, dev)
+    frames = [scene(seed=s) for s in range(H16_P)]
+    lt, rt = (torch.from_numpy(np.stack([f[i] for f in frames])).to(dev) for i in (0, 1))
+    levels = ("coarse", "full")
+    out, rows = {}, []
+    prev = hier._FUSED_STATS
+    try:
+        hier._FUSED_STATS = False
+        out["unfused"], counts, disp = phase_hier_main_path(dev, lt, rt, P3, "hier16x3", maps_q)
+        out["unfused breakdown"], _ = record_hier_call(dev, lt, rt, disp, False, P3, maps_q, levels)
+        print(f"hier16x3 breakdown ms per {H16_P}-frame call:", json.dumps(out["unfused breakdown"]), flush=True)
+        _, records = record_hier_call(dev, lt, rt, disp, True, P3, maps_q, levels)
+        rows += phase_recorded_kernels(records, counts, PLAIN_FRAMES, "hier16x3")
+        del records
+        torch.cuda.empty_cache()
+
+        hier._FUSED_STATS = True
+        out["fused"], counts, disp_f = phase_hier_main_path(dev, lt, rt, P3, "hier16x3 fused", maps_q,
+                                                             RECORDED_HIER_KERNELS)
+        if counts["banded_wta_fused"] != 1 or counts["banded_wta"] != 1:
+            raise AssertionError(f"the fused hier16x3 call did not take the fused WTA at its full level: {counts}")
+        if not torch.equal(disp_f, disp):
+            raise AssertionError("the fused hier16x3 disparity differs from the unfused one")
+        out["fused breakdown"], _ = record_hier_call(dev, lt, rt, disp, False, P3, maps_q, levels)
+        print(f"hier16x3 fused breakdown ms per {H16_P}-frame call:", json.dumps(out["fused breakdown"]), flush=True)
+        _, records = record_hier_call(dev, lt, rt, disp, True, P3, maps_q, levels)
+        rows += phase_recorded_kernels([c for c in records if c["name"] == "banded_wta_fused"], counts,
+                                       PLAIN_FRAMES, "hier16x3 fused")
+        del records, disp_f
+        torch.cuda.empty_cache()
+
+        run = lambda: batched_stereo_pipeline(lt, rt, *maps_q, matcher="sgbm_hier", params=P3, device=dev)
+        timings = {"unfused": [], "fused": []}
+        for fused in (False, True, True, False):
+            hier._FUSED_STATS = fused
+            timings["fused" if fused else "unfused"].append(host_ms(run, reps=5))
+    finally:
+        hier._FUSED_STATS = prev
+    out["turns"] = {**{k: sum(v) / len(v) for k, v in timings.items()}, "runs": timings}
+    print(f"hier16x3 ms per {H16_P}-frame call in turns: unfused {timings['unfused']}, fused {timings['fused']}",
+          flush=True)
+    return out, rows
+
+
+def phase_hier_per_frame(dev) -> None:
+    """The per-frame stereo_sgbm_hier on the card against the CPU at 64x256
+    (HIER_FAST, HIER4_FAST, HIER_FAST at coarse_stride 2 with a coarse LR
+    check), exact; then the strided banded cost kernel at the hier16x3
+    coarse level's shape (8 x 180x320, 16 lanes, stride 2) against its plain
+    form on 2 frames, exact."""
+    left, right = (torch.from_numpy(a) for a in scene(seed=1, H=64, W=256))
+    for label, hp in (("HIER_FAST", hier.HIER_FAST), ("HIER4_FAST", hier.HIER4_FAST),
+                      ("HIER_FAST coarse_stride 2", hier.HIER_FAST._replace(coarse_stride=2, coarse_lr=1))):
+        ref = hier.stereo_sgbm_hier(left, right, P3, hp)
+        got = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), P3, hp)
+        if not torch.equal(got.cpu(), ref):
+            raise AssertionError(f"per-frame stereo_sgbm_hier ({label}) differs between the card and the CPU")
+        print(f"per-frame stereo_sgbm_hier 64x256 {label}: CUDA == CPU (valid share "
+              f"{float((ref > -1).float().mean()):.4f})", flush=True)
+    frames = [scene(seed=s) for s in range(H16_P)]
+    lc, rc = (banded_cuda.downsample_box(torch.from_numpy(np.stack([f[i] for f in frames])).to(dev).to(torch.int32),
+                                         4) for i in (0, 1))
+    s0 = torch.zeros_like(lc)
+    kw = dict(band=16, G=8, ndisp=D // 4, ftzero=P3.ftzero, block_size=P3.block_size, min_x=D // 4, stride=2)
+    err = max_abs_err(_head(banded_cuda.banded_cost(lc, rc, s0, **kw), 2),
+                      banded_cuda.banded_cost_plain(lc[:2], rc[:2], s0[:2], **kw))
+    if err != 0:
+        raise AssertionError(f"the strided banded cost kernel differs from its plain form (max abs err {err})")
+    print(f"kernel banded_cost stride 2 ({H16_P}x{lc.shape[1]}x{lc.shape[2]}, K=16): exact", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -930,6 +1126,13 @@ def main() -> int:
     check_diag_random(dev)
     torch.cuda.empty_cache()
 
+    geometry = phase_geometry(dev)
+    h16, h16_rows = phase_hier16(dev)
+    rows += h16_rows
+    torch.cuda.empty_cache()
+    phase_hier_per_frame(dev)
+    torch.cuda.empty_cache()
+
     phase_hier_small_pipeline(dev)
     agree = phase_agreement(dev)
     torch.cuda.empty_cache()
@@ -961,7 +1164,8 @@ def main() -> int:
     print(json.dumps({"card": card, "main_path": e2e, "breakdown": breakdown, "hier_main_path": hier_e2e,
                       "hier_breakdown": hier_breakdown, "hier4x8_main_path": h8_e2e, "hier4x8_breakdown": h8_breakdown,
                       "agreement": agree, "exact8_fused_rl_wta": fused, "sgm_sites": sites, "bm480": bm480,
-                      "bm_main_path": bm_e2e, "bm_breakdown": bm_breakdown}), flush=True)
+                      "bm_main_path": bm_e2e, "bm_breakdown": bm_breakdown, "hier16x3": h16,
+                      "geometry": geometry}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,10 +7,13 @@
 //   _vert_kernel (with diagonals, 8 paths)    -> banded_vertical_diag_kernel
 //   _horiz_kernel                             -> banded_horizontal_kernel
 //   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel
+//   _wta_fused_kernel (band 16)               -> banded_wta_fused_kernel
 // and the image pyramid's box mean:
 //   _downsample_kernel (downsample_box_pack)  -> downsample_box_kernel
 //
-// Lane k at pixel p is the absolute disparity s(p) + k. Every
+// Lane k at pixel p is the absolute disparity s(p) + k (s(p) + stride * k
+// in the cost kernel's strided search, which only the coarse level runs,
+// at s == 0). Every
 // cross-pixel term is first re-indexed into p's band by the shift delta,
 // with the semantics of stereo_vision_tpu/stereo/banded.py for ANY shift
 // map (the TPU kernels realign only at tile entries, which needs
@@ -35,7 +38,10 @@
 // (~127 us); the WTA reads three and writes four int32 maps and a bool map
 // (~318 us). The scans are also dependent chains of H (or Wv) steps. The
 // 8-path vertical (hier4x8) reads one volume and writes two, as vertical
-// does, with three carry sets per direction.
+// does, with three carry sets per direction. The fused WTA (hier16x3 full
+// level: 8 frames, K=16, three 212 MB volumes and a 26.5 MB shift map in,
+// two 26.5 MB int32 maps out) is bytes-bound at ~0.21 ms; its operations
+// take under 0.02 ms at 67 T/s.
 //
 // Design (right and simple first):
 //   cost: one block per (frame, output row, tile of TX columns). The block
@@ -62,7 +68,11 @@
 //     carries in registers; tiles of columns are staged through shared
 //     memory so that the loads and stores of a block are coalesced.
 //   wta: one thread per pixel sums the 2-4 volumes in int32 and reduces
-//     over the K lanes.
+//     over the K lanes. The fused form shares that reduction and the
+//     subpixel step, reads the pixel's shift and writes the LR check's pack
+//     (minS * 2048 + best + s) and d16 + 32768 * unique_ok; the TPU kernel's
+//     8-rows-a-step (W, 128) lane layout and its group-sum matmuls have no
+//     counterpart here.
 //   downsample: one thread per output pixel; the TPU kernel's 0/1 pooling
 //     matmul becomes an integer sum, the float32 division and the
 //     half-to-even round stay.
@@ -100,7 +110,7 @@ __device__ __forceinline__ int window_lane(const int* a, int delta, const int* c
 __global__ void __launch_bounds__(kCostThreads)
 banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, const int* __restrict__ shift,
                    int16_t* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs, int ftzero,
-                   int min_x, int TX, int NRcap) {
+                   int min_x, int stride, int TX, int NRcap) {
   extern __shared__ int smem[];
   __shared__ int dlo, dhi;
   const int r = bs / 2, NC = TX + 2 * r;
@@ -128,7 +138,7 @@ banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, 
     const int sv = S[clampi(y + k - r, 0, H - 1) * W + clampi(x0 - r + j, 0, W - 1)];
     sS[i] = sv;
     lo = min(lo, clampi(sv, 0, ndisp - 1));
-    hi = max(hi, clampi(sv + K - 1, 0, ndisp - 1));
+    hi = max(hi, clampi(sv + stride * (K - 1), 0, ndisp - 1));
   }
   if (lo <= hi) {
     atomicMin(&dlo, lo);
@@ -165,7 +175,7 @@ banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, 
     for (int idx = threadIdx.x; idx < NC * K; idx += blockDim.x) {
       const int j = idx / K, lane = idx - j * K;
       const int c = clampi(x0 - r + j, 0, W - 1);
-      const int d = clampi(sS[k * NC + j] + lane, 0, ndisp - 1);
+      const int d = clampi(sS[k * NC + j] + stride * lane, 0, ndisp - 1);
       const int i = c - d - qlo;
       const int cs = bt(sL[j], sL[NC + j], sL[2 * NC + j], sR[i], sR[NRcap + i], sR[2 * NRcap + i]);
       const int cr = bt(sL[3 * NC + j], sL[4 * NC + j], sL[5 * NC + j], sR[3 * NRcap + i], sR[4 * NRcap + i],
@@ -508,10 +518,57 @@ banded_horizontal_kernel(const int16_t* __restrict__ C, const int* __restrict__ 
   }
 }
 
-// One thread per pixel: S = sum of nvol volumes (int32); min, argmin (ties
-// -> smallest k), band-local uniqueness, and either the samples at
-// d0 - 1, d0, d0 + 1 (d0 = clip(best, 1, K - 2)) or, with sub, the
-// subpixel parabola in lane units (edges keep 16 * best).
+// S = the int32 sum of the nvol (2-4) volumes' K lanes at pixel p.
+template <int K>
+__device__ __forceinline__ void sum_volumes(const int16_t* const (&vols)[4], int nvol, int p, int (&S)[K]) {
+  int t[K];
+  load_lanes<K>(vols[0] + (size_t)p * K, S);
+  for (int j = 1; j < nvol; ++j) {
+    load_lanes<K>(vols[j] + (size_t)p * K, t);
+#pragma unroll
+    for (int k = 0; k < K; ++k) S[k] += t[k];
+  }
+}
+
+struct WtaStats {
+  int mn, bst;  // min and argmin over the lanes (ties -> smallest k)
+  int a, z, c;  // the samples at d0 - 1, d0, d0 + 1, d0 = clip(best, 1, K - 2)
+  bool ok;      // band-local uniqueness
+};
+
+template <int K>
+__device__ __forceinline__ WtaStats wta_reduce(const int (&S)[K], int uniq) {
+  WtaStats w{S[0], 0, 0, 0, 0, true};
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (S[k] < w.mn) {
+      w.mn = S[k];
+      w.bst = k;
+    }
+  if (uniq > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) w.ok &= !(abs(k - w.bst) > 1 && w.mn * (100 + uniq) > S[k] * 100);
+  }
+  const int d0 = min(max(w.bst, 1), K - 2);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    w.a = k == d0 - 1 ? S[k] : w.a;
+    w.z = k == d0 ? S[k] : w.z;
+    w.c = k == d0 + 1 ? S[k] : w.c;
+  }
+  return w;
+}
+
+// The subpixel parabola in lane units x16; the edges keep 16 * best.
+template <int K>
+__device__ __forceinline__ int subpixel16(const WtaStats& w) {
+  const int denom2 = max(w.a + w.c - 2 * w.z, 1);
+  const int q = ((w.a - w.c) * 16 + denom2) / (2 * denom2);  // C division truncates, as the reference
+  return w.bst > 0 && w.bst < K - 1 ? w.bst * 16 + q : w.bst * 16;
+}
+
+// One thread per pixel: minS, best, the uniqueness verdict, and either the
+// samples a, z, c or, with sub, the subpixel parabola.
 template <int K>
 __global__ void __launch_bounds__(kScanThreads)
 banded_wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const int16_t* __restrict__ v2,
@@ -520,46 +577,41 @@ banded_wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1
                   uint8_t* __restrict__ uok) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
-  const int16_t* vols[4] = {v0, v1, v2, v3};
-  int S[K], t[K];
-  load_lanes<K>(v0 + (size_t)p * K, S);
-  for (int j = 1; j < nvol; ++j) {
-    load_lanes<K>(vols[j] + (size_t)p * K, t);
-#pragma unroll
-    for (int k = 0; k < K; ++k) S[k] += t[k];
-  }
-  int mn = S[0], bst = 0;
-#pragma unroll
-  for (int k = 1; k < K; ++k)
-    if (S[k] < mn) {
-      mn = S[k];
-      bst = k;
-    }
-  bool ok = true;
-  if (uniq > 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) ok &= !(abs(k - bst) > 1 && mn * (100 + uniq) > S[k] * 100);
-  }
-  const int d0 = min(max(bst, 1), K - 2);
-  int a = 0, z = 0, c = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    a = k == d0 - 1 ? S[k] : a;
-    z = k == d0 ? S[k] : z;
-    c = k == d0 + 1 ? S[k] : c;
-  }
-  minS[p] = mn;
-  best[p] = bst;
-  uok[p] = ok ? 1 : 0;
+  const int16_t* const vols[4] = {v0, v1, v2, v3};
+  int S[K];
+  sum_volumes<K>(vols, nvol, p, S);
+  const WtaStats w = wta_reduce<K>(S, uniq);
+  minS[p] = w.mn;
+  best[p] = w.bst;
+  uok[p] = w.ok ? 1 : 0;
   if (sub) {
-    const int denom2 = max(a + c - 2 * z, 1);
-    const int q = ((a - c) * 16 + denom2) / (2 * denom2);  // C division truncates, as the reference
-    m2[p] = bst > 0 && bst < K - 1 ? bst * 16 + q : bst * 16;
+    m2[p] = subpixel16<K>(w);
   } else {
-    m2[p] = a;
-    m3[p] = z;
-    m4[p] = c;
+    m2[p] = w.a;
+    m3[p] = w.z;
+    m4[p] = w.c;
   }
+}
+
+// The fused form: one thread per pixel writes the LR check's
+// pack = minS * 2048 + (best + s) and du = (sub16 + 16 * s) + 32768 * unique_ok,
+// s the pixel's shift, in [0, ndisp - K] with 16 * ndisp < 32768 (the
+// wrapper checks ndisp), so that best + s fits the pack's 11 bits and d16
+// stays below the uniqueness bit; minS < 4 * 2^15 keeps the pack in int32.
+template <int K>
+__global__ void __launch_bounds__(kScanThreads)
+banded_wta_fused_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1,
+                        const int16_t* __restrict__ v2, const int16_t* __restrict__ v3, int nvol, int npix, int uniq,
+                        const int* __restrict__ shift, int* __restrict__ pack, int* __restrict__ du) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npix) return;
+  const int16_t* const vols[4] = {v0, v1, v2, v3};
+  int S[K];
+  sum_volumes<K>(vols, nvol, p, S);
+  const WtaStats w = wta_reduce<K>(S, uniq);
+  const int s = shift[p];
+  pack[p] = w.mn * 2048 + w.bst + s;
+  du[p] = subpixel16<K>(w) + 16 * s + (w.ok ? 32768 : 0);
 }
 
 template <int K>
@@ -643,9 +695,11 @@ downsample_box_kernel(const int* __restrict__ in, int* __restrict__ out, int H, 
 }  // namespace
 
 // (P, H, W) int32 left/right + (P, H, W) int32 shift map -> (P, H, W - min_x, K)
-// int16 windowed banded cost at disparity clamp(s + k, 0, ndisp - 1).
+// int16 windowed banded cost at disparity clamp(s + stride * k, 0, ndisp - 1).
 SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
-                               int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, void* stream) {
+                               int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride,
+                               void* stream) {
+  if (stride < 1) return cudaErrorInvalidValue;
   const int TX = K <= 8 ? 64 : K == 16 ? 32 : K == 32 ? 16 : 8;
   const int NC = TX + 2 * (bs / 2), NRcap = NC + ndisp;
   const size_t smem = (size_t)(bs * NC + 6 * NC + 6 * NRcap + bs * NC * K + NC * K) * sizeof(int);
@@ -654,7 +708,7 @@ SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* 
   const dim3 grid((W - min_x + TX - 1) / TX, H, P);
   banded_cost_kernel<<<grid, kCostThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(left), static_cast<const int*>(right), static_cast<const int*>(shift),
-      static_cast<int16_t*>(out), H, W, K, G, ndisp, bs, ftzero, min_x, TX, NRcap);
+      static_cast<int16_t*>(out), H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, NRcap);
   return cudaGetLastError();
 }
 
@@ -729,6 +783,21 @@ SVT_EXPORT int svt_banded_wta(const void* v0, const void* v1, const void* v2, co
     case 64: return wta<64>(v, nvol, npix, uniq, sub, maps, u, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// nvol (2-4) int16 (npix, 16) volumes + the int32 (npix) shift map -> the int32
+// pack and du maps of the fused WTA; band 16 only, as the TPU kernel.
+SVT_EXPORT int svt_banded_wta_fused(const void* v0, const void* v1, const void* v2, const void* v3, int nvol,
+                                    const void* shift, void* pack, void* du, int npix, int K, int uniq,
+                                    void* stream) {
+  if (nvol < 2 || nvol > 4 || K != 16) return cudaErrorInvalidValue;
+  if (npix == 0) return cudaSuccess;
+  banded_wta_fused_kernel<16><<<(npix + kScanThreads - 1) / kScanThreads, kScanThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1), static_cast<const int16_t*>(v2),
+      static_cast<const int16_t*>(v3), nvol, npix, uniq, static_cast<const int*>(shift), static_cast<int*>(pack),
+      static_cast<int*>(du));
+  return cudaGetLastError();
 }
 
 // (P, H, W) int32 image -> (P, H / fy, W / fx) int32 box mean (trailing rows and

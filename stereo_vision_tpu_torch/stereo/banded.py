@@ -22,9 +22,9 @@ Unlike the JAX reference, which gathers K lanes out of the full-D pixel
 cost volume, :func:`banded_pixel_cost` computes the K lanes directly
 (the full-D volume of 32 frames at 720p would be 7.5 GB). The disparity
 index is clamped to [0, ndisp - 1], which is a no-op for every shift
-map the hier path builds (0 <= s <= ndisp - K). The reference's strided
-search (``stride > 1``, lane k = disparity stride*k) is not ported: no
-preset uses it (ROADMAP queue A item 14).
+map the hier path builds (0 <= s <= ndisp - stride * (K - 1) - 1). With
+``stride > 1`` (the coarse level's strided search, at s == 0) lane k is
+the disparity s + stride * k.
 """
 
 from __future__ import annotations
@@ -94,9 +94,9 @@ def align_window(a: torch.Tensor, delta: torch.Tensor, center: torch.Tensor, G: 
     return torch.where(d.abs() > G, center, out)
 
 
-def banded_pixel_cost(left, right, s, *, band: int, ndisp: int, ftzero: int) -> torch.Tensor:
+def banded_pixel_cost(left, right, s, *, band: int, ndisp: int, ftzero: int, stride: int = 1) -> torch.Tensor:
     """(P, H, W, band) int16 per-pixel BT cost (sobel + raw>>2) at disparity
-    d = clamp(s(p) + k, 0, ndisp - 1): the lanes the JAX reference
+    d = clamp(s(p) + stride * k, 0, ndisp - 1): the lanes the JAX reference
     gathers out of ``compute_pixel_cost``'s (H, W, ndisp) volume.
 
     The right rows are edge-padded on the left by ndisp - 1 BEFORE their
@@ -116,7 +116,7 @@ def banded_pixel_cost(left, right, s, *, band: int, ndisp: int, ftzero: int) -> 
     s = s.to(torch.int64)
     out = torch.empty((*left.shape, band), dtype=torch.int16, device=left.device)
     for k in range(band):
-        idx = x - (s + k).clamp(0, ndisp - 1) + pad
+        idx = x - (s + stride * k).clamp(0, ndisp - 1) + pad
         cost = []
         for lv, u0, u1, v_p, v0_p, v1_p in chans:
             v, vv0, vv1 = (torch.gather(a, -1, idx) for a in (v_p, v0_p, v1_p))
@@ -133,14 +133,14 @@ def _clamped(n: int, off: int, device) -> torch.Tensor:
 
 
 def banded_cost_volume(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 15,
-                       block_size: int = 5) -> torch.Tensor:
-    """(P, H, W, band) int32 windowed banded cost: the block_size^2 window
-    sums the per-pixel banded costs of the neighbours ALIGNED into p's
-    band, rows first (centre = the pixel's own cost), then columns
-    (centre = the row-pass sum at p); rows and columns replicate at the
-    image edge, for the cost and for s alike."""
+                       block_size: int = 5, stride: int = 1) -> torch.Tensor:
+    """(P, H, W, band) int32 windowed banded cost at disparities s(p) +
+    stride * k: the block_size^2 window sums the per-pixel banded costs of
+    the neighbours ALIGNED into p's band, rows first (centre = the pixel's
+    own cost), then columns (centre = the row-pass sum at p); rows and
+    columns replicate at the image edge, for the cost and for s alike."""
     H, W = left.shape[-2:]
-    pb = banded_pixel_cost(left, right, s, band=band, ndisp=ndisp, ftzero=ftzero).to(torch.int32)
+    pb = banded_pixel_cost(left, right, s, band=band, ndisp=ndisp, ftzero=ftzero, stride=stride).to(torch.int32)
     r = block_size // 2
     acc = None
     for dy in range(block_size):
@@ -248,14 +248,14 @@ def aggregate_banded_scan(C, s, G: int, P1: int, P2: int, num_paths: int = 8) ->
     return S
 
 
-def banded_stats_scan(left, right, s, params, band: int, G: int, min_x: int, sub: bool = False):
+def banded_stats_scan(left, right, s, params, band: int, G: int, min_x: int, stride: int = 1, sub: bool = False):
     """Banded core: cost + aggregation + WTA on columns x >= min_x of
     (P, H, W) inputs. Returns (minS, best_k, sm, s0, sp, unique_ok) maps of
     shape (P, H, W - min_x); with ``sub``, (minS, best_k, sub16, unique_ok)
     with the subpixel parabola in lane units (ndisp = band).
-    Absolute disparity = best_k + s[..., min_x:]."""
+    Absolute disparity = stride * best_k + s[..., min_x:]."""
     C = banded_cost_volume(left, right, s, band=band, G=G, ndisp=params.num_disparities, ftzero=params.ftzero,
-                           block_size=params.block_size)[:, :, min_x:]
+                           block_size=params.block_size, stride=stride)[:, :, min_x:]
     S = aggregate_banded_scan(C, s[:, :, min_x:], G, params.P1, params.P2, params.num_paths)
     minS, best, sm, s0, sp, uok = wta_scan(S, band, params.uniqueness_ratio)
     if sub:

@@ -7,6 +7,7 @@ and the kernel bodies it chains:
 - ``_vert_kernel`` (without and with diagonals)     -> :func:`banded_vertical`
 - ``_horiz_kernel``                                 -> :func:`banded_horizontal`
 - ``_wta_kernel`` (6-stat and 4-stat ``sub``)       -> :func:`banded_wta`
+- ``_wta_fused_kernel`` (band 16)                   -> :func:`banded_wta_fused`
 
 and the hier image pyramid's ``downsample_box_pack`` (``_downsample_kernel``)
 -> :func:`downsample_box`.
@@ -38,8 +39,8 @@ from stereo_vision_tpu_torch.stereo.sgm_cuda import wta_scan
 KERNEL_BANDS = (4, 8, 16, 32, 64)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # left, right, s, out, P, H, W, K, G, ndisp, bs, ftzero, min_x, stream
-    "svt_banded_cost": [_P] * 4 + [_I] * 9 + [_P],
+    # left, right, s, out, P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, stream
+    "svt_banded_cost": [_P] * 4 + [_I] * 10 + [_P],
     # C, s, dn, up, P, H, Wv, K, G, P1, P2, stream
     "svt_banded_vertical": [_P] * 4 + [_I] * 7 + [_P],
     # C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, stream
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "svt_banded_horizontal": [_P] * 3 + [_I] * 8 + [_P],
     # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, stream
     "svt_banded_wta": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    # v0..v3, nvol, s, pack, du, npix, K, uniq, stream
+    "svt_banded_wta_fused": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
     # in, out, P, H, W, fy, fx, stream
     "svt_downsample_box": [_P] * 2 + [_I] * 5 + [_P],
 }
@@ -106,19 +109,21 @@ def _check_volume(C: torch.Tensor, P2: int, cost_bound: int, summed: int = 1) ->
 
 
 def banded_cost_plain(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int, block_size: int,
-                      min_x: int) -> torch.Tensor:
+                      min_x: int, stride: int = 1) -> torch.Tensor:
     """Plain form of :func:`banded_cost` (int16, contiguous)."""
-    C = banded_cost_volume(left, right, s, band=band, G=G, ndisp=ndisp, ftzero=ftzero, block_size=block_size)
+    C = banded_cost_volume(left, right, s, band=band, G=G, ndisp=ndisp, ftzero=ftzero, block_size=block_size,
+                           stride=stride)
     return C[:, :, min_x:].to(torch.int16).contiguous()
 
 
 def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 15, block_size: int = 5,
-                min_x: int = 0) -> torch.Tensor:
+                min_x: int = 0, stride: int = 1) -> torch.Tensor:
     """(P, H, W) int32 image pairs and shift map -> (P, H, W - min_x, band)
-    int16 windowed banded cost: BT pixel cost at disparity s(q) + j
+    int16 windowed banded cost: BT pixel cost at disparity s(q) + stride*j
     for every window pixel q, aligned into the centre's band (rows, then
     columns), for columns x >= min_x. ``ndisp`` is the level's full
-    disparity range (the lane index is clamped to it)."""
+    disparity range (the disparity index is clamped to it); ``stride > 1``
+    is the coarse level's strided search (at s == 0)."""
     if not (left.shape == right.shape == s.shape) or left.dim() != 3:
         raise ValueError(f"expected (P, H, W) images and shift map, got {tuple(left.shape)}, "
                          f"{tuple(right.shape)}, {tuple(s.shape)}")
@@ -127,11 +132,11 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
     if not left.device == right.device == s.device:
         raise ValueError("images and shift map lie on different devices")
     P, H, W = left.shape
-    if not 0 <= min_x < W or ndisp < 1 or band < 1 or G < 0:
-        raise ValueError(f"bad min_x={min_x} / ndisp={ndisp} / band={band} / G={G}")
+    if not 0 <= min_x < W or ndisp < 1 or band < 1 or G < 0 or stride < 1:
+        raise ValueError(f"bad min_x={min_x} / ndisp={ndisp} / band={band} / G={G} / stride={stride}")
     if block_size % 2 != 1 or block_size * block_size * (2 * ftzero + 63) >= 1 << 15:
         raise ValueError(f"block_size {block_size} must be odd and its window must fit int16")
-    kw = dict(band=band, G=G, ndisp=ndisp, ftzero=ftzero, block_size=block_size, min_x=min_x)
+    kw = dict(band=band, G=G, ndisp=ndisp, ftzero=ftzero, block_size=block_size, min_x=min_x, stride=stride)
     if not _on_cuda(left):
         return banded_cost_plain(left, right, s, **kw)
     _check_band(band)
@@ -139,7 +144,7 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
     out = torch.empty((P, H, W - min_x, band), dtype=torch.int16, device=left.device)
     lib = _lib()
     err = lib.svt_banded_cost(left.data_ptr(), right.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, W, band, G,
-                              ndisp, block_size, ftzero, min_x, _stream(left))
+                              ndisp, block_size, ftzero, min_x, stride, _stream(left))
     _build.check(lib, err, "svt_banded_cost")
     banded_cost.launches += 1
     return out
@@ -218,6 +223,22 @@ def banded_wta_plain(volumes, uniqueness_ratio: int, sub: bool = False):
     return minS, best, sm, s0, sp, uok
 
 
+def _check_wta_volumes(volumes: list, what: str) -> None:
+    """2-4 (P, H, Wv, K >= 3) volumes of one shape on one device; on CUDA,
+    contiguous and aligned int16 with fewer than 2^31 pixels."""
+    v0 = volumes[0]
+    if not 2 <= len(volumes) <= 4 or any(v.shape != v0.shape or v.device != v0.device for v in volumes):
+        raise ValueError(f"{what} takes 2-4 direction volumes of one shape on one device")
+    if v0.dim() != 4 or v0.shape[-1] < 3:
+        raise ValueError(f"expected (P, H, Wv, K>=3) volumes, got {tuple(v0.shape)}")
+    if _on_cuda(v0):
+        _check_band(v0.shape[-1])
+        if any(v.dtype != torch.int16 or not v.is_contiguous() or v.data_ptr() % 16 for v in volumes):
+            raise TypeError(f"the CUDA kernel of {what} takes contiguous, 16-byte aligned int16 volumes")
+        if v0.shape[:3].numel() >= 1 << 31:
+            raise ValueError(f"the CUDA kernel of {what} takes fewer than 2^31 pixels a call")
+
+
 def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
     """Sum 2-4 (P, H, Wv, K) direction volumes and reduce over the K lanes:
     (minS, best_k, sm, s0, sp, unique_ok), or with ``sub`` (minS, best_k,
@@ -225,19 +246,11 @@ def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
     (``ndisp = K``). Maps are int32, ``unique_ok`` bool; ties go to the
     smallest k, uniqueness is band-local (|k - best| > 1)."""
     volumes = list(volumes)
+    _check_wta_volumes(volumes, "banded_wta")
     v0 = volumes[0]
-    if not 2 <= len(volumes) <= 4 or any(v.shape != v0.shape or v.device != v0.device for v in volumes):
-        raise ValueError("banded_wta takes 2-4 direction volumes of one shape on one device")
-    if v0.dim() != 4 or v0.shape[-1] < 3:
-        raise ValueError(f"expected (P, H, Wv, K>=3) volumes, got {tuple(v0.shape)}")
     if not _on_cuda(v0):
         return banded_wta_plain(volumes, uniqueness_ratio, sub)
-    _check_band(v0.shape[-1])
-    if any(v.dtype != torch.int16 or not v.is_contiguous() or v.data_ptr() % 16 for v in volumes):
-        raise TypeError("the CUDA WTA kernel takes contiguous, 16-byte aligned int16 volumes")
     P, H, Wv, K = v0.shape
-    if P * H * Wv >= 1 << 31:
-        raise ValueError("the CUDA WTA kernel takes fewer than 2^31 pixels a call")
     maps = [torch.empty((P, H, Wv), dtype=torch.int32, device=v0.device) for _ in range(3 if sub else 5)]
     uok = torch.empty((P, H, Wv), dtype=torch.bool, device=v0.device)
     ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
@@ -250,15 +263,67 @@ def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
     return (*maps, uok)
 
 
-def banded_stats_pack(left, right, s, params, band: int, G: int, min_x: int, sub: bool = False):
+FUSED_BAND = 16  # the fused WTA's one band, as the TPU kernel's
+
+
+def banded_wta_fused_plain(volumes, s, uniqueness_ratio: int):
+    """Plain form of :func:`banded_wta_fused`, in int32."""
+    minS, best, sub16, uok = banded_wta_plain(volumes, uniqueness_ratio, sub=True)
+    if minS.numel() and int(minS.max()) >= 1 << 20:
+        raise ValueError("minS * 2048 does not fit the int32 pack")
+    s = s.to(torch.int32)
+    return minS * 2048 + (best + s), (sub16 + 16 * s) + uok.to(torch.int32) * 32768
+
+
+def banded_wta_fused(volumes, s, uniqueness_ratio: int, *, ndisp: int):
+    """The band-16 WTA fused with the LR check's inputs: 2-4 (P, H, Wv, 16)
+    direction volumes and the (P, H, Wv) int32 shift map on the same
+    columns -> two (P, H, Wv) int32 maps, ``pack = minS * 2048 + (best +
+    s)`` (the packed LR check's input) and ``du = d16 + 32768 * unique_ok``
+    with ``d16 = sub16 + 16 * s`` the absolute disparity x16 (the reductions
+    of :func:`banded_wta` with ``sub``).
+
+    ``ndisp`` is the level's disparity range, and the shift map lies in
+    [0, ndisp - 16], as every map :func:`.hier.shift_map` builds. The fields
+    cannot collide when 16 * ndisp < 32768: best + s < ndisp fits the pack's
+    11 bits and d16 < 16 * ndisp stays below the uniqueness bit (the JAX
+    kernel relies on its presets instead). int16 volumes keep minS * 2048
+    inside int32."""
+    volumes = list(volumes)
+    _check_wta_volumes(volumes, "banded_wta_fused")
+    v0 = volumes[0]
+    P, H, Wv, K = v0.shape
+    if K != FUSED_BAND:
+        raise ValueError(f"the fused WTA takes band {FUSED_BAND}, got {K}")
+    if not K <= ndisp or 16 * ndisp >= 1 << 15:
+        raise ValueError(f"ndisp {ndisp} leaves [{K}, 2047]: the pack and d16 fields would collide")
+    if s.shape != v0.shape[:3] or s.dtype != torch.int32 or s.device != v0.device:
+        raise ValueError(f"expected an int32 shift map of shape {(P, H, Wv)}, got {tuple(s.shape)} {s.dtype}")
+    if not _on_cuda(v0):
+        return banded_wta_fused_plain(volumes, s, uniqueness_ratio)
+    s = s.contiguous()
+    pack, du = (torch.empty((P, H, Wv), dtype=torch.int32, device=v0.device) for _ in range(2))
+    ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
+    lib = _lib()
+    err = lib.svt_banded_wta_fused(*ptrs, len(volumes), s.data_ptr(), pack.data_ptr(), du.data_ptr(), P * H * Wv,
+                                   K, uniqueness_ratio, _stream(v0))
+    _build.check(lib, err, "svt_banded_wta_fused")
+    banded_wta_fused.launches += 1
+    return pack, du
+
+
+def banded_stats_pack(left, right, s, params, band: int, G: int, min_x: int, stride: int = 1, sub: bool = False,
+                      fused: bool = False):
     """Banded core of P frames: cost + aggregation over ``params.num_paths``
     (2: vertical pair, 3: + L->R, 4: + R->L, 8: + diagonals in the vertical
     sets) + WTA on columns x >= min_x. (P, H, W) int32 images and shift map
-    -> the maps of :func:`banded_wta`, shape (P, H, W - min_x)."""
+    -> the maps of :func:`banded_wta`, shape (P, H, W - min_x), or with
+    ``fused`` the (pack, du) maps of :func:`banded_wta_fused`. ``stride``:
+    lane k is disparity s + stride * k (the coarse level's strided search)."""
     if params.num_paths not in (2, 3, 4, 8):
         raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {params.num_paths}")
     C = banded_cost(left, right, s, band=band, G=G, ndisp=params.num_disparities, ftzero=params.ftzero,
-                    block_size=params.block_size, min_x=min_x)
+                    block_size=params.block_size, min_x=min_x, stride=stride)
     sv = s[:, :, min_x:].contiguous()
     P1, P2, bound = params.P1, params.P2, params.cost_bound
     vols = list(banded_vertical(C, sv, G, P1, P2, cost_bound=bound, with_diagonals=params.num_paths == 8))
@@ -266,6 +331,8 @@ def banded_stats_pack(left, right, s, params, band: int, G: int, min_x: int, sub
         vols.append(banded_horizontal(C, sv, G, P1, P2, cost_bound=bound))
     if params.num_paths in (4, 8):
         vols.append(banded_horizontal(C, sv, G, P1, P2, cost_bound=bound, reverse=True))
+    if fused:
+        return banded_wta_fused(vols, sv, params.uniqueness_ratio, ndisp=params.num_disparities)
     return banded_wta(vols, params.uniqueness_ratio, sub)
 
 
@@ -309,4 +376,5 @@ banded_vertical.launches = 0
 banded_vertical.diagonal_launches = 0
 banded_horizontal.launches = 0
 banded_wta.launches = 0
+banded_wta_fused.launches = 0
 downsample_box.launches = 0

@@ -1,8 +1,11 @@
 """Hierarchical (coarse-to-fine) SGBM: a coarse prior, then a banded search.
 
-Port of ``stereo_vision_tpu/stereo/hier.py`` (batched form). A coarse pass
-on a ``coarse_factor``-downsampled pair with the full disparity range
-(the banded core at s = 0, K = D/f), optional mid levels that refine the
+Port of ``stereo_vision_tpu/stereo/hier.py``: the batched form and the
+per-frame entry :func:`stereo_sgbm_hier`. A coarse pass on a
+``coarse_factor``-downsampled pair with the full disparity range (the
+banded core at s = 0, K = D/f, in the batch; the exact matcher per frame;
+every ``coarse_stride``-th disparity with a strided search), optional mid
+levels that refine the
 prior with their own band, shift maps s(y, x) built from the prior, a
 full-resolution search over ``band`` lanes around s (:mod:`.banded_cuda`,
 whose kernels run for CUDA tensors), then assembly with the full-range
@@ -38,10 +41,10 @@ from typing import NamedTuple
 import torch
 
 from stereo_vision_tpu_torch.stereo.banded import _clamped
-from stereo_vision_tpu_torch.stereo.banded_cuda import banded_stats_pack, downsample_box
+from stereo_vision_tpu_torch.stereo.banded_cuda import FUSED_BAND, banded_stats_pack, downsample_box
 from stereo_vision_tpu_torch.stereo.lr_cuda import lr_fail_packed
 from stereo_vision_tpu_torch.stereo.postprocess import _nb
-from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, subpixel_disp16
+from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
 from stereo_vision_tpu_torch.stereo.speckle_cuda import speckle_filter
 
 
@@ -61,7 +64,8 @@ class MidLevel(NamedTuple):
 
 class HierParams(NamedTuple):
     """Coarse-to-fine configuration (``hier.HierParams``, same fields and
-    defaults). ``coarse_stride > 1`` is not ported yet."""
+    defaults). ``coarse_stride > 1`` searches the coarse level at every
+    coarse_stride-th disparity."""
 
     band: int = 32
     granularity: int = 16
@@ -175,15 +179,16 @@ def _edge_pad(a: torch.Tensor, H: int, W: int) -> torch.Tensor:
 
 
 def _assemble_disparity(stats, s_v, W: int, min_x: int, ndisp_full: int, band: int,
-                        params: StereoSGBMParams) -> torch.Tensor:
+                        params: StereoSGBMParams, stride: int = 1) -> torch.Tensor:
     """Banded stats on columns x >= min_x -> (P, H, W) float32 disparity
     (pre-speckle, invalid -1): the reference's ``_assemble_disparity`` and
     its batched ``_assemble_disparity_pack`` in one. ``stats`` is (minS,
     best_k, sm, s0, sp, unique_ok) or the 4-stat (minS, best_k, sub16,
     unique_ok); ``s_v`` the shift map on the same columns (None: zero, the
-    coarse pass). The LR check runs over the full ``ndisp_full`` range on
-    absolute values (:func:`.lr_cuda.lr_fail_packed`, which needs
-    ``min_x == ndisp_full``)."""
+    coarse pass). ``stride > 1`` (the strided coarse search): lane k is
+    disparity stride * k, and the lane-unit parabola is scaled back. The LR
+    check runs over the full ``ndisp_full`` range on absolute values
+    (:func:`.lr_cuda.lr_fail_packed`, which needs ``min_x == ndisp_full``)."""
     if len(stats) == 4:
         minS, k, sub16, unique_ok = stats
     else:
@@ -191,7 +196,9 @@ def _assemble_disparity(stats, s_v, W: int, min_x: int, ndisp_full: int, band: i
         sub16 = subpixel_disp16(k, sm, s0, sp, band)
     P, H = minS.shape[:2]
     if s_v is None:
-        best_abs, d16 = k, sub16
+        best_abs, d16 = stride * k, stride * sub16
+    elif stride != 1:
+        raise ValueError("a strided search is coarse-only (s == 0)")
     else:
         best_abs, d16 = k + s_v, sub16 + 16 * s_v
     disp = d16.to(torch.float32) / 16.0
@@ -201,6 +208,28 @@ def _assemble_disparity(stats, s_v, W: int, min_x: int, ndisp_full: int, band: i
                                         max_diff=params.disp12_max_diff)
     full = torch.full((P, H, W), -1.0, dtype=torch.float32, device=minS.device)
     full[..., min_x:] = torch.where(valid, disp, -1.0)
+    return full
+
+
+# A/B toggle, as the reference's ``hier._FUSED_STATS`` (off there: it lost a
+# TPU A/B): the full level of an 8-frame band-16 batch reduces with the
+# fused WTA kernel (:func:`.banded_cuda.banded_wta_fused`), which emits the
+# LR check's pack and d16 + 32768 * unique_ok in place of the 6-stat maps and
+# the plain subpixel and pack glue. Bit-identical either way.
+_FUSED_STATS = False
+
+
+def _assemble_fused(pack, du, W: int, min_x: int, params: StereoSGBMParams) -> torch.Tensor:
+    """The fused WTA's (pack, du) maps on columns x >= min_x -> (P, H, W)
+    float32 disparity (pre-speckle, invalid -1); equal to
+    :func:`_assemble_disparity` on the same core."""
+    P, H = pack.shape[:2]
+    d16 = du & 32767
+    valid = du >= 32768  # the unique_ok bit
+    if params.disp12_max_diff >= 0:
+        valid = valid & ~lr_fail_packed(pack, d16, W=W, ndisp=min_x, max_diff=params.disp12_max_diff)
+    full = torch.full((P, H, W), -1.0, dtype=torch.float32, device=pack.device)
+    full[..., min_x:] = torch.where(valid, d16.to(torch.float32) / 16.0, -1.0)
     return full
 
 
@@ -267,30 +296,32 @@ def _as_frames(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.int32).contiguous()
 
 
-def hier_batch_prior(left, right, params: StereoSGBMParams, hp: HierParams):
-    """The coarse pass and the mid levels of :func:`stereo_sgbm_hier_batch`.
-
-    Returns (disp_c, prior, prior_hp): the coarse disparities, the prior
-    the full-res shift maps are built from (== disp_c without mid levels),
-    and the HierParams describing the prior's geometry."""
-    left, right = _as_frames(left), _as_frames(right)
-    D = params.num_disparities
-    B, G, f = hp.band, hp.granularity, hp.coarse_factor
+def _coarse_pass(lc, rc, params: StereoSGBMParams, hp: HierParams, exact: bool) -> torch.Tensor:
+    """The coarse disparity of the downsampled (P, Hc, Wc) pair, full range
+    Dc = D / fx: the exact matcher (``exact``, the per-frame entry's) or the
+    banded core at s = 0 with Dc / coarse_stride lanes, lane k being
+    disparity coarse_stride * k. The two agree where both run (stride 1)."""
+    D, f = params.num_disparities, hp.coarse_factor
     fx = hp.coarse_fx or f
-    P = left.shape[0]
-    if P * B != 128:
-        raise ValueError(f"pack count {P} x band {B} must fill 128 lanes")
-    if hp.coarse_stride != 1:
-        raise NotImplementedError("coarse_stride > 1 (a strided coarse search) is ROADMAP queue A item 14 of the port")
-    Dc = D // fx
-
-    # 1. Coarse prior: the banded core with s = 0 and K = Dc lanes.
     cp = _coarse_params(params, D, fx, hp)
-    lc, rc = downsample_box(left, f, fx), downsample_box(right, f, fx)
-    Wc = lc.shape[-1]
+    if exact and hp.coarse_stride == 1:
+        return stereo_sgbm(lc, rc, cp)
+    Dc, stride = D // fx, hp.coarse_stride
     s0 = torch.zeros(lc.shape, dtype=torch.int32, device=lc.device)
-    stats = banded_stats_pack(lc, rc, s0, cp, Dc, G, min_x=Dc, sub=True)
-    disp_c = _assemble_disparity(stats, None, Wc, Dc, Dc, Dc, cp)
+    stats = banded_stats_pack(lc, rc, s0, cp, Dc // stride, hp.granularity, min_x=Dc, stride=stride, sub=True)
+    return _assemble_disparity(stats, None, lc.shape[-1], Dc, Dc, Dc // stride, cp, stride=stride)
+
+
+def _prior(left, right, params: StereoSGBMParams, hp: HierParams, exact_coarse: bool):
+    """The coarse pass and the mid levels of (P, H, W) int32 frames:
+    (disp_c, prior, prior_hp), see :func:`hier_batch_prior`."""
+    D = params.num_disparities
+    f = hp.coarse_factor
+    fx = hp.coarse_fx or f
+
+    # 1. Coarse prior on the downsampled pair.
+    lc, rc = downsample_box(left, f, fx), downsample_box(right, f, fx)
+    disp_c = _coarse_pass(lc, rc, params, hp, exact_coarse)
 
     # 1b. Mid levels: each refines the previous prior with its own band.
     prior, prev_f, prior_hp = disp_c, f, hp
@@ -311,6 +342,49 @@ def hier_batch_prior(left, right, params: StereoSGBMParams, hp: HierParams):
     return disp_c, prior, prior_hp
 
 
+def _full_level(left, right, params: StereoSGBMParams, hp: HierParams, prior, prior_hp,
+                fused: bool) -> torch.Tensor:
+    """Shift maps from the prior, the banded core over the full range's
+    valid region (with ``fused``, through the fused WTA), assembly and the
+    speckle filter: (P, H, W) float32 disparities."""
+    D = params.num_disparities
+    P, H, W = left.shape
+    # Shift maps, edge-extended where H or W is not a multiple of the tile.
+    s = _edge_pad(shift_map(prior, D, prior_hp), H, W).contiguous()
+    if fused:
+        pack, du = banded_stats_pack(left, right, s, params, hp.band, hp.granularity, min_x=D, fused=True)
+        frames = _assemble_fused(pack, du, W, D, params)
+    else:
+        stats = banded_stats_pack(left, right, s, params, hp.band, hp.granularity, min_x=D, sub=_wta_sub(hp.band))
+        frames = _assemble_disparity(stats, s[..., D:], W, D, D, hp.band, params)
+    if params.speckle_window_size > 0:
+        frames = speckle_filter(frames, max_diff=float(params.speckle_range),
+                                max_speckle_size=params.speckle_window_size, invalid_value=-1.0,
+                                max_diameter=hp.speckle_diameter)
+    return frames
+
+
+def hier_batch_prior(left, right, params: StereoSGBMParams, hp: HierParams):
+    """The coarse pass and the mid levels of :func:`stereo_sgbm_hier_batch`.
+
+    Returns (disp_c, prior, prior_hp): the coarse disparities, the prior
+    the full-res shift maps are built from (== disp_c without mid levels),
+    and the HierParams describing the prior's geometry."""
+    left, right = _as_frames(left), _as_frames(right)
+    D = params.num_disparities
+    B, f = hp.band, hp.coarse_factor
+    fx = hp.coarse_fx or f
+    P = left.shape[0]
+    if P * B != 128:
+        raise ValueError(f"pack count {P} x band {B} must fill 128 lanes")
+    # The reference's coarse pack rules: Kc = Dc / coarse_stride lanes, and
+    # 128 / Kc frames a coarse pack dividing the batch.
+    Dc, stride = D // fx, hp.coarse_stride
+    if stride < 1 or Dc % stride or 128 % (Dc // stride) or P % (128 // (Dc // stride)):
+        raise ValueError(f"coarse range {Dc} at stride {stride} does not pack {P} frames")
+    return _prior(left, right, params, hp, exact_coarse=False)
+
+
 def stereo_sgbm_hier_batch(left, right, params: StereoSGBMParams = StereoSGBMParams(),
                            hp: HierParams = HierParams()) -> torch.Tensor:
     """Hierarchical SGBM disparity of P frames, P = 128 // band.
@@ -319,7 +393,8 @@ def stereo_sgbm_hier_batch(left, right, params: StereoSGBMParams = StereoSGBMPar
     float32 disparities, invalid -1, valid region x >= num_disparities;
     each frame equals the JAX package's per-frame ``stereo_sgbm_hier``.
     CUDA tensors run the banded core's kernels, CPU tensors their plain
-    forms."""
+    forms. With ``_FUSED_STATS`` set, an 8-frame band-16 batch (HIER_FAST)
+    takes the fused WTA at its full level, as the reference's gate."""
     if params.min_disparity != 0:
         raise ValueError("hier mode assumes min_disparity == 0")
     # The reference's tile-side rule (its reduce kernels realign carries on
@@ -332,18 +407,31 @@ def stereo_sgbm_hier_batch(left, right, params: StereoSGBMParams = StereoSGBMPar
         if not (t_px % 8 == 0 or t_px == 4):
             raise ValueError(f"unsupported shift tile {t_px}px (need 4 or a multiple of 8)")
     left, right = _as_frames(left), _as_frames(right)
-    D = params.num_disparities
-    P, H, W = left.shape
     _, prior, prior_hp = hier_batch_prior(left, right, params, hp)
+    fused = _FUSED_STATS and hp.band == FUSED_BAND and left.shape[0] == 8
+    return _full_level(left, right, params, hp, prior, prior_hp, fused)
 
-    # 2. Shift maps, edge-extended where H or W is not a multiple of the tile.
-    s = _edge_pad(shift_map(prior, D, prior_hp), H, W).contiguous()
 
-    # 3. Banded core over the full range's valid region, then assembly.
-    stats = banded_stats_pack(left, right, s, params, hp.band, hp.granularity, min_x=D, sub=_wta_sub(hp.band))
-    frames = _assemble_disparity(stats, s[..., D:], W, D, D, hp.band, params)
-    if params.speckle_window_size > 0:
-        frames = speckle_filter(frames, max_diff=float(params.speckle_range),
-                                max_speckle_size=params.speckle_window_size, invalid_value=-1.0,
-                                max_diameter=hp.speckle_diameter)
-    return frames
+def stereo_sgbm_hier(left, right, params: StereoSGBMParams = StereoSGBMParams(),
+                     hp: HierParams = HierParams()) -> torch.Tensor:
+    """Hierarchical SGBM disparity of one (H, W) rectified 8-bit pair: the
+    reference's per-frame entry, a drop-in for :func:`.sgbm.stereo_sgbm`
+    ((H, W) float32, invalid -1, valid region x >= num_disparities).
+
+    Its coarse pass is the exact matcher on the downsampled pair (with
+    ``coarse_stride > 1`` the strided banded core at s = 0); the mid levels
+    and the full level run the banded core on the one frame."""
+    if params.min_disparity != 0:
+        raise ValueError("hier mode assumes min_disparity == 0")
+    D, B, G = params.num_disparities, hp.band, hp.granularity
+    fx = hp.coarse_fx or hp.coarse_factor
+    if D % (fx * 16) or B % 4 or (D - B) % G:
+        raise ValueError(f"num_disparities {D} must be a multiple of {fx * 16}, band {B} of 4 and D - band of "
+                         f"granularity {G}")
+    if any(lv.band % 8 or D % lv.factor for lv in _prior_levels(hp)):
+        raise ValueError("a mid level needs a band that is a multiple of 8 and a factor dividing num_disparities")
+    if left.dim() != 2 or right.shape != left.shape:
+        raise ValueError(f"expected one (H, W) pair, got {tuple(left.shape)} and {tuple(right.shape)}")
+    left, right = _as_frames(left[None]), _as_frames(right[None])
+    _, prior, prior_hp = _prior(left, right, params, hp, exact_coarse=True)
+    return _full_level(left, right, params, hp, prior, prior_hp, fused=False)[0]

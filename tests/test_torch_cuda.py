@@ -7,15 +7,16 @@ them it runs as
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Exact equality throughout: every value is an integer (disparities are
-k/16).
+k/16); the geometry ops, float64 on both sides, are held within 1e-9.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from stereo_vision_tpu_torch import ops
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, lr_cuda, sgm_cuda, speckle_cuda
+from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
 from stereo_vision_tpu_torch.synth.scenes import scene
@@ -447,3 +448,99 @@ def test_fused_rl_wta_pipeline_equals_unfused(dev, monkeypatch):
     n = sgm_cuda.horizontal_rl_wta.launches
     out = stereo_sgbm(lb, rb, p)
     assert sgm_cuda.horizontal_rl_wta.launches == n + 1 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("K,G,D,stride", [(16, 8, 32, 2), (8, 4, 32, 4), (32, 16, 64, 2), (16, 8, 64, 1)])
+def test_strided_banded_cost_kernel_matches_plain(dev, K, G, D, stride):
+    """The coarse level's strided search (s == 0, lane k = disparity
+    stride * k) and a stride-1 call of the same shapes."""
+    P, H, W = 3, 13, 150
+    left, right = _images(K * stride, P, H, W)
+    s = torch.zeros((P, H, W), dtype=torch.int32)
+    kw = dict(band=K, G=G, ndisp=D, ftzero=15, block_size=5, min_x=D, stride=stride)
+    ref = banded_cuda.banded_cost_plain(left, right, s, **kw)
+    out = banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), **kw)
+    assert out.dtype == torch.int16 and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("nvol,tile", [(3, 4), (4, 4), (3, 0), (4, 8), (2, 0)])
+def test_fused_wta_kernel_matches_plain(dev, nvol, tile):
+    """Random volumes and shift maps (tile-constant or per pixel), ties
+    included, up to the largest shift the pack takes."""
+    P, H, Wv, K = 3, 9, 70, 16
+    rng = np.random.default_rng(nvol * 10 + tile)
+    vols = [torch.from_numpy(rng.integers(100, 3000, (P, H, Wv, K)).astype(np.int16)) for _ in range(nvol)]
+    for v in vols:  # ties at the minimum in the first columns: the smaller k wins
+        v[:, :, :4, 9] = v[:, :, :4, 5] = 0
+    s = _shift_map(nvol + tile, P, H, Wv, 2040, K, 8, tile)
+    s[0, 0, :3] = torch.tensor([0, 2031, 2031])  # the widest range that packs: ndisp 2047
+    ref = banded_cuda.banded_wta_fused_plain(vols, s, 10)
+    n = banded_cuda.banded_wta_fused.launches
+    out = banded_cuda.banded_wta_fused([v.to(dev) for v in vols], s.to(dev), 10, ndisp=2047)
+    torch.cuda.synchronize()
+    assert banded_cuda.banded_wta_fused.launches == n + 1
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.int32 and torch.equal(a.cpu(), b)
+    assert (ref[1] >= 32768).any() and (ref[1] < 32768).any()
+
+
+def test_fused_hier_batch_equals_unfused(dev, monkeypatch):
+    """HIER_FAST's 8-frame batch through the fused WTA at its full level:
+    one fused launch, no 6-stat WTA there, the same disparities."""
+    H, W = 48, 192
+    frames = [scene(seed=s, H=H, W=W) for s in range(8)]
+    lt, rt = (torch.from_numpy(np.stack([f[i] for f in frames])).to(dev) for i in (0, 1))
+    p = StereoSGBMParams(num_disparities=128, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=30,
+                         speckle_range=2, num_paths=3)
+    ref = hier.stereo_sgbm_hier_batch(lt, rt, p, HIER_FAST)
+    monkeypatch.setattr(hier, "_FUSED_STATS", True)
+    n, nw = banded_cuda.banded_wta_fused.launches, banded_cuda.banded_wta.launches
+    out = hier.stereo_sgbm_hier_batch(lt, rt, p, HIER_FAST)
+    assert banded_cuda.banded_wta_fused.launches == n + 1 and banded_cuda.banded_wta.launches == nw + 1
+    assert (ref > -1).float().mean() > 0.2 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("preset", ["HIER_FAST", "HIER4_FAST", "HIER_FAST_stride2", "HierParams_stride2"])
+def test_hier_per_frame_cuda_matches_cpu(dev, preset):
+    """The per-frame entry: its exact coarse pass (or the strided banded
+    one) and the one-frame banded core, on the card and on the CPU."""
+    hp = {"HIER_FAST": HIER_FAST, "HIER4_FAST": HIER4_FAST,
+          "HIER_FAST_stride2": HIER_FAST._replace(coarse_stride=2, coarse_lr=1),
+          "HierParams_stride2": hier.HierParams(coarse_stride=2)}[preset]
+    left, right = (torch.from_numpy(a) for a in scene(seed=1, H=64, W=256))
+    p = StereoSGBMParams(num_disparities=128, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=30,
+                         speckle_range=2, num_paths=3)
+    ref = hier.stereo_sgbm_hier(left, right, p, hp)
+    n = banded_cuda.banded_cost.launches
+    out = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp)
+    assert banded_cuda.banded_cost.launches > n
+    assert out.device.type == "cuda" and (ref > -1).float().mean() > 0.2 and torch.equal(out.cpu(), ref)
+
+
+def test_geometry_cuda_matches_cpu(dev):
+    """Rectification of the distorted 1920x1080 rig, its maps and a
+    triangulation, float64 on the card against the CPU."""
+    K1 = np.array([[1400.0, 0, 960], [0, 1410.0, 540], [0, 0, 1]])
+    K2 = np.array([[1390.0, 0, 955], [0, 1402.0, 545], [0, 0, 1]])
+    D1 = np.array([-0.28, 0.09, 1.2e-3, -8e-4, -0.012])
+    D2 = np.array([-0.25, 0.07, -9e-4, 6e-4, -0.010])
+    args = [torch.from_numpy(a) for a in (K1, D1, K2, D2)]
+    R = ops.rodrigues(torch.tensor([0.02, -0.35, 0.015], dtype=torch.float64))
+    T = torch.tensor([-3500.0, 25.0, 120.0], dtype=torch.float64)
+    for alpha in (-1.0, 0.0, 1.0):
+        ref = ops.stereo_rectify(*args[:2], *args[2:], (1920, 1080), R, T, alpha=alpha)
+        out = ops.stereo_rectify(*(a.to(dev) for a in args[:2]), *(a.to(dev) for a in args[2:]), (1920, 1080),
+                                 R.to(dev), T.to(dev), alpha=alpha)
+        for a, b in zip(out, ref):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-9)
+    mx, my = ops.init_undistort_rectify_map(args[0], args[1], ref.R1, ref.P1, (1920, 1080))
+    gx, gy = ops.init_undistort_rectify_map(args[0].to(dev), args[1].to(dev), ref.R1.to(dev), ref.P1.to(dev),
+                                            (1920, 1080))
+    torch.testing.assert_close(gx.cpu(), mx, rtol=0, atol=1e-3)
+    torch.testing.assert_close(gy.cpu(), my, rtol=0, atol=1e-3)
+    rng = np.random.default_rng(0)
+    p1, p2 = (torch.from_numpy(rng.uniform(0, 1000, (500, 2))) for _ in range(2))
+    X = ops.triangulate_points(ref.P1, ref.P2, p1, p2)
+    Xg = ops.triangulate_points(ref.P1.to(dev), ref.P2.to(dev), p1.to(dev), p2.to(dev))
+    torch.testing.assert_close(Xg.cpu(), X, rtol=1e-9, atol=1e-9)

@@ -86,6 +86,36 @@ def test_hier_batch_matches_jax_per_frame(reference, name):
 
 
 @pytest.mark.parametrize("name", list(PRESETS))
+def test_hier_per_frame_matches_jax(reference, name):
+    """The per-frame entry (exact coarse pass, one frame through the banded
+    core) on the frames JAX's per-frame ``stereo_sgbm_hier`` ran."""
+    ref = reference[name]
+    lr, rr = ref["ints"]
+    params = convert.sgbm_params_from_reference(ref["jp"])
+    hp = convert.hier_params_from_reference(ref["hp"])
+    for i, b in enumerate(ref["pick"]):
+        mine = th.stereo_sgbm_hier(_t(lr[b]), _t(rr[b]), params, hp)
+        assert mine.shape == lr.shape[1:] and mine.dtype == torch.float32
+        np.testing.assert_array_equal(mine.numpy(), ref["disp"][i])
+
+
+def test_hier_batch_fused_matches_jax_per_frame(reference, monkeypatch):
+    """HIER_FAST's 8-frame batch with ``_FUSED_STATS`` set (the full level
+    through the fused WTA) equals the unfused batch and JAX per frame."""
+    ref = reference["HIER_FAST"]
+    lr, rr = ref["ints"]
+    params = convert.sgbm_params_from_reference(ref["jp"])
+    unfused = th.stereo_sgbm_hier_batch(_t(lr), _t(rr), params, th.HIER_FAST)
+    monkeypatch.setattr(th, "_FUSED_STATS", True)
+    calls, assemble = [], th._assemble_fused
+    monkeypatch.setattr(th, "_assemble_fused", lambda *a: calls.append(1) or assemble(*a))
+    fused = th.stereo_sgbm_hier_batch(_t(lr), _t(rr), params, th.HIER_FAST)
+    assert calls == [1]  # the full level took the fused WTA
+    assert torch.equal(fused, unfused)
+    np.testing.assert_array_equal(fused[ref["pick"]].numpy(), ref["disp"])
+
+
+@pytest.mark.parametrize("name", list(PRESETS))
 def test_streaming_hier_matches_jax(reference, name):
     """matcher="sgbm_hier" picks the preset by batch size (8: HIER_FAST,
     32: HIER4_FAST), like the JAX branch."""
@@ -214,3 +244,7 @@ def test_params_conversion_and_checks():
         th.stereo_sgbm_hier_batch(left, left, params, th.HIER_FAST)
     with pytest.raises(ValueError, match="tile"):
         th.stereo_sgbm_hier_batch(left, left, params, th.HierParams(tile=3))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        th.stereo_sgbm_hier(left[0], left[0], params._replace(num_disparities=96), th.HIER_FAST)
+    with pytest.raises(ValueError, match="one \\(H, W\\) pair"):
+        th.stereo_sgbm_hier(left, left, params, th.HIER_FAST)

@@ -11,8 +11,9 @@ import pathlib
 import subprocess
 import sys
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -111,9 +112,17 @@ def test_other_matchers_name_their_roadmap_item():
 @pytest.mark.parametrize("option", ["banded_8_paths_on_cuda", "coarse_stride"])
 def test_unported_hier_options_name_their_roadmap_item(option, monkeypatch):
     if option == "coarse_stride":
-        frames = torch.zeros((4, 48, 192), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-            hier.stereo_sgbm_hier_batch(frames, frames, StereoSGBMParams(), hier.HierParams(coarse_stride=2))
+        # Ported now: HierParams(coarse_stride=2) (band 32, coarse LR on) per
+        # frame, against JAX's per-frame stereo_sgbm_hier.
+        from stereo_vision_tpu.stereo import hier as jh
+
+        left, right = (a.astype(np.int32) for a in scenes.scene(seed=5, H=32, W=160))
+        jp = _JP._replace(num_disparities=64, block_size=5)
+        ref = jax.jit(lambda a, b: jh.stereo_sgbm_hier(a, b, jp, jh.HierParams(coarse_stride=2)))(left, right)
+        mine = hier.stereo_sgbm_hier(torch.from_numpy(left), torch.from_numpy(right),
+                                     convert.sgbm_params_from_reference(jp), hier.HierParams(coarse_stride=2))
+        assert (np.asarray(ref) > -1).mean() > 0.2
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref))
     else:
         # The 8-path option is ported now: the CUDA wrapper takes the diagonal
         # carries and checks their tripled int16 range before any launch (a
