@@ -85,6 +85,17 @@ Between 9 and 10 (numbers by the order they were added):
      cost kernel at the hier16x3 coarse shape against its plain form.
 Phase 11 also gates hier16x3, unfused and fused (8 copies a call): hier4x3
 and both hier16x3 forms must equal BENCH_r05.json's per-scene values.
+After 18:
+ 19. the banded horizontal scan (#18) on per-pixel random shift maps at every
+     band it takes (K = 4, 8, ..., 64), int16 and int32, both directions,
+     exact against its plain form; its int16 and int32 forms timed at the
+     hier16x3 full level's shape, and on fewer frames at K=16 and K=4;
+ 20. settings the card once refused, CUDA against CPU, exact: the exact
+     pipeline at 240x320 at block 11 with 8 paths (int32 volumes) and at
+     min_disparity -8, and the per-frame stereo_sgbm_hier at band 12.
+Every row of the kernels line names the storage type its volumes ran in
+("storage"; null for a kernel without a volume) and its ms per level of the
+path ("ms_by_level"); every main path stores int16.
 The next-to-last line is the kernels' JSON, the last the device JSON.
 Imports torch, numpy and the port only.
 """
@@ -122,7 +133,8 @@ VALID_FLOOR, WITHIN1_FLOOR = 0.90, 0.98
 # no int32 rate; int32 issues at most that fast, so the bound stays a bound).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu" for name in ("cost", "sgm", "banded", "lr", "speckle", "bm")}
+SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu"
+           for name in ("cost", "sgm", "banded", "lr", "speckle", "bm")}
 # The hier main path: bench.py's hier4x3 mode (HIER4_FAST with p3, 32 frames
 # per call, bench.py:162-188).
 HIER_P, HP = 32, hier.HIER4_FAST
@@ -171,7 +183,7 @@ KERNELS = {
                        "stereo_vision_tpu/stereo/speckle_pallas.py:81 _speckle_kernel"),
     "lr_fail": (lr_cuda.lr_fail, SOURCES["lr"],
                 "stereo_vision_tpu/stereo/lr_pallas.py:30 _lr_kernel (lr_fail_pallas:137)"),
-    "banded_vertical_diag": (banded_cuda.banded_vertical, SOURCES["banded"],
+    "banded_vertical_diag": (banded_cuda.banded_vertical, "stereo_vision_tpu_torch/csrc/banded_diag.cuh",
                              "stereo_vision_tpu/stereo/banded_pallas.py:666 _vert_kernel (with_diag)"),
     "horizontal_rl_wta": (sgm_cuda.horizontal_rl_wta, SOURCES["sgm"],
                           "stereo_vision_tpu/stereo/sgm_pallas.py:538 _horizontal_rl_wta_kernel:360"),
@@ -197,7 +209,7 @@ PLAIN = {
     "lr_fail": sgbm.lr_fail,
     "horizontal_rl_wta": sgm_cuda.horizontal_rl_wta_plain,
     "bm_disparity": bm.valid_disparity_plain,
-    "banded_wta_fused": lambda volumes, s, uniq, *, ndisp: banded_cuda.banded_wta_fused_plain(volumes, s, uniq),
+    "banded_wta_fused": lambda volumes, s, uniq, **_: banded_cuda.banded_wta_fused_plain(volumes, s, uniq),
 }
 PLAIN["banded_vertical_diag"] = PLAIN["banded_vertical"]
 
@@ -256,11 +268,12 @@ def host_ms(fn, reps: int = 3) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def check_kernel(name, src, replaces, kern, plain, nbytes, nops, reps: int, path: str):
+def check_kernel(name, src, replaces, kern, plain, nbytes, nops, reps: int, path: str, storage=None):
     """``kern()`` against ``plain()``: exact, same shapes. Then CUDA-event ms
     of both (``reps`` kernel runs, one plain run) and the bound. Returns a
     kernels-line row (launches 0 until a path's count is read) and the
-    kernel's output."""
+    kernel's output. ``storage``: the dtype of the kernel's volumes (None: it
+    has none)."""
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     outs, refs = (out if isinstance(out, tuple) else (out,)), (ref if isinstance(ref, tuple) else (ref,))
@@ -272,8 +285,10 @@ def check_kernel(name, src, replaces, kern, plain, nbytes, nops, reps: int, path
     b_ms, b_by = bound_ms(nbytes, nops)
     print(f"kernel {name} ({path}): exact, {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})",
           flush=True)
+    storage = None if storage is None else str(storage).removeprefix("torch.")
     return dict(name=name, route="cuda", source=src, replaces=replaces, launches=0, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path), out
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, path=path, storage=storage,
+                ms_by_level={path: ms}), out
 
 
 def phase_kernels(dev) -> list[dict]:
@@ -288,10 +303,13 @@ def phase_kernels(dev) -> list[dict]:
     vol = n * 2  # bytes of one int16 volume
     ckw = dict(ndisp=D, mindisp=p.min_disparity, block_size=p.block_size, ftzero=p.ftzero, x_offset=minX1)
     P1, P2, bound = p.P1, p.P2, p.cost_bound
+    st = sgm_cuda.storage_dtype(bound, P2, 3)  # what the main path stores
+    if st != torch.int16:
+        raise AssertionError(f"the exact8 main path would store {st}, not int16")
     rows = []
 
-    def check(name, src, replaces, kern, plain, nbytes, nops, reps):
-        row, out = check_kernel(name, src, replaces, kern, plain, nbytes, nops, reps, "exact8")
+    def check(name, src, replaces, kern, plain, nbytes, nops, reps, storage=None):
+        row, out = check_kernel(name, src, replaces, kern, plain, nbytes, nops, reps, "exact8", storage)
         rows.append(row)
         return out
 
@@ -301,15 +319,15 @@ def phase_kernels(dev) -> list[dict]:
     C = check("cost", SOURCES["cost"], "stereo_vision_tpu/stereo/cost_pallas.py:107 _cost_kernel",
               lambda: cost_cuda.cost_volume(left, right, **ckw),
               lambda: cost_cuda.cost_volume_plain(left, right, **ckw),
-              2 * B * H * W * 4 + vol, n * (20 + 2 * (p.block_size - 1)), 10)
+              2 * B * H * W * 4 + vol, n * (20 + 2 * (p.block_size - 1)), 10, st)
     vols = list(check("vertical", SOURCES["sgm"], "stereo_vision_tpu/stereo/sgm_pallas.py:70 _vertical_kernel",
                       lambda: sgm_cuda.vertical(C, P1, P2, True, bound),
                       lambda: sgm_cuda.vertical_plain(C, P1, P2, True),
-                      3 * vol, n * (6 * 8 + 4), 5))
+                      3 * vol, n * (6 * 8 + 4), 5, st))
     vols.append(check("horizontal", SOURCES["sgm"], "stereo_vision_tpu/stereo/sgm_pallas.py:143 _horizontal_kernel",
                       lambda: sgm_cuda.horizontal(C, P1, P2, False, bound),
                       lambda: sgm_cuda.horizontal_plain(C, P1, P2, False),
-                      2 * vol, n * 8, 10))
+                      2 * vol, n * 8, 10, st))
     rl = sgm_cuda.horizontal(C, P1, P2, True, bound)
     if max_abs_err(rl, sgm_cuda.horizontal_plain(C, P1, P2, True)) != 0:
         raise AssertionError("horizontal R->L differs from its plain form")
@@ -317,7 +335,7 @@ def phase_kernels(dev) -> list[dict]:
     check("wta4", SOURCES["sgm"], "stereo_vision_tpu/stereo/sgm_pallas.py:331 _wta4_kernel",
           lambda: sgm_cuda.wta4(vols, p.uniqueness_ratio),
           lambda: sgm_cuda.wta4_plain(vols, p.uniqueness_ratio),
-          4 * vol + B * H * Wv * (5 * 4 + 1), n * 10, 10)
+          4 * vol + B * H * Wv * (5 * 4 + 1), n * 10, 10, st)
 
     # The unpacked LR kernel at min_disparity 16, ndisp 64 (the main path runs
     # min_disparity 0; it is checked on the path's own arguments later).
@@ -581,6 +599,17 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
     return elems * (20 if name in ("lr_fail_packed", "lr_fail") else 10)
 
 
+def _storage(name: str, args, out) -> torch.dtype | None:
+    """The dtype a kernel call's volumes are stored in (None: it has none)."""
+    if name in ("banded_cost", "cost"):
+        return out.dtype
+    if name in ("banded_vertical", "banded_vertical_diag", "banded_horizontal", "horizontal_rl_wta"):
+        return args[0].dtype
+    if name in ("banded_wta", "banded_wta_fused"):
+        return args[0][0].dtype
+    return None
+
+
 def _kernel_name(call: dict) -> str:
     """A record's kernel: banded_vertical with diagonals is its own kernel."""
     if call["name"] == "banded_vertical" and call["kwargs"].get("with_diagonals"):
@@ -594,7 +623,8 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
     kernel ms, plain ms and bound summed over the call's launches. Bound:
     the bytes of every input and output once over the HBM rate, or the
     operations (:func:`_ops`) over the peak rate. One row per kernel, with
-    the launches of the main path's run (``counts``)."""
+    the launches of the main path's run (``counts``), the storage type of its
+    volumes (int16 on every main path) and its ms per level."""
     acc = {}
     for c in records:
         name, fn, args, kwargs = _kernel_name(c), c["fn"], c["args"], c["kwargs"]
@@ -612,7 +642,12 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
         plain_ms = event_ms(lambda: plain(*_head(args, n), **_head(kwargs, n)), 1)
         nbytes = _nbytes(args) + _nbytes(kwargs) + _nbytes(outs)
         nops = _ops(name, args, kwargs, outs[0].numel())
-        a = acc.setdefault(name, dict(ms=0.0, plain_ms=0.0, nbytes=0.0, nops=0.0, frames=outs[0].shape[0]))
+        storage = _storage(name, args, outs[0])
+        if storage not in (None, torch.int16):
+            raise AssertionError(f"{name} ({c['level']}) ran in {storage} on the {path} main path, not int16")
+        a = acc.setdefault(name, dict(ms=0.0, plain_ms=0.0, nbytes=0.0, nops=0.0, frames=outs[0].shape[0],
+                                      storage=storage, levels={}))
+        a["levels"][c["level"]] = a["levels"].get(c["level"], 0.0) + ms
         a["ms"] += ms
         a["plain_ms"] += plain_ms
         a["nbytes"] += nbytes
@@ -626,7 +661,9 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
         src, replaces = KERNELS[name][1:]
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=counts[name],
                          max_abs_err=0, ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, path=path, frames=a["frames"], plain_frames=n))
+                         library_ms=None, path=path, frames=a["frames"], plain_frames=n,
+                         storage=None if a["storage"] is None else str(a["storage"]).removeprefix("torch."),
+                         ms_by_level=a["levels"]))
     return rows
 
 
@@ -818,14 +855,15 @@ def phase_sgm_sites(dev) -> tuple[dict, list[dict]]:
             "aggregate_8", SOURCES["sgm"], "stereo_vision_tpu/stereo/sgm_pallas.py:202 + :240 aggregate_8_pallas:171 "
             "(_vertical_kernel:70, _horizontal_kernel:143)",
             lambda: sgm_cuda.aggregate_8(C, p.P1, p.P2, paths, cost_bound=p.cost_bound),
-            lambda: sgm_cuda._aggregate_8(C, p.P1, p.P2, paths), n * 6, n * (9 * paths - 1), 3, f"{paths} paths")
+            lambda: sgm_cuda._aggregate_8(C, p.P1, p.P2, paths), n * 6, n * (9 * paths - 1), 3, f"{paths} paths",
+            C.dtype)
         torch.cuda.empty_cache()
     S = sgm_cuda.aggregate_8(C, p.P1, p.P2, 8, cost_bound=p.cost_bound)
     wta, _ = check_kernel("wta_stats", SOURCES["sgm"],
                           "stereo_vision_tpu/stereo/sgm_pallas.py:320 wta_stats_pallas:296 (_wta_kernel:265)",
                           lambda: sgm_cuda.wta_stats(S, p.uniqueness_ratio),
                           lambda: sgm_cuda.wta_scan(S, D, p.uniqueness_ratio), n * 4 + (n // D) * (5 * 4 + 1),
-                          n * 10, 10, "two-stage")
+                          n * 10, 10, "two-stage", S.dtype)
     del S
     rows = [dict(agg[8], path="two-stage"), wta]
 
@@ -1075,6 +1113,89 @@ def phase_hier_per_frame(dev) -> None:
     print(f"kernel banded_cost stride 2 ({H16_P}x{lc.shape[1]}x{lc.shape[2]}, K=16): exact", flush=True)
 
 
+def phase_horizontal_bands(dev) -> dict:
+    """The banded horizontal scan (#18) on per-pixel random shift maps at
+    every band it takes (K = 4, 8, ..., 64; G varying with K), int16 and
+    int32, both directions, against its plain form on the card, exact. Rows
+    that leave a warp's last groups empty and columns that leave the last
+    prefetched chunk short are in the shape. Then ms and bounds at the full
+    level's shape (720 rows x 1152 columns, a shift map constant on 4-px
+    tiles): K=16 int16 and int32 at hier16x3's 8 frames and int16 on 1
+    frame, K=4 at hier4x3's 32 frames and on 4 (how the time grows with the
+    rows)."""
+    P, h, Wv = 2, 9, 203
+    P1, P2 = P3.P1, P3.P2
+    for K in range(4, 65, 4):
+        G = K // 2 if (K // 4) % 2 else K // 4
+        rng = np.random.default_rng(K)
+        s = rng.integers(0, 6, (P, h, Wv)) * G + (rng.random((P, h, Wv)) < 0.1) * rng.integers(1, 3, (P, h, Wv))
+        s = torch.from_numpy(s.astype(np.int32)).to(dev)
+        for dtype, bound in ((torch.int16, 2325), (torch.int32, 40000)):
+            C = torch.from_numpy(rng.integers(0, bound + 1, (P, h, Wv, K))).to(dtype).to(dev)
+            for rev in (False, True):
+                out = banded_cuda.banded_horizontal(C, s, G, P1, P2, cost_bound=bound, reverse=rev)
+                err = max_abs_err(out, banded_cuda.horizontal_plain(C, s, G, P1, P2, rev))
+                if out.dtype != dtype or err != 0:
+                    raise AssertionError(f"banded_horizontal K={K} G={G} {dtype} reverse={rev}: {out.dtype}, "
+                                         f"max abs err {err}")
+    print(f"kernel banded_horizontal K=4..64, int16 and int32, both directions, {P}x{h}x{Wv}, per-pixel random "
+          "shifts: exact", flush=True)
+    out = {}
+    Wf = W - D
+    for K, G, dtype, frames in ((16, 8, torch.int16, H16_P), (16, 8, torch.int32, H16_P), (16, 8, torch.int16, 1),
+                                (4, 2, torch.int16, HIER_P), (4, 2, torch.int16, 4)):
+        rng = np.random.default_rng(K)
+        tiles = rng.integers(0, (D - K) // G + 1, (frames, H // 4, Wf // 4)) * G
+        s = torch.from_numpy(np.repeat(np.repeat(tiles, 4, 1), 4, 2).astype(np.int32)).to(dev)
+        bound = P3.cost_bound if dtype == torch.int16 else 40000
+        C = torch.randint(0, bound + 1, (frames, H, Wf, K), device=dev, dtype=torch.int32).to(dtype)
+        ms = event_ms(lambda: banded_cuda.banded_horizontal(C, s, G, P1, P2, cost_bound=bound), 10)
+        b_ms, b_by = bound_ms(2 * C.numel() * C.element_size() + s.numel() * 4, C.numel() * 10)
+        out[f"K={K} {str(dtype).removeprefix('torch.')} {frames} frames"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        del C, s
+    print(f"banded_horizontal at {H} rows x {Wf} columns, 4-px tiles: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_settings(dev) -> dict:
+    """Settings the card once refused, CUDA against CPU, exact: the exact
+    pipeline at 240x320, D=64, 2 frames at block 11 with 8 paths (whose
+    direction sums leave int16) and at min_disparity -8 (no LR check: the
+    reference asserts min_disparity >= 0 there), points within float32
+    rtol 1e-6; then the per-frame stereo_sgbm_hier at band 12 (64x256)."""
+    h, w, b = 240, 320, 2
+    maps, Q = rig(h, w)
+    frames = [scene(seed=s, H=h, W=w) for s in range(b)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    out = {}
+    cases = {"block 11, 8 paths": PARAMS._replace(num_disparities=64, block_size=11),
+             "min_disparity -8": PARAMS._replace(num_disparities=64, min_disparity=-8, disp12_max_diff=-1)}
+    for label, p in cases.items():
+        storage = sgm_cuda.storage_dtype(p.cost_bound, p.P2, 3)
+        n = cost_cuda.cost_volume.launches
+        d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device=dev)
+        d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device="cpu")
+        if cost_cuda.cost_volume.launches != n + 1 or not torch.equal(d_gpu.cpu(), d_cpu):
+            raise AssertionError(f"CUDA and CPU disparities differ at 240x320 ({label})")
+        torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+        valid = float((d_cpu > p.min_disparity - 1).float().mean())
+        out[label] = dict(storage=str(storage).removeprefix("torch."), valid_share=valid)
+        print(f"pipeline 240x320 D=64 B=2, {label}: CUDA == CPU ({storage}, valid share {valid:.4f})", flush=True)
+    if out["block 11, 8 paths"]["storage"] != "int32":
+        raise AssertionError("block 11 at 8 paths did not take the int32 kernels")
+    left, right = (torch.from_numpy(a) for a in scene(seed=1, H=64, W=256))
+    hp = hier.HierParams(band=12, granularity=4)
+    ref = hier.stereo_sgbm_hier(left, right, P3, hp)
+    n = banded_cuda.banded_horizontal.launches
+    got = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), P3, hp)
+    if banded_cuda.banded_horizontal.launches == n or not torch.equal(got.cpu(), ref):
+        raise AssertionError("per-frame stereo_sgbm_hier at band 12 differs between the card and the CPU")
+    out["hier band 12 valid share"] = float((ref > -1).float().mean())
+    print(f"per-frame stereo_sgbm_hier 64x256 band 12: CUDA == CPU (valid share "
+          f"{out['hier band 12 valid share']:.4f})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1132,6 +1253,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_hier_per_frame(dev)
     torch.cuda.empty_cache()
+    horizontal_bands = phase_horizontal_bands(dev)
+    torch.cuda.empty_cache()
+    settings = phase_settings(dev)
+    torch.cuda.empty_cache()
 
     phase_hier_small_pipeline(dev)
     agree = phase_agreement(dev)
@@ -1165,7 +1290,8 @@ def main() -> int:
                       "hier_breakdown": hier_breakdown, "hier4x8_main_path": h8_e2e, "hier4x8_breakdown": h8_breakdown,
                       "agreement": agree, "exact8_fused_rl_wta": fused, "sgm_sites": sites, "bm480": bm480,
                       "bm_main_path": bm_e2e, "bm_breakdown": bm_breakdown, "hier16x3": h16,
-                      "geometry": geometry}), flush=True)
+                      "geometry": geometry, "banded_horizontal_full_shape": horizontal_bands,
+                      "settings": settings}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,7 @@
 // that banded_stats_pack chains:
 //   _pix_kernel + _aligned_box_kernel(_srows) -> banded_cost_kernel
 //   _vert_kernel (without diagonals)          -> banded_vertical_kernel
-//   _vert_kernel (with diagonals, 8 paths)    -> banded_vertical_diag_kernel
+//   _vert_kernel (with diagonals, 8 paths)    -> banded_diag.cuh
 //   _horiz_kernel                             -> banded_horizontal_kernel
 //   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel
 //   _wta_fused_kernel (band 16)               -> banded_wta_fused_kernel
@@ -27,9 +27,12 @@
 //     predecessor outside the frame is a zero carry (L = c);
 //   window: the same shifts, but a lane with no source, or |delta| > G,
 //     takes the centre pixel's own value.
-// Layout: banded volumes (P, H, Wv, K) int16, frames on the grid. The TPU
-// kernels' 128-lane frame packing, float32-for-int and tile-entry delta
-// rows are not carried over.
+// Layout: banded volumes (P, H, Wv, K) of T, frames on the grid; T is int16
+// where the wrappers find that the volumes' bound fits it and int32
+// otherwise, and every kernel is one template over T. K is any multiple of 4
+// from 4 to 64 (banded.cuh: kernels are instantiated at the next power of
+// two and take K at run time). The TPU kernels' 128-lane frame packing,
+// float32-for-int and tile-entry delta rows are not carried over.
 //
 // What bounds them on an H100 (hier4x3 full-res level, 32 frames of
 // 1280x720, K=4, 1152 valid columns; one int16 volume = 212 MB): the cost
@@ -37,11 +40,9 @@
 // writes two (~190 us); each horizontal reads one and writes one
 // (~127 us); the WTA reads three and writes four int32 maps and a bool map
 // (~318 us). The scans are also dependent chains of H (or Wv) steps. The
-// 8-path vertical (hier4x8) reads one volume and writes two, as vertical
-// does, with three carry sets per direction. The fused WTA (hier16x3 full
-// level: 8 frames, K=16, three 212 MB volumes and a 26.5 MB shift map in,
-// two 26.5 MB int32 maps out) is bytes-bound at ~0.21 ms; its operations
-// take under 0.02 ms at 67 T/s.
+// fused WTA (hier16x3 full level: 8 frames, K=16, three 212 MB volumes and
+// a 26.5 MB shift map in, two 26.5 MB int32 maps out) is bytes-bound at
+// ~0.21 ms; its operations take under 0.02 ms at 67 T/s.
 //
 // Design (right and simple first):
 //   cost: one block per (frame, output row, tile of TX columns). The block
@@ -54,19 +55,9 @@
 //     memory. Rows and columns clamp at the image edge, for cost and s.
 //   vertical: one thread per (frame, column, direction) walks the rows with
 //     its K carries in registers (no diagonals: the down and up scans are
-//     independent per column), prefetching the next row.
-//   vertical with diagonals: a diagonal carry moves one column per row, so
-//     one block per (frame, direction) walks the rows; each thread owns CPT
-//     columns (CPT = ceil(Wv / 1024)), keeps their vertical carries in
-//     registers, prefetches the next row's cost, and exchanges the two
-//     diagonal carry sets with its neighbours through a ping-pong pair of
-//     rows (one __syncthreads per row) in shared memory, or in an
-//     L2-resident device scratch where 8 * Wv * K bytes exceed it. One
-//     launch replaces the per-row launches a row-parallel design would take
-//     (the exact path's vertical takes 720).
-//   horizontal: one thread per (frame, row) walks the columns with its K
-//     carries in registers; tiles of columns are staged through shared
-//     memory so that the loads and stores of a block are coalesced.
+//     independent per column), prefetching the next row. Lane shifts by a
+//     runtime delta use a barrel shifter over compile-time offsets.
+//   horizontal: see banded_horizontal_kernel.
 //   wta: one thread per pixel sums the 2-4 volumes in int32 and reduces
 //     over the K lanes. The fused form shares that reduction and the
 //     subpixel step, reads the pixel's shift and writes the LR check's pack
@@ -76,25 +67,21 @@
 //   downsample: one thread per output pixel; the TPU kernel's 0/1 pooling
 //     matmul becomes an integer sum, the float32 division and the
 //     half-to-even round stay.
-// Lane shifts by a runtime delta use a barrel shifter over compile-time
-// offsets (log2 K stages), so the carries stay in registers.
 
 #include <climits>
-#include <type_traits>
 
-#include "common.cuh"
+#include "banded.cuh"
 
 namespace {
 
 using svt::bt;
 using svt::clampi;
 using svt::extrema;
+using svt::kBig;
 using svt::xsobel;
 
-constexpr int kBig = 1 << 29;  // out-of-band carry lane
 constexpr int kCostThreads = 256;
 constexpr int kScanThreads = 128;
-constexpr int kRowsPerBlock = 64;  // horizontal: rows (threads) per block
 
 // ------------------------------------------------------------------ cost
 
@@ -107,10 +94,11 @@ __device__ __forceinline__ int window_lane(const int* a, int delta, const int* c
   return a[lane];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kCostThreads)
 banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, const int* __restrict__ shift,
-                   int16_t* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs, int ftzero,
-                   int min_x, int stride, int TX, int NRcap) {
+                   T* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs, int ftzero, int min_x,
+                   int stride, int TX, int NRcap) {
   extern __shared__ int smem[];
   __shared__ int dlo, dhi;
   const int r = bs / 2, NC = TX + 2 * r;
@@ -204,330 +192,265 @@ banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, 
     const int sc = sS[r * NC + t + r];
     int sum = 0;
     for (int dx = 0; dx < bs; ++dx) sum += window_lane(acc + (t + dx) * K, sc - sS[r * NC + t + dx], ctr, lane, G, K);
-    out[(((size_t)b * H + y) * Wo + (x - min_x)) * K + lane] = static_cast<int16_t>(sum);
+    out[(((size_t)b * H + y) * Wo + (x - min_x)) * K + lane] = static_cast<T>(sum);
   }
 }
 
-// ----------------------------------------------------------------- scans
+int cost_tile(int K) { return K <= 8 ? 64 : K <= 16 ? 32 : K <= 32 ? 16 : 8; }
 
-// K int16 lanes as raw 8- or 16-byte words: a load kept in flight while
-// other work runs, unpacked to int32 lanes where it is used.
-template <int K>
-struct RawLanes {
-  static_assert(K == 4 || K % 8 == 0, "K is 4 or a multiple of 8");
-  static constexpr int kPer = K == 4 ? 4 : 8;  // lanes per word
-  using Word = typename std::conditional<K == 4, int2, int4>::type;
-  Word w[K / kPer];
-
-  __device__ __forceinline__ void load(const int16_t* p) {
-#pragma unroll
-    for (int i = 0; i < K / kPer; ++i) w[i] = reinterpret_cast<const Word*>(p)[i];
-  }
-  __device__ __forceinline__ void unpack(int (&v)[K]) const {
-#pragma unroll
-    for (int i = 0; i < K / kPer; ++i) {
-      const int16_t* h = reinterpret_cast<const int16_t*>(&w[i]);
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) v[kPer * i + k] = h[k];
-    }
-  }
-};
-
-// No __restrict__ on the pointers of these two: the diagonal scan reads
-// carries that other threads of its block wrote.
-template <int K>
-__device__ __forceinline__ void load_lanes(const int16_t* p, int (&v)[K]) {
-  RawLanes<K> r;
-  r.load(p);
-  r.unpack(v);
+size_t cost_smem(int K, int ndisp, int bs) {
+  const int NC = cost_tile(K) + 2 * (bs / 2), NRcap = NC + ndisp;
+  return (size_t)(bs * NC + 6 * NC + 6 * NRcap + bs * NC * K + NC * K) * sizeof(int);
 }
 
-template <int K>
-__device__ __forceinline__ void store_lanes(int16_t* p, const int (&v)[K]) {
-  if constexpr (K % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < K / 8; ++i) {
-      alignas(16) int16_t h[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) h[k] = static_cast<int16_t>(v[8 * i + k]);
-      reinterpret_cast<int4*>(p)[i] = *reinterpret_cast<const int4*>(h);
-    }
-  } else {
-    alignas(8) int16_t h[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) h[k] = static_cast<int16_t>(v[k]);
-    *reinterpret_cast<int2*>(p) = *reinterpret_cast<const int2*>(h);
-  }
+template <typename T>
+cudaError_t cost_launch(const int* left, const int* right, const int* shift, T* out, int P, int H, int W, int K,
+                        int G, int ndisp, int bs, int ftzero, int min_x, int stride, cudaStream_t st) {
+  const size_t smem = cost_smem(K, ndisp, bs);
+  cudaError_t e = cudaFuncSetAttribute(banded_cost_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int TX = cost_tile(K);
+  const int NRcap = TX + 2 * (bs / 2) + ndisp;
+  const dim3 grid((W - min_x + TX - 1) / TX, H, P);
+  banded_cost_kernel<T><<<grid, kCostThreads, smem, st>>>(left, right, shift, out, H, W, K, G, ndisp, bs, ftzero,
+                                                          min_x, stride, TX, NRcap);
+  return cudaGetLastError();
 }
 
-template <int K>
-__host__ __device__ constexpr int log2_of() {
-  int n = 0;
-  while ((1 << n) < K) ++n;
-  return n;
-}
-
-// a[k] <- a[k + sh], kBig where k + sh is outside [0, K): a barrel shifter
-// over the bits of |sh|, each stage a shift by a compile-time offset.
-template <int K>
-__device__ __forceinline__ void shift_lanes(int (&a)[K], int sh) {
-  if (sh >= K || sh <= -K) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) a[k] = kBig;
-    return;
-  }
-  constexpr int kBits = log2_of<K>();
-  if (sh > 0) {
-#pragma unroll
-    for (int i = 0; i < kBits; ++i) {
-      const int bit = 1 << i;
-      if (sh & bit) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) a[k] = k + bit < K ? a[k + bit] : kBig;
-      }
-    }
-  } else if (sh < 0) {
-    const int m = -sh;
-#pragma unroll
-    for (int i = 0; i < kBits; ++i) {
-      const int bit = 1 << i;
-      if (m & bit) {
-#pragma unroll
-        for (int k = K - 1; k >= 0; --k) a[k] = k - bit >= 0 ? a[k - bit] : kBig;
-      }
-    }
-  }
-}
-
-// align_band (fill kBig; kDiag: align_band(diag=True), which also shifts
-// by +-2G when 2G < K) then _update_banded, in place on the carry L.
-template <int K, bool kDiag = false>
-__device__ __forceinline__ void banded_step(const int (&c)[K], int (&L)[K], int delta, int G, int P1, int P2) {
-  const bool two = kDiag && 2 * G < K;
-  const int reach = two ? 2 * G : G;
-  if (delta > reach || delta < -reach) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) L[k] = c[k];  // no lane in band: the border rule
-    return;
-  }
-  if (delta == G) {
-    shift_lanes<K>(L, G);
-  } else if (delta == -G) {
-    shift_lanes<K>(L, -G);
-  } else if (two && delta == 2 * G) {
-    shift_lanes<K>(L, 2 * G);
-  } else if (two && delta == -2 * G) {
-    shift_lanes<K>(L, -2 * G);
-  }
-  int m = L[0];
-#pragma unroll
-  for (int k = 1; k < K; ++k) m = min(m, L[k]);
-  if (m >= kBig) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) L[k] = c[k];
-    return;
-  }
-  int prev = kBig;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int cur = L[k];
-    const int nxt = k + 1 < K ? L[k + 1] : kBig;
-    const int cand = min(min(cur, m + P2), min(prev, nxt) + P1);
-    L[k] = c[k] + cand - m;
-    prev = cur;
-  }
-}
+// ------------------------------------------------------------- vertical
 
 // One thread per (frame, column, direction): blockIdx.z = 0 scans down,
 // 1 scans up; the delta is s(y) - s(previous row visited).
-template <int K>
-__global__ void __launch_bounds__(kScanThreads)
-banded_vertical_kernel(const int16_t* __restrict__ C, const int* __restrict__ shift, int16_t* __restrict__ out_dn,
-                       int16_t* __restrict__ out_up, int H, int Wv, int G, int P1, int P2) {
+template <typename T, int KP>
+__device__ __forceinline__ void vertical_scan(const T* __restrict__ C, const int* __restrict__ shift,
+                                              T* __restrict__ out_dn, T* __restrict__ out_up, int H, int Wv, int K,
+                                              int G, int P1, int P2) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= Wv) return;
   const int b = blockIdx.y, up = blockIdx.z;
-  const int16_t* Cb = C + (size_t)b * H * Wv * K;
-  int16_t* Ob = (up ? out_up : out_dn) + (size_t)b * H * Wv * K;
+  const T* Cb = C + (size_t)b * H * Wv * K;
+  T* Ob = (up ? out_up : out_dn) + (size_t)b * H * Wv * K;
   const int* Sb = shift + (size_t)b * H * Wv;
   const int step = up ? -1 : 1;
   int y = up ? H - 1 : 0;
-  int L[K], c[K], cn[K];
+  int L[KP], c[KP], cn[KP];
 #pragma unroll
-  for (int k = 0; k < K; ++k) L[k] = 0;
-  load_lanes<K>(Cb + ((size_t)y * Wv + x) * K, cn);
+  for (int k = 0; k < KP; ++k) L[k] = k < K ? 0 : kBig;
+  svt::load_lanes<T, KP>(Cb + ((size_t)y * Wv + x) * K, K, cn, kBig);
   int sn = Sb[(size_t)y * Wv + x], sprev = sn;
   for (int t = 0; t < H; ++t, y += step) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) c[k] = cn[k];
+    for (int k = 0; k < KP; ++k) c[k] = cn[k];
     const int sy = sn;
     if (t + 1 < H) {
-      load_lanes<K>(Cb + ((size_t)(y + step) * Wv + x) * K, cn);
+      svt::load_lanes<T, KP>(Cb + ((size_t)(y + step) * Wv + x) * K, K, cn, kBig);
       sn = Sb[(size_t)(y + step) * Wv + x];
     }
-    banded_step<K>(c, L, sy - sprev, G, P1, P2);
-    store_lanes<K>(Ob + ((size_t)y * Wv + x) * K, L);
+    svt::banded_step<KP>(c, L, sy - sprev, K, G, P1, P2);
+    svt::store_lanes<T, KP>(Ob + ((size_t)y * Wv + x) * K, K, L);
     sprev = sy;
   }
 }
 
-constexpr int kDiagMaxThreads = 1024;
-
-// One block per (frame, direction): blockIdx.y = 0 scans down, 1 up (the
-// y-flipped volume with the same column shifts). Thread t owns the columns
-// x = t + j * blockDim.x, j < CPT. Per row, each column updates its vertical
-// carry (predecessor (y', x)), its (1,1) diagonal carry (predecessor
-// (y', x - 1)) and its (-1,1) one (predecessor (y', x + 1)), y' the row
-// visited before, and stores their sum. Carry buffer: [2 rows][2 sets][Wv][K]
-// int16 (a carry is at most cost_bound + P2), in shared memory, or at
-// scratch + (frame * 2 + direction) * 4 * Wv * K when scratch is given.
-template <int K, int CPT>
-__global__ void __launch_bounds__(kDiagMaxThreads)
-banded_vertical_diag_kernel(const int16_t* __restrict__ C, const int* __restrict__ shift,
-                            int16_t* __restrict__ out_dn, int16_t* __restrict__ out_up, int16_t* scratch, int H,
-                            int Wv, int G, int P1, int P2) {
-  extern __shared__ __align__(16) int16_t carry_smem[];
-  const int b = blockIdx.x, up = blockIdx.y;
-  const size_t plane = (size_t)Wv * K;
-  int16_t* carry = scratch ? scratch + ((size_t)b * 2 + up) * 4 * plane : carry_smem;
-  const int16_t* Cb = C + (size_t)b * H * plane;
-  int16_t* Ob = (up ? out_up : out_dn) + (size_t)b * H * plane;
-  const int* Sb = shift + (size_t)b * H * Wv;
-  const int step = up ? -1 : 1;
-  int y = up ? H - 1 : 0;
-
-  int Lv[CPT][K], sprev[CPT];
-  RawLanes<K> nxt[CPT];
-  int snxt[CPT];
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int x = threadIdx.x + j * blockDim.x;
-    if (x < Wv) {
-      nxt[j].load(Cb + ((size_t)y * Wv + x) * K);
-      snxt[j] = Sb[(size_t)y * Wv + x];
-    }
+// K == KP takes a copy of the scan in which K is a constant, so that the
+// band's masks fold away and the power-of-two bands run as before.
+template <typename T, int KP>
+__global__ void __launch_bounds__(kScanThreads)
+banded_vertical_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __restrict__ out_dn,
+                       T* __restrict__ out_up, int H, int Wv, int K, int G, int P1, int P2) {
+  if (KP <= 8 || K == KP) {  // K % 4 == 0 leaves K == KP for KP <= 8
+    vertical_scan<T, KP>(C, shift, out_dn, out_up, H, Wv, KP, G, P1, P2);
+  } else {
+    vertical_scan<T, KP>(C, shift, out_dn, out_up, H, Wv, K, G, P1, P2);
   }
-  for (int t = 0; t < H; ++t, y += step) {
-    RawLanes<K> cur[CPT];
-    int scur[CPT];
+}
+
+// ------------------------------------------------------------ horizontal
+
+// Replaces banded_pallas.py:1144 banded_reduce_pack -> _horiz_kernel:759:
+// the L->R (reverse: R->L) banded SGM recurrence of every (frame, row),
+// the carry realigned by s(x) - s(x -+ 1) (0 at the first column).
+//
+// What bounds it: bytes. It reads the cost volume and the shift map once
+// and writes one volume: at the hier16x3 full level (8 frames of 720 rows,
+// 1152 columns, K=16, int16) 2 x 212 MB + 26.5 MB, ~0.135 ms at 3.35 TB/s;
+// its ~10 operations a lane and step take ~0.03 ms at 67 T/s.
+//
+// The recurrence is a chain of Wv dependent steps per row, so the design is
+// about that chain. A group of GS = min(KP, 32) threads owns one (frame,
+// row) and thread t holds lanes t + GS * j, j < KP / GS (two above K=32),
+// so the card holds rows x GS threads (92,160 at the hier16x3 full level)
+// where one thread a row held 5,760. Per column step, with every shuffle
+// inside the group:
+//   - the carry's lanes k + sh, k + sh - 1 and k + sh + 1 (sh = +-G or 0)
+//     come by three independent __shfl_sync, kBig outside [0, K), which
+//     gives the realigned carry and its d -+ 1 neighbours at once;
+//   - its minimum over the band is log2(GS) __shfl_xor_sync steps, or one
+//     __reduce_min_sync where the group is the warp (under a group's mask
+//     the warp's groups take their __reduce_min_sync in turns);
+//   - the update is a few integer operations per lane.
+// Each thread loads and stores its own lanes: a group's K lanes of one
+// column are contiguous (32 bytes at K=16 int16), so each access is whole
+// sectors. Loads run U columns ahead through a register ring, so that a
+// column's cost and shift arrive while earlier columns' steps run; they are
+// unconditional (a lane past the band or a column past the row reads an
+// in-bounds neighbour it never uses) and sign-extend in the load itself, so
+// that no instruction waits on them before their column's step (a select
+// or a conversion placed right after a load stalls the whole chain). Every
+// lane of the group reads the shift map at the same address, one broadcast
+// a column. At most 64 registers a thread keep all of a level's groups
+// resident in one wave. What holds it back (PERF.md): at K=16 the chain of
+// a step's shuffles, minimum and update, row by row; at K <= 8 a warp's
+// load or store touches 32 / GS rows, so the time grows with the frames.
+// Both directions and both storage types are one template.
+constexpr int kHorizThreads = 128;
+constexpr int kHorizBlocksPerSM = 8;
+constexpr int kHorizAhead = 4;  // U: columns loaded ahead of the step chain
+
+// A read-only load of a T lane, sign-extended to int32 by the load itself.
+__device__ __forceinline__ int load_lane(const int16_t* p) {
+  int v;
+  asm("ld.global.nc.s16 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int load_lane(const int* p) { return __ldg(p); }
+
+template <typename T, int GS, int LPT>
+__global__ void __launch_bounds__(kHorizThreads, kHorizBlocksPerSM)
+banded_horizontal_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __restrict__ out, int rows,
+                         int Wv, int K, int G, int P1, int P2, int reverse) {
+  constexpr int U = kHorizAhead;
+  constexpr int kLogGS = svt::log2_of<GS>();
+  const int lane = threadIdx.x & 31;
+  const int t = lane & (GS - 1);
+  const int warp_row0 = (blockIdx.x * kHorizThreads + (threadIdx.x & ~31)) / GS;
+  if (warp_row0 >= rows) return;  // whole warp
+  const int gid = warp_row0 + lane / GS;
+  const bool live = gid < rows;  // a group past the last row shadows it and stores nothing
+  const size_t row = live ? gid : rows - 1;
+  const T* crow = C + row * Wv * K;
+  T* orow = out + row * Wv * K;
+  const int* srow = shift + row * Wv;
+
+  bool valid[LPT];
+  int L[LPT], lofs[LPT];
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      cur[j] = nxt[j];
-      scur[j] = snxt[j];
+  for (int j = 0; j < LPT; ++j) {
+    valid[j] = t + GS * j < K;
+    lofs[j] = min(t + GS * j, K - 1);  // the lane a thread loads (past the band: a neighbour, unused)
+    L[j] = valid[j] ? 0 : kBig;        // the zero carry; lanes past the band hold kBig
+  }
+  // Column of the ti-th step in scan order, clamped into the row.
+  auto column = [&](int ti) {
+    const int c = min(ti, Wv - 1);
+    return reverse ? Wv - 1 - c : c;
+  };
+
+  // The register ring: costs and shifts of columns [base, base + U) in scan order.
+  int cn[U][LPT], sn[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int x = column(u);
+    sn[u] = __ldg(srow + x);
+#pragma unroll
+    for (int j = 0; j < LPT; ++j) cn[u][j] = load_lane(crow + (size_t)x * K + lofs[j]);
+  }
+  int sprev = sn[0];  // delta 0 at the first column
+
+  for (int base = 0; base < Wv; base += U) {
+    int cc[U][LPT], sc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sc[u] = sn[u];
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) cc[u][j] = cn[u][j];
     }
-    if (t + 1 < H) {
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int x = threadIdx.x + j * blockDim.x;
-        if (x < Wv) {
-          nxt[j].load(Cb + ((size_t)(y + step) * Wv + x) * K);
-          snxt[j] = Sb[(size_t)(y + step) * Wv + x];
+    for (int u = 0; u < U; ++u) {
+      const int x = column(base + U + u);
+      sn[u] = __ldg(srow + x);
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) cn[u][j] = load_lane(crow + (size_t)x * K + lofs[j]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ti = base + u;
+      if (ti >= Wv) break;  // uniform: every group has the same Wv
+      const int delta = sc[u] - sprev;
+      sprev = sc[u];
+      const bool reset = delta > G || delta < -G;
+      const int sh = delta == G ? G : delta == -G ? -G : 0;
+      // Lanes k + sh + o of the carry, o = -1, 0, +1: a[o + 1][j].
+      int a[3][LPT];
+#pragma unroll
+      for (int o = 0; o < 3; ++o) {
+        const int q = t + sh + o - 1;
+        const int src = q & (GS - 1), e0 = q >> kLogGS;  // floor division
+        int v[LPT];
+#pragma unroll
+        for (int e = 0; e < LPT; ++e) v[e] = __shfl_sync(svt::kFullMask, L[e], src, GS);
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) {
+          const int e = j + e0;
+          int r = kBig;
+#pragma unroll
+          for (int f = 0; f < LPT; ++f) r = e == f ? v[f] : r;
+          a[o][j] = r;
         }
       }
-    }
-    const int16_t* rd = carry + (size_t)(t & 1) * 2 * plane;  // the previous row's diagonal carries
-    int16_t* wr = carry + (size_t)((t + 1) & 1) * 2 * plane;
-    const int* sp = Sb + (size_t)(y - step) * Wv;  // the previous row's shifts (t > 0)
+      int m = kBig;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int x = threadIdx.x + j * blockDim.x;
-      if (x >= Wv) continue;
-      int c[K], Ld[K], Lu[K];
-      cur[j].unpack(c);
-      const int sy = scur[j];
-      if (t == 0) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) Lv[j][k] = Ld[k] = Lu[k] = c[k];
+      for (int j = 0; j < LPT; ++j) {
+        const int k = t + GS * j;
+        if (!valid[j]) a[1][j] = kBig;
+        if (k == 0) a[0][j] = kBig;       // no lane below the band
+        if (k + 1 >= K) a[2][j] = kBig;  // no lane above it
+        m = min(m, a[1][j]);
+      }
+      if constexpr (GS == 32) {
+        m = __reduce_min_sync(svt::kFullMask, m);
       } else {
-        banded_step<K>(c, Lv[j], sy - sprev[j], G, P1, P2);
-        if (x > 0) {
-          load_lanes<K>(rd + (size_t)(x - 1) * K, Ld);
-          banded_step<K, true>(c, Ld, sy - sp[x - 1], G, P1, P2);
-        } else {
 #pragma unroll
-          for (int k = 0; k < K; ++k) Ld[k] = c[k];  // a zero carry from outside the frame
-        }
-        if (x + 1 < Wv) {
-          load_lanes<K>(rd + plane + (size_t)(x + 1) * K, Lu);
-          banded_step<K, true>(c, Lu, sy - sp[x + 1], G, P1, P2);
-        } else {
-#pragma unroll
-          for (int k = 0; k < K; ++k) Lu[k] = c[k];
-        }
+        for (int o = GS / 2; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(svt::kFullMask, m, o, GS));
       }
-      sprev[j] = sy;
-      store_lanes<K>(wr + (size_t)x * K, Ld);
-      store_lanes<K>(wr + plane + (size_t)x * K, Lu);
+      const bool border = reset || m >= kBig;
+      const int x = column(ti);
 #pragma unroll
-      for (int k = 0; k < K; ++k) Ld[k] += Lv[j][k] + Lu[k];
-      store_lanes<K>(Ob + ((size_t)y * Wv + x) * K, Ld);
-    }
-    __syncthreads();
-  }
-}
-
-// One thread per (frame, row): the L->R (reverse: R->L) scan. Tiles of T
-// columns of the block's rows are staged through shared memory.
-template <int K>
-__global__ void __launch_bounds__(kRowsPerBlock)
-banded_horizontal_kernel(const int16_t* __restrict__ C, const int* __restrict__ shift, int16_t* __restrict__ out,
-                         int rows, int Wv, int G, int P1, int P2, int reverse) {
-  constexpr int T = K >= 128 ? 1 : 128 / K;  // columns per tile
-  constexpr int PITCH = T * K + 2;           // int16 per staged row: an odd word pitch
-  __shared__ int16_t tile[kRowsPerBlock * PITCH];
-  __shared__ int stile[kRowsPerBlock * (T + 1)];
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int nrows = min(kRowsPerBlock, rows - row0);
-  const int me = threadIdx.x;
-  const int ntiles = (Wv + T - 1) / T;
-  int L[K], c[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) L[k] = 0;
-  int sprev = 0;
-  for (int ti = 0; ti < ntiles; ++ti) {
-    const int xs = (reverse ? ntiles - 1 - ti : ti) * T;
-    const int nx = min(T, Wv - xs), per = nx * K;
-    __syncthreads();  // the previous tile is written out
-    for (int i = threadIdx.x; i < nrows * per; i += blockDim.x) {
-      const int rr = i / per, e = i - rr * per;
-      tile[rr * PITCH + e] = C[((size_t)(row0 + rr) * Wv + xs) * K + e];
-    }
-    for (int i = threadIdx.x; i < nrows * nx; i += blockDim.x) {
-      const int rr = i / nx, e = i - rr * nx;
-      stile[rr * (T + 1) + e] = shift[(size_t)(row0 + rr) * Wv + xs + e];
-    }
-    __syncthreads();
-    if (me < nrows) {
-      for (int j = 0; j < nx; ++j) {
-        const int e = reverse ? nx - 1 - j : j;
-        int16_t* cell = tile + me * PITCH + e * K;
-#pragma unroll
-        for (int k = 0; k < K; ++k) c[k] = cell[k];
-        const int sx = stile[me * (T + 1) + e];
-        banded_step<K>(c, L, ti == 0 && j == 0 ? 0 : sx - sprev, G, P1, P2);
-#pragma unroll
-        for (int k = 0; k < K; ++k) cell[k] = static_cast<int16_t>(L[k]);
-        sprev = sx;
+      for (int j = 0; j < LPT; ++j) {
+        const int cand = min(min(a[1][j], m + P2), min(a[0][j], a[2][j]) + P1);
+        L[j] = !valid[j] ? kBig : border ? cc[u][j] : cc[u][j] + cand - m;
+        if (live && valid[j]) orow[(size_t)x * K + t + GS * j] = static_cast<T>(L[j]);
       }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nrows * per; i += blockDim.x) {
-      const int rr = i / per, e = i - rr * per;
-      out[((size_t)(row0 + rr) * Wv + xs) * K + e] = tile[rr * PITCH + e];
     }
   }
 }
 
-// S = the int32 sum of the nvol (2-4) volumes' K lanes at pixel p.
-template <int K>
-__device__ __forceinline__ void sum_volumes(const int16_t* const (&vols)[4], int nvol, int p, int (&S)[K]) {
-  int t[K];
-  load_lanes<K>(vols[0] + (size_t)p * K, S);
+template <typename T, int GS, int LPT>
+cudaError_t horizontal_launch(const T* C, const int* s, T* out, int rows, int Wv, int K, int G, int P1, int P2,
+                              int reverse, cudaStream_t st) {
+  const long long threads = (long long)rows * GS;
+  const long long blocks = (threads + kHorizThreads - 1) / kHorizThreads;
+  banded_horizontal_kernel<T, GS, LPT><<<(unsigned)blocks, kHorizThreads, 0, st>>>(C, s, out, rows, Wv, K, G, P1,
+                                                                                   P2, reverse);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------- WTA
+
+// S = the int32 sum of the nvol (2-4) volumes' K lanes at pixel p; the
+// lanes k >= K hold kBig.
+template <typename T, int KP>
+__device__ __forceinline__ void sum_volumes(const T* const (&vols)[4], int nvol, int p, int K, int (&S)[KP]) {
+  int t[KP];
+  svt::load_lanes<T, KP>(vols[0] + (size_t)p * K, K, S, 0);
   for (int j = 1; j < nvol; ++j) {
-    load_lanes<K>(vols[j] + (size_t)p * K, t);
+    svt::load_lanes<T, KP>(vols[j] + (size_t)p * K, K, t, 0);
 #pragma unroll
-    for (int k = 0; k < K; ++k) S[k] += t[k];
+    for (int k = 0; k < KP; ++k) S[k] += t[k];
   }
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+    if (k >= K) S[k] = kBig;
 }
 
 struct WtaStats {
@@ -536,22 +459,22 @@ struct WtaStats {
   bool ok;      // band-local uniqueness
 };
 
-template <int K>
-__device__ __forceinline__ WtaStats wta_reduce(const int (&S)[K], int uniq) {
+template <int KP>
+__device__ __forceinline__ WtaStats wta_reduce(const int (&S)[KP], int K, int uniq) {
   WtaStats w{S[0], 0, 0, 0, 0, true};
 #pragma unroll
-  for (int k = 1; k < K; ++k)
-    if (S[k] < w.mn) {
+  for (int k = 1; k < KP; ++k)
+    if (S[k] < w.mn) {  // the lanes k >= K hold kBig and never win
       w.mn = S[k];
       w.bst = k;
     }
   if (uniq > 0) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) w.ok &= !(abs(k - w.bst) > 1 && w.mn * (100 + uniq) > S[k] * 100);
+    for (int k = 0; k < KP; ++k) w.ok &= !(k < K && abs(k - w.bst) > 1 && w.mn * (100 + uniq) > S[k] * 100);
   }
   const int d0 = min(max(w.bst, 1), K - 2);
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < KP; ++k) {
     w.a = k == d0 - 1 ? S[k] : w.a;
     w.z = k == d0 ? S[k] : w.z;
     w.c = k == d0 + 1 ? S[k] : w.c;
@@ -560,8 +483,7 @@ __device__ __forceinline__ WtaStats wta_reduce(const int (&S)[K], int uniq) {
 }
 
 // The subpixel parabola in lane units x16; the edges keep 16 * best.
-template <int K>
-__device__ __forceinline__ int subpixel16(const WtaStats& w) {
+__device__ __forceinline__ int subpixel16(const WtaStats& w, int K) {
   const int denom2 = max(w.a + w.c - 2 * w.z, 1);
   const int q = ((w.a - w.c) * 16 + denom2) / (2 * denom2);  // C division truncates, as the reference
   return w.bst > 0 && w.bst < K - 1 ? w.bst * 16 + q : w.bst * 16;
@@ -569,23 +491,18 @@ __device__ __forceinline__ int subpixel16(const WtaStats& w) {
 
 // One thread per pixel: minS, best, the uniqueness verdict, and either the
 // samples a, z, c or, with sub, the subpixel parabola.
-template <int K>
-__global__ void __launch_bounds__(kScanThreads)
-banded_wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const int16_t* __restrict__ v2,
-                  const int16_t* __restrict__ v3, int nvol, int npix, int uniq, int sub, int* __restrict__ minS,
-                  int* __restrict__ best, int* __restrict__ m2, int* __restrict__ m3, int* __restrict__ m4,
-                  uint8_t* __restrict__ uok) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  const int16_t* const vols[4] = {v0, v1, v2, v3};
-  int S[K];
-  sum_volumes<K>(vols, nvol, p, S);
-  const WtaStats w = wta_reduce<K>(S, uniq);
+template <typename T, int KP>
+__device__ __forceinline__ void wta_pixel(const T* const (&vols)[4], int nvol, int p, int K, int uniq, int sub,
+                                          int* __restrict__ minS, int* __restrict__ best, int* __restrict__ m2,
+                                          int* __restrict__ m3, int* __restrict__ m4, uint8_t* __restrict__ uok) {
+  int S[KP];
+  sum_volumes<T, KP>(vols, nvol, p, K, S);
+  const WtaStats w = wta_reduce<KP>(S, K, uniq);
   minS[p] = w.mn;
   best[p] = w.bst;
   uok[p] = w.ok ? 1 : 0;
   if (sub) {
-    m2[p] = subpixel16<K>(w);
+    m2[p] = subpixel16(w, K);
   } else {
     m2[p] = w.a;
     m3[p] = w.z;
@@ -593,85 +510,106 @@ banded_wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1
   }
 }
 
+// K == KP takes a copy in which K is a constant (see banded_vertical_kernel).
+template <typename T, int KP>
+__global__ void __launch_bounds__(kScanThreads)
+banded_wta_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const T* __restrict__ v2,
+                  const T* __restrict__ v3, int nvol, int npix, int K, int uniq, int sub, int* __restrict__ minS,
+                  int* __restrict__ best, int* __restrict__ m2, int* __restrict__ m3, int* __restrict__ m4,
+                  uint8_t* __restrict__ uok) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npix) return;
+  const T* const vols[4] = {v0, v1, v2, v3};
+  if (KP <= 8 || K == KP) {
+    wta_pixel<T, KP>(vols, nvol, p, KP, uniq, sub, minS, best, m2, m3, m4, uok);
+  } else {
+    wta_pixel<T, KP>(vols, nvol, p, K, uniq, sub, minS, best, m2, m3, m4, uok);
+  }
+}
+
 // The fused form: one thread per pixel writes the LR check's
 // pack = minS * 2048 + (best + s) and du = (sub16 + 16 * s) + 32768 * unique_ok,
 // s the pixel's shift, in [0, ndisp - K] with 16 * ndisp < 32768 (the
 // wrapper checks ndisp), so that best + s fits the pack's 11 bits and d16
-// stays below the uniqueness bit; minS < 4 * 2^15 keeps the pack in int32.
-template <int K>
+// stays below the uniqueness bit; minS < 2^20 (the wrapper checks the
+// volumes' bound) keeps the pack in int32.
+template <typename T>
 __global__ void __launch_bounds__(kScanThreads)
-banded_wta_fused_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1,
-                        const int16_t* __restrict__ v2, const int16_t* __restrict__ v3, int nvol, int npix, int uniq,
-                        const int* __restrict__ shift, int* __restrict__ pack, int* __restrict__ du) {
+banded_wta_fused_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const T* __restrict__ v2,
+                        const T* __restrict__ v3, int nvol, int npix, int uniq, const int* __restrict__ shift,
+                        int* __restrict__ pack, int* __restrict__ du) {
+  constexpr int K = 16;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
-  const int16_t* const vols[4] = {v0, v1, v2, v3};
+  const T* const vols[4] = {v0, v1, v2, v3};
   int S[K];
-  sum_volumes<K>(vols, nvol, p, S);
-  const WtaStats w = wta_reduce<K>(S, uniq);
+  sum_volumes<T, K>(vols, nvol, p, K, S);
+  const WtaStats w = wta_reduce<K>(S, K, uniq);
   const int s = shift[p];
   pack[p] = w.mn * 2048 + w.bst + s;
-  du[p] = subpixel16<K>(w) + 16 * s + (w.ok ? 32768 : 0);
+  du[p] = subpixel16(w, K) + 16 * s + (w.ok ? 32768 : 0);
 }
 
-template <int K>
-cudaError_t scans(int which, const int16_t* C, const int* s, int16_t* o0, int16_t* o1, int P, int H, int Wv,
-                  int G, int P1, int P2, int reverse, cudaStream_t st) {
-  if (which == 0) {
+// ------------------------------------------------------------- dispatch
+
+// Fn<T, KP>::run(args...) for the storage type of `bytes` (2: int16, 4:
+// int32) and KP the power of two at or above K (4 <= K <= 64, K % 4 == 0).
+template <template <typename, int> class Fn, typename... Args>
+cudaError_t dispatch(int bytes, int K, Args... args) {
+  if (K < 4 || K > 64 || K % 4) return cudaErrorInvalidValue;
+  const int kp = K <= 4 ? 4 : K <= 8 ? 8 : K <= 16 ? 16 : K <= 32 ? 32 : 64;
+  if (bytes == 2) {
+    switch (kp) {
+      case 4: return Fn<int16_t, 4>::run(args...);
+      case 8: return Fn<int16_t, 8>::run(args...);
+      case 16: return Fn<int16_t, 16>::run(args...);
+      case 32: return Fn<int16_t, 32>::run(args...);
+      default: return Fn<int16_t, 64>::run(args...);
+    }
+  }
+  if (bytes == 4) {
+    switch (kp) {
+      case 4: return Fn<int, 4>::run(args...);
+      case 8: return Fn<int, 8>::run(args...);
+      case 16: return Fn<int, 16>::run(args...);
+      case 32: return Fn<int, 32>::run(args...);
+      default: return Fn<int, 64>::run(args...);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int KP>
+struct VerticalFn {
+  static cudaError_t run(const void* C, const int* s, void* dn, void* up, int P, int H, int Wv, int K, int G, int P1,
+                         int P2, cudaStream_t st) {
     const dim3 grid((Wv + kScanThreads - 1) / kScanThreads, P, 2);
-    banded_vertical_kernel<K><<<grid, kScanThreads, 0, st>>>(C, s, o0, o1, H, Wv, G, P1, P2);
-  } else {
-    const int rows = P * H;
-    banded_horizontal_kernel<K><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kRowsPerBlock, 0, st>>>(
-        C, s, o0, rows, Wv, G, P1, P2, reverse);
+    banded_vertical_kernel<T, KP><<<grid, kScanThreads, 0, st>>>(static_cast<const T*>(C), s, static_cast<T*>(dn),
+                                                                 static_cast<T*>(up), H, Wv, K, G, P1, P2);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
-}
+};
 
-cudaError_t scans_for(int K, int which, const int16_t* C, const int* s, int16_t* o0, int16_t* o1, int P, int H,
-                      int Wv, int G, int P1, int P2, int reverse, cudaStream_t st) {
-  switch (K) {
-    case 4: return scans<4>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
-    case 8: return scans<8>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
-    case 16: return scans<16>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
-    case 32: return scans<32>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
-    case 64: return scans<64>(which, C, s, o0, o1, P, H, Wv, G, P1, P2, reverse, st);
-    default: return cudaErrorInvalidValue;
+template <typename T, int KP>
+struct HorizontalFn {
+  static cudaError_t run(const void* C, const int* s, void* out, int rows, int Wv, int K, int G, int P1, int P2,
+                         int reverse, cudaStream_t st) {
+    constexpr int GS = KP < 32 ? KP : 32;
+    return horizontal_launch<T, GS, KP / GS>(static_cast<const T*>(C), s, static_cast<T*>(out), rows, Wv, K, G, P1,
+                                             P2, reverse, st);
   }
-}
+};
 
-template <int K, int CPT>
-cudaError_t diag_launch(const int16_t* C, const int* s, int16_t* dn, int16_t* up, int16_t* scratch, int P, int H,
-                        int Wv, int G, int P1, int P2, cudaStream_t st) {
-  const int threads = ((Wv + CPT - 1) / CPT + 31) / 32 * 32;
-  const size_t smem = scratch ? 0 : (size_t)8 * Wv * K;
-  cudaError_t e = cudaFuncSetAttribute(banded_vertical_diag_kernel<K, CPT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  banded_vertical_diag_kernel<K, CPT><<<dim3(P, 2), threads, smem, st>>>(C, s, dn, up, scratch, H, Wv, G, P1, P2);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t diag_for_cpt(const int16_t* C, const int* s, int16_t* dn, int16_t* up, int16_t* scratch, int P, int H,
-                         int Wv, int G, int P1, int P2, cudaStream_t st) {
-  const int cpt = (Wv + kDiagMaxThreads - 1) / kDiagMaxThreads;
-  switch (cpt) {
-    case 1: return diag_launch<K, 1>(C, s, dn, up, scratch, P, H, Wv, G, P1, P2, st);
-    case 2: return diag_launch<K, 2>(C, s, dn, up, scratch, P, H, Wv, G, P1, P2, st);
-    case 3:
-    case 4: return diag_launch<K, 4>(C, s, dn, up, scratch, P, H, Wv, G, P1, P2, st);
-    default: return cudaErrorInvalidValue;
+template <typename T, int KP>
+struct WtaFn {
+  static cudaError_t run(const void* const* vp, int nvol, int npix, int K, int uniq, int sub, int* const* maps,
+                         uint8_t* uok, cudaStream_t st) {
+    banded_wta_kernel<T, KP><<<(npix + kScanThreads - 1) / kScanThreads, kScanThreads, 0, st>>>(
+        static_cast<const T*>(vp[0]), static_cast<const T*>(vp[1]), static_cast<const T*>(vp[2]),
+        static_cast<const T*>(vp[3]), nvol, npix, K, uniq, sub, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
+    return cudaGetLastError();
   }
-}
-
-template <int K>
-cudaError_t wta(const int16_t* const* v, int nvol, int npix, int uniq, int sub, int* const* maps, uint8_t* uok,
-                cudaStream_t st) {
-  banded_wta_kernel<K><<<(npix + kScanThreads - 1) / kScanThreads, kScanThreads, 0, st>>>(
-      v[0], v[1], v[2], v[3], nvol, npix, uniq, sub, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
-  return cudaGetLastError();
-}
+};
 
 // ------------------------------------------------------------- downsample
 
@@ -694,109 +632,79 @@ downsample_box_kernel(const int* __restrict__ in, int* __restrict__ out, int H, 
 
 }  // namespace
 
+// Bytes of dynamic shared memory a block of the banded cost kernel takes.
+SVT_EXPORT long long svt_banded_cost_smem(int K, int ndisp, int bs) { return (long long)cost_smem(K, ndisp, bs); }
+
 // (P, H, W) int32 left/right + (P, H, W) int32 shift map -> (P, H, W - min_x, K)
-// int16 windowed banded cost at disparity clamp(s + stride * k, 0, ndisp - 1).
+// windowed banded cost at disparity clamp(s + stride * k, 0, ndisp - 1),
+// int16 (bytes 2) or int32 (bytes 4).
 SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
-                               int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride,
+                               int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride, int bytes,
                                void* stream) {
-  if (stride < 1) return cudaErrorInvalidValue;
-  const int TX = K <= 8 ? 64 : K == 16 ? 32 : K == 32 ? 16 : 8;
-  const int NC = TX + 2 * (bs / 2), NRcap = NC + ndisp;
-  const size_t smem = (size_t)(bs * NC + 6 * NC + 6 * NRcap + bs * NC * K + NC * K) * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(banded_cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((W - min_x + TX - 1) / TX, H, P);
-  banded_cost_kernel<<<grid, kCostThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(left), static_cast<const int*>(right), static_cast<const int*>(shift),
-      static_cast<int16_t*>(out), H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, NRcap);
-  return cudaGetLastError();
-}
-
-// (P, H, Wv, K) int16 cost + (P, H, Wv) shift map -> the down and up vertical
-// direction volumes (int16).
-SVT_EXPORT int svt_banded_vertical(const void* C, const void* shift, void* dn, void* up, int P, int H, int Wv, int K,
-                                   int G, int P1, int P2, void* stream) {
-  return scans_for(K, 0, static_cast<const int16_t*>(C), static_cast<const int*>(shift), static_cast<int16_t*>(dn),
-                   static_cast<int16_t*>(up), P, H, Wv, G, P1, P2, 0, static_cast<cudaStream_t>(stream));
-}
-
-// Bytes of device scratch that svt_banded_vertical_diag needs for P frames on
-// `device`: 0 where a block's carries (8 * Wv * K bytes) fit the device's
-// opt-in shared memory per block, else those bytes for each (frame,
-// direction) block; -1 for a width the kernel does not take (Wv > 4096) or a
-// failed device query.
-SVT_EXPORT long long svt_banded_vertical_diag_scratch_bytes(int P, int Wv, int K, int device) {
-  if (Wv < 1 || Wv > 4 * kDiagMaxThreads) return -1;
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
-  const long long carries = 8LL * Wv * K;
-  return carries <= optin ? 0 : 2LL * P * carries;
-}
-
-// (P, H, Wv, K) int16 cost + (P, H, Wv) shift map -> the down and up sets of the
-// 8-path vertical (each the int16 sum of its vertical and two diagonal
-// carries). scratch: null for the carries in shared memory, else the device
-// memory that svt_banded_vertical_diag_scratch_bytes asks for. Wv <= 4096.
-SVT_EXPORT int svt_banded_vertical_diag(const void* C, const void* shift, void* dn, void* up, void* scratch, int P,
-                                        int H, int Wv, int K, int G, int P1, int P2, void* stream) {
-  if (Wv < 1 || Wv > 4 * kDiagMaxThreads) return cudaErrorInvalidValue;
-  if (P == 0 || H == 0) return cudaSuccess;
-  const auto c = static_cast<const int16_t*>(C);
-  const auto s = static_cast<const int*>(shift);
-  const auto d = static_cast<int16_t*>(dn), u = static_cast<int16_t*>(up), w = static_cast<int16_t*>(scratch);
+  if (stride < 1 || K < 1 || bs < 1 || bs % 2 == 0) return cudaErrorInvalidValue;
+  const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right), s = static_cast<const int*>(shift);
   const auto st = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 4: return diag_for_cpt<4>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
-    case 8: return diag_for_cpt<8>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
-    case 16: return diag_for_cpt<16>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
-    case 32: return diag_for_cpt<32>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
-    case 64: return diag_for_cpt<64>(c, s, d, u, w, P, H, Wv, G, P1, P2, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (bytes == 2)
+    return cost_launch(l, r, s, static_cast<int16_t*>(out), P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, st);
+  if (bytes == 4)
+    return cost_launch(l, r, s, static_cast<int*>(out), P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, st);
+  return cudaErrorInvalidValue;
 }
 
-// (P, H, Wv, K) int16 cost + (P, H, Wv) shift map -> one horizontal direction volume.
+// (P, H, Wv, K) cost + (P, H, Wv) shift map -> the down and up vertical
+// direction volumes, all of the type of `bytes`.
+SVT_EXPORT int svt_banded_vertical(const void* C, const void* shift, void* dn, void* up, int P, int H, int Wv, int K,
+                                   int G, int P1, int P2, int bytes, void* stream) {
+  return dispatch<VerticalFn>(bytes, K, C, static_cast<const int*>(shift), dn, up, P, H, Wv, K, G, P1, P2,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// (P, H, Wv, K) cost + (P, H, Wv) shift map -> one horizontal direction volume.
 SVT_EXPORT int svt_banded_horizontal(const void* C, const void* shift, void* out, int P, int H, int Wv, int K, int G,
-                                     int P1, int P2, int reverse, void* stream) {
-  return scans_for(K, 1, static_cast<const int16_t*>(C), static_cast<const int*>(shift), static_cast<int16_t*>(out),
-                   nullptr, P, H, Wv, G, P1, P2, reverse, static_cast<cudaStream_t>(stream));
+                                     int P1, int P2, int reverse, int bytes, void* stream) {
+  if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
+  return dispatch<HorizontalFn>(bytes, K, C, static_cast<const int*>(shift), out, P * H, Wv, K, G, P1, P2, reverse,
+                                static_cast<cudaStream_t>(stream));
 }
 
-// nvol (2-4) int16 (npix, K) volumes -> minS, best and either sub16 (sub) or
-// sm, s0, sp (int32), and the uniqueness verdict (uint8). m3/m4 and v2/v3
-// may be null when unused.
+// nvol (2-4) (npix, K) volumes of one type -> minS, best and either sub16
+// (sub) or sm, s0, sp (int32), and the uniqueness verdict (uint8). m3/m4 and
+// v2/v3 may be null when unused.
 SVT_EXPORT int svt_banded_wta(const void* v0, const void* v1, const void* v2, const void* v3, int nvol, void* minS,
                               void* best, void* m2, void* m3, void* m4, void* uok, int npix, int K, int uniq,
-                              int sub, void* stream) {
+                              int sub, int bytes, void* stream) {
   if (nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
-  const int16_t* v[4] = {static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1),
-                         static_cast<const int16_t*>(v2), static_cast<const int16_t*>(v3)};
+  if (npix == 0) return cudaSuccess;
+  const void* v[4] = {v0, v1, v2, v3};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(m2), static_cast<int*>(m3),
                   static_cast<int*>(m4)};
-  const auto u = static_cast<uint8_t*>(uok);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 4: return wta<4>(v, nvol, npix, uniq, sub, maps, u, st);
-    case 8: return wta<8>(v, nvol, npix, uniq, sub, maps, u, st);
-    case 16: return wta<16>(v, nvol, npix, uniq, sub, maps, u, st);
-    case 32: return wta<32>(v, nvol, npix, uniq, sub, maps, u, st);
-    case 64: return wta<64>(v, nvol, npix, uniq, sub, maps, u, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<WtaFn>(bytes, K, static_cast<const void* const*>(v), nvol, npix, K, uniq, sub,
+                         static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
+                         static_cast<cudaStream_t>(stream));
 }
 
-// nvol (2-4) int16 (npix, 16) volumes + the int32 (npix) shift map -> the int32
-// pack and du maps of the fused WTA; band 16 only, as the TPU kernel.
+// nvol (2-4) (npix, 16) volumes of one type + the int32 (npix) shift map ->
+// the int32 pack and du maps of the fused WTA; band 16 only, as the TPU kernel.
 SVT_EXPORT int svt_banded_wta_fused(const void* v0, const void* v1, const void* v2, const void* v3, int nvol,
-                                    const void* shift, void* pack, void* du, int npix, int K, int uniq,
+                                    const void* shift, void* pack, void* du, int npix, int K, int uniq, int bytes,
                                     void* stream) {
-  if (nvol < 2 || nvol > 4 || K != 16) return cudaErrorInvalidValue;
+  if (nvol < 2 || nvol > 4 || K != 16 || (bytes != 2 && bytes != 4)) return cudaErrorInvalidValue;
   if (npix == 0) return cudaSuccess;
-  banded_wta_fused_kernel<16><<<(npix + kScanThreads - 1) / kScanThreads, kScanThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1), static_cast<const int16_t*>(v2),
-      static_cast<const int16_t*>(v3), nvol, npix, uniq, static_cast<const int*>(shift), static_cast<int*>(pack),
-      static_cast<int*>(du));
+  const int blocks = (npix + kScanThreads - 1) / kScanThreads;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto s = static_cast<const int*>(shift);
+  const auto pk = static_cast<int*>(pack), d = static_cast<int*>(du);
+  if (bytes == 2) {
+    using T = int16_t;
+    banded_wta_fused_kernel<T><<<blocks, kScanThreads, 0, st>>>(
+        static_cast<const T*>(v0), static_cast<const T*>(v1), static_cast<const T*>(v2), static_cast<const T*>(v3),
+        nvol, npix, uniq, s, pk, d);
+  } else {
+    using T = int;
+    banded_wta_fused_kernel<T><<<blocks, kScanThreads, 0, st>>>(
+        static_cast<const T*>(v0), static_cast<const T*>(v1), static_cast<const T*>(v2), static_cast<const T*>(v3),
+        nvol, npix, uniq, s, pk, d);
+  }
   return cudaGetLastError();
 }
 

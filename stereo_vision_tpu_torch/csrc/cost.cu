@@ -5,7 +5,9 @@
 // half-sample extrema of both, pixel cost sobel_BT + (raw_BT >> 2), then a
 // block_size x block_size box sum with replicate borders over the FULL
 // width, emitted only for columns x >= x_off. Output (B, H, W - x_off, D)
-// int16 (a window is <= 121 * 93 at block_size 11).
+// int16, or int32 where the window's bound or the SGM scans need it (one
+// template, both storage types). A disparity index d reads the right column
+// x - max(d + mindisp, 0): the reference clamps a negative shift to 0.
 //
 // What bounds it on an H100: the int16 output, B*H*(W-x_off)*D*2 bytes
 // (212 MB a 720p frame at D=128, about 63 us at 3.35 TB/s); the inputs are
@@ -34,8 +36,9 @@ using svt::xsobel;
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cost_kernel(const int* __restrict__ left, const int* __restrict__ right, int16_t* __restrict__ out,
+cost_kernel(const int* __restrict__ left, const int* __restrict__ right, T* __restrict__ out,
             int H, int W, int D, int mindisp, int bs, int ftzero, int x_off, int TX) {
   extern __shared__ int smem[];
   const int r = bs / 2;
@@ -51,7 +54,7 @@ cost_kernel(const int* __restrict__ left, const int* __restrict__ right, int16_t
   const int cmin = clampi(x0 - r, 0, W - 1);
   const int cmax = clampi(x0 + TX - 1 + r, 0, W - 1);
   const int qlo = cmin - mindisp - (D - 1);  // lowest right column (may be < 0)
-  const int NR = cmax - cmin + D;
+  const int NR = cmax - cmin + D;            // covers c - max(d + mindisp, 0) for every mindisp
   const int* L = left + (size_t)b * H * W;
   const int* R = right + (size_t)b * H * W;
 
@@ -82,7 +85,7 @@ cost_kernel(const int* __restrict__ left, const int* __restrict__ right, int16_t
     for (int idx = threadIdx.x; idx < NC * D; idx += blockDim.x) {
       const int j = idx / D, d = idx - j * D;
       const int c = clampi(x0 - r + j, 0, W - 1);
-      const int i = (c - cmin) + (D - 1 - d);  // right column c - d - mindisp
+      const int i = (c - cmin) + mindisp + (D - 1) - max(d + mindisp, 0);  // right column c - max(d + mindisp, 0)
       const int cs = bt(sL[j], sL[NC + j], sL[2 * NC + j], sR[i], sR[NRmax + i], sR[2 * NRmax + i]);
       const int cr = bt(sL[3 * NC + j], sL[4 * NC + j], sL[5 * NC + j],
                         sR[3 * NRmax + i], sR[4 * NRmax + i], sR[5 * NRmax + i]);
@@ -96,24 +99,44 @@ cost_kernel(const int* __restrict__ left, const int* __restrict__ right, int16_t
     if (x >= W) continue;
     int s = 0;
     for (int k = 0; k < bs; ++k) s += V[(t + k) * D + d];
-    out[(((size_t)b * H + y) * Wo + (x - x_off)) * D + d] = static_cast<int16_t>(s);
+    out[(((size_t)b * H + y) * Wo + (x - x_off)) * D + d] = static_cast<T>(s);
   }
+}
+
+int tile_for(int D) { return D <= 128 ? 32 : 16; }
+
+size_t smem_bytes(int D, int bs) {
+  const int TX = tile_for(D), r = bs / 2;
+  const int NC = TX + 2 * r, NRmax = TX + 2 * r + D;
+  return (size_t)(6 * NC + 6 * NRmax + NC * D) * sizeof(int);
+}
+
+template <typename T>
+cudaError_t launch(const int* left, const int* right, T* out, int B, int H, int W, int D, int mindisp, int bs,
+                   int ftzero, int x_off, cudaStream_t stream) {
+  const size_t smem = smem_bytes(D, bs);
+  cudaError_t e = cudaFuncSetAttribute(cost_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int TX = tile_for(D);
+  const dim3 grid((W - x_off + TX - 1) / TX, H, B);
+  cost_kernel<T><<<grid, kThreads, smem, stream>>>(left, right, out, H, W, D, mindisp, bs, ftzero, x_off, TX);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// (B, H, W) int32 left/right -> (B, H, W - x_off, D) int16 windowed cost.
+// Bytes of dynamic shared memory a block of the cost kernel takes at D, bs.
+SVT_EXPORT long long svt_cost_volume_smem(int D, int bs) { return (long long)smem_bytes(D, bs); }
+
+// (B, H, W) int32 left/right -> (B, H, W - x_off, D) windowed cost, int16
+// (out_bytes 2) or int32 (out_bytes 4). mindisp + D >= 1.
 SVT_EXPORT int svt_cost_volume(const void* left, const void* right, void* out, int B, int H, int W, int D,
-                               int mindisp, int bs, int ftzero, int x_off, void* stream) {
-  const int TX = D <= 128 ? 32 : 16;
-  const int r = bs / 2;
-  const int NC = TX + 2 * r, NRmax = TX + 2 * r + D;
-  const size_t smem = (size_t)(6 * NC + 6 * NRmax + NC * D) * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((W - x_off + TX - 1) / TX, H, B);
-  cost_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(left), static_cast<const int*>(right), static_cast<int16_t*>(out), H, W, D,
-      mindisp, bs, ftzero, x_off, TX);
-  return cudaGetLastError();
+                               int mindisp, int bs, int ftzero, int x_off, int out_bytes, void* stream) {
+  if (bs < 1 || bs % 2 == 0 || mindisp + D < 1) return cudaErrorInvalidValue;
+  const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (out_bytes == 2)
+    return launch(l, r, static_cast<int16_t*>(out), B, H, W, D, mindisp, bs, ftzero, x_off, st);
+  if (out_bytes == 4) return launch(l, r, static_cast<int*>(out), B, H, W, D, mindisp, bs, ftzero, x_off, st);
+  return cudaErrorInvalidValue;
 }

@@ -17,8 +17,9 @@
 // one shuffle; min over d is a 5-step shuffle reduction, so no step needs a
 // block barrier. Disparities d >= D hold a large sentinel that no min takes.
 // All arithmetic is int32 (the TPU kernels' float32 was a Mosaic workaround).
-// Direction volumes are stored int16: the wrappers check that
-// 3 * (cost_bound + P2) (or cost_bound + P2 for a single direction) fits.
+// Costs, carries and direction volumes are stored as T: int16 where the
+// wrappers find that 3 * (cost_bound + P2) (or cost_bound + P2 for a single
+// direction) fits it, int32 otherwise; every kernel is one template over T.
 //
 // What bounds them on an H100 (720p, D=128, per frame, int16 volumes of
 // 212 MB): vertical reads the cost once and writes two volumes (637 MB,
@@ -46,6 +47,8 @@
 // registers, and the reduction's shuffles lengthen the scan's serial chain
 // (the trade the reference measured; sgm_cuda._FUSED_RL_WTA picks the form).
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -57,78 +60,51 @@ using svt::warp_sum;
 constexpr int kBig = 1 << 29;  // out-of-range d±1 neighbour
 constexpr int kWarps = 8;      // warps per block
 
+// VPL consecutive values of type T as raw words (16 bytes at most each).
+template <typename T, int VPL>
+struct Words {
+  static constexpr int kBytes = VPL * (int)sizeof(T);
+  static constexpr int kWordBytes = kBytes >= 16 ? 16 : kBytes;
+  static constexpr int kN = kBytes / kWordBytes;
+  using Word = typename std::conditional<
+      kWordBytes == 16, int4,
+      typename std::conditional<kWordBytes == 8, int2,
+                                typename std::conditional<kWordBytes == 4, int, int16_t>::type>::type>::type;
+};
+
 // Load the lane's VPL values of one pixel's D-vector; entries d >= D get fill.
-template <int VPL>
-__device__ __forceinline__ void load_vec(const int16_t* __restrict__ p, int D, int lane, int (&v)[VPL], int fill) {
+template <typename T, int VPL>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, int D, int lane, int (&v)[VPL], int fill) {
   const int d0 = lane * VPL;
   if (d0 + VPL <= D && D % VPL == 0) {  // aligned vector access
-    if constexpr (VPL == 8) {
-      const int4 w = *reinterpret_cast<const int4*>(p + d0);
-      const int16_t* s = reinterpret_cast<const int16_t*>(&w);
+    using W = Words<T, VPL>;
+    typename W::Word w[W::kN];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = s[k];
-    } else if constexpr (VPL == 4) {
-      const int2 w = *reinterpret_cast<const int2*>(p + d0);
-      const int16_t* s = reinterpret_cast<const int16_t*>(&w);
+    for (int i = 0; i < W::kN; ++i) w[i] = reinterpret_cast<const typename W::Word*>(p + d0)[i];
+    const T* s = reinterpret_cast<const T*>(w);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = s[k];
-    } else if constexpr (VPL == 2) {
-      const int w = *reinterpret_cast<const int*>(p + d0);
-      const int16_t* s = reinterpret_cast<const int16_t*>(&w);
-      v[0] = s[0];
-      v[1] = s[1];
-    } else {
-      v[0] = p[d0];
-    }
+    for (int k = 0; k < VPL; ++k) v[k] = s[k];
   } else {
 #pragma unroll
     for (int k = 0; k < VPL; ++k) v[k] = d0 + k < D ? p[d0 + k] : fill;
   }
 }
 
-template <int VPL>
-__device__ __forceinline__ void store_vec(int16_t* __restrict__ p, int D, int lane, const int (&v)[VPL]) {
+template <typename T, int VPL>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, int D, int lane, const int (&v)[VPL]) {
   const int d0 = lane * VPL;
   if (d0 + VPL <= D && D % VPL == 0) {
-    alignas(16) int16_t s[VPL];
+    using W = Words<T, VPL>;
+    typename W::Word w[W::kN];
+    T* s = reinterpret_cast<T*>(w);
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) s[k] = static_cast<int16_t>(v[k]);
-    if constexpr (VPL == 8) {
-      *reinterpret_cast<int4*>(p + d0) = *reinterpret_cast<const int4*>(s);
-    } else if constexpr (VPL == 4) {
-      *reinterpret_cast<int2*>(p + d0) = *reinterpret_cast<const int2*>(s);
-    } else if constexpr (VPL == 2) {
-      *reinterpret_cast<int*>(p + d0) = *reinterpret_cast<const int*>(s);
-    } else {
-      p[d0] = s[0];
-    }
+    for (int k = 0; k < VPL; ++k) s[k] = static_cast<T>(v[k]);
+#pragma unroll
+    for (int i = 0; i < W::kN; ++i) reinterpret_cast<typename W::Word*>(p + d0)[i] = w[i];
   } else {
 #pragma unroll
     for (int k = 0; k < VPL; ++k)
-      if (d0 + k < D) p[d0 + k] = static_cast<int16_t>(v[k]);
-  }
-}
-
-// load_vec for an int32 vector (the one-volume WTA's aggregated costs).
-template <int VPL>
-__device__ __forceinline__ void load_vec32(const int* __restrict__ p, int D, int lane, int (&v)[VPL], int fill) {
-  const int d0 = lane * VPL;
-  if (d0 + VPL <= D && D % VPL == 0) {  // aligned vector access
-    if constexpr (VPL == 8) {
-      const int4 a = *reinterpret_cast<const int4*>(p + d0), b = *reinterpret_cast<const int4*>(p + d0 + 4);
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-    } else if constexpr (VPL == 4) {
-      const int4 a = *reinterpret_cast<const int4*>(p + d0);
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    } else if constexpr (VPL == 2) {
-      const int2 a = *reinterpret_cast<const int2*>(p + d0);
-      v[0] = a.x, v[1] = a.y;
-    } else {
-      v[0] = p[d0];
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) v[k] = d0 + k < D ? p[d0 + k] : fill;
+      if (d0 + k < D) p[d0 + k] = static_cast<T>(v[k]);
   }
 }
 
@@ -165,10 +141,10 @@ __device__ __forceinline__ int sgm_step(const int (&c)[VPL], const int (&L)[VPL]
 // column-shift directions). Carry slots: [set*3 + dir][b][x][d], dir 0 =
 // vertical, 1 = predecessor at x-1, 2 = predecessor at x+1; a predecessor
 // outside the image is a zero carry, as is every carry at i = 0.
-template <int VPL>
+template <typename T, int VPL>
 __global__ void __launch_bounds__(kWarps * 32)
-vertical_step(const int16_t* __restrict__ C, int16_t* __restrict__ s_dn, int16_t* __restrict__ s_up,
-              const int16_t* __restrict__ Lin, int16_t* __restrict__ Lout, const int* __restrict__ min_in,
+vertical_step(const T* __restrict__ C, T* __restrict__ s_dn, T* __restrict__ s_up,
+              const T* __restrict__ Lin, T* __restrict__ Lout, const int* __restrict__ min_in,
               int* __restrict__ min_out, int B, int H, int W, int D, int P1, int P2, int with_diag, int i) {
   const int lane = threadIdx.x & 31;
   const int x = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -176,7 +152,7 @@ vertical_step(const int16_t* __restrict__ C, int16_t* __restrict__ s_dn, int16_t
   if (x >= W) return;  // whole warp
   const int row = set == 0 ? i : H - 1 - i;
   int c[VPL];
-  load_vec<VPL>(C + (((size_t)b * H + row) * W + x) * D, D, lane, c, 0);
+  load_vec<T, VPL>(C + (((size_t)b * H + row) * W + x) * D, D, lane, c, 0);
   int acc[VPL];
 #pragma unroll
   for (int k = 0; k < VPL; ++k) acc[k] = 0;
@@ -189,40 +165,40 @@ vertical_step(const int16_t* __restrict__ C, int16_t* __restrict__ s_dn, int16_t
     if (i == 0 || px < 0 || px >= W) {
       zero_carry<VPL>(D, lane, L);
     } else {
-      load_vec<VPL>(Lin + (slot + px) * D, D, lane, L, kBig);
+      load_vec<T, VPL>(Lin + (slot + px) * D, D, lane, L, kBig);
       m = min_in[slot + px];
     }
     const int mn = sgm_step<VPL>(c, L, m, P1, P2, D, lane, Ln);
-    store_vec<VPL>(Lout + (slot + x) * D, D, lane, Ln);
+    store_vec<T, VPL>(Lout + (slot + x) * D, D, lane, Ln);
     if (lane == 0) min_out[slot + x] = mn;
 #pragma unroll
     for (int k = 0; k < VPL; ++k) acc[k] += Ln[k];
   }
-  store_vec<VPL>((set == 0 ? s_dn : s_up) + (((size_t)b * H + row) * W + x) * D, D, lane, acc);
+  store_vec<T, VPL>((set == 0 ? s_dn : s_up) + (((size_t)b * H + row) * W + x) * D, D, lane, acc);
 }
 
 // One warp per (frame, row): the L->R (reverse: R->L) scan over W columns.
-template <int VPL>
+template <typename T, int VPL>
 __global__ void __launch_bounds__(kWarps * 32)
-horizontal_scan(const int16_t* __restrict__ C, int16_t* __restrict__ out, int rows, int W, int D, int P1,
+horizontal_scan(const T* __restrict__ C, T* __restrict__ out, int rows, int W, int D, int P1,
                 int P2, int reverse) {
   const int lane = threadIdx.x & 31;
   const int rid = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (rid >= rows) return;  // whole warp
-  const int16_t* crow = C + (size_t)rid * W * D;
-  int16_t* orow = out + (size_t)rid * W * D;
+  const T* crow = C + (size_t)rid * W * D;
+  T* orow = out + (size_t)rid * W * D;
   int L[VPL], c[VPL], cn[VPL];
   zero_carry<VPL>(D, lane, L);
   int m = 0;
-  load_vec<VPL>(crow + (size_t)(reverse ? W - 1 : 0) * D, D, lane, cn, 0);
+  load_vec<T, VPL>(crow + (size_t)(reverse ? W - 1 : 0) * D, D, lane, cn, 0);
   for (int t = 0; t < W; ++t) {
     const int x = reverse ? W - 1 - t : t;
 #pragma unroll
     for (int k = 0; k < VPL; ++k) c[k] = cn[k];
-    if (t + 1 < W) load_vec<VPL>(crow + (size_t)(reverse ? x - 1 : x + 1) * D, D, lane, cn, 0);
+    if (t + 1 < W) load_vec<T, VPL>(crow + (size_t)(reverse ? x - 1 : x + 1) * D, D, lane, cn, 0);
     int Ln[VPL];
     m = sgm_step<VPL>(c, L, m, P1, P2, D, lane, Ln);
-    store_vec<VPL>(orow + (size_t)x * D, D, lane, Ln);
+    store_vec<T, VPL>(orow + (size_t)x * D, D, lane, Ln);
 #pragma unroll
     for (int k = 0; k < VPL; ++k) L[k] = Ln[k];
   }
@@ -275,22 +251,22 @@ __device__ __forceinline__ void wta_store(const int (&S)[VPL], int D, int lane, 
   }
 }
 
-// One warp per pixel: S = sum of nvol int16 volumes, then wta_store.
-template <int VPL>
+// One warp per pixel: S = sum of nvol volumes, then wta_store.
+template <typename T, int VPL>
 __global__ void __launch_bounds__(kWarps * 32)
-wta_kernel(const int16_t* __restrict__ v0, const int16_t* __restrict__ v1, const int16_t* __restrict__ v2,
-           const int16_t* __restrict__ v3, int nvol, int* __restrict__ minS, int* __restrict__ best,
+wta_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const T* __restrict__ v2,
+           const T* __restrict__ v3, int nvol, int* __restrict__ minS, int* __restrict__ best,
            int* __restrict__ sm, int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok,
            long long npix, int D, int uniq) {
   const int lane = threadIdx.x & 31;
   const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= npix) return;  // whole warp
   const size_t base = (size_t)p * D;
-  const int16_t* vols[4] = {v0, v1, v2, v3};
+  const T* vols[4] = {v0, v1, v2, v3};
   int S[VPL], t[VPL];
-  load_vec<VPL>(vols[0] + base, D, lane, S, kBig);
+  load_vec<T, VPL>(vols[0] + base, D, lane, S, kBig);
   for (int j = 1; j < nvol; ++j) {
-    load_vec<VPL>(vols[j] + base, D, lane, t, 0);
+    load_vec<T, VPL>(vols[j] + base, D, lane, t, 0);
 #pragma unroll
     for (int k = 0; k < VPL; ++k) S[k] += t[k];
   }
@@ -307,40 +283,40 @@ wta_stats_kernel(const int* __restrict__ S, int* __restrict__ minS, int* __restr
   const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= npix) return;  // whole warp
   int v[VPL];
-  load_vec32<VPL>(S + (size_t)p * D, D, lane, v, kBig);
+  load_vec<int, VPL>(S + (size_t)p * D, D, lane, v, kBig);
   wta_store<VPL>(v, D, lane, uniq, p, minS, best, sm, s0, sp, uok);
 }
 
 // One warp per (frame, row): the R->L scan over W columns; at each column
 // its L plus the three stored direction volumes is the aggregated vector,
 // reduced in place by wta_store (the R->L volume is never stored).
-template <int VPL>
+template <typename T, int VPL>
 __global__ void __launch_bounds__(kWarps * 32)
-horizontal_rl_wta(const int16_t* __restrict__ C, const int16_t* __restrict__ v0, const int16_t* __restrict__ v1,
-                  const int16_t* __restrict__ v2, int rows, int W, int D, int P1, int P2, int uniq,
+horizontal_rl_wta(const T* __restrict__ C, const T* __restrict__ v0, const T* __restrict__ v1,
+                  const T* __restrict__ v2, int rows, int W, int D, int P1, int P2, int uniq,
                   int* __restrict__ minS, int* __restrict__ best, int* __restrict__ sm, int* __restrict__ s0,
                   int* __restrict__ sp, uint8_t* __restrict__ uok) {
   const int lane = threadIdx.x & 31;
   const int rid = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (rid >= rows) return;  // whole warp
-  const int16_t* crow = C + (size_t)rid * W * D;
+  const T* crow = C + (size_t)rid * W * D;
   int L[VPL], c[VPL], cn[VPL], S[VPL], t[VPL];
   zero_carry<VPL>(D, lane, L);
   int m = 0;
-  load_vec<VPL>(crow + (size_t)(W - 1) * D, D, lane, cn, 0);
+  load_vec<T, VPL>(crow + (size_t)(W - 1) * D, D, lane, cn, 0);
   for (int x = W - 1; x >= 0; --x) {
 #pragma unroll
     for (int k = 0; k < VPL; ++k) c[k] = cn[k];
-    if (x > 0) load_vec<VPL>(crow + (size_t)(x - 1) * D, D, lane, cn, 0);
+    if (x > 0) load_vec<T, VPL>(crow + (size_t)(x - 1) * D, D, lane, cn, 0);
     m = sgm_step<VPL>(c, L, m, P1, P2, D, lane, S);  // padding entries keep kBig
 #pragma unroll
     for (int k = 0; k < VPL; ++k) L[k] = S[k];
     const long long p = (long long)rid * W + x;
     const size_t base = (size_t)p * D;
-    const int16_t* vols[3] = {v0, v1, v2};
+    const T* vols[3] = {v0, v1, v2};
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      load_vec<VPL>(vols[j] + base, D, lane, t, 0);
+      load_vec<T, VPL>(vols[j] + base, D, lane, t, 0);
 #pragma unroll
       for (int k = 0; k < VPL; ++k) S[k] += t[k];
     }
@@ -348,34 +324,34 @@ horizontal_rl_wta(const int16_t* __restrict__ C, const int16_t* __restrict__ v0,
   }
 }
 
-template <int VPL>
-cudaError_t vertical(const int16_t* C, int16_t* s_dn, int16_t* s_up, int16_t* Lbuf, int* mbuf, int B, int H,
-                     int W, int D, int P1, int P2, int with_diag, cudaStream_t stream) {
+template <typename T, int VPL>
+cudaError_t vertical(const T* C, T* s_dn, T* s_up, T* Lbuf, int* mbuf, int B, int H, int W, int D, int P1, int P2,
+                     int with_diag, cudaStream_t stream) {
   const size_t lset = (size_t)6 * B * W * D, mset = (size_t)6 * B * W;
   const dim3 grid((W + kWarps - 1) / kWarps, B, 2);
   for (int i = 0; i < H; ++i) {
     const int src = (i + 1) & 1, dst = i & 1;
-    vertical_step<VPL><<<grid, kWarps * 32, 0, stream>>>(C, s_dn, s_up, Lbuf + src * lset, Lbuf + dst * lset,
-                                                         mbuf + src * mset, mbuf + dst * mset, B, H, W, D, P1,
-                                                         P2, with_diag, i);
+    vertical_step<T, VPL><<<grid, kWarps * 32, 0, stream>>>(C, s_dn, s_up, Lbuf + src * lset, Lbuf + dst * lset,
+                                                            mbuf + src * mset, mbuf + dst * mset, B, H, W, D, P1,
+                                                            P2, with_diag, i);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
-template <int VPL>
-cudaError_t horizontal(const int16_t* C, int16_t* out, int rows, int W, int D, int P1, int P2, int reverse,
+template <typename T, int VPL>
+cudaError_t horizontal(const T* C, T* out, int rows, int W, int D, int P1, int P2, int reverse,
                        cudaStream_t stream) {
-  horizontal_scan<VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(C, out, rows, W, D, P1, P2,
-                                                                                 reverse);
+  horizontal_scan<T, VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(C, out, rows, W, D, P1, P2,
+                                                                                    reverse);
   return cudaGetLastError();
 }
 
-template <int VPL>
-cudaError_t wta(const int16_t* const* v, int nvol, int* const* maps, uint8_t* uok, int npix, int D, int uniq,
+template <typename T, int VPL>
+cudaError_t wta(const T* const* v, int nvol, int* const* maps, uint8_t* uok, int npix, int D, int uniq,
                 cudaStream_t stream) {
-  wta_kernel<VPL><<<(npix + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+  wta_kernel<T, VPL><<<(npix + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
       v[0], v[1], v[2], v[3], nvol, maps[0], maps[1], maps[2], maps[3], maps[4], uok, npix, D, uniq);
   return cudaGetLastError();
 }
@@ -388,10 +364,10 @@ cudaError_t wta_stats(const int* S, int* const* maps, uint8_t* uok, long long np
   return cudaGetLastError();
 }
 
-template <int VPL>
-cudaError_t rl_wta(const int16_t* C, const int16_t* const* v, int rows, int W, int D, int P1, int P2, int uniq,
+template <typename T, int VPL>
+cudaError_t rl_wta(const T* C, const T* const* v, int rows, int W, int D, int P1, int P2, int uniq,
                    int* const* maps, uint8_t* uok, cudaStream_t stream) {
-  horizontal_rl_wta<VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+  horizontal_rl_wta<T, VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
       C, v[0], v[1], v[2], rows, W, D, P1, P2, uniq, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
   return cudaGetLastError();
 }
@@ -399,58 +375,96 @@ cudaError_t rl_wta(const int16_t* C, const int16_t* const* v, int rows, int W, i
 // Values per lane for D disparities: 1, 2, 4 or 8 (D <= 256).
 int vpl_for(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 8; }
 
+// fn<T, VPL>() for the storage type of `bytes` (2: int16, 4: int32) and D's
+// values per lane; cudaErrorInvalidValue for another width.
+template <template <typename, int> class Fn, typename... Args>
+cudaError_t dispatch(int bytes, int D, Args... args) {
+  const int vpl = vpl_for(D);
+  if (bytes == 2) {
+    switch (vpl) {
+      case 1: return Fn<int16_t, 1>::run(args...);
+      case 2: return Fn<int16_t, 2>::run(args...);
+      case 4: return Fn<int16_t, 4>::run(args...);
+      default: return Fn<int16_t, 8>::run(args...);
+    }
+  }
+  if (bytes == 4) {
+    switch (vpl) {
+      case 1: return Fn<int, 1>::run(args...);
+      case 2: return Fn<int, 2>::run(args...);
+      case 4: return Fn<int, 4>::run(args...);
+      default: return Fn<int, 8>::run(args...);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int VPL>
+struct VerticalFn {
+  static cudaError_t run(const void* C, void* dn, void* up, void* L, void* m, int B, int H, int W, int D, int P1,
+                         int P2, int with_diag, cudaStream_t st) {
+    return vertical<T, VPL>(static_cast<const T*>(C), static_cast<T*>(dn), static_cast<T*>(up), static_cast<T*>(L),
+                            static_cast<int*>(m), B, H, W, D, P1, P2, with_diag, st);
+  }
+};
+
+template <typename T, int VPL>
+struct HorizontalFn {
+  static cudaError_t run(const void* C, void* out, int rows, int W, int D, int P1, int P2, int reverse,
+                         cudaStream_t st) {
+    return horizontal<T, VPL>(static_cast<const T*>(C), static_cast<T*>(out), rows, W, D, P1, P2, reverse, st);
+  }
+};
+
+template <typename T, int VPL>
+struct WtaFn {
+  static cudaError_t run(const void* const* vp, int nvol, int* const* maps, uint8_t* uok, int npix, int D, int uniq,
+                         cudaStream_t st) {
+    const T* v[4] = {static_cast<const T*>(vp[0]), static_cast<const T*>(vp[1]), static_cast<const T*>(vp[2]),
+                     static_cast<const T*>(vp[3])};
+    return wta<T, VPL>(v, nvol, maps, uok, npix, D, uniq, st);
+  }
+};
+
+template <typename T, int VPL>
+struct RlWtaFn {
+  static cudaError_t run(const void* C, const void* const* vp, int rows, int W, int D, int P1, int P2, int uniq,
+                         int* const* maps, uint8_t* uok, cudaStream_t st) {
+    const T* v[3] = {static_cast<const T*>(vp[0]), static_cast<const T*>(vp[1]), static_cast<const T*>(vp[2])};
+    return rl_wta<T, VPL>(static_cast<const T*>(C), v, rows, W, D, P1, P2, uniq, maps, uok, st);
+  }
+};
+
 }  // namespace
 
-// (B, H, W, D) int16 cost -> down-set and up-set sums (int16), H launches.
-// Lbuf: 2 x 6 x B x W x D int16 carries; mbuf: 2 x 6 x B x W int32 minima.
+// (B, H, W, D) cost -> down-set and up-set sums, H launches; every volume
+// int16 (bytes 2) or int32 (bytes 4). Lbuf: 2 x 6 x B x W x D carries of
+// that type; mbuf: 2 x 6 x B x W int32 minima.
 SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* Lbuf, void* mbuf, int B, int H,
-                                int W, int D, int P1, int P2, int with_diag, void* stream) {
+                                int W, int D, int P1, int P2, int with_diag, int bytes, void* stream) {
   if (D > 256) return cudaErrorInvalidValue;
-  const auto c = static_cast<const int16_t*>(C);
-  const auto dn = static_cast<int16_t*>(s_dn), up = static_cast<int16_t*>(s_up), L = static_cast<int16_t*>(Lbuf);
-  const auto m = static_cast<int*>(mbuf);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (vpl_for(D)) {
-    case 1: return vertical<1>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
-    case 2: return vertical<2>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
-    case 4: return vertical<4>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
-    default: return vertical<8>(c, dn, up, L, m, B, H, W, D, P1, P2, with_diag, st);
-  }
+  return dispatch<VerticalFn>(bytes, D, C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag,
+                              static_cast<cudaStream_t>(stream));
 }
 
-// (B, H, W, D) int16 cost -> one horizontal direction volume (int16).
+// (B, H, W, D) cost -> one horizontal direction volume of the same type.
 SVT_EXPORT int svt_sgm_horizontal(const void* C, void* out, int B, int H, int W, int D, int P1, int P2,
-                                  int reverse, void* stream) {
+                                  int reverse, int bytes, void* stream) {
   if (D > 256) return cudaErrorInvalidValue;
-  const auto c = static_cast<const int16_t*>(C);
-  const auto o = static_cast<int16_t*>(out);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (vpl_for(D)) {
-    case 1: return horizontal<1>(c, o, B * H, W, D, P1, P2, reverse, st);
-    case 2: return horizontal<2>(c, o, B * H, W, D, P1, P2, reverse, st);
-    case 4: return horizontal<4>(c, o, B * H, W, D, P1, P2, reverse, st);
-    default: return horizontal<8>(c, o, B * H, W, D, P1, P2, reverse, st);
-  }
+  return dispatch<HorizontalFn>(bytes, D, C, out, B * H, W, D, P1, P2, reverse, static_cast<cudaStream_t>(stream));
 }
 
-// nvol (2-4) int16 (npix, D) volumes -> six per-pixel maps (v2, v3 may be
-// null when nvol is smaller).
+// nvol (2-4) (npix, D) volumes of one type -> six per-pixel maps (v2, v3
+// may be null when nvol is smaller).
 SVT_EXPORT int svt_sgm_wta(const void* v0, const void* v1, const void* v2, const void* v3, int nvol,
                            void* minS, void* best, void* sm, void* s0, void* sp, void* uok, int npix, int D,
-                           int uniq, void* stream) {
+                           int uniq, int bytes, void* stream) {
   if (D > 256 || D < 3 || nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
-  const int16_t* v[4] = {static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1),
-                         static_cast<const int16_t*>(v2), static_cast<const int16_t*>(v3)};
+  const void* v[4] = {v0, v1, v2, v3};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
-  const auto u = static_cast<uint8_t*>(uok);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (vpl_for(D)) {
-    case 1: return wta<1>(v, nvol, maps, u, npix, D, uniq, st);
-    case 2: return wta<2>(v, nvol, maps, u, npix, D, uniq, st);
-    case 4: return wta<4>(v, nvol, maps, u, npix, D, uniq, st);
-    default: return wta<8>(v, nvol, maps, u, npix, D, uniq, st);
-  }
+  return dispatch<WtaFn>(bytes, D, static_cast<const void* const*>(v), nvol, static_cast<int* const*>(maps),
+                         static_cast<uint8_t*>(uok), npix, D, uniq, static_cast<cudaStream_t>(stream));
 }
 
 // One int32 (npix, D) aggregated volume -> six per-pixel maps.
@@ -470,23 +484,16 @@ SVT_EXPORT int svt_sgm_wta_stats(const void* S, void* minS, void* best, void* sm
   }
 }
 
-// (B, H, W, D) int16 cost + three int16 direction volumes -> six per-pixel
-// maps of the four-direction sum, the R->L direction scanned in place.
+// (B, H, W, D) cost + three direction volumes, all of one type -> six
+// per-pixel maps of the four-direction sum, the R->L direction scanned in place.
 SVT_EXPORT int svt_sgm_horizontal_rl_wta(const void* C, const void* v0, const void* v1, const void* v2, void* minS,
                                          void* best, void* sm, void* s0, void* sp, void* uok, int B, int H, int W,
-                                         int D, int P1, int P2, int uniq, void* stream) {
+                                         int D, int P1, int P2, int uniq, int bytes, void* stream) {
   if (D > 256 || D < 3) return cudaErrorInvalidValue;
-  const auto c = static_cast<const int16_t*>(C);
-  const int16_t* v[3] = {static_cast<const int16_t*>(v0), static_cast<const int16_t*>(v1),
-                         static_cast<const int16_t*>(v2)};
+  const void* v[3] = {v0, v1, v2};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
-  const auto u = static_cast<uint8_t*>(uok);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (vpl_for(D)) {
-    case 1: return rl_wta<1>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
-    case 2: return rl_wta<2>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
-    case 4: return rl_wta<4>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
-    default: return rl_wta<8>(c, v, B * H, W, D, P1, P2, uniq, maps, u, st);
-  }
+  return dispatch<RlWtaFn>(bytes, D, C, static_cast<const void* const*>(v), B * H, W, D, P1, P2, uniq,
+                           static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
+                           static_cast<cudaStream_t>(stream));
 }

@@ -9,8 +9,14 @@ CPU tensors and what the kernel is held against on the card.
 
 Value bounds (8-bit intensities): the Sobel channel lies in
 ``[0, 2*ftzero]`` and the raw channel's BT cost is <= 255, so one pixel
-costs <= ``2*ftzero + 63`` (93 at ftzero 15) and a window <= 121 * 93 at
-``block_size`` 11 — int16 holds every windowed cost.
+costs <= ``2*ftzero + 63`` (93 at ftzero 15) and a window <= ``block_size^2``
+times that (:func:`window_bound`). The kernel writes int16 where the window
+fits it and int32 otherwise, or the type its caller asks for (the SGM scans
+need int32 volumes before the costs do).
+
+A negative ``min_disparity`` follows the JAX reference, whose right row is
+sliced with ``jax.lax.dynamic_slice``: the slice start is clamped, so every
+plane d with ``min_disparity + d < 0`` is the plane of shift 0.
 """
 
 from __future__ import annotations
@@ -23,8 +29,8 @@ from stereo_vision_tpu_torch import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # left, right, out, B, H, W, D, mindisp, block_size, ftzero, x_offset, stream
-    "svt_cost_volume": [_P, _P, _P] + [_I] * 8 + [_P],
+    # left, right, out, B, H, W, D, mindisp, block_size, ftzero, x_offset, out_bytes, stream
+    "svt_cost_volume": [_P, _P, _P] + [_I] * 9 + [_P],
 }
 
 
@@ -33,7 +39,25 @@ def _lib() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    # D, block_size -> bytes of shared memory a block of the kernel needs
+    fn = lib.svt_cost_volume_smem
+    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
     return lib
+
+
+def window_bound(block_size: int, ftzero: int) -> int:
+    """Upper bound of a windowed cost for 8-bit images."""
+    return block_size * block_size * (2 * ftzero + 63)
+
+
+def cost_dtype(block_size: int, ftzero: int, dtype: torch.dtype | None = None) -> torch.dtype:
+    """``dtype`` (int16 or int32), or by default int16 where
+    :func:`window_bound` fits it and int32 otherwise."""
+    if dtype is None:
+        return torch.int16 if window_bound(block_size, ftzero) < 1 << 15 else torch.int32
+    if dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"a cost volume is int16 or int32, not {dtype}")
+    return dtype
 
 
 def _xsobel_clipped(img: torch.Tensor, ftzero: int) -> torch.Tensor:
@@ -69,21 +93,24 @@ def _half_extrema(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _bt_channel_cost(p1row: torch.Tensor, p2row: torch.Tensor, ndisp: int, mindisp: int) -> torch.Tensor:
     """(..., H, W, D) int16 BT cost: cost[..., y, x, d] =
-    BT(left[y, x], right[y, x - d - mindisp]).
+    BT(left[y, x], right[y, x - max(d + mindisp, 0)]).
 
     The right row is edge-padded on the left by ``mindisp + ndisp - 1``
     BEFORE its half-extrema are taken, so samples left of column 0 behave
-    as a replicated constant signal (the JAX reference's convention)."""
-    if mindisp < 0:
-        raise ValueError("min_disparity must be >= 0")
+    as a replicated constant signal (the JAX reference's convention). A
+    shift below 0 is clamped to 0, as the reference's ``dynamic_slice``
+    clamps its start; a range that ends below 0 has no padding and is
+    refused (the reference's ``jnp.pad`` fails there)."""
     W = p1row.shape[-1]
     u0, u1 = _half_extrema(p1row)
     maxshift = mindisp + ndisp - 1
+    if maxshift < 0:
+        raise ValueError(f"min_disparity {mindisp} + ndisp {ndisp} leaves no disparity >= 0")
     v_p = torch.cat([p2row[..., :1].expand(*p2row.shape[:-1], maxshift), p2row], dim=-1)
     v0_p, v1_p = _half_extrema(v_p)
     out = torch.empty((*p1row.shape, ndisp), dtype=torch.int16, device=p1row.device)
     for d in range(ndisp):
-        off = maxshift - (mindisp + d)
+        off = maxshift - max(mindisp + d, 0)
         v, vv0, vv1 = (a[..., off : off + W] for a in (v_p, v0_p, v1_p))
         c0 = torch.maximum((p1row - vv1).clamp(min=0), vv0 - p1row)
         c1 = torch.maximum((v - u1).clamp(min=0), u0 - v)
@@ -131,13 +158,15 @@ def cost_volume_plain(
 
 def cost_volume(
     left: torch.Tensor, right: torch.Tensor, *, ndisp: int, mindisp: int = 0,
-    block_size: int = 5, ftzero: int = 15, x_offset: int = 0,
+    block_size: int = 5, ftzero: int = 15, x_offset: int = 0, dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """(B, H, W) int32 image pairs -> (B, H, W - x_offset, ndisp) int16
-    windowed cost for columns x >= x_offset.
+    """(B, H, W) int32 image pairs -> (B, H, W - x_offset, ndisp) windowed
+    cost for columns x >= x_offset, of ``dtype`` (default: int16 where
+    :func:`window_bound` fits it, else int32).
 
-    CUDA tensors launch ``csrc/cost.cu`` (odd ``block_size`` <= 11,
-    ``ndisp`` <= 256); CPU tensors run :func:`cost_volume_plain`.
+    CUDA tensors launch ``csrc/cost.cu`` (odd ``block_size`` whose block
+    fits the device's shared memory, ``ndisp`` <= 256); CPU tensors run
+    :func:`cost_volume_plain`.
     """
     if left.shape != right.shape or left.dim() != 3:
         raise ValueError(f"expected two (B, H, W) images, got {tuple(left.shape)} and {tuple(right.shape)}")
@@ -146,21 +175,29 @@ def cost_volume(
     if left.device != right.device:
         raise ValueError("left and right lie on different devices")
     B, H, W = left.shape
-    if not 0 <= x_offset < W or mindisp < 0 or ndisp < 1:
+    if not 0 <= x_offset < W or ndisp < 1 or mindisp + ndisp < 1:
         raise ValueError(f"bad x_offset={x_offset} / min_disparity={mindisp} / ndisp={ndisp} for width {W}")
+    if block_size % 2 != 1 or block_size < 1:
+        raise ValueError(f"block_size must be odd and >= 1, got {block_size}")
+    dtype = cost_dtype(block_size, ftzero, dtype)
     if left.device.type == "cpu":
         return cost_volume_plain(left, right, ndisp=ndisp, mindisp=mindisp, block_size=block_size,
-                                 ftzero=ftzero, x_offset=x_offset)
+                                 ftzero=ftzero, x_offset=x_offset).to(dtype)
     if left.device.type != "cuda":
         raise ValueError(f"unsupported device {left.device}")
-    if block_size % 2 != 1 or not 1 <= block_size <= 11 or ndisp > 256:
-        raise ValueError("the CUDA cost kernel takes odd block_size <= 11 and ndisp <= 256")
-    left, right = left.contiguous(), right.contiguous()
-    out = torch.empty((B, H, W - x_offset, ndisp), dtype=torch.int16, device=left.device)
+    if ndisp > 256:
+        raise ValueError("the CUDA cost kernel takes ndisp <= 256")
     lib = _lib()
+    smem = lib.svt_cost_volume_smem(ndisp, block_size)
+    optin = torch.cuda.get_device_properties(left.device).shared_memory_per_block_optin
+    if smem > optin:
+        raise ValueError(f"the CUDA cost kernel at block_size {block_size}, ndisp {ndisp} needs {smem} bytes of "
+                         f"shared memory a block; {left.device} has {optin}")
+    left, right = left.contiguous(), right.contiguous()
+    out = torch.empty((B, H, W - x_offset, ndisp), dtype=dtype, device=left.device)
     stream = torch.cuda.current_stream(left.device).cuda_stream
-    err = lib.svt_cost_volume(left.data_ptr(), right.data_ptr(), out.data_ptr(), B, H, W, ndisp,
-                              mindisp, block_size, ftzero, x_offset, stream)
+    err = lib.svt_cost_volume(left.data_ptr(), right.data_ptr(), out.data_ptr(), B, H, W, ndisp, mindisp,
+                              block_size, ftzero, x_offset, out.element_size(), stream)
     _build.check(lib, err, "svt_cost_volume")
     cost_volume.launches += 1
     return out

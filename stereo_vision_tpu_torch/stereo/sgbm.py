@@ -26,8 +26,9 @@ from stereo_vision_tpu_torch.stereo.cost_cuda import (
     _box_filter_same,
     compute_pixel_cost as _pixel_cost,
     cost_volume,
+    window_bound,
 )
-from stereo_vision_tpu_torch.stereo.sgm_cuda import _aggregate_8, sgm_reduce
+from stereo_vision_tpu_torch.stereo.sgm_cuda import _aggregate_8, sgm_reduce, storage_dtype
 from stereo_vision_tpu_torch.stereo.speckle_cuda import speckle_filter
 
 
@@ -63,7 +64,7 @@ class StereoSGBMParams(NamedTuple):
     @property
     def cost_bound(self) -> int:
         """Upper bound of a windowed cost for 8-bit images."""
-        return self.block_size * self.block_size * (2 * self.ftzero + 63)
+        return window_bound(self.block_size, self.ftzero)
 
 
 def compute_pixel_cost(left, right, params: StereoSGBMParams) -> torch.Tensor:
@@ -87,7 +88,8 @@ def sgbm_stats(left, right, params: StereoSGBMParams, min_x: int | None = None):
     """Cost build + aggregation + WTA on columns ``x >= min_x``.
 
     Returns ``(minS, best, sm, s0, sp, unique_ok)``: int32/bool maps of
-    shape (B, H, W - min_x) for (B, H, W) inputs.
+    shape (B, H, W - min_x) for (B, H, W) inputs. The cost volume is built
+    in the type the aggregation stores (:func:`.sgm_cuda.storage_dtype`).
     """
     maxD = params.min_disparity + params.num_disparities
     minX1 = max(maxD, 0) if min_x is None else int(min_x)
@@ -95,6 +97,7 @@ def sgbm_stats(left, right, params: StereoSGBMParams, min_x: int | None = None):
         _as_batch(left), _as_batch(right), ndisp=params.num_disparities,
         mindisp=params.min_disparity, block_size=params.block_size,
         ftzero=params.ftzero, x_offset=minX1,
+        dtype=storage_dtype(params.cost_bound, params.P2, 3 if params.num_paths >= 8 else 1),
     )
     return sgm_reduce(C, params.P1, params.P2, params.uniqueness_ratio,
                       cost_bound=params.cost_bound, num_paths=params.num_paths)

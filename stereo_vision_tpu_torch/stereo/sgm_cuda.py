@@ -22,8 +22,10 @@ without diagonals, 3 adds L->R, 4 adds R->L, 8 adds the four diagonals.
 Integer ranges: with P1, P2 >= 0 every aggregated value satisfies
 ``c <= L <= c + P2`` (the candidate min never exceeds ``minL + P2``), so a
 direction volume is bounded by ``cost_bound + P2`` and the three-direction
-set sum by ``3 * (cost_bound + P2)``. The kernels store direction volumes
-as int16 and the wrappers check that bound; the plain forms keep int32.
+set sum by ``3 * (cost_bound + P2)``. Each kernel has an int16 and an int32
+form; the wrappers store costs, carries and direction volumes as int16
+where that bound fits and as int32 otherwise (:func:`storage_dtype`), one
+type for a whole call. The plain forms keep int32.
 """
 
 from __future__ import annotations
@@ -37,16 +39,16 @@ from stereo_vision_tpu_torch import _build
 _BIG = 1 << 29  # out-of-range d±1 neighbour: far above any reachable L
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # C, s_dn, s_up, L scratch, min scratch, B, H, W, D, P1, P2, with_diag, stream
-    "svt_sgm_vertical": [_P] * 5 + [_I] * 7 + [_P],
-    # C, out, B, H, W, D, P1, P2, reverse, stream
-    "svt_sgm_horizontal": [_P] * 2 + [_I] * 7 + [_P],
-    # v0..v3, nvol, minS, best, sm, s0, sp, uok, npix, D, uniq, stream
-    "svt_sgm_wta": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P],
+    # C, s_dn, s_up, L scratch, min scratch, B, H, W, D, P1, P2, with_diag, bytes, stream
+    "svt_sgm_vertical": [_P] * 5 + [_I] * 8 + [_P],
+    # C, out, B, H, W, D, P1, P2, reverse, bytes, stream
+    "svt_sgm_horizontal": [_P] * 2 + [_I] * 8 + [_P],
+    # v0..v3, nvol, minS, best, sm, s0, sp, uok, npix, D, uniq, bytes, stream
+    "svt_sgm_wta": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 4 + [_P],
     # S, minS, best, sm, s0, sp, uok, npix, D, uniq, stream
     "svt_sgm_wta_stats": [_P] * 7 + [ctypes.c_longlong] + [_I] * 2 + [_P],
-    # C, v0, v1, v2, minS, best, sm, s0, sp, uok, B, H, W, D, P1, P2, uniq, stream
-    "svt_sgm_horizontal_rl_wta": [_P] * 10 + [_I] * 7 + [_P],
+    # C, v0, v1, v2, minS, best, sm, s0, sp, uok, B, H, W, D, P1, P2, uniq, bytes, stream
+    "svt_sgm_horizontal_rl_wta": [_P] * 10 + [_I] * 8 + [_P],
 }
 # Fuse the R->L scan with the WTA in sgm_reduce (horizontal_rl_wta), as
 # sgm_pallas._FUSED_RL_WTA does in the JAX package, and off by default as
@@ -191,22 +193,30 @@ def sgm_reduce_plain(C, P1: int, P2: int, uniqueness_ratio: int, num_paths: int 
 # ------------------------------------------------------------------ wrappers
 
 
-def _check_volume(C: torch.Tensor, P1: int, P2: int, cost_bound: int, ndir: int) -> None:
+def storage_dtype(cost_bound: int, P2: int, ndir: int) -> torch.dtype:
+    """The type the kernels store costs and direction volumes in: int16
+    where a stored value, the sum of ``ndir`` carries (3 for an 8-path
+    vertical set), is bounded below 2^15, int32 otherwise."""
+    return torch.int16 if ndir * (cost_bound + P2) < 1 << 15 else torch.int32
+
+
+def _check_volume(C: torch.Tensor, P1: int, P2: int, cost_bound: int, ndir: int) -> torch.Tensor:
+    """C as the kernels store it: int32 where it is int32 or where
+    :func:`storage_dtype` needs it, else int16 (CPU tensors as given)."""
     if C.dim() != 4:
         raise ValueError(f"expected a (B, H, W, D) cost volume, got {tuple(C.shape)}")
     if P1 < 0 or P2 < 0:
         raise ValueError("P1 and P2 must be >= 0")
     if C.device.type == "cuda":
-        if C.dtype != torch.int16 or not C.is_contiguous():
-            raise TypeError("the CUDA SGM kernels take a contiguous int16 cost volume")
+        if C.dtype not in (torch.int16, torch.int32) or not C.is_contiguous():
+            raise TypeError("the CUDA SGM kernels take a contiguous int16 or int32 cost volume")
         if C.shape[-1] > 256:
             raise ValueError("the CUDA SGM kernels take D <= 256")
-        if ndir * (cost_bound + P2) >= 1 << 15:
-            raise ValueError(
-                f"{ndir} * (cost_bound {cost_bound} + P2 {P2}) does not fit the int16 direction volumes"
-            )
+        if C.dtype == torch.int16 and storage_dtype(cost_bound, P2, ndir) == torch.int32:
+            return C.to(torch.int32)
     elif C.device.type != "cpu":
         raise ValueError(f"unsupported device {C.device}")
+    return C
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -225,17 +235,18 @@ def vertical(C, P1: int, P2: int, with_diagonals: bool, cost_bound: int):
 
     One wrapper call runs the H-step row scan (one kernel launch per row
     step on CUDA, counted once in ``vertical.launches``)."""
-    _check_volume(C, P1, P2, cost_bound, 3 if with_diagonals else 1)
+    C = _check_volume(C, P1, P2, cost_bound, 3 if with_diagonals else 1)
     if C.device.type == "cpu":
         return vertical_plain(C, P1, P2, with_diagonals)
     B, H, W, D = C.shape
     s_dn = torch.empty_like(C)
     s_up = torch.empty_like(C)
-    Lbuf = torch.empty((2, 6, B, W, D), dtype=torch.int16, device=C.device)
+    Lbuf = torch.empty((2, 6, B, W, D), dtype=C.dtype, device=C.device)
     mbuf = torch.empty((2, 6, B, W), dtype=torch.int32, device=C.device)
     lib = _lib()
     err = lib.svt_sgm_vertical(C.data_ptr(), s_dn.data_ptr(), s_up.data_ptr(), Lbuf.data_ptr(),
-                               mbuf.data_ptr(), B, H, W, D, P1, P2, int(with_diagonals), _stream(C))
+                               mbuf.data_ptr(), B, H, W, D, P1, P2, int(with_diagonals), C.element_size(),
+                               _stream(C))
     _build.check(lib, err, "svt_sgm_vertical")
     vertical.launches += 1
     return s_dn, s_up
@@ -243,13 +254,14 @@ def vertical(C, P1: int, P2: int, with_diagonals: bool, cost_bound: int):
 
 def horizontal(C, P1: int, P2: int, reverse: bool, cost_bound: int):
     """(B, H, W, D) cost -> the L->R (``reverse``: R->L) direction volume."""
-    _check_volume(C, P1, P2, cost_bound, 1)
+    C = _check_volume(C, P1, P2, cost_bound, 1)
     if C.device.type == "cpu":
         return horizontal_plain(C, P1, P2, reverse)
     B, H, W, D = C.shape
     out = torch.empty_like(C)
     lib = _lib()
-    err = lib.svt_sgm_horizontal(C.data_ptr(), out.data_ptr(), B, H, W, D, P1, P2, int(reverse), _stream(C))
+    err = lib.svt_sgm_horizontal(C.data_ptr(), out.data_ptr(), B, H, W, D, P1, P2, int(reverse), C.element_size(),
+                                 _stream(C))
     _build.check(lib, err, "svt_sgm_horizontal")
     horizontal.launches += 1
     return out
@@ -269,14 +281,15 @@ def wta4(volumes, uniqueness_ratio: int):
         raise ValueError(f"expected (B, H, W, D>=3) volumes, got {tuple(v0.shape)}")
     if v0.device.type == "cpu":
         return wta4_plain(volumes, uniqueness_ratio)
-    if any(v.dtype != torch.int16 or not v.is_contiguous() for v in volumes) or v0.shape[-1] > 256:
-        raise TypeError("the CUDA WTA kernel takes contiguous int16 volumes with D <= 256")
+    if (v0.dtype not in (torch.int16, torch.int32) or any(v.dtype != v0.dtype or not v.is_contiguous()
+                                                           for v in volumes) or v0.shape[-1] > 256):
+        raise TypeError("the CUDA WTA kernel takes contiguous volumes of one type, int16 or int32, with D <= 256")
     B, H, W, D = v0.shape
     maps, uok = _maps(v0)
     ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
     lib = _lib()
     err = lib.svt_sgm_wta(*ptrs, len(volumes), *(m.data_ptr() for m in maps), uok.data_ptr(),
-                          B * H * W, D, uniqueness_ratio, _stream(v0))
+                          B * H * W, D, uniqueness_ratio, v0.element_size(), _stream(v0))
     _build.check(lib, err, "svt_sgm_wta")
     wta4.launches += 1
     return (*maps, uok)
@@ -307,11 +320,11 @@ def aggregate_8(C, P1: int, P2: int, num_paths: int = 8, *, cost_bound: int):
     """(B, H, W, D) cost -> the int32 volume aggregated over ``num_paths``
     in {2, 3, 4, 8} directions: the port of ``aggregate_8_pallas`` (4 and 8
     paths) and of the scan ``_aggregate_8`` (2 and 3). On CUDA it runs the
-    vertical and horizontal kernels and sums their int16 volumes into int32
-    (``cost_bound`` bounds C, for the volumes' int16 range)."""
+    vertical and horizontal kernels, stored as :func:`storage_dtype` picks
+    (``cost_bound`` bounds C), and sums their volumes into int32."""
     if num_paths not in (2, 3, 4, 8):
         raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {num_paths}")
-    _check_volume(C, P1, P2, cost_bound, 3 if num_paths >= 8 else 1)
+    C = _check_volume(C, P1, P2, cost_bound, 3 if num_paths >= 8 else 1)
     if C.device.type == "cpu":
         return _aggregate_8(C, P1, P2, num_paths)
     s_dn, s_up = vertical(C, P1, P2, num_paths >= 8, cost_bound)
@@ -339,14 +352,16 @@ def horizontal_rl_wta(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: i
         return horizontal_rl_wta_plain(C, s_dn, s_up, s_lr, P1, P2, uniqueness_ratio)
     if C.device.type != "cuda":
         raise ValueError(f"unsupported device {C.device}")
-    if any(t.dtype != torch.int16 or not t.is_contiguous() for t in (C, *vols)) or C.shape[-1] > 256:
-        raise TypeError("the fused R->L WTA kernel takes contiguous int16 tensors with D <= 256")
+    if (C.dtype not in (torch.int16, torch.int32) or any(t.dtype != C.dtype or not t.is_contiguous()
+                                                          for t in (C, *vols)) or C.shape[-1] > 256):
+        raise TypeError("the fused R->L WTA kernel takes contiguous tensors of one type, int16 or int32, "
+                        "with D <= 256")
     B, H, W, D = C.shape
     maps, uok = _maps(C)
     lib = _lib()
     err = lib.svt_sgm_horizontal_rl_wta(C.data_ptr(), *(v.data_ptr() for v in vols),
                                         *(m.data_ptr() for m in maps), uok.data_ptr(), B, H, W, D, P1, P2,
-                                        uniqueness_ratio, _stream(C))
+                                        uniqueness_ratio, C.element_size(), _stream(C))
     _build.check(lib, err, "svt_sgm_horizontal_rl_wta")
     horizontal_rl_wta.launches += 1
     return (*maps, uok)
@@ -356,10 +371,11 @@ def sgm_reduce(C, P1: int, P2: int, uniqueness_ratio: int, *, cost_bound: int, n
     """Aggregation over ``num_paths`` in {2, 3, 4, 8} + WTA, the port of
     ``sgm_reduce_pallas`` (which took only 4 and 8): six (B, H, W) maps as
     :func:`wta4` returns them. ``cost_bound`` bounds the values of ``C``
-    (the CUDA kernels check that the int16 volumes hold the sums). With
+    (the CUDA kernels store the volumes in the type it needs). With
     ``_FUSED_RL_WTA`` set, 4 and 8 paths end in :func:`horizontal_rl_wta`."""
     if num_paths not in (2, 3, 4, 8):
         raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {num_paths}")
+    C = _check_volume(C, P1, P2, cost_bound, 3 if num_paths >= 8 else 1)
     vols = list(vertical(C, P1, P2, num_paths >= 8, cost_bound))
     if num_paths >= 3:
         vols.append(horizontal(C, P1, P2, False, cost_bound))

@@ -26,6 +26,7 @@ CASES = {
     "k4_minx5": (4, 2, 32, 5),  # min_x < 8 at K = 4 (the Pallas s-select gate's corner)
     "k8": (8, 4, 64, 64),
     "k32": (32, 16, 64, 64),
+    "k12": (12, 4, 64, 64),  # a band off the powers of two
 }
 
 
@@ -152,29 +153,33 @@ def test_banded_wta_matches_jax(K):
 
 
 def test_cuda_only_limits_raise(monkeypatch):
-    """What the CUDA kernels refuse, checked before any launch (a CPU tensor
-    stands in for a CUDA one)."""
+    """What the CUDA kernels refuse, and the storage type they pick, checked
+    before any launch (a CPU tensor stands in for a CUDA one): a bound past
+    int16 takes the int32 form, a band off K % 4 == 0 or above 64 and
+    volumes of two types are refused."""
     monkeypatch.setattr(banded_cuda, "_on_cuda", lambda t: True)
     C = torch.zeros((1, 4, 8, 8), dtype=torch.int16)
     s = torch.zeros((1, 4, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="int16"):
-        banded_cuda.banded_vertical(C, s, 4, 8, 32000, cost_bound=2325)
-    with pytest.raises(ValueError, match="K in"):
-        banded_cuda.banded_horizontal(torch.zeros((1, 4, 8, 12), dtype=torch.int16), s, 4, 8, 32, cost_bound=100)
+    assert banded_cuda._check_volume(C, 32000, 2325).dtype == torch.int32
+    assert banded_cuda._check_volume(C, 32, 100).dtype == torch.int16
+    assert banded_cuda._check_volume(torch.zeros((1, 4, 8, 12), dtype=torch.int16), 32, 100).shape[-1] == 12
+    for K in (10, 68):
+        with pytest.raises(ValueError, match="K % 4 == 0 and 4 <= K <= 64"):
+            banded_cuda.banded_horizontal(torch.zeros((1, 4, 8, K), dtype=torch.int16), s, 4, 8, 32, cost_bound=100)
     with pytest.raises(TypeError):
-        banded_cuda.banded_wta([C.to(torch.int32)] * 2, 10)
+        banded_cuda.banded_wta([C, C.to(torch.int32)], 10)
 
 
 def test_eight_path_int16_bound(monkeypatch):
     """An 8-path vertical set stores the sum of three carries: the CUDA
-    wrapper refuses a configuration whose 3 x (cost_bound + P2) leaves int16,
-    though one carry fits (a CPU tensor stands in for a CUDA one)."""
+    wrapper stores a configuration whose 3 x (cost_bound + P2) leaves int16,
+    though one carry fits, as int32 at 8 paths only (a CPU tensor stands in
+    for a CUDA one)."""
     C = torch.zeros((1, 4, 8, 8), dtype=torch.int16)
     s = torch.zeros((1, 4, 8), dtype=torch.int32)
     bound, P2 = 2325, 9000  # 11325 fits int16, 33975 does not
     dn, up = banded_cuda.banded_vertical(C, s, 4, 8, P2, cost_bound=bound, with_diagonals=True)  # plain: int32
     assert dn.dtype == torch.int32 and not dn.any()
     monkeypatch.setattr(banded_cuda, "_on_cuda", lambda t: True)
-    banded_cuda._check_volume(C, P2, bound)
-    with pytest.raises(ValueError, match="3 x"):
-        banded_cuda.banded_vertical(C, s, 4, 8, P2, cost_bound=bound, with_diagonals=True)
+    assert banded_cuda._check_volume(C, P2, bound).dtype == torch.int16
+    assert banded_cuda._check_volume(C, P2, bound, 3).dtype == torch.int32

@@ -77,9 +77,13 @@ def test_direction_volumes_match_plain(dev):
 
 
 def test_int16_bound_is_enforced(dev):
-    C = torch.zeros((1, 4, 8, 32), dtype=torch.int16, device=dev)
-    with pytest.raises(ValueError):
-        sgm_cuda.vertical(C, 8, 32000, True, 100)
+    """A bound past int16 takes the int32 form of the kernels: no refusal,
+    and the volumes equal the plain form's."""
+    rng = np.random.default_rng(32)
+    C = torch.from_numpy(rng.integers(0, 101, (1, 4, 8, 32)).astype(np.int16))
+    out = sgm_cuda.vertical(C.to(dev), 8, 32000, True, 100)
+    for a, b in zip(out, sgm_cuda.vertical_plain(C, 8, 32000, True)):
+        assert a.dtype == torch.int32 and torch.equal(a.cpu(), b)
 
 
 def test_pipeline_cuda_matches_cpu(dev):
@@ -174,14 +178,17 @@ def test_banded_stats_pack_cuda_matches_cpu(dev, num_paths):
 
 def test_banded_eight_paths_raise_on_cuda(dev):
     """8 paths store the sum of three carries: a P2 that fits int16 for one
-    carry but not for three is refused at 8 paths only."""
+    carry but not for three takes the int32 kernels at 8 paths only, and
+    both equal the CPU."""
     P, H, W, D, K, G = 1, 8, 80, 64, 8, 4
-    left, right = (t.to(dev) for t in _images(0, P, H, W))
-    s = torch.zeros((P, H, W), dtype=torch.int32, device=dev)
+    left, right = _images(0, P, H, W)
+    s = torch.zeros((P, H, W), dtype=torch.int32)
     p = StereoSGBMParams(num_disparities=D, p2=9000)
-    banded_cuda.banded_stats_pack(left, right, s, p._replace(num_paths=4), K, G, D)
-    with pytest.raises(ValueError, match="3 x"):
-        banded_cuda.banded_stats_pack(left, right, s, p._replace(num_paths=8), K, G, D)
+    for paths in (4, 8):
+        ref = banded_cuda.banded_stats_pack(left, right, s, p._replace(num_paths=paths), K, G, D)
+        out = banded_cuda.banded_stats_pack(left.to(dev), right.to(dev), s.to(dev), p._replace(num_paths=paths), K,
+                                            G, D)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
 
 
 def test_hier_pipeline_cuda_matches_cpu(dev):
@@ -402,14 +409,16 @@ def test_aggregate_8_matches_plain(dev, D, num_paths):
 
 
 def test_aggregate_8_int16_bound_is_enforced(dev):
-    """The direction volumes are int16: 8 paths store three-direction sums,
-    so a P2 that fits one direction but not three is refused at 8 only."""
-    C = torch.zeros((1, 4, 8, 32), dtype=torch.int16, device=dev)
-    sgm_cuda.aggregate_8(C, 8, 9000, 4, cost_bound=2325)
-    n = (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.launches)
-    with pytest.raises(ValueError, match="int16"):
-        sgm_cuda.aggregate_8(C, 8, 9000, 8, cost_bound=2325)
-    assert (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.launches) == n
+    """8 paths store three-direction sums, so a P2 that fits one direction
+    in int16 but not three takes the int32 kernels at 8 paths; both equal
+    the plain form."""
+    rng = np.random.default_rng(9)
+    C = torch.from_numpy(rng.integers(0, 2326, (1, 4, 8, 32)).astype(np.int16))
+    for paths in (4, 8):
+        n = (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.launches)
+        out = sgm_cuda.aggregate_8(C.to(dev), 8, 9000, paths, cost_bound=2325)
+        assert (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.launches) == (n[0] + 1, n[1] + 1)
+        assert torch.equal(out.cpu(), sgm_cuda._aggregate_8(C, 8, 9000, paths))
 
 
 @pytest.mark.parametrize("D", [16, 48, 64, 128, 200])
@@ -544,3 +553,137 @@ def test_geometry_cuda_matches_cpu(dev):
     X = ops.triangulate_points(ref.P1, ref.P2, p1, p2)
     Xg = ops.triangulate_points(ref.P1.to(dev), ref.P2.to(dev), p1.to(dev), p2.to(dev))
     torch.testing.assert_close(Xg.cpu(), X, rtol=1e-9, atol=1e-9)
+
+
+# -------------------------------------------------------- storage and bands
+# Settings the kernels take: int32 storage, any odd block, a negative
+# min_disparity, bands K % 4 == 0 up to 64; and the group-per-row banded
+# horizontal scan.
+
+
+def _random_shift_map(rng, P, H, W, G, levels=6):
+    """Per-pixel random shift maps: deltas of 0, +-G, +-2G and beyond on the
+    G grid, and off it."""
+    s = rng.integers(0, levels, (P, H, W)) * G + (rng.random((P, H, W)) < 0.1) * rng.integers(1, 3, (P, H, W))
+    return torch.from_numpy(s.astype(np.int32))
+
+
+@pytest.mark.parametrize("K,G", [(4, 2), (8, 4), (12, 4), (16, 8), (20, 4), (32, 16), (64, 16), (12, 16)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_banded_horizontal_random_shifts_match_plain(dev, K, G, dtype):
+    """The group-per-row horizontal scan, both directions, on rows that do
+    not fill a warp's last groups and columns that do not fill its last
+    chunk of prefetched columns."""
+    P, H, Wv = 2, 11, 45
+    rng = np.random.default_rng(K * 100 + G)
+    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int32)).to(dtype)
+    s = _random_shift_map(rng, P, H, Wv, G)
+    bound = 2325 if dtype == torch.int16 else 40000  # 40000 + P2 takes the int32 form
+    for rev in (False, True):
+        n = banded_cuda.banded_horizontal.launches
+        out = banded_cuda.banded_horizontal(C.to(dev), s.to(dev), G, 200, 800, cost_bound=bound, reverse=rev)
+        torch.cuda.synchronize()
+        assert banded_cuda.banded_horizontal.launches == n + 1 and out.dtype == dtype
+        assert torch.equal(out.cpu().to(torch.int32), banded_cuda.horizontal_plain(C, s, G, 200, 800, rev))
+
+
+@pytest.mark.parametrize("K,G", [(12, 4), (20, 4), (16, 8)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_banded_vertical_and_wta_bands_match_plain(dev, K, G, dtype):
+    """Bands off the powers of two (and K=16 in int32): the vertical scan
+    with and without diagonals on random shift maps, and the WTA (6-stat
+    and sub) over three volumes."""
+    P, H, Wv = 2, 11, 300
+    rng = np.random.default_rng(K + G)
+    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int32)).to(dtype)
+    s = _random_shift_map(rng, P, H, Wv, G)
+    bound = 2325 if dtype == torch.int16 else 40000
+    for diag in (False, True):
+        out = banded_cuda.banded_vertical(C.to(dev), s.to(dev), G, 200, 800, cost_bound=bound, with_diagonals=diag)
+        ref = banded_cuda.vertical_plain(C, s, G, 200, 800, diag)
+        assert all(a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), b) for a, b in zip(out, ref))
+    vols = [torch.from_numpy(rng.integers(0, 9000, (P, H, Wv, K)).astype(np.int32)).to(dtype) for _ in range(3)]
+    for v in vols:  # ties at the minimum: the smaller k wins
+        v[:, :, :4, K - 3] = v[:, :, :4, 2] = 0
+    for sub in (False, True):
+        ref = banded_cuda.banded_wta_plain(vols, 10, sub)
+        out = banded_cuda.banded_wta([v.to(dev) for v in vols], 10, sub)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+
+
+def test_fused_wta_int32_matches_plain(dev):
+    P, H, Wv, K = 2, 9, 70, 16
+    rng = np.random.default_rng(5)
+    vols = [torch.from_numpy(rng.integers(100, 60000, (P, H, Wv, K)).astype(np.int32)) for _ in range(3)]
+    s = _shift_map(5, P, H, Wv, 128, K, 8, 4)
+    ref = banded_cuda.banded_wta_fused_plain(vols, s, 10)
+    out = banded_cuda.banded_wta_fused([v.to(dev) for v in vols], s.to(dev), 10, ndisp=128, volume_bound=60000)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+    with pytest.raises(ValueError, match="volume_bound"):
+        banded_cuda.banded_wta_fused([v.to(dev) for v in vols], s.to(dev), 10, ndisp=128)
+
+
+@pytest.mark.parametrize("H,W,D,bs,mindisp,x_off", [(21, 80, 16, 13, 0, 16), (17, 70, 48, 21, 2, 50),
+                                                    (9, 300, 256, 21, 0, 256), (12, 100, 16, 5, -8, 8),
+                                                    (12, 100, 32, 15, -31, 1)])
+def test_cost_kernel_wide_blocks_and_negative_min_disparity(dev, H, W, D, bs, mindisp, x_off):
+    """Any odd block (int32 output past int16's window bound; block 21 at
+    D=256 fits the shared memory), and a negative min_disparity with the
+    reference's clamp of the shift at 0."""
+    left, right = _images(D + bs, 2, H, W)
+    kw = dict(ndisp=D, mindisp=mindisp, block_size=bs, ftzero=15, x_offset=x_off)
+    ref = cost_cuda.cost_volume(left, right, **kw)
+    out = cost_cuda.cost_volume(left.to(dev), right.to(dev), **kw)
+    assert out.dtype == ref.dtype == (torch.int16 if bs * bs * 93 < 1 << 15 else torch.int32)
+    assert torch.equal(out.cpu(), ref)
+    out32 = cost_cuda.cost_volume(left.to(dev), right.to(dev), **kw, dtype=torch.int32)
+    assert out32.dtype == torch.int32 and torch.equal(out32.cpu(), ref.to(torch.int32))
+
+
+@pytest.mark.parametrize("num_paths", [3, 4, 8])
+def test_sgm_kernels_int32_match_plain(dev, num_paths):
+    """The exact scans, WTA and fused R->L WTA in their int32 forms."""
+    rng = np.random.default_rng(num_paths)
+    C = torch.from_numpy(rng.integers(0, 40001, (2, 9, 37, 64)).astype(np.int32))
+    ref = sgm_cuda.sgm_reduce_plain(C, 200, 800, 10, num_paths=num_paths)
+    out = sgm_cuda.sgm_reduce(C.to(dev), 200, 800, 10, cost_bound=40000, num_paths=num_paths)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+    Cd = C.to(dev)
+    vols = list(sgm_cuda.vertical(Cd, 200, 800, True, 40000)) + [sgm_cuda.horizontal(Cd, 200, 800, False, 40000)]
+    assert all(v.dtype == torch.int32 for v in vols)
+    ref = sgm_cuda.horizontal_rl_wta_plain(C, *(v.cpu() for v in vols), 200, 800, 10)
+    out = sgm_cuda.horizontal_rl_wta(Cd, *vols, 200, 800, 10)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("case", ["block11_8paths", "block13", "min_disparity_-8"])
+def test_exact_settings_card_equals_cpu(dev, case):
+    """stereo_sgbm at settings the card once refused, card against CPU."""
+    p = {"block11_8paths": StereoSGBMParams(num_disparities=64, block_size=11, uniqueness_ratio=10,
+                                            disp12_max_diff=1, speckle_window_size=20, speckle_range=2),
+         "block13": StereoSGBMParams(num_disparities=64, block_size=13, num_paths=4, uniqueness_ratio=10),
+         "min_disparity_-8": StereoSGBMParams(num_disparities=64, min_disparity=-8, uniqueness_ratio=10,
+                                              speckle_window_size=20, speckle_range=2)}[case]
+    left, right = (torch.from_numpy(np.stack([a] * 2)) for a in scene(seed=2, H=48, W=160))
+    ref = stereo_sgbm(left, right, p)
+    n = cost_cuda.cost_volume.launches
+    out = stereo_sgbm(left.to(dev), right.to(dev), p)
+    assert cost_cuda.cost_volume.launches == n + 1
+    assert (ref > p.min_disparity - 1).float().mean() > 0.3 and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("case", ["block11_8paths", "band12"])
+def test_banded_settings_card_equals_cpu(dev, case):
+    """The per-frame hier entry at block 11 with 8 paths (int32 diagonal
+    sets) and at band 12, card against CPU."""
+    p = StereoSGBMParams(num_disparities=128, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=30,
+                         speckle_range=2, num_paths=3)
+    hp = HIER_FAST
+    if case == "block11_8paths":
+        p = p._replace(block_size=11, num_paths=8)
+    else:
+        hp = hier.HierParams(band=12, granularity=4)
+    left, right = (torch.from_numpy(a) for a in scene(seed=1, H=64, W=256))
+    ref = hier.stereo_sgbm_hier(left, right, p, hp)
+    out = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp)
+    assert (ref > -1).float().mean() > 0.2 and torch.equal(out.cpu(), ref)

@@ -125,13 +125,12 @@ def test_unported_hier_options_name_their_roadmap_item(option, monkeypatch):
         np.testing.assert_array_equal(mine.numpy(), np.asarray(ref))
     else:
         # The 8-path option is ported now: the CUDA wrapper takes the diagonal
-        # carries and checks their tripled int16 range before any launch (a
-        # CPU tensor stands in for a CUDA one).
+        # carries and stores them as int32 where their tripled range leaves
+        # int16, before any launch (a CPU tensor stands in for a CUDA one).
         monkeypatch.setattr(banded_cuda, "_on_cuda", lambda t: True)
         C = torch.zeros((1, 4, 8, 8), dtype=torch.int16)
-        with pytest.raises(ValueError, match="3 x"):
-            banded_cuda.banded_vertical(C, torch.zeros((1, 4, 8), dtype=torch.int32), 4, 8, 9000, cost_bound=2325,
-                                        with_diagonals=True)
+        assert banded_cuda._check_volume(C, 9000, 2325, 3).dtype == torch.int32
+        assert banded_cuda._check_volume(C, 9000, 2325, 1).dtype == torch.int16
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):

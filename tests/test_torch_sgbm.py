@@ -37,7 +37,7 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("mindisp,bs", [(0, 5), (3, 3), (2, 7)])
+@pytest.mark.parametrize("mindisp,bs", [(0, 5), (3, 3), (2, 7), (-2, 5)])
 def test_cost_volume_matches_jax(mindisp, bs):
     left, right = _pair(0, 21, 56, 16, 5)
     jp = _jparams(num_disparities=16, min_disparity=mindisp, block_size=bs)
@@ -142,6 +142,8 @@ _CASES = [
     (3, 10, 1, 10, 0),
     (2, 0, 1, 0, 0),
     (2, 10, -1, 20, 3),
+    (8, 0, -1, 0, -8),
+    (4, 10, -1, 15, -8),
 ]
 
 
