@@ -92,7 +92,16 @@ After 18:
      hier16x3 full level's shape, and on fewer frames at K=16 and K=4;
  20. settings the card once refused, CUDA against CPU, exact: the exact
      pipeline at 240x320 at block 11 with 8 paths (int32 volumes) and at
-     min_disparity -8, and the per-frame stereo_sgbm_hier at band 12.
+     min_disparity -8, and the per-frame stereo_sgbm_hier at band 12;
+ 21. the banded cost kernel (#13 with #15/#16) at the five level shapes of
+     the main paths (hier4x3 coarse, mid and full at 32 frames, hier16x3
+     full and coarse at 8) on per-pixel random shift maps: exact against
+     its plain form on 2 frames, ms over 5 runs at the full shape, bound;
+ 22. bands above 64 (K = 68, 128, 256 at D = 256), int16 and int32: the
+     cost kernel (stride 1 and 2), the vertical scan with and without
+     diagonals, both horizontals and the WTA (6-stat and sub) against their
+     plain forms, exact; the per-frame stereo_sgbm_hier at band 128, D=256,
+     card against CPU.
 Every row of the kernels line names the storage type its volumes ran in
 ("storage"; null for a kernel without a volume) and its ms per level of the
 path ("ms_by_level"); every main path stores int16.
@@ -134,7 +143,7 @@ VALID_FLOOR, WITHIN1_FLOOR = 0.90, 0.98
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu"
-           for name in ("cost", "sgm", "banded", "lr", "speckle", "bm")}
+           for name in ("cost", "sgm", "banded", "banded_cost", "lr", "speckle", "bm")}
 # The hier main path: bench.py's hier4x3 mode (HIER4_FAST with p3, 32 frames
 # per call, bench.py:162-188).
 HIER_P, HP = 32, hier.HIER4_FAST
@@ -170,7 +179,7 @@ GEOMETRY_MATCHES = 100_000  # synthetic matches triangulated on the card and on 
 KERNELS = {
     "downsample_box": (banded_cuda.downsample_box, SOURCES["banded"],
                        "stereo_vision_tpu/stereo/banded_pallas.py:395 _downsample_kernel"),
-    "banded_cost": (banded_cuda.banded_cost, SOURCES["banded"],
+    "banded_cost": (banded_cuda.banded_cost, SOURCES["banded_cost"],
                     "stereo_vision_tpu/stereo/banded_pallas.py:152 _pix_kernel + :512 _aligned_box_kernel_srows"),
     "banded_vertical": (banded_cuda.banded_vertical, SOURCES["banded"],
                         "stereo_vision_tpu/stereo/banded_pallas.py:666 _vert_kernel"),
@@ -1196,6 +1205,123 @@ def phase_settings(dev) -> dict:
     return out
 
 
+# The banded cost kernel (#13 with #15/#16) at the five level shapes of the
+# main paths: label, frames, rows, columns, band, G, ndisp (= min_x).
+COST_LEVELS = (("hier4x3 coarse", HIER_P, H // 4, W // 4, 32, 2, D // 4),
+               ("hier4x3 mid", HIER_P, H // 2, W // 2, 8, 4, D // 2),
+               ("hier4x3 full", HIER_P, H, W, 4, 2, D),
+               ("hier16x3 full", H16_P, H, W, 16, 8, D),
+               ("hier16x3 coarse", H16_P, H // 4, W // 4, 32, 8, D // 4))
+COST_PLAIN_FRAMES = 2  # frames the plain form runs on beside the kernel's call
+WIDE_BANDS = ((68, 4), (128, 8), (256, 16))  # (K, G) of the wide-band phase, D = 256
+
+
+def cost_shift_map(rng, P: int, h: int, w: int, K: int, G: int, ndisp: int, stride: int = 1) -> np.ndarray:
+    """Per-pixel random shifts in the band's range [0, ndisp - stride (K - 1)
+    - 1]: on the G grid, 15% of them 1-2 off it (neighbour deltas 0, +-G,
+    beyond G, off the grid), the top and bottom rows at the range's top and
+    the first and last columns at 0. At a coarse level (K == ndisp) the
+    range is s == 0."""
+    top = max(ndisp - stride * (K - 1) - 1, 0)
+    s = rng.integers(0, top // G + 1, (P, h, w)) * G + (rng.random((P, h, w)) < 0.15) * rng.integers(1, 3, (P, h, w))
+    s[:, 0, :] = s[:, -1, :] = top
+    s[:, :, 0] = s[:, :, -1] = 0
+    return np.minimum(s, top).astype(np.int32)
+
+
+def phase_banded_cost(dev) -> dict:
+    """The banded cost kernel at the five level shapes of the main paths
+    (hier4x3: coarse K=32 at s = 0, mid K=8 G=4, full K=4 G=2, 32 frames;
+    hier16x3: full K=16 G=8 and coarse K=32, 8 frames) on the scene's frames
+    (box-downsampled for the coarse and mid levels) and per-pixel random
+    shift maps (:func:`cost_shift_map`): the kernel on every frame against
+    its plain form on the first 2, exact; then CUDA-event ms over 5 runs
+    and the bound (the int32 images and shift map read once, the int16
+    volume written once; ~20 + 4 bs operations a lane)."""
+    lt, rt = hier_frames(dev)
+    lt, rt = lt.to(torch.int32), rt.to(torch.int32)
+    out = {}
+    for label, P, h, w, K, G, ndisp in COST_LEVELS:
+        f = H // h
+        l, r = ((x[:P] if f == 1 else banded_cuda.downsample_box(x[:P], f)).contiguous() for x in (lt, rt))
+        s = torch.from_numpy(cost_shift_map(np.random.default_rng(K + G), P, h, w, K, G, ndisp)).to(dev)
+        kw = dict(band=K, G=G, ndisp=ndisp, ftzero=P3.ftzero, block_size=P3.block_size, min_x=ndisp)
+        got = banded_cuda.banded_cost(l, r, s, **kw)
+        n = COST_PLAIN_FRAMES
+        err = max_abs_err(got[:n], banded_cuda.banded_cost_plain(l[:n], r[:n], s[:n], **kw))
+        if err != 0 or got.dtype != torch.int16:
+            raise AssertionError(f"banded_cost at {label}: {got.dtype}, max abs err {err} against its plain form")
+        ms = event_ms(lambda: banded_cuda.banded_cost(l, r, s, **kw), 5)
+        b_ms, b_by = bound_ms(3 * l.numel() * 4 + got.numel() * 2, got.numel() * (20 + 4 * P3.block_size))
+        out[label] = dict(frames=P, ms=ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"kernel banded_cost {label} ({P}x{h}x{w}, K={K}, G={G}), random shifts: exact on {n} frames, "
+              f"{ms:.3f} ms (bound {b_ms:.4f} ms by {b_by})", flush=True)
+        del l, r, s, got
+    return out
+
+
+def phase_wide_bands(dev) -> dict:
+    """Bands above 64 (K = 68, 128, 256; D = 256), int16 and int32, against
+    their plain forms on the card, exact: the cost kernel (block 5, stride
+    1 and 2), the vertical scan with and without diagonals (carry rows in
+    shared memory at 45 columns, in device scratch at 300), the horizontal
+    scan in both directions and the WTA in its 6-stat and sub forms, on
+    per-pixel random shift maps; then the per-frame stereo_sgbm_hier at
+    band 128, D=256 on a 32x320 pair, card against CPU."""
+    ndisp, P1, P2 = 256, P3.P1, P3.P2
+    out = {}
+    for K, G in WIDE_BANDS:
+        rng = np.random.default_rng(K)
+        for dtype, bound in ((torch.int16, 2325), (torch.int32, 40000)):
+            name = str(dtype).removeprefix("torch.")
+            l, r = (torch.from_numpy(rng.integers(0, 256, (2, 37, ndisp + 90)).astype(np.int32)).to(dev)
+                    for _ in range(2))
+            for stride in (1, 2):
+                s = torch.from_numpy(cost_shift_map(rng, 2, 37, ndisp + 90, K, G, ndisp, stride)).to(dev)
+                kw = dict(band=K, G=G, ndisp=ndisp, ftzero=P3.ftzero, block_size=P3.block_size, min_x=3,
+                          stride=stride, dtype=dtype)
+                got = banded_cuda.banded_cost(l, r, s, **kw)
+                err = max_abs_err(got, banded_cuda.banded_cost_plain(l, r, s, **kw))
+                if err != 0 or got.dtype != dtype:
+                    raise AssertionError(f"banded_cost K={K} {name} stride {stride}: max abs err {err}")
+            for Wv in (45, 300):
+                C = torch.from_numpy(rng.integers(0, bound + 1, (2, 11, Wv, K))).to(dtype).to(dev)
+                sv = torch.from_numpy(rng.integers(0, 6, (2, 11, Wv)) * G
+                                      + (rng.random((2, 11, Wv)) < 0.1) * rng.integers(1, 3, (2, 11, Wv)))
+                sv = sv.to(torch.int32).to(dev)
+                for diag in (False, True):
+                    got = banded_cuda.banded_vertical(C, sv, G, P1, P2, cost_bound=bound, with_diagonals=diag)
+                    err = max_abs_err(got, banded_cuda.vertical_plain(C, sv, G, P1, P2, diag))
+                    if err != 0 or got[0].dtype != dtype:
+                        raise AssertionError(f"banded_vertical K={K} {name} Wv={Wv} diagonals={diag}: {err}")
+                for rev in (False, True):
+                    got = banded_cuda.banded_horizontal(C, sv, G, P1, P2, cost_bound=bound, reverse=rev)
+                    err = max_abs_err(got, banded_cuda.horizontal_plain(C, sv, G, P1, P2, rev))
+                    if err != 0 or got.dtype != dtype:
+                        raise AssertionError(f"banded_horizontal K={K} {name} Wv={Wv} reverse={rev}: {err}")
+                vols = [torch.from_numpy(rng.integers(0, 9000, (2, 11, Wv, K))).to(dtype).to(dev) for _ in range(3)]
+                for sub in (False, True):
+                    err = max_abs_err(banded_cuda.banded_wta(vols, P3.uniqueness_ratio, sub),
+                                      banded_cuda.banded_wta_plain(vols, P3.uniqueness_ratio, sub))
+                    if err != 0:
+                        raise AssertionError(f"banded_wta K={K} {name} Wv={Wv} sub={sub}: max abs err {err}")
+            out[f"K={K} {name}"] = "exact"
+            print(f"wide band K={K} G={G} {name}: cost (stride 1, 2), vertical (with and without diagonals, 45 and "
+                  "300 columns), horizontal (both directions), WTA (6-stat, sub): exact", flush=True)
+    p = P3._replace(num_disparities=ndisp)
+    hp = hier.HierParams(band=128, granularity=8)
+    left, right = (torch.from_numpy(a) for a in scene(seed=6, H=32, W=320))
+    ref = hier.stereo_sgbm_hier(left, right, p, hp)
+    n = banded_cuda.banded_wta.launches
+    got = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp)
+    if banded_cuda.banded_wta.launches == n or not torch.equal(got.cpu(), ref):
+        raise AssertionError("per-frame stereo_sgbm_hier at band 128, D=256 differs between the card and the CPU")
+    out["hier band 128 valid share"] = float((ref[:, ndisp:] > -1).float().mean())
+    print(f"per-frame stereo_sgbm_hier 32x320 band 128 D=256: CUDA == CPU (valid share over x >= D "
+          f"{out['hier band 128 valid share']:.4f})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1208,7 +1334,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports) or 'nothing (already built)'}", flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.2f} s for {sorted(reports) or 'nothing (already built)'}", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -1257,6 +1384,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     settings = phase_settings(dev)
     torch.cuda.empty_cache()
+    banded_cost_levels = phase_banded_cost(dev)
+    torch.cuda.empty_cache()
+    wide_bands = phase_wide_bands(dev)
+    torch.cuda.empty_cache()
 
     phase_hier_small_pipeline(dev)
     agree = phase_agreement(dev)
@@ -1291,7 +1422,8 @@ def main() -> int:
                       "agreement": agree, "exact8_fused_rl_wta": fused, "sgm_sites": sites, "bm480": bm480,
                       "bm_main_path": bm_e2e, "bm_breakdown": bm_breakdown, "hier16x3": h16,
                       "geometry": geometry, "banded_horizontal_full_shape": horizontal_bands,
-                      "settings": settings}), flush=True)
+                      "settings": settings, "banded_cost_levels": banded_cost_levels,
+                      "wide_bands": wide_bands, "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

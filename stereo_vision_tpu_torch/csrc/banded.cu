@@ -2,10 +2,10 @@
 //
 // Replaces the kernel bodies of stereo_vision_tpu/stereo/banded_pallas.py
 // that banded_stats_pack chains:
-//   _pix_kernel + _aligned_box_kernel(_srows) -> banded_cost_kernel
+//   _pix_kernel + _aligned_box_kernel(_srows) -> banded_cost_kernel (banded_cost.cu)
 //   _vert_kernel (without diagonals)          -> banded_vertical_kernel
 //   _vert_kernel (with diagonals, 8 paths)    -> banded_diag.cuh
-//   _horiz_kernel                             -> banded_horizontal_kernel
+//   _horiz_kernel                             -> banded_line_kernel (banded_group.cuh)
 //   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel
 //   _wta_fused_kernel (band 16)               -> banded_wta_fused_kernel
 // and the image pyramid's box mean:
@@ -29,35 +29,32 @@
 //     takes the centre pixel's own value.
 // Layout: banded volumes (P, H, Wv, K) of T, frames on the grid; T is int16
 // where the wrappers find that the volumes' bound fits it and int32
-// otherwise, and every kernel is one template over T. K is any multiple of 4
-// from 4 to 64 (banded.cuh: kernels are instantiated at the next power of
-// two and take K at run time). The TPU kernels' 128-lane frame packing,
-// float32-for-int and tile-entry delta rows are not carried over.
+// otherwise, and every kernel is one template over T. The cost kernel
+// (banded_cost.cu) takes any K % 4 == 0 from 4 to 256 at run time; the
+// scans and the WTA here take K up to 64 (banded.cuh: instantiated at the
+// next power of two, K at run time), banded_wide.cu and banded_wide32.cu
+// the bands above 64. The TPU
+// kernels' 128-lane frame packing, float32-for-int and tile-entry delta
+// rows are not carried over.
 //
 // What bounds them on an H100 (hier4x3 full-res level, 32 frames of
 // 1280x720, K=4, 1152 valid columns; one int16 volume = 212 MB): the cost
-// kernel writes one volume (~63 us at 3.35 TB/s); vertical reads one and
-// writes two (~190 us); each horizontal reads one and writes one
-// (~127 us); the WTA reads three and writes four int32 maps and a bool map
-// (~318 us). The scans are also dependent chains of H (or Wv) steps. The
-// fused WTA (hier16x3 full level: 8 frames, K=16, three 212 MB volumes and
-// a 26.5 MB shift map in, two 26.5 MB int32 maps out) is bytes-bound at
-// ~0.21 ms; its operations take under 0.02 ms at 67 T/s.
+// kernel writes one volume and reads the images and shift map (~169 us at
+// 3.35 TB/s); vertical reads one and writes two (~190 us); each horizontal
+// reads one and writes one (~127 us); the WTA reads three and writes four
+// int32 maps and a bool map (~318 us). The scans are also dependent chains
+// of H (or Wv) steps. The fused WTA (hier16x3 full level: 8 frames, K=16,
+// three 212 MB volumes and a 26.5 MB shift map in, two 26.5 MB int32 maps
+// out) is bytes-bound at ~0.21 ms; its operations take under 0.02 ms at
+// 67 T/s.
 //
-// Design (right and simple first):
-//   cost: one block per (frame, output row, tile of TX columns). The block
-//     stages the shift map of its bs x (TX + bs - 1) window, then, one
-//     source row at a time, the left row's and the needed right columns'
-//     values and BT half-extrema (both channels), and forms every per-pixel
-//     banded cost of the window in shared memory (each neighbour at its OWN
-//     band s(q) + j, a direct indexed load). The aligned row pass and then
-//     the aligned column pass (centre = the row-pass sum) run from shared
-//     memory. Rows and columns clamp at the image edge, for cost and s.
+// Design (right and simple first, then the cost kernel for Hopper):
+//   cost: see banded_cost_kernel (banded_cost.cu).
 //   vertical: one thread per (frame, column, direction) walks the rows with
 //     its K carries in registers (no diagonals: the down and up scans are
 //     independent per column), prefetching the next row. Lane shifts by a
 //     runtime delta use a barrel shifter over compile-time offsets.
-//   horizontal: see banded_horizontal_kernel.
+//   horizontal: see banded_line_kernel.
 //   wta: one thread per pixel sums the 2-4 volumes in int32 and reduces
 //     over the K lanes. The fused form shares that reduction and the
 //     subpixel step, reads the pixel's shift and writes the LR check's pack
@@ -68,154 +65,16 @@
 //     matmul becomes an integer sum, the float32 division and the
 //     half-to-even round stay.
 
-#include <climits>
-
-#include "banded.cuh"
+#include "banded_group.cuh"
 
 namespace {
 
-using svt::bt;
-using svt::clampi;
-using svt::extrema;
 using svt::kBig;
-using svt::xsobel;
+using svt::subpixel16;
+using svt::WtaStats;
 
-constexpr int kCostThreads = 256;
 constexpr int kScanThreads = 128;
-
-// ------------------------------------------------------------------ cost
-
-// align_window for one lane: a neighbour's value re-indexed into the centre
-// pixel's band, or the centre's own value where there is no source.
-__device__ __forceinline__ int window_lane(const int* a, int delta, const int* ctr, int lane, int G, int K) {
-  if (delta > G || delta < -G) return ctr[lane];
-  if (delta == G) return lane + G < K ? a[lane + G] : ctr[lane];
-  if (delta == -G) return lane - G >= 0 ? a[lane - G] : ctr[lane];
-  return a[lane];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kCostThreads)
-banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, const int* __restrict__ shift,
-                   T* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs, int ftzero, int min_x,
-                   int stride, int TX, int NRcap) {
-  extern __shared__ int smem[];
-  __shared__ int dlo, dhi;
-  const int r = bs / 2, NC = TX + 2 * r;
-  int* sS = smem;               // [bs][NC] shift at (clamped row, clamped column)
-  int* sL = sS + bs * NC;       // [6][NC] left: sobel v/u0/u1, raw v/u0/u1
-  int* sR = sL + 6 * NC;        // [6][NRcap] right, the same channels
-  int* pix = sR + 6 * NRcap;    // [bs][NC][K] per-pixel banded cost
-  int* acc = pix + bs * NC * K; // [NC][K] aligned row-pass sums
-
-  const int b = blockIdx.z, y = blockIdx.y;
-  const int x0 = min_x + blockIdx.x * TX;
-  const int Wo = W - min_x;
-  const int* L = left + (size_t)b * H * W;
-  const int* R = right + (size_t)b * H * W;
-  const int* S = shift + (size_t)b * H * W;
-
-  if (threadIdx.x == 0) {
-    dlo = INT_MAX;
-    dhi = INT_MIN;
-  }
-  __syncthreads();
-  int lo = INT_MAX, hi = INT_MIN;
-  for (int i = threadIdx.x; i < bs * NC; i += blockDim.x) {
-    const int k = i / NC, j = i - k * NC;
-    const int sv = S[clampi(y + k - r, 0, H - 1) * W + clampi(x0 - r + j, 0, W - 1)];
-    sS[i] = sv;
-    lo = min(lo, clampi(sv, 0, ndisp - 1));
-    hi = max(hi, clampi(sv + stride * (K - 1), 0, ndisp - 1));
-  }
-  if (lo <= hi) {
-    atomicMin(&dlo, lo);
-    atomicMax(&dhi, hi);
-  }
-  __syncthreads();
-  // Right columns c - d for c in [cmin, cmax], d in [dlo, dhi]: NR <= NC + ndisp - 1.
-  const int cmin = clampi(x0 - r, 0, W - 1), cmax = clampi(x0 + TX - 1 + r, 0, W - 1);
-  const int qlo = cmin - dhi;
-  const int NR = cmax - dlo - qlo + 1;
-
-  for (int k = 0; k < bs; ++k) {
-    const int yy = clampi(y + k - r, 0, H - 1);
-    if (k > 0) __syncthreads();  // the previous row's staging is consumed
-    for (int j = threadIdx.x; j < NC; j += blockDim.x) {
-      const int c = clampi(x0 - r + j, 0, W - 1);
-      const int cm = max(c - 1, 0), cp = min(c + 1, W - 1);
-      extrema(xsobel(L, H, W, yy, c, ftzero), xsobel(L, H, W, yy, cm, ftzero), xsobel(L, H, W, yy, cp, ftzero),
-              sL + j, NC);
-      const int* row = L + yy * W;
-      extrema(row[c], row[cm], row[cp], sL + 3 * NC + j, NC);
-    }
-    // Right samples left of column 0 replicate column 0 (the reference pads
-    // the row by edge replication before taking the half-extrema).
-    for (int i = threadIdx.x; i < NR; i += blockDim.x) {
-      const int q = qlo + i;
-      const int qc = clampi(q, 0, W - 1), qm = clampi(q - 1, 0, W - 1), qp = clampi(q + 1, 0, W - 1);
-      extrema(xsobel(R, H, W, yy, qc, ftzero), xsobel(R, H, W, yy, qm, ftzero), xsobel(R, H, W, yy, qp, ftzero),
-              sR + i, NRcap);
-      const int* row = R + yy * W;
-      extrema(row[qc], row[qm], row[qp], sR + 3 * NRcap + i, NRcap);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < NC * K; idx += blockDim.x) {
-      const int j = idx / K, lane = idx - j * K;
-      const int c = clampi(x0 - r + j, 0, W - 1);
-      const int d = clampi(sS[k * NC + j] + stride * lane, 0, ndisp - 1);
-      const int i = c - d - qlo;
-      const int cs = bt(sL[j], sL[NC + j], sL[2 * NC + j], sR[i], sR[NRcap + i], sR[2 * NRcap + i]);
-      const int cr = bt(sL[3 * NC + j], sL[4 * NC + j], sL[5 * NC + j], sR[3 * NRcap + i], sR[4 * NRcap + i],
-                        sR[5 * NRcap + i]);
-      pix[(k * NC + j) * K + lane] = cs + (cr >> 2);
-    }
-  }
-  __syncthreads();
-  // Row pass: acc(y, c) = sum over window rows of the aligned pixel costs;
-  // the centre is the pixel's own cost.
-  for (int idx = threadIdx.x; idx < NC * K; idx += blockDim.x) {
-    const int j = idx / K, lane = idx - j * K;
-    const int* ctr = pix + (r * NC + j) * K;
-    const int sc = sS[r * NC + j];
-    int sum = 0;
-    for (int k = 0; k < bs; ++k) sum += window_lane(pix + (k * NC + j) * K, sc - sS[k * NC + j], ctr, lane, G, K);
-    acc[idx] = sum;
-  }
-  __syncthreads();
-  // Column pass over the row-pass sums; the centre is the row-pass sum at p.
-  for (int idx = threadIdx.x; idx < TX * K; idx += blockDim.x) {
-    const int t = idx / K, lane = idx - t * K;
-    const int x = x0 + t;
-    if (x >= W) continue;
-    const int* ctr = acc + (t + r) * K;
-    const int sc = sS[r * NC + t + r];
-    int sum = 0;
-    for (int dx = 0; dx < bs; ++dx) sum += window_lane(acc + (t + dx) * K, sc - sS[r * NC + t + dx], ctr, lane, G, K);
-    out[(((size_t)b * H + y) * Wo + (x - min_x)) * K + lane] = static_cast<T>(sum);
-  }
-}
-
-int cost_tile(int K) { return K <= 8 ? 64 : K <= 16 ? 32 : K <= 32 ? 16 : 8; }
-
-size_t cost_smem(int K, int ndisp, int bs) {
-  const int NC = cost_tile(K) + 2 * (bs / 2), NRcap = NC + ndisp;
-  return (size_t)(bs * NC + 6 * NC + 6 * NRcap + bs * NC * K + NC * K) * sizeof(int);
-}
-
-template <typename T>
-cudaError_t cost_launch(const int* left, const int* right, const int* shift, T* out, int P, int H, int W, int K,
-                        int G, int ndisp, int bs, int ftzero, int min_x, int stride, cudaStream_t st) {
-  const size_t smem = cost_smem(K, ndisp, bs);
-  cudaError_t e = cudaFuncSetAttribute(banded_cost_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const int TX = cost_tile(K);
-  const int NRcap = TX + 2 * (bs / 2) + ndisp;
-  const dim3 grid((W - min_x + TX - 1) / TX, H, P);
-  banded_cost_kernel<T><<<grid, kCostThreads, smem, st>>>(left, right, shift, out, H, W, K, G, ndisp, bs, ftzero,
-                                                          min_x, stride, TX, NRcap);
-  return cudaGetLastError();
-}
+constexpr int kDownsampleThreads = 256;
 
 // ------------------------------------------------------------- vertical
 
@@ -267,173 +126,8 @@ banded_vertical_kernel(const T* __restrict__ C, const int* __restrict__ shift, T
 
 // ------------------------------------------------------------ horizontal
 
-// Replaces banded_pallas.py:1144 banded_reduce_pack -> _horiz_kernel:759:
-// the L->R (reverse: R->L) banded SGM recurrence of every (frame, row),
-// the carry realigned by s(x) - s(x -+ 1) (0 at the first column).
-//
-// What bounds it: bytes. It reads the cost volume and the shift map once
-// and writes one volume: at the hier16x3 full level (8 frames of 720 rows,
-// 1152 columns, K=16, int16) 2 x 212 MB + 26.5 MB, ~0.135 ms at 3.35 TB/s;
-// its ~10 operations a lane and step take ~0.03 ms at 67 T/s.
-//
-// The recurrence is a chain of Wv dependent steps per row, so the design is
-// about that chain. A group of GS = min(KP, 32) threads owns one (frame,
-// row) and thread t holds lanes t + GS * j, j < KP / GS (two above K=32),
-// so the card holds rows x GS threads (92,160 at the hier16x3 full level)
-// where one thread a row held 5,760. Per column step, with every shuffle
-// inside the group:
-//   - the carry's lanes k + sh, k + sh - 1 and k + sh + 1 (sh = +-G or 0)
-//     come by three independent __shfl_sync, kBig outside [0, K), which
-//     gives the realigned carry and its d -+ 1 neighbours at once;
-//   - its minimum over the band is log2(GS) __shfl_xor_sync steps, or one
-//     __reduce_min_sync where the group is the warp (under a group's mask
-//     the warp's groups take their __reduce_min_sync in turns);
-//   - the update is a few integer operations per lane.
-// Each thread loads and stores its own lanes: a group's K lanes of one
-// column are contiguous (32 bytes at K=16 int16), so each access is whole
-// sectors. Loads run U columns ahead through a register ring, so that a
-// column's cost and shift arrive while earlier columns' steps run; they are
-// unconditional (a lane past the band or a column past the row reads an
-// in-bounds neighbour it never uses) and sign-extend in the load itself, so
-// that no instruction waits on them before their column's step (a select
-// or a conversion placed right after a load stalls the whole chain). Every
-// lane of the group reads the shift map at the same address, one broadcast
-// a column. At most 64 registers a thread keep all of a level's groups
-// resident in one wave. What holds it back (PERF.md): at K=16 the chain of
-// a step's shuffles, minimum and update, row by row; at K <= 8 a warp's
-// load or store touches 32 / GS rows, so the time grows with the frames.
-// Both directions and both storage types are one template.
-constexpr int kHorizThreads = 128;
-constexpr int kHorizBlocksPerSM = 8;
-constexpr int kHorizAhead = 4;  // U: columns loaded ahead of the step chain
-
-// A read-only load of a T lane, sign-extended to int32 by the load itself.
-__device__ __forceinline__ int load_lane(const int16_t* p) {
-  int v;
-  asm("ld.global.nc.s16 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ int load_lane(const int* p) { return __ldg(p); }
-
-template <typename T, int GS, int LPT>
-__global__ void __launch_bounds__(kHorizThreads, kHorizBlocksPerSM)
-banded_horizontal_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __restrict__ out, int rows,
-                         int Wv, int K, int G, int P1, int P2, int reverse) {
-  constexpr int U = kHorizAhead;
-  constexpr int kLogGS = svt::log2_of<GS>();
-  const int lane = threadIdx.x & 31;
-  const int t = lane & (GS - 1);
-  const int warp_row0 = (blockIdx.x * kHorizThreads + (threadIdx.x & ~31)) / GS;
-  if (warp_row0 >= rows) return;  // whole warp
-  const int gid = warp_row0 + lane / GS;
-  const bool live = gid < rows;  // a group past the last row shadows it and stores nothing
-  const size_t row = live ? gid : rows - 1;
-  const T* crow = C + row * Wv * K;
-  T* orow = out + row * Wv * K;
-  const int* srow = shift + row * Wv;
-
-  bool valid[LPT];
-  int L[LPT], lofs[LPT];
-#pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    valid[j] = t + GS * j < K;
-    lofs[j] = min(t + GS * j, K - 1);  // the lane a thread loads (past the band: a neighbour, unused)
-    L[j] = valid[j] ? 0 : kBig;        // the zero carry; lanes past the band hold kBig
-  }
-  // Column of the ti-th step in scan order, clamped into the row.
-  auto column = [&](int ti) {
-    const int c = min(ti, Wv - 1);
-    return reverse ? Wv - 1 - c : c;
-  };
-
-  // The register ring: costs and shifts of columns [base, base + U) in scan order.
-  int cn[U][LPT], sn[U];
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int x = column(u);
-    sn[u] = __ldg(srow + x);
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) cn[u][j] = load_lane(crow + (size_t)x * K + lofs[j]);
-  }
-  int sprev = sn[0];  // delta 0 at the first column
-
-  for (int base = 0; base < Wv; base += U) {
-    int cc[U][LPT], sc[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      sc[u] = sn[u];
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) cc[u][j] = cn[u][j];
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int x = column(base + U + u);
-      sn[u] = __ldg(srow + x);
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) cn[u][j] = load_lane(crow + (size_t)x * K + lofs[j]);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int ti = base + u;
-      if (ti >= Wv) break;  // uniform: every group has the same Wv
-      const int delta = sc[u] - sprev;
-      sprev = sc[u];
-      const bool reset = delta > G || delta < -G;
-      const int sh = delta == G ? G : delta == -G ? -G : 0;
-      // Lanes k + sh + o of the carry, o = -1, 0, +1: a[o + 1][j].
-      int a[3][LPT];
-#pragma unroll
-      for (int o = 0; o < 3; ++o) {
-        const int q = t + sh + o - 1;
-        const int src = q & (GS - 1), e0 = q >> kLogGS;  // floor division
-        int v[LPT];
-#pragma unroll
-        for (int e = 0; e < LPT; ++e) v[e] = __shfl_sync(svt::kFullMask, L[e], src, GS);
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) {
-          const int e = j + e0;
-          int r = kBig;
-#pragma unroll
-          for (int f = 0; f < LPT; ++f) r = e == f ? v[f] : r;
-          a[o][j] = r;
-        }
-      }
-      int m = kBig;
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) {
-        const int k = t + GS * j;
-        if (!valid[j]) a[1][j] = kBig;
-        if (k == 0) a[0][j] = kBig;       // no lane below the band
-        if (k + 1 >= K) a[2][j] = kBig;  // no lane above it
-        m = min(m, a[1][j]);
-      }
-      if constexpr (GS == 32) {
-        m = __reduce_min_sync(svt::kFullMask, m);
-      } else {
-#pragma unroll
-        for (int o = GS / 2; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(svt::kFullMask, m, o, GS));
-      }
-      const bool border = reset || m >= kBig;
-      const int x = column(ti);
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) {
-        const int cand = min(min(a[1][j], m + P2), min(a[0][j], a[2][j]) + P1);
-        L[j] = !valid[j] ? kBig : border ? cc[u][j] : cc[u][j] + cand - m;
-        if (live && valid[j]) orow[(size_t)x * K + t + GS * j] = static_cast<T>(L[j]);
-      }
-    }
-  }
-}
-
-template <typename T, int GS, int LPT>
-cudaError_t horizontal_launch(const T* C, const int* s, T* out, int rows, int Wv, int K, int G, int P1, int P2,
-                              int reverse, cudaStream_t st) {
-  const long long threads = (long long)rows * GS;
-  const long long blocks = (threads + kHorizThreads - 1) / kHorizThreads;
-  banded_horizontal_kernel<T, GS, LPT><<<(unsigned)blocks, kHorizThreads, 0, st>>>(C, s, out, rows, Wv, K, G, P1,
-                                                                                   P2, reverse);
-  return cudaGetLastError();
-}
+// banded_line_kernel (banded_group.cuh) over the (frame, row) lines, a group
+// of min(KP, 32) threads a row.
 
 // ------------------------------------------------------------------- WTA
 
@@ -452,12 +146,6 @@ __device__ __forceinline__ void sum_volumes(const T* const (&vols)[4], int nvol,
   for (int k = 0; k < KP; ++k)
     if (k >= K) S[k] = kBig;
 }
-
-struct WtaStats {
-  int mn, bst;  // min and argmin over the lanes (ties -> smallest k)
-  int a, z, c;  // the samples at d0 - 1, d0, d0 + 1, d0 = clip(best, 1, K - 2)
-  bool ok;      // band-local uniqueness
-};
 
 template <int KP>
 __device__ __forceinline__ WtaStats wta_reduce(const int (&S)[KP], int K, int uniq) {
@@ -480,13 +168,6 @@ __device__ __forceinline__ WtaStats wta_reduce(const int (&S)[KP], int K, int un
     w.c = k == d0 + 1 ? S[k] : w.c;
   }
   return w;
-}
-
-// The subpixel parabola in lane units x16; the edges keep 16 * best.
-__device__ __forceinline__ int subpixel16(const WtaStats& w, int K) {
-  const int denom2 = max(w.a + w.c - 2 * w.z, 1);
-  const int q = ((w.a - w.c) * 16 + denom2) / (2 * denom2);  // C division truncates, as the reference
-  return w.bst > 0 && w.bst < K - 1 ? w.bst * 16 + q : w.bst * 16;
 }
 
 // One thread per pixel: minS, best, the uniqueness verdict, and either the
@@ -595,8 +276,8 @@ struct HorizontalFn {
   static cudaError_t run(const void* C, const int* s, void* out, int rows, int Wv, int K, int G, int P1, int P2,
                          int reverse, cudaStream_t st) {
     constexpr int GS = KP < 32 ? KP : 32;
-    return horizontal_launch<T, GS, KP / GS>(static_cast<const T*>(C), s, static_cast<T*>(out), rows, Wv, K, G, P1,
-                                             P2, reverse, st);
+    return line_launch<T, GS, KP / GS, false>(static_cast<const T*>(C), s, static_cast<T*>(out), nullptr, rows, Wv,
+                                              Wv, K, G, P1, P2, reverse, st);
   }
 };
 
@@ -616,7 +297,7 @@ struct WtaFn {
 // One thread per output pixel of (P, H / fy, W / fx): the integer sum of its
 // fy x fx block, then round(sum / (fy * fx)) in float32, half to even (the
 // reference's float32 division and round; the sum is exact).
-__global__ void __launch_bounds__(kCostThreads)
+__global__ void __launch_bounds__(kDownsampleThreads)
 downsample_box_kernel(const int* __restrict__ in, int* __restrict__ out, int H, int W, int Hc, int Wc, int fy, int fx,
                       int npix) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -631,25 +312,6 @@ downsample_box_kernel(const int* __restrict__ in, int* __restrict__ out, int H, 
 }
 
 }  // namespace
-
-// Bytes of dynamic shared memory a block of the banded cost kernel takes.
-SVT_EXPORT long long svt_banded_cost_smem(int K, int ndisp, int bs) { return (long long)cost_smem(K, ndisp, bs); }
-
-// (P, H, W) int32 left/right + (P, H, W) int32 shift map -> (P, H, W - min_x, K)
-// windowed banded cost at disparity clamp(s + stride * k, 0, ndisp - 1),
-// int16 (bytes 2) or int32 (bytes 4).
-SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
-                               int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride, int bytes,
-                               void* stream) {
-  if (stride < 1 || K < 1 || bs < 1 || bs % 2 == 0) return cudaErrorInvalidValue;
-  const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right), s = static_cast<const int*>(shift);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (bytes == 2)
-    return cost_launch(l, r, s, static_cast<int16_t*>(out), P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, st);
-  if (bytes == 4)
-    return cost_launch(l, r, s, static_cast<int*>(out), P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, st);
-  return cudaErrorInvalidValue;
-}
 
 // (P, H, Wv, K) cost + (P, H, Wv) shift map -> the down and up vertical
 // direction volumes, all of the type of `bytes`.
@@ -714,7 +376,7 @@ SVT_EXPORT int svt_downsample_box(const void* in, void* out, int P, int H, int W
   if (fy < 1 || fx < 1 || fy * fx > (1 << 16)) return cudaErrorInvalidValue;
   const int Hc = H / fy, Wc = W / fx, npix = P * Hc * Wc;
   if (npix == 0) return cudaSuccess;
-  downsample_box_kernel<<<(npix + kCostThreads - 1) / kCostThreads, kCostThreads, 0,
+  downsample_box_kernel<<<(npix + kDownsampleThreads - 1) / kDownsampleThreads, kDownsampleThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(static_cast<const int*>(in), static_cast<int*>(out),
                                                                H, W, Hc, Wc, fy, fx, npix);
   return cudaGetLastError();

@@ -1,13 +1,15 @@
-// Device code shared by the banded SGBM kernels (banded.cu, banded_diag.cu):
-// lane loads and stores, the carry realignment and the banded SGM step.
+// Device code shared by the banded SGBM kernels (banded.cu, banded_diag.cu,
+// banded_wide.cu): lane loads and stores, the carry realignment, the banded
+// SGM step and the WTA statistics.
 //
-// A pixel's band is K lanes, 4 <= K <= 64 with K % 4 == 0, stored as T
+// A pixel's band is K lanes, 4 <= K <= 256 with K % 4 == 0, stored as T
 // (int16_t or int). In memory a pixel holds exactly K lanes, so its lanes
 // start on a 4-lane word (8 bytes in int16, 16 in int32) and whole 16-byte
 // words where K % 8 == 0 in int16. In registers a thread holds KP lanes, KP
-// the power of two at or above K; lanes k >= K hold kBig (or the load's
-// fill), so that no shift brings a value in from them and no minimum takes
-// them.
+// the power of two at or above K (K <= 64; above, a group of 32 threads
+// holds KP / 32 lanes each, banded_wide.cuh); lanes k >= K hold kBig (or
+// the load's fill), so that no shift brings a value in from them and no
+// minimum takes them.
 #pragma once
 
 #include <type_traits>
@@ -163,6 +165,20 @@ __device__ __forceinline__ void banded_step(const int (&c)[KP], int (&L)[KP], in
     L[k] = k < K ? c[k] + cand - m : kBig;
     prev = cur;
   }
+}
+
+// The WTA statistics of one pixel (banded.cu, banded_wide.cuh).
+struct WtaStats {
+  int mn, bst;  // min and argmin over the lanes (ties -> smallest k)
+  int a, z, c;  // the samples at d0 - 1, d0, d0 + 1, d0 = clip(best, 1, K - 2)
+  bool ok;      // band-local uniqueness
+};
+
+// The subpixel parabola in lane units x16; the edges keep 16 * best.
+__device__ __forceinline__ int subpixel16(const WtaStats& w, int K) {
+  const int denom2 = max(w.a + w.c - 2 * w.z, 1);
+  const int q = ((w.a - w.c) * 16 + denom2) / (2 * denom2);  // C division truncates, as the reference
+  return w.bst > 0 && w.bst < K - 1 ? w.bst * 16 + q : w.bst * 16;
 }
 
 }  // namespace svt

@@ -16,10 +16,14 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain form
 (built from :mod:`.banded`, the port of the JAX scan reference) for CPU
 tensors; ``launches`` on each wrapper counts kernel launches. The layout
 is the port's own: banded volumes are (P, H, Wv, K) with the frames on the
-CUDA grid. The kernels take every band K with K % 4 == 0 and 4 <= K <= 64
-(:func:`check_band`); the sources are ``csrc/banded.cu`` and, for the
-8-path vertical, ``csrc/banded_diag.cu`` (int16) and ``csrc/banded_diag32.cu``
-(int32).
+CUDA grid. The kernels take every band K with K % 4 == 0 and 4 <= K <= 256
+(:func:`check_band`). The sources: ``csrc/banded_cost.cu`` (the cost kernel
+at every band), ``csrc/banded.cu`` (the scans and the WTA up to K = 64,
+the fused WTA and the downsample), ``csrc/banded_diag.cu``
+(int16) and ``csrc/banded_diag32.cu`` (int32) for the 8-path vertical up to
+K = 64, and ``csrc/banded_wide.cu`` (int16) and ``csrc/banded_wide32.cu``
+(int32) for the scans and the WTA above K = 64, where a pixel's lanes
+spread over a group of 32 threads.
 
 Integer ranges: a windowed cost is at most ``cost_bound`` (block_size^2 *
 (2*ftzero + 63)); a banded SGM update keeps c <= L <= c + P2, so one
@@ -51,14 +55,29 @@ _DIAG_SIGNATURES = {
     # P, Wv, K, device -> bytes of scratch the diagonal scan needs (-1: refused)
     "svt_banded_vertical_diag_scratch_bytes": ([_I] * 4, _LL),
 }
+# The scans and the WTA above K = 64: one source a storage type
+# (banded_wide.cu: int16, banded_wide32.cu: int32).
+_WIDE_SIGNATURES = {
+    # C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, diagonals, stream
+    "svt_banded_wide_vertical": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    # P, Wv, K, device -> bytes of scratch the 8-path wide scan needs (-1: refused)
+    "svt_banded_wide_diag_scratch_bytes": ([_I] * 4, _LL),
+    # C, s, out, P, H, Wv, K, G, P1, P2, reverse, stream
+    "svt_banded_wide_horizontal": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, stream
+    "svt_banded_wide_wta": ([_P] * 4 + [_I] + [_P] * 6 + [_I] * 4 + [_P], _I),
+}
+WIDE_BAND = 64  # bands above this take the banded_wide sources
 # Per source: entry point -> (argument types, result type). `bytes` is the
 # storage type's width (2: int16, 4: int32).
 _SIGNATURES = {
+    "banded_cost": {
+        # left, right, s, out, P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, bytes, stream
+        "svt_banded_cost": ([_P] * 4 + [_I] * 12 + [_P], _I),
+        # K, ndisp, bs, Wo, device -> the cost kernel's tile width (0: no tile fits, -1: refused)
+        "svt_banded_cost_tile": ([_I] * 5, _I),
+    },
     "banded": {
-        # left, right, s, out, P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, bytes, stream
-        "svt_banded_cost": ([_P] * 4 + [_I] * 11 + [_P], _I),
-        # K, ndisp, bs -> bytes of shared memory a block of the cost kernel takes
-        "svt_banded_cost_smem": ([_I] * 3, _LL),
         # C, s, dn, up, P, H, Wv, K, G, P1, P2, bytes, stream
         "svt_banded_vertical": ([_P] * 4 + [_I] * 8 + [_P], _I),
         # C, s, out, P, H, Wv, K, G, P1, P2, reverse, bytes, stream
@@ -72,6 +91,8 @@ _SIGNATURES = {
     },
     "banded_diag": _DIAG_SIGNATURES,
     "banded_diag32": _DIAG_SIGNATURES,
+    "banded_wide": _WIDE_SIGNATURES,
+    "banded_wide32": _WIDE_SIGNATURES,
 }
 
 
@@ -83,8 +104,17 @@ def _lib(source: str = "banded") -> ctypes.CDLL:
     return lib
 
 
+def _wide_lib(t: torch.Tensor) -> ctypes.CDLL:
+    """The library of the scans and the WTA above K = 64 for t's storage type."""
+    return _lib("banded_wide" if t.dtype == torch.int16 else "banded_wide32")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -97,10 +127,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def check_band(K: int) -> None:
     """The bands the CUDA kernels take: K % 4 == 0 (a pixel's lanes then
-    start on a 4-lane word) and 4 <= K <= 64 (the vertical and WTA kernels
-    keep a pixel's lanes in one thread's registers)."""
-    if K % 4 or not 4 <= K <= 64:
-        raise ValueError(f"the CUDA banded kernels take a band K with K % 4 == 0 and 4 <= K <= 64, got {K}")
+    start on a 4-lane word) and 4 <= K <= 256 (256: the widest disparity
+    range the exact path's kernels take). Bands above 64 spread a pixel's
+    lanes over a group of 32 threads."""
+    if K % 4 or not 4 <= K <= 256:
+        raise ValueError(f"the CUDA banded kernels take a band K with K % 4 == 0 and 4 <= K <= 256, got {K}")
 
 
 def _check_shift(s: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -162,16 +193,19 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
     if not _on_cuda(left):
         return banded_cost_plain(left, right, s, **kw, dtype=dtype)
     check_band(band)
-    lib = _lib()
-    smem = lib.svt_banded_cost_smem(band, ndisp, block_size)
-    optin = torch.cuda.get_device_properties(left.device).shared_memory_per_block_optin
-    if smem > optin:
+    lib = _lib("banded_cost")
+    # The kernel's rings take shared memory in proportion to its tile; the
+    # tile shrinks until they fit.
+    tile = lib.svt_banded_cost_tile(band, ndisp, block_size, W - min_x, _device_index(left))
+    if tile < 0:
+        raise RuntimeError(f"svt_banded_cost_tile: device query failed on {left.device}")
+    if tile == 0:
         raise ValueError(f"the CUDA banded cost kernel at band {band}, ndisp {ndisp}, block_size {block_size} "
-                         f"needs {smem} bytes of shared memory a block; {left.device} has {optin}")
+                         f"fits no tile in the shared memory of {left.device}")
     left, right, s = left.contiguous(), right.contiguous(), s.contiguous()
     out = torch.empty((P, H, W - min_x, band), dtype=dtype, device=left.device)
     err = lib.svt_banded_cost(left.data_ptr(), right.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, W, band, G,
-                              ndisp, block_size, ftzero, min_x, stride, out.element_size(), _stream(left))
+                              ndisp, block_size, ftzero, min_x, stride, tile, out.element_size(), _stream(left))
     _build.check(lib, err, "svt_banded_cost")
     banded_cost.launches += 1
     return out
@@ -195,11 +229,22 @@ def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_dia
     s = _check_shift(s, C)
     P, H, Wv, K = C.shape
     dn, up = torch.empty_like(C), torch.empty_like(C)
-    if with_diagonals:
+    if K > WIDE_BAND:
+        lib = _wide_lib(C)
+        nbytes = lib.svt_banded_wide_diag_scratch_bytes(P, Wv, K, _device_index(C)) if with_diagonals else 0
+        if nbytes < 0:
+            raise RuntimeError(f"svt_banded_wide_diag_scratch_bytes: device query failed on {C.device}")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
+        err = lib.svt_banded_wide_vertical(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(),
+                                           None if scratch is None else scratch.data_ptr(), P, H, Wv, K, G, P1, P2,
+                                           int(with_diagonals), _stream(C))
+        _build.check(lib, err, "svt_banded_wide_vertical")
+        banded_vertical.diagonal_launches += int(with_diagonals)
+    elif with_diagonals:
         # The kernel keeps its carry rows in shared memory where they fit and
         # says how much device scratch it needs where they do not.
         lib = _lib("banded_diag" if C.dtype == torch.int16 else "banded_diag32")
-        nbytes = lib.svt_banded_vertical_diag_scratch_bytes(P, Wv, K, C.device.index)
+        nbytes = lib.svt_banded_vertical_diag_scratch_bytes(P, Wv, K, _device_index(C))
         if nbytes < 0:
             raise ValueError(f"the CUDA diagonal scan does not take {Wv} columns on {C.device}")
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
@@ -229,10 +274,16 @@ def banded_horizontal(C, s, G: int, P1: int, P2: int, *, cost_bound: int, revers
     s = _check_shift(s, C)
     P, H, Wv, K = C.shape
     out = torch.empty_like(C)
-    lib = _lib()
-    err = lib.svt_banded_horizontal(C.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, Wv, K, G, P1, P2,
-                                    int(reverse), C.element_size(), _stream(C))
-    _build.check(lib, err, "svt_banded_horizontal")
+    if K > WIDE_BAND:
+        lib = _wide_lib(C)
+        err = lib.svt_banded_wide_horizontal(C.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, Wv, K, G, P1, P2,
+                                             int(reverse), _stream(C))
+        _build.check(lib, err, "svt_banded_wide_horizontal")
+    else:
+        lib = _lib()
+        err = lib.svt_banded_horizontal(C.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, Wv, K, G, P1, P2,
+                                        int(reverse), C.element_size(), _stream(C))
+        _build.check(lib, err, "svt_banded_horizontal")
     banded_horizontal.launches += 1
     return out
 
@@ -287,10 +338,16 @@ def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
     uok = torch.empty((P, H, Wv), dtype=torch.bool, device=v0.device)
     ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
     mptrs = [m.data_ptr() for m in maps] + [None] * (5 - len(maps))
-    lib = _lib()
-    err = lib.svt_banded_wta(*ptrs, len(volumes), *mptrs, uok.data_ptr(), P * H * Wv, K, uniqueness_ratio,
-                             int(sub), v0.element_size(), _stream(v0))
-    _build.check(lib, err, "svt_banded_wta")
+    if K > WIDE_BAND:
+        lib = _wide_lib(v0)
+        err = lib.svt_banded_wide_wta(*ptrs, len(volumes), *mptrs, uok.data_ptr(), P * H * Wv, K, uniqueness_ratio,
+                                      int(sub), _stream(v0))
+        _build.check(lib, err, "svt_banded_wide_wta")
+    else:
+        lib = _lib()
+        err = lib.svt_banded_wta(*ptrs, len(volumes), *mptrs, uok.data_ptr(), P * H * Wv, K, uniqueness_ratio,
+                                 int(sub), v0.element_size(), _stream(v0))
+        _build.check(lib, err, "svt_banded_wta")
     banded_wta.launches += 1
     return (*maps, uok)
 

@@ -557,8 +557,8 @@ def test_geometry_cuda_matches_cpu(dev):
 
 # -------------------------------------------------------- storage and bands
 # Settings the kernels take: int32 storage, any odd block, a negative
-# min_disparity, bands K % 4 == 0 up to 64; and the group-per-row banded
-# horizontal scan.
+# min_disparity, bands K % 4 == 0 up to 64 (above: the next block); and the
+# group-per-row banded horizontal scan.
 
 
 def _random_shift_map(rng, P, H, W, G, levels=6):
@@ -687,3 +687,103 @@ def test_banded_settings_card_equals_cpu(dev, case):
     ref = hier.stereo_sgbm_hier(left, right, p, hp)
     out = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp)
     assert (ref > -1).float().mean() > 0.2 and torch.equal(out.cpu(), ref)
+
+
+# ------------------------------------------- the banded cost kernel, wide bands
+# The strip-walking cost kernel over its settings, and bands above 64 (K %
+# 4 == 0 up to 256) through every banded kernel.
+
+
+def _cost_shift_map(rng, P, H, W, D, K, G, stride, kind):
+    """Per-pixel shift maps: "random" on the G grid in range with steps off
+    it (deltas 0, +-G, beyond G), the edge rows and columns at the range's
+    ends; "wild" any value in [-3, D + 3) (both forms clamp the disparity);
+    "zero" the coarse level's s == 0."""
+    if kind == "zero":
+        return torch.zeros((P, H, W), dtype=torch.int32)
+    if kind == "wild":
+        return torch.from_numpy(rng.integers(-3, D + 3, (P, H, W)).astype(np.int32))
+    top = max(D - stride * (K - 1) - 1, 0)
+    s = rng.integers(0, top // G + 1, (P, H, W)) * G + (rng.random((P, H, W)) < 0.15) * rng.integers(1, 3, (P, H, W))
+    s[:, 0, :] = s[:, -1, :] = top
+    s[:, :, 0] = s[:, :, -1] = 0
+    return torch.from_numpy(np.minimum(s, top).astype(np.int32))
+
+
+@pytest.mark.parametrize("K,G,D", [(4, 2, 128), (8, 4, 64), (12, 4, 48), (16, 8, 64), (32, 16, 64), (64, 16, 128),
+                                   (68, 4, 128), (128, 8, 256), (256, 8, 256)])
+@pytest.mark.parametrize("bs,stride,min_x,dtype,kind", [(5, 1, -1, torch.int16, "random"),
+                                                        (7, 1, 0, torch.int32, "random"),
+                                                        (5, 2, 3, torch.int16, "random"),
+                                                        (3, 1, 0, torch.int16, "wild"),
+                                                        (1, 2, 5, torch.int32, "zero")])
+def test_banded_cost_kernel_settings_match_plain(dev, K, G, D, bs, stride, min_x, dtype, kind):
+    """Two strips of rows and several tiles of columns (min_x -1: D), exact."""
+    P, H, W = 2, 37, D + 90
+    min_x = D if min_x < 0 else min_x
+    rng = np.random.default_rng(K * 10 + bs)
+    left, right = _images(K + bs, P, H, W)
+    s = _cost_shift_map(rng, P, H, W, D, K, G, stride, kind)
+    kw = dict(band=K, G=G, ndisp=D, ftzero=15, block_size=bs, min_x=min_x, stride=stride, dtype=dtype)
+    ref = banded_cuda.banded_cost_plain(left, right, s, **kw)
+    n = banded_cuda.banded_cost.launches
+    out = banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert banded_cuda.banded_cost.launches == n + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_banded_cost_kernel_refuses_where_no_tile_fits(dev):
+    """Band 256 at block 21: one tile's ring of 21 rows of 256-lane costs
+    alone passes the shared memory of a block."""
+    left, right = _images(0, 1, 8, 300)
+    s = torch.zeros((1, 8, 300), dtype=torch.int32)
+    with pytest.raises(ValueError, match="fits no tile"):
+        banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), band=256, G=8, ndisp=256, block_size=21)
+
+
+@pytest.mark.parametrize("K,G", [(68, 4), (128, 8), (132, 64), (256, 16)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("Wv", [45, 300])
+def test_wide_band_kernels_match_plain(dev, K, G, dtype, Wv):
+    """Bands above 64 (banded_wide.cu / banded_wide32.cu): the vertical scan
+    with and without diagonals (carry rows in shared memory at 45 columns,
+    in device scratch at 300), both horizontal directions, and the WTA in
+    its 6-stat and sub forms, on per-pixel random shift maps; ties at the
+    minimum included."""
+    P, H = 2, 11
+    rng = np.random.default_rng(K + Wv)
+    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int32)).to(dtype)
+    s = _random_shift_map(rng, P, H, Wv, G)
+    bound = 2325 if dtype == torch.int16 else 40000
+    Cd, sd = C.to(dev), s.to(dev)
+    for diag in (False, True):
+        n = banded_cuda.banded_vertical.diagonal_launches
+        out = banded_cuda.banded_vertical(Cd, sd, G, 200, 800, cost_bound=bound, with_diagonals=diag)
+        ref = banded_cuda.vertical_plain(C, s, G, 200, 800, diag)
+        assert banded_cuda.banded_vertical.diagonal_launches == n + int(diag)
+        assert all(a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), b) for a, b in zip(out, ref))
+    for rev in (False, True):
+        out = banded_cuda.banded_horizontal(Cd, sd, G, 200, 800, cost_bound=bound, reverse=rev)
+        assert out.dtype == dtype
+        assert torch.equal(out.cpu().to(torch.int32), banded_cuda.horizontal_plain(C, s, G, 200, 800, rev))
+    vols = [torch.from_numpy(rng.integers(0, 9000, (P, H, Wv, K)).astype(np.int32)).to(dtype) for _ in range(4)]
+    for v in vols:  # ties at the minimum: the smaller k wins
+        v[:, :, :4, K - 3] = v[:, :, :4, 40] = v[:, :, :4, 2] = 0
+    for nvol, sub in ((3, False), (3, True), (4, False), (2, True)):
+        ref = banded_cuda.banded_wta_plain(vols[:nvol], 10, sub)
+        out = banded_cuda.banded_wta([v.to(dev) for v in vols[:nvol]], 10, sub)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+
+
+def test_hier_band_128_card_equals_cpu(dev):
+    """The per-frame hier entry at band 128, D=256 (every banded kernel at a
+    wide band), card against CPU."""
+    p = StereoSGBMParams(num_disparities=256, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=30,
+                         speckle_range=2, num_paths=3)
+    hp = hier.HierParams(band=128, granularity=8)
+    left, right = (torch.from_numpy(a) for a in scene(seed=6, H=32, W=320))
+    ref = hier.stereo_sgbm_hier(left, right, p, hp)
+    out = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp)
+    assert (ref[:, 256:] > -1).float().mean() > 0.5 and torch.equal(out.cpu(), ref)
