@@ -101,7 +101,22 @@ After 18:
      cost kernel (stride 1 and 2), the vertical scan with and without
      diagonals, both horizontals and the WTA (6-stat and sub) against their
      plain forms, exact; the per-frame stereo_sgbm_hier at band 128, D=256,
-     card against CPU.
+     card against CPU;
+ 23. the union-find speckle kernel (#12): on the arguments each SGBM main
+     path's recorded call gave it (exact8 R = 99, hier4x3 and hier4x8 cap 4,
+     hier16x3 cap 8; held to the plain form there in 5, 8, 9 and 17) its
+     device launches a call (the same whatever R is), CUDA-event ms, bound
+     and device ms by launch (torch.profiler); then on adversarial 720p
+     maps (snakes, a U, a spiral, blobs whose least-index pixel is not their
+     top-left corner, combs over many tiles, a constant frame, a
+     checkerboard, random blobs), capped and uncapped, against its plain
+     form, exact;
+ 24. disparity ranges and bands above 256 (ROADMAP C.3), card against CPU,
+     exact: stereo_sgbm at D = 320 on 48x480, the per-frame stereo_sgbm_hier
+     at D = 512, band 320, G = 8 on 32x640, the banded cost at band 256,
+     block 21 (rings in device scratch), BM at ndisp 320 and 1024, and the
+     exact8 pipeline at D = 512 on 240x640 (2 frames), with its launch
+     counts.
 Every row of the kernels line names the storage type its volumes ran in
 ("storage"; null for a kernel without a volume) and its ms per level of the
 path ("ms_by_level"); every main path stores int16.
@@ -118,16 +133,18 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from stereo_vision_tpu_torch import _build, ops
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
-from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgbm, sgm_cuda, speckle_cuda
+from stereo_vision_tpu_torch.stereo import (banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, postprocess, sgbm,
+                                            sgm_cuda, speckle_cuda)
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
-from stereo_vision_tpu_torch.synth.scenes import agreement, scene, scene_occ, scene_truth
+from stereo_vision_tpu_torch.synth.scenes import agreement, scene, scene_occ, scene_truth, speckle_patterns
 
 H, W, D, B = 720, 1280, 128, 4
 # bench.py's exact8 mode (BASELINE config #2).
@@ -585,10 +602,9 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
     a scan step ~10 per lane and carry (two directions; three carries each
     with diagonals), WTA ~10
     per lane, LR ~20 per pixel, downsample one add per input pixel, speckle
-    ~30 per pixel: uncapped it is cv2.filterSpeckles, which a union-find
-    labelling computes in O(1) work a pixel, and the capped form is held to
-    the same count, which can only lower its bound (the round-by-round
-    design's own work and state traffic grow with R; PERF.md has them)."""
+    ~30 per pixel (a union-find labelling's O(1) work a pixel; the capped
+    form's walks over the few small components are held to the same count,
+    which can only lower its bound)."""
     if name == "banded_cost":
         return elems * (20 + 4 * kwargs["block_size"])
     if name == "banded_vertical":
@@ -663,6 +679,8 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
         a["nops"] += nops
         print(f"kernel {name} {c['level']}: exact, {ms:.3f} ms at {outs[0].shape[0]} frames "
               f"(plain {plain_ms:.3f} ms at {n} frames, bound {bound_ms(nbytes, nops)[0]:.3f} ms)", flush=True)
+        if name == "speckle_filter":
+            SPECKLE_RECORDS.setdefault(path, dict(args=args, kwargs=kwargs))
 
     rows = []
     for name, a in acc.items():
@@ -674,6 +692,11 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
                          storage=None if a["storage"] is None else str(a["storage"]).removeprefix("torch."),
                          ms_by_level=a["levels"]))
     return rows
+
+
+# The speckle kernel's arguments on each main path's recorded call, kept by
+# phase_recorded_kernels for phase 23.
+SPECKLE_RECORDS: dict[str, dict] = {}
 
 
 def check_wta16(records: list[dict]) -> None:
@@ -1322,6 +1345,126 @@ def phase_wide_bands(dev) -> dict:
     return out
 
 
+def launch_ms(fn, calls: int = 3) -> dict | str:
+    """Device ms a call of ``fn()`` by kernel name, from torch.profiler over
+    ``calls`` calls; "not measured" where the profiler records no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    name = lambda key: key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    ms = {name(e.key): e.device_time_total / calls / 1e3 for e in prof.key_averages()
+          if e.device_time_total > 0 and "::" in e.key}
+    return ms or "not measured"
+
+
+def phase_speckle(dev) -> dict:
+    """The union-find speckle kernel (#12). On each main path's recorded
+    arguments (``SPECKLE_RECORDS``; exact there against the plain form):
+    device launches a call, CUDA-event ms over 10 calls and the bound (one
+    float32 map read, one written). Then 8 adversarial 720p frames (the 7
+    maps of ``synth.scenes.speckle_patterns`` tiled over the frame, and random
+    quantised blobs) at S = 100 uncapped and capped at 4 and 8, and S = 20
+    capped at 2, against the plain form, exact, with ms."""
+    out = {}
+    for path, rec in SPECKLE_RECORDS.items():
+        disp, kw = rec["args"][0], dict(zip(("max_diff", "max_speckle_size", "invalid_value"), rec["args"][1:]))
+        kw.update(rec["kwargs"])
+        n = speckle_cuda.speckle_filter.device_launches
+        speckle_cuda.speckle_filter(disp, **kw)
+        torch.cuda.synchronize()
+        launches = speckle_cuda.speckle_filter.device_launches - n
+        ms = event_ms(lambda: speckle_cuda.speckle_filter(disp, **kw), 10)
+        b_ms, b_by = bound_ms(2 * disp.numel() * 4, disp.numel() * 30)
+        R = postprocess.speckle_rounds(kw.get("max_speckle_size", 100), kw.get("max_diameter"))
+        out[path] = dict(frames=disp.shape[0], R=R, device_launches=launches, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                         ms_by_launch=launch_ms(lambda: speckle_cuda.speckle_filter(disp, **kw)))
+        print(f"kernel speckle_filter ({path}, {tuple(disp.shape)}, R={R}): {launches} device launches a call, "
+              f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}); by launch {json.dumps(out[path]['ms_by_launch'])}",
+              flush=True)
+    if len({v["device_launches"] for v in out.values()}) != 1:
+        raise AssertionError(f"the speckle kernel's device launches depend on the path: {out}")
+    reps = np.tile(speckle_patterns(), (1, H // 72 + 1, W // 100 + 1))[:, :H, :W]
+    rng = np.random.default_rng(12)
+    blobs = rng.integers(0, 4, (1, H, W)).astype(np.float32) * 3
+    blobs[rng.random(blobs.shape) < 0.2] = -1.0
+    disp = torch.from_numpy(np.concatenate([reps, blobs])).to(dev)
+    for S, cap in ((100, None), (100, 4), (100, 8), (20, 2)):
+        kw = dict(max_diff=1.0, max_speckle_size=S, invalid_value=-1.0, max_diameter=cap)
+        got, ref = speckle_cuda.speckle_filter(disp, **kw), speckle_cuda.speckle_filter_plain(disp, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        if err != 0:
+            raise AssertionError(f"speckle_filter on adversarial 720p maps (S={S}, cap={cap}): max abs err {err}")
+        ms = event_ms(lambda: speckle_cuda.speckle_filter(disp, **kw), 10)
+        removed = float((ref != disp).float().mean())
+        out[f"adversarial S={S} cap={cap}"] = dict(ms=ms, removed_share=removed)
+        print(f"kernel speckle_filter adversarial {tuple(disp.shape)} S={S} cap={cap}: exact ({removed:.4f} of the "
+              f"pixels removed), {ms:.4f} ms", flush=True)
+    return out
+
+
+def phase_wide_range(dev) -> dict:
+    """Disparity ranges and bands above 256 (ROADMAP C.3), card against
+    CPU, exact: stereo_sgbm at D = 320 on 48x480 (8 paths, LR and speckle
+    on); the per-frame stereo_sgbm_hier at D = 512, band 320, G = 8 on
+    32x640 (p3); the banded cost at band 256, G = 8, ndisp 256, block 21 on
+    (1, 8, 300), where its rings take device scratch; BM at ndisp 320 and
+    1024; then the exact8 pipeline at D = 512 on 240x640, 2 frames, its
+    kernels' launch counts moved."""
+    out = {}
+    left, right = (torch.from_numpy(a) for a in scene(seed=2, H=48, W=480))
+    p = PARAMS._replace(num_disparities=320)
+    n = cost_cuda.cost_volume.launches
+    got, ref = stereo_sgbm(left.to(dev), right.to(dev), p), stereo_sgbm(left, right, p)
+    if cost_cuda.cost_volume.launches != n + 1 or not torch.equal(got.cpu(), ref):
+        raise AssertionError("stereo_sgbm at D=320 differs between the card and the CPU")
+    out["sgbm D=320 valid share"] = float((ref[:, 320:] > -1).float().mean())
+    left, right = (torch.from_numpy(a) for a in scene(seed=3, H=32, W=640))
+    p, hp = P3._replace(num_disparities=512), hier.HierParams(band=320, granularity=8)
+    n = banded_cuda.banded_wta.launches
+    got, ref = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp), hier.stereo_sgbm_hier(left, right, p, hp)
+    if banded_cuda.banded_wta.launches == n or not torch.equal(got.cpu(), ref):
+        raise AssertionError("per-frame stereo_sgbm_hier at D=512, band 320 differs between the card and the CPU")
+    out["hier D=512 band 320 valid share"] = float((ref[:, 512:] > -1).float().mean())
+    rng = np.random.default_rng(21)
+    l, r = (torch.from_numpy(rng.integers(0, 256, (1, 8, 300)).astype(np.int32)) for _ in range(2))
+    s = torch.zeros((1, 8, 300), dtype=torch.int32)
+    kw = dict(band=256, G=8, ndisp=256, ftzero=15, block_size=21, min_x=0)
+    err = max_abs_err(banded_cuda.banded_cost(l.to(dev), r.to(dev), s.to(dev), **kw).cpu(),
+                      banded_cuda.banded_cost_plain(l, r, s, **kw))
+    if err != 0:
+        raise AssertionError(f"banded_cost at band 256, block 21 (device scratch): max abs err {err}")
+    for nd in (320, 1024):
+        base = rng.integers(0, 256, (2, 24, 2 * nd + 60))
+        lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a.astype(np.int32)))
+                  for a in (base[..., : nd + 60], base[..., nd - 40: 2 * nd + 20]))
+        bkw = dict(ndisp=nd, mindisp=0, block_size=7, cap=31, uniq=15, tex_thr=10)
+        got, ref = bm_cuda.bm_disparity(lp.to(dev), rp.to(dev), **bkw), bm_cuda.bm_disparity(lp, rp, **bkw)
+        if not torch.equal(got.cpu(), ref):
+            raise AssertionError(f"bm_disparity at ndisp {nd} differs between the card and the CPU")
+        out[f"bm ndisp={nd} valid share"] = float((ref > -1).float().mean())
+    h, w, b = 240, 640, 2
+    maps, Q = rig(h, w)
+    frames = [scene(seed=s, H=h, W=w) for s in range(b)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    p = PARAMS._replace(num_disparities=512)
+    wrappers = {"cost": cost_cuda.cost_volume, "vertical": sgm_cuda.vertical, "horizontal": sgm_cuda.horizontal,
+                "wta4": sgm_cuda.wta4, "lr_fail": lr_cuda.lr_fail, "speckle_filter": speckle_cuda.speckle_filter}
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device=dev)
+    counts = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device="cpu")
+    if min(counts.values()) == 0 or not torch.equal(d_gpu.cpu(), d_cpu):
+        raise AssertionError(f"the exact8 pipeline at D=512 differs between the card and the CPU ({counts})")
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+    out["exact8 D=512 240x640"] = dict(launches=counts, valid_share=float((d_cpu[..., 512:] > -1).float().mean()))
+    print(f"wide ranges, card == CPU: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1388,6 +1531,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_bands = phase_wide_bands(dev)
     torch.cuda.empty_cache()
+    wide_range = phase_wide_range(dev)
+    torch.cuda.empty_cache()
 
     phase_hier_small_pipeline(dev)
     agree = phase_agreement(dev)
@@ -1412,6 +1557,9 @@ def main() -> int:
     rows += phase_recorded_kernels(records, counts, BM_PLAIN_FRAMES, "bm1080")
     del lt, rt, bm_disp, records
     torch.cuda.empty_cache()
+    speckle = phase_speckle(dev)
+    SPECKLE_RECORDS.clear()
+    torch.cuda.empty_cache()
 
     names = [r["name"] for r in rows]
     for r in rows:  # a kernel that runs on several paths: one row each
@@ -1423,7 +1571,8 @@ def main() -> int:
                       "bm_main_path": bm_e2e, "bm_breakdown": bm_breakdown, "hier16x3": h16,
                       "geometry": geometry, "banded_horizontal_full_shape": horizontal_bands,
                       "settings": settings, "banded_cost_levels": banded_cost_levels,
-                      "wide_bands": wide_bands, "build_s": build_s}), flush=True)
+                      "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
+                      "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,6 @@
 // The banded cost of the hierarchical matcher (matcher="sgbm_hier"):
 // banded_cost_kernel, in a source of its own beside banded.cu, at every band
-// K % 4 == 0 from 4 to 256, int16 or int32 output. The lane, shift and
+// K % 4 == 0 from 4 to 1024, int16 or int32 output. The lane, shift and
 // window semantics are banded.cu's (header).
 
 #include <climits>
@@ -58,7 +58,11 @@ constexpr int kCostThreads = 256;
 // columns give each of the 256 threads one or two items a phase. Rows and columns clamp at the image edge, for the cost and
 // for s; a right sample left of column 0 replicates column 0. Where a
 // configuration's rings do not fit the shared memory, the tile shrinks
-// (cost_tile).
+// (cost_tile); where even a one-column tile's do not (a wide band at a large
+// block: K = 256 from block 21 at ndisp 256), banded_cost_scratch_kernel
+// runs the same block over rings in device scratch, one slot of the layout
+// a resident block (two an SM), each block walking the (tile, strip, frame)
+// items blockIdx.x, + gridDim.x, ...
 constexpr int kCostStrip = 32;  // output rows a block walks down
 constexpr int kRawAhead = 4;    // raw image values a thread holds in flight (more: loaded at once)
 constexpr int kShiftAhead = 2;  // shifts a thread holds in flight (more: loaded at once)
@@ -143,12 +147,14 @@ __device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
   *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
 }
 
+// One block's work: the output rows of strip `strip` and the TX columns of
+// tile `tile` of frame b, its rings at `cost_smem` (shared memory, or a slot
+// of device scratch laid out alike).
 template <typename T>
-__global__ void __launch_bounds__(kCostThreads, 4)
-banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, const int* __restrict__ shift,
-                   T* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs, int ftzero, int min_x,
-                   int stride, int TX) {
-  extern __shared__ __align__(16) unsigned char cost_smem[];
+__device__ __forceinline__ void cost_block(unsigned char* cost_smem, const int* __restrict__ left,
+                                           const int* __restrict__ right, const int* __restrict__ shift,
+                                           T* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs,
+                                           int ftzero, int min_x, int stride, int TX, int tile, int strip, int b) {
   const CostLayout lay(TX, K, ndisp, bs);
   int* acc = reinterpret_cast<int*>(cost_smem + lay.acc);
   int16_t* pix = reinterpret_cast<int16_t*>(cost_smem + lay.pix);
@@ -163,9 +169,8 @@ banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, 
   const int r = bs / 2, KC = K / 4, tid = threadIdx.x, nt = blockDim.x;
   const size_t plane = (size_t)K * NC;  // one row of the cost ring
 
-  const int b = blockIdx.z;
-  const int x0 = min_x + blockIdx.x * TX;
-  const int y0 = blockIdx.y * kCostStrip, y1 = min(y0 + kCostStrip, H);
+  const int x0 = min_x + tile * TX;
+  const int y0 = strip * kCostStrip, y1 = min(y0 + kCostStrip, H);
   const int nsrc = y1 - y0 + 2 * r;
   const int Wo = W - min_x;
   const int* L = left + (size_t)b * H * W;
@@ -349,9 +354,36 @@ banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, 
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kCostThreads, 4)
+banded_cost_kernel(const int* __restrict__ left, const int* __restrict__ right, const int* __restrict__ shift,
+                   T* __restrict__ out, int H, int W, int K, int G, int ndisp, int bs, int ftzero, int min_x,
+                   int stride, int TX) {
+  extern __shared__ __align__(16) unsigned char cost_smem[];
+  cost_block<T>(cost_smem, left, right, shift, out, H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, blockIdx.x,
+                blockIdx.y, blockIdx.z);
+}
+
+// The block over rings in device scratch: slot blockIdx.x of `slot` bytes,
+// items (tile, strip, frame) = blockIdx.x, + gridDim.x, ...
+template <typename T>
+__global__ void __launch_bounds__(kCostThreads, 2)
+banded_cost_scratch_kernel(const int* __restrict__ left, const int* __restrict__ right,
+                           const int* __restrict__ shift, T* __restrict__ out, unsigned char* scratch, size_t slot,
+                           int H, int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride, int TX,
+                           int ntiles, int nstrips, int items) {
+  unsigned char* rings = scratch + blockIdx.x * slot;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    cost_block<T>(rings, left, right, shift, out, H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, item % ntiles,
+                  item / ntiles % nstrips, item / (ntiles * nstrips));
+    __syncthreads();  // the next item reuses the slot
+  }
+}
+
 // The tile width for band K: TX = 2048 / KP columns (KP the power of two at
 // or above K; 256 at most), halved until the block's shared memory fits
 // `optin` bytes, then evened out over the Wo output columns. 0: no tile fits.
+// (The scratch form takes the widest tile: optin LLONG_MAX.)
 int cost_tile(int K, int ndisp, int bs, int Wo, long long optin) {
   int kp = 4;
   while (kp < K) kp *= 2;
@@ -374,28 +406,85 @@ cudaError_t cost_launch(const int* left, const int* right, const int* shift, T* 
   return cudaGetLastError();
 }
 
+// The scratch form's geometry: its tile, slot bytes, items and blocks.
+struct ScratchPlan {
+  int TX, ntiles, nstrips, items, blocks;
+  size_t slot;
+  ScratchPlan(int P, int H, int Wo, int K, int ndisp, int bs, int sms) {
+    TX = cost_tile(K, ndisp, bs, Wo, LLONG_MAX);
+    ntiles = (Wo + TX - 1) / TX;
+    nstrips = (H + kCostStrip - 1) / kCostStrip;
+    items = P * ntiles * nstrips;
+    blocks = min(items, 2 * sms);
+    slot = (CostLayout(TX, K, ndisp, bs).bytes + 255) / 256 * 256;
+  }
+};
+
+int multiprocessors(int device) {
+  int sms = 0;
+  return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) == cudaSuccess ? sms : -1;
+}
+
+template <typename T>
+cudaError_t cost_scratch_launch(const int* left, const int* right, const int* shift, T* out, unsigned char* scratch,
+                                int P, int H, int W, int K, int G, int ndisp, int bs, int ftzero, int min_x,
+                                int stride, cudaStream_t st) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int sms = multiprocessors(dev);
+  if (sms < 1) return cudaErrorInvalidValue;
+  const ScratchPlan plan(P, H, W - min_x, K, ndisp, bs, sms);
+  banded_cost_scratch_kernel<T><<<plan.blocks, kCostThreads, 0, st>>>(
+      left, right, shift, out, scratch, plan.slot, H, W, K, G, ndisp, bs, ftzero, min_x, stride, plan.TX,
+      plan.ntiles, plan.nstrips, plan.items);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The tile width the banded cost kernel takes for band K, ndisp, block bs and
 // Wo output columns on `device` (its shared memory per block); 0 where no
-// tile fits, -1 for a failed device query.
+// tile fits (svt_banded_cost then takes device scratch), -1 for a failed
+// device query.
 SVT_EXPORT int svt_banded_cost_tile(int K, int ndisp, int bs, int Wo, int device) {
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
   return cost_tile(K, ndisp, bs, Wo, optin);
 }
 
+// Bytes of device scratch svt_banded_cost needs where svt_banded_cost_tile
+// finds no tile: a slot of the block's layout for each of two blocks an SM
+// (fewer where there are fewer items); -1 for a failed device query.
+SVT_EXPORT long long svt_banded_cost_scratch_bytes(int P, int H, int Wo, int K, int ndisp, int bs, int device) {
+  const int sms = multiprocessors(device);
+  if (sms < 1) return -1;
+  if (P == 0 || H == 0 || Wo <= 0) return 0;
+  const ScratchPlan plan(P, H, Wo, K, ndisp, bs, sms);
+  return (long long)plan.blocks * (long long)plan.slot;
+}
+
 // (P, H, W) int32 left/right + (P, H, W) int32 shift map -> (P, H, W - min_x, K)
 // windowed banded cost at disparity clamp(s + stride * k, 0, ndisp - 1),
 // int16 (bytes 2) or int32 (bytes 4), in tiles of TX columns
-// (svt_banded_cost_tile). K % 4 == 0, 4 <= K <= 256.
+// (svt_banded_cost_tile) with the rings in shared memory, or with `scratch`
+// (svt_banded_cost_scratch_bytes of it; TX then unused) in device scratch.
+// K % 4 == 0, 4 <= K <= 1024.
 SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
                                int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride, int TX,
-                               int bytes, void* stream) {
-  if (stride < 1 || K < 4 || K > 256 || K % 4 || bs < 1 || bs % 2 == 0 || TX < 1) return cudaErrorInvalidValue;
+                               int bytes, void* scratch, void* stream) {
+  if (stride < 1 || K < 4 || K > svt::kMaxRange || K % 4 || bs < 1 || bs % 2 == 0) return cudaErrorInvalidValue;
   if (P == 0 || H == 0 || min_x >= W) return cudaSuccess;
+  if (TX < 1 && !scratch) return cudaErrorInvalidValue;
   const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right), s = static_cast<const int*>(shift);
   const auto st = static_cast<cudaStream_t>(stream);
+  const auto sc = static_cast<unsigned char*>(scratch);
+  if (sc && bytes == 2)
+    return cost_scratch_launch(l, r, s, static_cast<int16_t*>(out), sc, P, H, W, K, G, ndisp, bs, ftzero, min_x,
+                               stride, st);
+  if (sc && bytes == 4)
+    return cost_scratch_launch(l, r, s, static_cast<int*>(out), sc, P, H, W, K, G, ndisp, bs, ftzero, min_x, stride,
+                               st);
   if (bytes == 2)
     return cost_launch(l, r, s, static_cast<int16_t*>(out), P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, st);
   if (bytes == 4)

@@ -115,7 +115,8 @@ namespace {
 // conversion placed right after a load stalls the whole chain). Every lane
 // of the group reads the shift map at the same address, one broadcast a
 // step. At most 64 registers a thread keep all of a level's groups resident
-// in one wave (LPT <= 2); the wide bands' LPT 4 and 8 take 128 and 255.
+// in one wave (LPT <= 2); the wide bands' LPT 4 and 8 take 128 and 255, and
+// LPT 16 and 32 load one step ahead.
 // What holds it back (PERF.md): at K=16 the chain of a step's shuffles,
 // minimum and update, row by row; at K <= 8 a warp's load or store touches
 // 32 / GS rows, so the time grows with the frames. Both directions, both
@@ -134,7 +135,7 @@ template <typename T, int GS, int LPT, bool kColumns>
 __global__ void __launch_bounds__(kHorizThreads, line_blocks_per_sm(LPT))
 banded_line_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __restrict__ out,
                    T* __restrict__ out_up, int lines, int n, int Wv, int K, int G, int P1, int P2, int reverse) {
-  constexpr int U = kHorizAhead;
+  constexpr int U = LPT >= 16 ? 1 : kHorizAhead;  // the widest bands' rings would take every register
   const int lane = threadIdx.x & 31;
   const int t = lane & (GS - 1);
   const int warp_line0 = (blockIdx.x * kHorizThreads + (threadIdx.x & ~31)) / GS;

@@ -1,9 +1,9 @@
-// The banded scans and WTA at bands above 64 (64 < K <= 256, K % 4 == 0):
+// The banded scans and WTA at bands above 64 (64 < K <= 1024, K % 4 == 0):
 // a pixel's lanes spread over a group of 32 threads, LPT = KP / 32 lanes a
-// thread (KP = 128 or 256; lanes at and past K hold kBig, as banded.cuh sets
-// out). The kernels of banded.cu keep a pixel's lanes in one thread's
-// registers, which stops at 64. One source a storage type (banded_wide.cu:
-// int16, banded_wide32.cu: int32), built beside banded.cu.
+// thread (KP = 128, 256, 512 or 1024; lanes at and past K hold kBig, as
+// banded.cuh sets out). The kernels of banded.cu keep a pixel's lanes in
+// one thread's registers, which stops at 64. One source a storage type
+// (banded_wide.cu: int16, banded_wide32.cu: int32), built beside banded.cu.
 //
 // Replaces, at these bands, stereo_vision_tpu/stereo/banded_pallas.py:
 //   _vert_kernel:666 without diagonals -> banded_line_kernel (banded_group.cuh)
@@ -12,7 +12,7 @@
 //   _vert_kernel with diagonals         -> banded_wide_diag_kernel;
 //   _horiz_kernel:759                   -> banded_line_kernel over rows (#18);
 //   _wta_kernel:815 (6-stat and sub)    -> banded_wta_wide_kernel.
-// (The cost kernel, banded.cu, takes every K up to 256 itself.)
+// (The cost kernel, banded_cost.cu, takes every K up to 1024 itself.)
 //
 // What bounds them: bytes, as their forms at K <= 64 (each scan reads one
 // volume and writes one or two); the scans are also chains of dependent
@@ -29,9 +29,13 @@ using svt::kBig;
 using svt::subpixel16;
 using svt::WtaStats;
 
-constexpr int kWideGroup = 32;        // threads a pixel
-constexpr int kWideDiagThreads = 512;  // 16 groups a (frame, direction) block
+constexpr int kWideGroup = 32;  // threads a pixel
 constexpr int kWideThreads = 128;
+
+// Threads of a (frame, direction) block of the 8-path scan: 16 groups, 4
+// from LPT 16 on (a thread's carries then need more than the 128 registers
+// that 512 threads a block leave it).
+__host__ __device__ constexpr int wide_diag_threads(int lpt) { return lpt >= 16 ? 128 : 512; }
 
 // ------------------------------------------------------- 8-path vertical
 
@@ -61,7 +65,7 @@ __device__ __forceinline__ void carry_step(const int (&c)[LPT], const T* prev, i
 }
 
 // One block per (frame, direction): blockIdx.y = 0 scans down, 1 up (the
-// y-flipped volume with the same column shifts). Its 16 groups loop over
+// y-flipped volume with the same column shifts). Its groups loop over
 // the columns of each row (Wv x 32 threads do not fit one block); per
 // column, the vertical carry (predecessor (y', x)) and the (1,1) and (-1,1)
 // diagonal carries (predecessors (y', x - 1), (y', x + 1)), y' the row
@@ -70,7 +74,7 @@ __device__ __forceinline__ void carry_step(const int (&c)[LPT], const T* prev, i
 // shared memory or at scratch + (frame * 2 + direction) * 6 * Wv * K; one
 // __syncthreads a row.
 template <typename T, int LPT>
-__global__ void __launch_bounds__(kWideDiagThreads)
+__global__ void __launch_bounds__(wide_diag_threads(LPT))
 banded_wide_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __restrict__ out_dn,
                         T* __restrict__ out_up, T* scratch, int H, int Wv, int K, int G, int P1, int P2) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
@@ -199,11 +203,14 @@ banded_wta_wide_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const
 
 // ---------------------------------------------------------------- dispatch
 
-// Fn<KP / 32>::run(args...) for 64 < K <= 256, K % 4 == 0.
+// Fn<KP / 32>::run(args...) for 64 < K <= 1024, K % 4 == 0.
 template <template <int> class Fn, typename... Args>
 cudaError_t wide_dispatch(int K, Args... args) {
-  if (K <= 64 || K > 256 || K % 4) return cudaErrorInvalidValue;
-  return K <= 128 ? Fn<4>::run(args...) : Fn<8>::run(args...);
+  if (K <= 64 || K > svt::kMaxRange || K % 4) return cudaErrorInvalidValue;
+  if (K <= 128) return Fn<4>::run(args...);
+  if (K <= 256) return Fn<8>::run(args...);
+  if (K <= 512) return Fn<16>::run(args...);
+  return Fn<32>::run(args...);
 }
 
 template <typename T>
@@ -232,7 +239,7 @@ struct WideScans {
       cudaError_t e = cudaFuncSetAttribute(banded_wide_diag_kernel<T, LPT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
-      const int threads = min(kWideDiagThreads, Wv * kWideGroup);
+      const int threads = min(wide_diag_threads(LPT), Wv * kWideGroup);
       banded_wide_diag_kernel<T, LPT><<<dim3(P, 2), threads, smem, st>>>(
           static_cast<const T*>(C), s, static_cast<T*>(dn), static_cast<T*>(up), static_cast<T*>(scratch), H, Wv, K, G,
           P1, P2);

@@ -207,10 +207,11 @@ cudaError_t launch(const int* lp, const int* rp, float* out, int B, int H, int W
 }  // namespace
 
 // (B, H, W) int32 prefiltered left/right -> (B, H-bs+1, W-bs+1) float32
-// disparity of the window centres (invalid = mindisp - 1). D <= 256.
+// disparity of the window centres (invalid = mindisp - 1). D <= 1024: KPL =
+// ceil(D / 32) to 8 (D <= 256), then 16 and 32 disparities a lane.
 SVT_EXPORT int svt_bm_disparity(const void* lp, const void* rp, void* out, int B, int H, int W, int D, int mindisp,
                                 int bs, int cap, int uniq, int tex_thr, void* stream) {
-  if (D < 1 || D > 256 || bs < 1 || H < bs || W < bs) return cudaErrorInvalidValue;
+  if (D < 1 || D > svt::kMaxRange || bs < 1 || H < bs || W < bs) return cudaErrorInvalidValue;
   const auto l = static_cast<const int*>(lp);
   const auto r = static_cast<const int*>(rp);
   const auto o = static_cast<float*>(out);
@@ -223,6 +224,9 @@ SVT_EXPORT int svt_bm_disparity(const void* lp, const void* rp, void* out, int B
     case 5: return launch<5>(l, r, o, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, st);
     case 6: return launch<6>(l, r, o, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, st);
     case 7: return launch<7>(l, r, o, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, st);
-    default: return launch<8>(l, r, o, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, st);
+    case 8: return launch<8>(l, r, o, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, st);
+    default:
+      if (D <= 512) return launch<16>(l, r, o, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, st);
+      return launch<32>(l, r, o, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, st);
   }
 }

@@ -103,7 +103,10 @@ cost_kernel(const int* __restrict__ left, const int* __restrict__ right, T* __re
   }
 }
 
-int tile_for(int D) { return D <= 128 ? 32 : 16; }
+// Output columns a block: 32 to D = 128, 16 to 256, 8 above (up to 1024,
+// where the column sums of 8 + 2r columns take 1024 values each: 57.7 KB at
+// block 5).
+int tile_for(int D) { return D <= 128 ? 32 : D <= 256 ? 16 : 8; }
 
 size_t smem_bytes(int D, int bs) {
   const int TX = tile_for(D), r = bs / 2;
@@ -129,10 +132,10 @@ cudaError_t launch(const int* left, const int* right, T* out, int B, int H, int 
 SVT_EXPORT long long svt_cost_volume_smem(int D, int bs) { return (long long)smem_bytes(D, bs); }
 
 // (B, H, W) int32 left/right -> (B, H, W - x_off, D) windowed cost, int16
-// (out_bytes 2) or int32 (out_bytes 4). mindisp + D >= 1.
+// (out_bytes 2) or int32 (out_bytes 4). mindisp + D >= 1, D <= 1024.
 SVT_EXPORT int svt_cost_volume(const void* left, const void* right, void* out, int B, int H, int W, int D,
                                int mindisp, int bs, int ftzero, int x_off, int out_bytes, void* stream) {
-  if (bs < 1 || bs % 2 == 0 || mindisp + D < 1) return cudaErrorInvalidValue;
+  if (bs < 1 || bs % 2 == 0 || mindisp + D < 1 || D > svt::kMaxRange) return cudaErrorInvalidValue;
   const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right);
   const auto st = static_cast<cudaStream_t>(stream);
   if (out_bytes == 2)

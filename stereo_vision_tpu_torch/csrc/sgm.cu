@@ -12,7 +12,9 @@
 //                                         the WTA over four directions)
 //
 // Layout: one warp owns the D disparities of one pixel, VPL = D/32 (rounded
-// up to 1, 2, 4 or 8) consecutive disparities per lane, d = lane*VPL + k.
+// up to 1, 2, 4, 8, 16 or 32; D <= 1024) consecutive disparities per lane,
+// d = lane*VPL + k. The main paths run VPL <= 8; 16 and 32 are the wide
+// ranges' (their registers and spills are in PERF.md).
 // The d +- 1 neighbours of an SGM step come from the lane's own registers or
 // one shuffle; min over d is a 5-step shuffle reduction, so no step needs a
 // block barrier. Disparities d >= D hold a large sentinel that no min takes.
@@ -372,8 +374,8 @@ cudaError_t rl_wta(const T* C, const T* const* v, int rows, int W, int D, int P1
   return cudaGetLastError();
 }
 
-// Values per lane for D disparities: 1, 2, 4 or 8 (D <= 256).
-int vpl_for(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 8; }
+// Values per lane for D disparities: 1, 2, 4, 8, 16 or 32 (D <= 1024).
+int vpl_for(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : D <= 256 ? 8 : D <= 512 ? 16 : 32; }
 
 // fn<T, VPL>() for the storage type of `bytes` (2: int16, 4: int32) and D's
 // values per lane; cudaErrorInvalidValue for another width.
@@ -385,7 +387,9 @@ cudaError_t dispatch(int bytes, int D, Args... args) {
       case 1: return Fn<int16_t, 1>::run(args...);
       case 2: return Fn<int16_t, 2>::run(args...);
       case 4: return Fn<int16_t, 4>::run(args...);
-      default: return Fn<int16_t, 8>::run(args...);
+      case 8: return Fn<int16_t, 8>::run(args...);
+      case 16: return Fn<int16_t, 16>::run(args...);
+      default: return Fn<int16_t, 32>::run(args...);
     }
   }
   if (bytes == 4) {
@@ -393,7 +397,9 @@ cudaError_t dispatch(int bytes, int D, Args... args) {
       case 1: return Fn<int, 1>::run(args...);
       case 2: return Fn<int, 2>::run(args...);
       case 4: return Fn<int, 4>::run(args...);
-      default: return Fn<int, 8>::run(args...);
+      case 8: return Fn<int, 8>::run(args...);
+      case 16: return Fn<int, 16>::run(args...);
+      default: return Fn<int, 32>::run(args...);
     }
   }
   return cudaErrorInvalidValue;
@@ -442,7 +448,7 @@ struct RlWtaFn {
 // that type; mbuf: 2 x 6 x B x W int32 minima.
 SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* Lbuf, void* mbuf, int B, int H,
                                 int W, int D, int P1, int P2, int with_diag, int bytes, void* stream) {
-  if (D > 256) return cudaErrorInvalidValue;
+  if (D > svt::kMaxRange) return cudaErrorInvalidValue;
   return dispatch<VerticalFn>(bytes, D, C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag,
                               static_cast<cudaStream_t>(stream));
 }
@@ -450,7 +456,7 @@ SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* Lbu
 // (B, H, W, D) cost -> one horizontal direction volume of the same type.
 SVT_EXPORT int svt_sgm_horizontal(const void* C, void* out, int B, int H, int W, int D, int P1, int P2,
                                   int reverse, int bytes, void* stream) {
-  if (D > 256) return cudaErrorInvalidValue;
+  if (D > svt::kMaxRange) return cudaErrorInvalidValue;
   return dispatch<HorizontalFn>(bytes, D, C, out, B * H, W, D, P1, P2, reverse, static_cast<cudaStream_t>(stream));
 }
 
@@ -459,7 +465,7 @@ SVT_EXPORT int svt_sgm_horizontal(const void* C, void* out, int B, int H, int W,
 SVT_EXPORT int svt_sgm_wta(const void* v0, const void* v1, const void* v2, const void* v3, int nvol,
                            void* minS, void* best, void* sm, void* s0, void* sp, void* uok, int npix, int D,
                            int uniq, int bytes, void* stream) {
-  if (D > 256 || D < 3 || nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
+  if (D > svt::kMaxRange || D < 3 || nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
   const void* v[4] = {v0, v1, v2, v3};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
@@ -470,7 +476,7 @@ SVT_EXPORT int svt_sgm_wta(const void* v0, const void* v1, const void* v2, const
 // One int32 (npix, D) aggregated volume -> six per-pixel maps.
 SVT_EXPORT int svt_sgm_wta_stats(const void* S, void* minS, void* best, void* sm, void* s0, void* sp, void* uok,
                                  long long npix, int D, int uniq, void* stream) {
-  if (D > 256 || D < 3) return cudaErrorInvalidValue;
+  if (D > svt::kMaxRange || D < 3) return cudaErrorInvalidValue;
   const auto s = static_cast<const int*>(S);
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
@@ -480,7 +486,9 @@ SVT_EXPORT int svt_sgm_wta_stats(const void* S, void* minS, void* best, void* sm
     case 1: return wta_stats<1>(s, maps, u, npix, D, uniq, st);
     case 2: return wta_stats<2>(s, maps, u, npix, D, uniq, st);
     case 4: return wta_stats<4>(s, maps, u, npix, D, uniq, st);
-    default: return wta_stats<8>(s, maps, u, npix, D, uniq, st);
+    case 8: return wta_stats<8>(s, maps, u, npix, D, uniq, st);
+    case 16: return wta_stats<16>(s, maps, u, npix, D, uniq, st);
+    default: return wta_stats<32>(s, maps, u, npix, D, uniq, st);
   }
 }
 
@@ -489,7 +497,7 @@ SVT_EXPORT int svt_sgm_wta_stats(const void* S, void* minS, void* best, void* sm
 SVT_EXPORT int svt_sgm_horizontal_rl_wta(const void* C, const void* v0, const void* v1, const void* v2, void* minS,
                                          void* best, void* sm, void* s0, void* sp, void* uok, int B, int H, int W,
                                          int D, int P1, int P2, int uniq, int bytes, void* stream) {
-  if (D > 256 || D < 3) return cudaErrorInvalidValue;
+  if (D > svt::kMaxRange || D < 3) return cudaErrorInvalidValue;
   const void* v[3] = {v0, v1, v2};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};

@@ -16,7 +16,7 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain form
 (built from :mod:`.banded`, the port of the JAX scan reference) for CPU
 tensors; ``launches`` on each wrapper counts kernel launches. The layout
 is the port's own: banded volumes are (P, H, Wv, K) with the frames on the
-CUDA grid. The kernels take every band K with K % 4 == 0 and 4 <= K <= 256
+CUDA grid. The kernels take every band K with K % 4 == 0 and 4 <= K <= 1024
 (:func:`check_band`). The sources: ``csrc/banded_cost.cu`` (the cost kernel
 at every band), ``csrc/banded.cu`` (the scans and the WTA up to K = 64,
 the fused WTA and the downsample), ``csrc/banded_diag.cu``
@@ -42,7 +42,7 @@ import torch
 
 from stereo_vision_tpu_torch import _build
 from stereo_vision_tpu_torch.stereo.banded import banded_cost_volume, horizontal_plain, vertical_plain
-from stereo_vision_tpu_torch.stereo.cost_cuda import cost_dtype
+from stereo_vision_tpu_torch.stereo.cost_cuda import MAX_RANGE, check_range, cost_dtype
 from stereo_vision_tpu_torch.stereo.sgbm import subpixel_disp16
 from stereo_vision_tpu_torch.stereo.sgm_cuda import storage_dtype, wta_scan
 
@@ -72,10 +72,12 @@ WIDE_BAND = 64  # bands above this take the banded_wide sources
 # storage type's width (2: int16, 4: int32).
 _SIGNATURES = {
     "banded_cost": {
-        # left, right, s, out, P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, bytes, stream
-        "svt_banded_cost": ([_P] * 4 + [_I] * 12 + [_P], _I),
+        # left, right, s, out, P, H, W, K, G, ndisp, bs, ftzero, min_x, stride, TX, bytes, scratch, stream
+        "svt_banded_cost": ([_P] * 4 + [_I] * 12 + [_P, _P], _I),
         # K, ndisp, bs, Wo, device -> the cost kernel's tile width (0: no tile fits, -1: refused)
         "svt_banded_cost_tile": ([_I] * 5, _I),
+        # P, H, Wo, K, ndisp, bs, device -> bytes of device scratch where no tile fits (-1: refused)
+        "svt_banded_cost_scratch_bytes": ([_I] * 7, _LL),
     },
     "banded": {
         # C, s, dn, up, P, H, Wv, K, G, P1, P2, bytes, stream
@@ -127,11 +129,12 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def check_band(K: int) -> None:
     """The bands the CUDA kernels take: K % 4 == 0 (a pixel's lanes then
-    start on a 4-lane word) and 4 <= K <= 256 (256: the widest disparity
-    range the exact path's kernels take). Bands above 64 spread a pixel's
-    lanes over a group of 32 threads."""
-    if K % 4 or not 4 <= K <= 256:
-        raise ValueError(f"the CUDA banded kernels take a band K with K % 4 == 0 and 4 <= K <= 256, got {K}")
+    start on a 4-lane word) and 4 <= K <= 1024 (the widest disparity range
+    the exact path's kernels take; above, ROADMAP C.3). Bands above 64
+    spread a pixel's lanes over a group of 32 threads."""
+    check_range(K, "the CUDA banded kernels")
+    if K % 4 or not 4 <= K:
+        raise ValueError(f"the CUDA banded kernels take a band K with K % 4 == 0 and 4 <= K <= {MAX_RANGE}, got {K}")
 
 
 def _check_shift(s: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -195,17 +198,19 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
     check_band(band)
     lib = _lib("banded_cost")
     # The kernel's rings take shared memory in proportion to its tile; the
-    # tile shrinks until they fit.
-    tile = lib.svt_banded_cost_tile(band, ndisp, block_size, W - min_x, _device_index(left))
-    if tile < 0:
-        raise RuntimeError(f"svt_banded_cost_tile: device query failed on {left.device}")
-    if tile == 0:
-        raise ValueError(f"the CUDA banded cost kernel at band {band}, ndisp {ndisp}, block_size {block_size} "
-                         f"fits no tile in the shared memory of {left.device}")
+    # tile shrinks until they fit, and where no tile fits they go to device
+    # scratch.
+    dev = _device_index(left)
+    tile = lib.svt_banded_cost_tile(band, ndisp, block_size, W - min_x, dev)
+    nbytes = lib.svt_banded_cost_scratch_bytes(P, H, W - min_x, band, ndisp, block_size, dev) if tile == 0 else 0
+    if tile < 0 or nbytes < 0:
+        raise RuntimeError(f"svt_banded_cost: device query failed on {left.device}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=left.device) if tile == 0 else None
     left, right, s = left.contiguous(), right.contiguous(), s.contiguous()
     out = torch.empty((P, H, W - min_x, band), dtype=dtype, device=left.device)
     err = lib.svt_banded_cost(left.data_ptr(), right.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, W, band, G,
-                              ndisp, block_size, ftzero, min_x, stride, tile, out.element_size(), _stream(left))
+                              ndisp, block_size, ftzero, min_x, stride, tile, out.element_size(),
+                              None if scratch is None else scratch.data_ptr(), _stream(left))
     _build.check(lib, err, "svt_banded_cost")
     banded_cost.launches += 1
     return out

@@ -17,6 +17,7 @@ import torch
 
 from stereo_vision_tpu_torch import _build
 from stereo_vision_tpu_torch.stereo.bm import valid_disparity_plain
+from stereo_vision_tpu_torch.stereo.cost_cuda import check_range
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -40,7 +41,7 @@ def bm_disparity(lp, rp, *, ndisp: int, mindisp: int, block_size: int, cap: int,
     from ``mindisp`` (ties to the smallest), cv2's subpixel parabola, and
     ``mindisp - 1`` where the texture sum of |lp - cap| is below ``tex_thr``,
     the uniqueness check (``uniq`` percent) fails or the window's disparity
-    range leaves the frame. The CUDA kernel takes ndisp <= 256."""
+    range leaves the frame. The CUDA kernel takes ndisp <= 1024."""
     if lp.dim() != 3 or lp.shape != rp.shape or lp.device != rp.device:
         raise ValueError(f"expected two (B, H, W) images on one device, got {tuple(lp.shape)}, {tuple(rp.shape)}")
     B, H, W = lp.shape
@@ -55,8 +56,7 @@ def bm_disparity(lp, rp, *, ndisp: int, mindisp: int, block_size: int, cap: int,
         raise ValueError(f"unsupported device {lp.device}")
     if lp.dtype != torch.int32 or rp.dtype != torch.int32 or not (lp.is_contiguous() and rp.is_contiguous()):
         raise TypeError("the CUDA BM kernel takes contiguous int32 images")
-    if ndisp > 256:
-        raise ValueError(f"the CUDA BM kernel takes ndisp <= 256, got {ndisp}")
+    check_range(ndisp, "the CUDA BM kernel")
     out = torch.empty((B, H - block_size + 1, W - block_size + 1), dtype=torch.float32, device=lp.device)
     lib = _lib()
     err = lib.svt_bm_disparity(lp.data_ptr(), rp.data_ptr(), out.data_ptr(), B, H, W, ndisp, mindisp, block_size,

@@ -45,6 +45,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# The widest disparity range (exact path, BM) and band (hier) any CUDA
+# kernel of the port takes; above it the wrappers refuse (ROADMAP C.3).
+MAX_RANGE = 1024
+
+
+def check_range(n: int, what: str) -> None:
+    """Refuse a disparity range or band ``n`` above :data:`MAX_RANGE`."""
+    if n > MAX_RANGE:
+        raise ValueError(f"{what} takes at most {MAX_RANGE} disparities or lanes, got {n}: wider ranges are not "
+                         "ported to the card (ROADMAP C.3)")
+
+
 def window_bound(block_size: int, ftzero: int) -> int:
     """Upper bound of a windowed cost for 8-bit images."""
     return block_size * block_size * (2 * ftzero + 63)
@@ -165,7 +177,7 @@ def cost_volume(
     :func:`window_bound` fits it, else int32).
 
     CUDA tensors launch ``csrc/cost.cu`` (odd ``block_size`` whose block
-    fits the device's shared memory, ``ndisp`` <= 256); CPU tensors run
+    fits the device's shared memory, ``ndisp`` <= 1024); CPU tensors run
     :func:`cost_volume_plain`.
     """
     if left.shape != right.shape or left.dim() != 3:
@@ -185,8 +197,7 @@ def cost_volume(
                                  ftzero=ftzero, x_offset=x_offset).to(dtype)
     if left.device.type != "cuda":
         raise ValueError(f"unsupported device {left.device}")
-    if ndisp > 256:
-        raise ValueError("the CUDA cost kernel takes ndisp <= 256")
+    check_range(ndisp, "the CUDA cost kernel")
     lib = _lib()
     smem = lib.svt_cost_volume_smem(ndisp, block_size)
     optin = torch.cuda.get_device_properties(left.device).shared_memory_per_block_optin

@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.stereo.cost_cuda import check_range
 
 _BIG = 1 << 29  # out-of-range d±1 neighbour: far above any reachable L
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -210,8 +211,7 @@ def _check_volume(C: torch.Tensor, P1: int, P2: int, cost_bound: int, ndir: int)
     if C.device.type == "cuda":
         if C.dtype not in (torch.int16, torch.int32) or not C.is_contiguous():
             raise TypeError("the CUDA SGM kernels take a contiguous int16 or int32 cost volume")
-        if C.shape[-1] > 256:
-            raise ValueError("the CUDA SGM kernels take D <= 256")
+        check_range(C.shape[-1], "the CUDA SGM kernels")
         if C.dtype == torch.int16 and storage_dtype(cost_bound, P2, ndir) == torch.int32:
             return C.to(torch.int32)
     elif C.device.type != "cpu":
@@ -281,9 +281,9 @@ def wta4(volumes, uniqueness_ratio: int):
         raise ValueError(f"expected (B, H, W, D>=3) volumes, got {tuple(v0.shape)}")
     if v0.device.type == "cpu":
         return wta4_plain(volumes, uniqueness_ratio)
-    if (v0.dtype not in (torch.int16, torch.int32) or any(v.dtype != v0.dtype or not v.is_contiguous()
-                                                           for v in volumes) or v0.shape[-1] > 256):
-        raise TypeError("the CUDA WTA kernel takes contiguous volumes of one type, int16 or int32, with D <= 256")
+    check_range(v0.shape[-1], "the CUDA WTA kernel")
+    if v0.dtype not in (torch.int16, torch.int32) or any(v.dtype != v0.dtype or not v.is_contiguous() for v in volumes):
+        raise TypeError("the CUDA WTA kernel takes contiguous volumes of one type, int16 or int32")
     B, H, W, D = v0.shape
     maps, uok = _maps(v0)
     ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
@@ -304,8 +304,9 @@ def wta_stats(S, uniqueness_ratio: int):
         return wta_scan(S, S.shape[-1], uniqueness_ratio)
     if S.device.type != "cuda":
         raise ValueError(f"unsupported device {S.device}")
-    if S.dtype != torch.int32 or not S.is_contiguous() or S.shape[-1] > 256:
-        raise TypeError("the CUDA WTA kernel takes a contiguous int32 volume with D <= 256")
+    check_range(S.shape[-1], "the CUDA WTA kernel")
+    if S.dtype != torch.int32 or not S.is_contiguous():
+        raise TypeError("the CUDA WTA kernel takes a contiguous int32 volume")
     B, H, W, D = S.shape
     maps, uok = _maps(S)
     lib = _lib()
@@ -352,10 +353,10 @@ def horizontal_rl_wta(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: i
         return horizontal_rl_wta_plain(C, s_dn, s_up, s_lr, P1, P2, uniqueness_ratio)
     if C.device.type != "cuda":
         raise ValueError(f"unsupported device {C.device}")
-    if (C.dtype not in (torch.int16, torch.int32) or any(t.dtype != C.dtype or not t.is_contiguous()
-                                                          for t in (C, *vols)) or C.shape[-1] > 256):
-        raise TypeError("the fused R->L WTA kernel takes contiguous tensors of one type, int16 or int32, "
-                        "with D <= 256")
+    check_range(C.shape[-1], "the fused R->L WTA kernel")
+    if C.dtype not in (torch.int16, torch.int32) or any(t.dtype != C.dtype or not t.is_contiguous()
+                                                         for t in (C, *vols)):
+        raise TypeError("the fused R->L WTA kernel takes contiguous tensors of one type, int16 or int32")
     B, H, W, D = C.shape
     maps, uok = _maps(C)
     lib = _lib()

@@ -5,8 +5,10 @@ Replaces ``stereo_vision_tpu/stereo/speckle_pallas.py::speckle_filter_pallas``
 kernel for CUDA tensors and runs its plain form,
 :func:`stereo_vision_tpu_torch.stereo.postprocess.speckle_filter`, for CPU
 tensors; the two are equal bit for bit for any ``max_diameter``.
-``launches`` counts wrapper calls that launched the kernel sequence
-(3R + 2 device launches each).
+The kernel computes the plain form's function as union-find connected
+components in five device launches, whatever the rounds R are (the
+design is in the source). ``launches`` counts wrapper calls that launched
+the kernels, ``device_launches`` the device launches they made.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ import torch
 from stereo_vision_tpu_torch import _build
 from stereo_vision_tpu_torch.stereo.postprocess import speckle_filter as speckle_filter_plain, speckle_rounds
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # disp, out, ws32, ws8, P, H, W, S, R, max_diff, invalid, stream
-    "svt_speckle_filter": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P],
+    # disp, out, ws32, P, H, W, S, R, max_diff, invalid, stream
+    "svt_speckle_filter": [_P] * 3 + [_I] * 5 + [_F] * 2 + [_P],
+    "svt_speckle_launches": [],
 }
 
 
@@ -30,6 +33,8 @@ def _lib() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    # P, H, W -> int32 words of workspace
+    lib.svt_speckle_workspace.argtypes, lib.svt_speckle_workspace.restype = [_I] * 3, _LL
     return lib
 
 
@@ -63,15 +68,16 @@ def speckle_filter(
     if n >= 1 << 31:
         raise ValueError("the CUDA speckle filter takes fewer than 2^31 pixels a call")
     out = torch.empty_like(frames)
-    ws32 = torch.empty(5 * n, dtype=torch.int32, device=disp.device)
-    ws8 = torch.empty(4 * n, dtype=torch.uint8, device=disp.device)
     lib = _lib()
-    err = lib.svt_speckle_filter(frames.data_ptr(), out.data_ptr(), ws32.data_ptr(), ws8.data_ptr(), P, H, W, S,
+    ws32 = torch.empty(lib.svt_speckle_workspace(P, H, W), dtype=torch.int32, device=disp.device)
+    err = lib.svt_speckle_filter(frames.data_ptr(), out.data_ptr(), ws32.data_ptr(), P, H, W, S,
                                  speckle_rounds(S, max_diameter), float(max_diff), float(invalid_value),
                                  torch.cuda.current_stream(disp.device).cuda_stream)
     _build.check(lib, err, "svt_speckle_filter")
     speckle_filter.launches += 1
+    speckle_filter.device_launches += lib.svt_speckle_launches()
     return out.reshape(disp.shape)
 
 
 speckle_filter.launches = 0
+speckle_filter.device_launches = 0

@@ -2,7 +2,8 @@
 
 The port's own copies of ``bench.py``'s ``_scene``, ``_scene_occ`` and
 ``_agreement``, with the frame size as a parameter (the bench fixes
-1280x720), plus the ramp+box scene's true disparity.
+1280x720), plus the ramp+box scene's true disparity, and disparity maps
+made to break a speckle filter (:func:`speckle_patterns`).
 """
 
 from __future__ import annotations
@@ -76,3 +77,36 @@ def agreement(out: np.ndarray, ref: np.ndarray) -> float:
     mv = out > -1
     both = rv & mv
     return float(((~rv & ~mv) | (both & (np.abs(out - ref) <= 1.0))).mean())
+
+
+def speckle_patterns() -> np.ndarray:
+    """(7, 72, 100) float32 disparity maps, invalid -1, whose blobs join
+    where values are equal (max_diff 1): a 19-px snake of diameter 18 beside
+    a compact 2-px blob and a 3x3 blob; a U and a blob inside another; a
+    spiral; blobs whose least-index pixel is not their top-left corner (a
+    walk from it must reach left); a comb over 3 x 4 tiles of 32 x 32 and a
+    small blob below it; an all-valid constant frame; a checkerboard of
+    single pixels."""
+    F = np.full((7, 72, 100), -1.0, np.float32)
+    F[0, 1, 1:11] = F[0, 1:4, 10] = F[0, 3, 3:11] = 10  # snake
+    F[0, 6, 2:4] = 5
+    F[0, 20:23, 40:43] = 3
+    F[1, 10:16, 10] = F[1, 15, 10:16] = F[1, 10:16, 15] = 4  # U of 16
+    F[1, 40:44, 60:64] = 4
+    F[1, 41:43, 61:63] = 6
+    y, x = 30, 30
+    F[2, y, x] = 7
+    for dy, dx in [(0, 1)] * 6 + [(1, 0)] * 6 + [(0, -1)] * 6 + [(-1, 0)] * 4 + [(0, 1)] * 4 + [(1, 0)] * 2:
+        y, x = y + dy, x + dx
+        F[2, y, x] = 7  # a spiral of 29
+    F[3, 10, 20:23] = F[3, 11, 15:21] = 2  # least index (10, 20), corner (10, 15) empty
+    for k in range(8):
+        F[3, 50 + k, 60 - k : 62 - k] = 3  # a staircase down and to the left
+    F[3, 30:33, 80] = F[3, 32, 75:80] = 5  # an L whose walk runs back left
+    F[4, 5, 2:98] = 9
+    for x in range(2, 98, 6):
+        F[4, 5:65, x] = 9  # a comb
+    F[4, 67:70, 30:34] = 9
+    F[5] = 12.0
+    F[6] = np.where(np.indices((72, 100)).sum(0) % 2 == 0, 2.0, -1.0)
+    return F

@@ -19,7 +19,7 @@ from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
-from stereo_vision_tpu_torch.synth.scenes import scene
+from stereo_vision_tpu_torch.synth.scenes import scene, speckle_patterns
 
 pytestmark = pytest.mark.cuda
 
@@ -372,8 +372,8 @@ def test_bm_kernel_matches_plain(dev, W, D, bs, mindisp, uniq, tex):
 def test_bm_kernel_refuses_what_it_does_not_take(dev):
     lp = torch.zeros((1, 16, 300), dtype=torch.int32, device=dev)
     kw = dict(ndisp=16, mindisp=0, block_size=5, cap=31, uniq=15, tex_thr=10)
-    with pytest.raises(ValueError, match="256"):
-        bm_cuda.bm_disparity(lp, lp, **dict(kw, ndisp=272))
+    with pytest.raises(ValueError, match="ROADMAP C.3"):
+        bm_cuda.bm_disparity(lp, lp, **dict(kw, ndisp=1040))
     with pytest.raises(TypeError, match="int32"):
         bm_cuda.bm_disparity(lp.to(torch.int16), lp.to(torch.int16), **kw)
 
@@ -736,11 +736,15 @@ def test_banded_cost_kernel_settings_match_plain(dev, K, G, D, bs, stride, min_x
 
 def test_banded_cost_kernel_refuses_where_no_tile_fits(dev):
     """Band 256 at block 21: one tile's ring of 21 rows of 256-lane costs
-    alone passes the shared memory of a block."""
+    alone passes the shared memory of a block, so the kernel keeps its rings
+    in device scratch; it equals its plain form there (the name is the one
+    the test had while the kernel refused this input)."""
     left, right = _images(0, 1, 8, 300)
     s = torch.zeros((1, 8, 300), dtype=torch.int32)
-    with pytest.raises(ValueError, match="fits no tile"):
-        banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), band=256, G=8, ndisp=256, block_size=21)
+    kw = dict(band=256, G=8, ndisp=256, block_size=21)
+    ref = banded_cuda.banded_cost_plain(left, right, s, ftzero=15, min_x=0, **kw)
+    out = banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), **kw)
+    assert out.dtype == torch.int32 and torch.equal(out.cpu(), ref)
 
 
 @pytest.mark.parametrize("K,G", [(68, 4), (128, 8), (132, 64), (256, 16)])
@@ -787,3 +791,124 @@ def test_hier_band_128_card_equals_cpu(dev):
     ref = hier.stereo_sgbm_hier(left, right, p, hp)
     out = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp)
     assert (ref[:, 256:] > -1).float().mean() > 0.5 and torch.equal(out.cpu(), ref)
+
+
+# ------------------------------------- ranges and bands above 256, speckle
+# Disparity ranges and bands up to 1024 (ROADMAP C.3) through every kernel
+# of the exact, banded and BM families, and the union-find speckle kernel.
+
+
+@pytest.mark.parametrize("D", [320, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_exact_kernels_wide_ranges_match_plain(dev, D, dtype):
+    """The cost kernel and every SGM entry (vertical, both horizontals, the
+    WTA, the one-volume WTA and the fused R->L WTA) at D = 320, 512, 1024."""
+    left, right = _images(D, 1, 5, D + 40)
+    kw = dict(ndisp=D, block_size=3, ftzero=15, x_offset=D - 7)
+    C = cost_cuda.cost_volume(left.to(dev), right.to(dev), dtype=dtype, **kw)
+    assert C.dtype == dtype and torch.equal(C.cpu(), cost_cuda.cost_volume_plain(left, right, **kw).to(dtype))
+    bound = 837 if dtype == torch.int16 else 40000
+    Cc = C.cpu()
+    vols = list(sgm_cuda.vertical(C, 200, 800, True, bound))
+    for a, b in zip(vols, sgm_cuda.vertical_plain(Cc, 200, 800, True)):
+        assert a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), b)
+    for rev in (False, True):
+        vols.append(sgm_cuda.horizontal(C, 200, 800, rev, bound))
+        assert torch.equal(vols[-1].cpu().to(torch.int32), sgm_cuda.horizontal_plain(Cc, 200, 800, rev))
+    for v in vols:  # ties at the minimum: the smaller d wins
+        v[..., :3, D - 3] = v[..., :3, 40] = v[..., :3, 2] = 0
+    cpu = [v.cpu() for v in vols]
+    for got, want in ((sgm_cuda.wta4(vols, 10), sgm_cuda.wta4_plain(cpu, 10)),
+                      (sgm_cuda.horizontal_rl_wta(C, *vols[:3], 200, 800, 10),
+                       sgm_cuda.horizontal_rl_wta_plain(Cc, *cpu[:3], 200, 800, 10)),
+                      (sgm_cuda.wta_stats(sum(v.to(torch.int32) for v in vols), 10),
+                       sgm_cuda.wta_scan(sum(v.to(torch.int32) for v in cpu), D, 10))):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="ROADMAP C.3"):
+        cost_cuda.cost_volume(left[:, :, :40].to(dev), right[:, :, :40].to(dev), ndisp=1040)
+
+
+@pytest.mark.parametrize("D,mindisp", [(320, 0), (1024, 0), (512, 16)])
+def test_bm_kernel_wide_ranges_match_plain(dev, D, mindisp):
+    rng = np.random.default_rng(D)
+    W = D + 80
+    base = rng.integers(0, 256, (2, 21, W + D))
+    left, right = base[..., :W], base[..., D - 40 : D - 40 + W] + rng.integers(-3, 4, (2, 21, W))
+    lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a.astype(np.int32))) for a in (left, right))
+    kw = dict(ndisp=D, mindisp=mindisp, block_size=7, cap=31, uniq=15, tex_thr=10)
+    ref = bm_cuda.bm_disparity(lp, rp, **kw)
+    out = bm_cuda.bm_disparity(lp.to(dev), rp.to(dev), **kw)
+    assert (ref > mindisp - 1).float().mean() > 0.02 and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("K,G", [(260, 4), (320, 8), (512, 16), (1024, 8)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_wide_band_kernels_above_256_match_plain(dev, K, G, dtype):
+    """Bands 260-1024 (16 and 32 lanes a thread): the cost kernel and the
+    vertical scan with and without diagonals, both horizontals and the WTA
+    (6-stat, sub), on per-pixel random shift maps, as test_wide_band_kernels_match_plain."""
+    P, H, Wv = 2, 7, 37
+    rng = np.random.default_rng(K + 1)
+    ndisp = K + 64
+    left, right = _images(K, P, H, ndisp + 30)
+    s = _cost_shift_map(rng, P, H, ndisp + 30, ndisp, K, G, 1, "random")
+    kw = dict(band=K, G=G, ndisp=ndisp, ftzero=15, block_size=5, min_x=ndisp, dtype=dtype)
+    out = banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), **kw)
+    assert out.dtype == dtype and torch.equal(out.cpu(), banded_cuda.banded_cost_plain(left, right, s, **kw))
+    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int32)).to(dtype)
+    s = _random_shift_map(rng, P, H, Wv, G)
+    bound = 2325 if dtype == torch.int16 else 40000
+    Cd, sd = C.to(dev), s.to(dev)
+    for diag in (False, True):
+        out = banded_cuda.banded_vertical(Cd, sd, G, 200, 800, cost_bound=bound, with_diagonals=diag)
+        ref = banded_cuda.vertical_plain(C, s, G, 200, 800, diag)
+        assert all(a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), b) for a, b in zip(out, ref))
+    for rev in (False, True):
+        out = banded_cuda.banded_horizontal(Cd, sd, G, 200, 800, cost_bound=bound, reverse=rev)
+        assert torch.equal(out.cpu().to(torch.int32), banded_cuda.horizontal_plain(C, s, G, 200, 800, rev))
+    vols = [torch.from_numpy(rng.integers(0, 9000, (P, H, Wv, K)).astype(np.int32)).to(dtype) for _ in range(3)]
+    for v in vols:
+        v[:, :, :4, K - 3] = v[:, :, :4, 40] = v[:, :, :4, 2] = 0
+    for sub in (False, True):
+        ref = banded_cuda.banded_wta_plain(vols, 10, sub)
+        out = banded_cuda.banded_wta([v.to(dev) for v in vols], 10, sub)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref))
+
+
+def test_wide_range_inputs_card_equal_cpu(dev):
+    """The inputs ROADMAP C.3 logged: stereo_sgbm at D = 320 on 48 x 480,
+    the per-frame stereo_sgbm_hier at D = 512, band 320, G = 8 on 32 x 640."""
+    left, right = (torch.from_numpy(a) for a in scene(seed=2, H=48, W=480))
+    p = StereoSGBMParams(num_disparities=320, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=50,
+                         speckle_range=2)
+    ref = stereo_sgbm(left, right, p)
+    assert torch.equal(stereo_sgbm(left.to(dev), right.to(dev), p).cpu(), ref)
+    left, right = (torch.from_numpy(a) for a in scene(seed=3, H=32, W=640))
+    p = StereoSGBMParams(num_disparities=512, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=30,
+                         speckle_range=2, num_paths=3)
+    hp = hier.HierParams(band=320, granularity=8)
+    ref = hier.stereo_sgbm_hier(left, right, p, hp)
+    assert torch.equal(hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp).cpu(), ref)
+
+
+def _speckle_adversarial(P, H, W):
+    """The speckle_patterns frames cycled over P frames of H x W (cropped,
+    or padded with invalid pixels)."""
+    base = np.full((7, max(H, 72), max(W, 100)), -1.0, np.float32)
+    base[:, :72, :100] = speckle_patterns()
+    return torch.from_numpy(np.stack([base[i % 7, :H, :W] for i in range(P)]))
+
+
+@pytest.mark.parametrize("P,H,W", [(1, 72, 100), (7, 72, 100), (3, 33, 65), (9, 80, 161)])
+@pytest.mark.parametrize("S,cap", [(20, None), (20, 2), (20, 4), (20, 8), (100, 4), (5, None), (1, None)])
+def test_speckle_kernel_adversarial_maps_match_plain(dev, P, H, W, S, cap):
+    """The union-find kernel on shapes made to break it, frame counts 1-9
+    and sizes not a multiple of its 32 x 32 tile, capped and not; its
+    device launches do not depend on R."""
+    disp = _speckle_adversarial(P, H, W)
+    ref = speckle_cuda.speckle_filter_plain(disp, 1.0, S, -1.0, max_diameter=cap)
+    n = speckle_cuda.speckle_filter.device_launches
+    out = speckle_cuda.speckle_filter(disp.to(dev), 1.0, S, -1.0, max_diameter=cap)
+    torch.cuda.synchronize()
+    assert speckle_cuda.speckle_filter.device_launches == n + 5
+    assert torch.equal(out.cpu(), ref)
