@@ -114,9 +114,19 @@ After 18:
  24. disparity ranges and bands above 256 (ROADMAP C.3), card against CPU,
      exact: stereo_sgbm at D = 320 on 48x480, the per-frame stereo_sgbm_hier
      at D = 512, band 320, G = 8 on 32x640, the banded cost at band 256,
-     block 21 (rings in device scratch), BM at ndisp 320 and 1024, and the
-     exact8 pipeline at D = 512 on 240x640 (2 frames), with its launch
-     counts.
+     block 21 (rings in device scratch), BM at ndisp 320, 1024 and 1040,
+     band 1028 through every banded kernel (int16 and int32), and the exact8
+     pipeline at D = 512 on 240x640 (2 frames), at D = 1040 on 240x1280
+     with the LR check and at D = 2064 on 96x2304 without it, with its
+     launch counts;
+ 25. (run right after 5) the exact cost kernel (#1): on the arguments the
+     recorded exact8 call gave it, exact against its plain form, five timed
+     runs, its bound, its tile and the ptxas registers and spills of its
+     instantiations; then its grid (blocks 1-51, D = 16-1040, min_disparity
+     -8, 0 and 16, x_offset 0 and D, int16 and int32, 5-row frames of
+     D + 53 columns), card against plain.
+The downsample kernel's rows carry a library time: torch's avg_pool2d,
+rounded half to even, on the same arguments (equal to the kernel's output).
 Every row of the kernels line names the storage type its volumes ran in
 ("storage"; null for a kernel without a volume) and its ms per level of the
 path ("ms_by_level"); every main path stores int16.
@@ -221,6 +231,14 @@ KERNELS = {
 HIER_KERNEL_NAMES = ("downsample_box", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
                      "lr_fail_packed", "speckle_filter")
 RECORDED_HIER_KERNELS = HIER_KERNEL_NAMES + ("banded_wta_fused",)
+# One PyTorch call computing a kernel's function, timed beside it on its
+# recorded arguments (the port never calls it): the box mean of
+# downsample_box is avg_pool2d's, rounded half to even; its factors are
+# powers of two, so the float32 mean is exact as the reference's division.
+LIBRARY = {
+    "downsample_box": lambda img, f, fx=None: torch.round(
+        torch.nn.functional.avg_pool2d(img.float()[:, None], (f, fx or f)))[:, 0].to(torch.int32),
+}
 # Each kernel's plain form, called with the wrapper's arguments.
 PLAIN = {
     "downsample_box": banded_cuda.downsample_box_plain,
@@ -433,18 +451,77 @@ def phase_main_path(dev, rows: list[dict]) -> tuple[dict, dict, torch.Tensor]:
 
 
 def record_exact_call(dev, disp_main: torch.Tensor) -> list[dict]:
-    """One more exact main-path call with the LR and speckle kernels'
+    """One more exact main-path call with the cost, LR and speckle kernels'
     arguments recorded; its disparity must equal the main path's."""
     maps, Q = rig(H, W)
     frames = [scene(seed=s) for s in range(B)]
     lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
-    targets = {"lr_fail": (lr_cuda, "lr_fail"), "speckle_filter": (sgbm, "speckle_filter")}
+    targets = {"cost": (sgbm, "cost_volume"), "lr_fail": (lr_cuda, "lr_fail"),
+               "speckle_filter": (sgbm, "speckle_filter")}
     with Recorder(targets, ("exact8",), keep=True) as rec:
         disp, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
     torch.cuda.synchronize()
     if not torch.equal(disp, disp_main):
         raise AssertionError("the recorded exact call differs from the main path")
     return rec.calls
+
+
+# The exact cost kernel's grid (phase 25): blocks, disparity ranges (several
+# chunks of 128 and a partial last one above 128), min_disparity, x_offset
+# 0 and D, both storage types; frames of 5 rows (shorter than most blocks)
+# and D + 53 columns (no tile divides them), 2 frames.
+COST_GRID_BLOCKS = (1, 3, 5, 11, 21, 51)
+COST_GRID_RANGES = (16, 48, 128, 256, 1024, 1040)
+
+
+def phase_cost_kernel(dev, record: dict, reports: dict) -> dict:
+    """The exact cost kernel (#1): on the arguments the recorded exact8 call
+    gave it (4 frames of 1280x720, D=128, block 5), exact against its plain
+    form and against the main path's own output, then five timed runs of 10
+    launches, its bound and the tile it took; the registers and spills of
+    its instantiations from the build's ptxas report; then the grid of
+    COST_GRID_BLOCKS x COST_GRID_RANGES x min_disparity -8, 0, 16 x
+    x_offset 0 and D x int16 and int32, card against plain."""
+    args, kwargs = record["args"], record["kwargs"]
+    plain_kw = {k: v for k, v in kwargs.items() if k != "dtype"}
+    kern = lambda: cost_cuda.cost_volume(*args, **kwargs)
+    got = kern()
+    ref = cost_cuda.cost_volume_plain(*args, **plain_kw).to(got.dtype)
+    if got.dtype != torch.int16 or not torch.equal(got, ref) or not torch.equal(got, record["out"]):
+        raise AssertionError("the cost kernel differs from its plain form on the exact8 main path's arguments")
+    del ref
+    runs = [event_ms(kern, 10) for _ in range(5)]
+    left = args[0]
+    nbytes = 2 * left.numel() * 4 + got.numel() * 2
+    b_ms, b_by = bound_ms(nbytes, got.numel() * (20 + 2 * (kwargs["block_size"] - 1)))
+    dev_index = left.device.index or 0
+    tile = cost_cuda._lib().svt_cost_volume_tile(kwargs["ndisp"], kwargs["block_size"], dev_index)
+    ptxas = [line.strip() for line in reports.get("cost", "").splitlines() if "Used" in line or "spill" in line]
+    print(f"kernel cost (exact8 recorded): exact, runs {[round(r, 4) for r in runs]} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}, tile {tile} columns", flush=True)
+    del got
+    t0 = time.perf_counter()
+    cases = 0
+    for bs in COST_GRID_BLOCKS:
+        for nd in COST_GRID_RANGES:
+            rng = np.random.default_rng(nd + bs)
+            l, r = (torch.from_numpy(rng.integers(0, 256, (2, 5, nd + 53)).astype(np.int32)) for _ in range(2))
+            ld, rd = l.to(dev), r.to(dev)
+            for md in (-8, 0, 16):
+                full = cost_cuda.cost_volume_plain(l, r, ndisp=nd, mindisp=md, block_size=bs)
+                for x_off in (0, nd):
+                    for dtype in (torch.int16, torch.int32):
+                        if dtype == torch.int16 and cost_cuda.window_bound(bs, 15) >= 1 << 15:
+                            continue
+                        out = cost_cuda.cost_volume(ld, rd, ndisp=nd, mindisp=md, block_size=bs, x_offset=x_off,
+                                                    dtype=dtype)
+                        if not torch.equal(out.cpu(), full[:, :, x_off:].to(dtype)):
+                            raise AssertionError(f"cost kernel grid: block {bs}, D={nd}, min_disparity {md}, "
+                                                 f"x_offset {x_off}, {dtype} differs from its plain form")
+                        cases += 1
+    grid_s = time.perf_counter() - t0
+    print(f"kernel cost grid: {cases} cases exact ({grid_s:.1f} s)", flush=True)
+    return dict(runs_ms=runs, bound_ms=b_ms, bound_by=b_by, tile=tile, ptxas=ptxas, grid_cases=cases)
 
 
 def phase_breakdown(dev) -> dict:
@@ -665,20 +742,29 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
             raise AssertionError(f"{name} ({c['level']}): a second launch differs from the main path's")
         ms = event_ms(lambda: fn(*args, **kwargs), 5)
         plain_ms = event_ms(lambda: plain(*_head(args, n), **_head(kwargs, n)), 1)
+        lib_ms = None
+        if name in LIBRARY:
+            lib = LIBRARY[name]
+            if not torch.equal(lib(*args, **kwargs), outs[0]):
+                raise AssertionError(f"{name} ({c['level']}): the library call differs from the kernel")
+            lib_ms = event_ms(lambda: lib(*args, **kwargs), 5)
         nbytes = _nbytes(args) + _nbytes(kwargs) + _nbytes(outs)
         nops = _ops(name, args, kwargs, outs[0].numel())
         storage = _storage(name, args, outs[0])
         if storage not in (None, torch.int16):
             raise AssertionError(f"{name} ({c['level']}) ran in {storage} on the {path} main path, not int16")
         a = acc.setdefault(name, dict(ms=0.0, plain_ms=0.0, nbytes=0.0, nops=0.0, frames=outs[0].shape[0],
-                                      storage=storage, levels={}))
+                                      storage=storage, levels={}, library_ms=None))
         a["levels"][c["level"]] = a["levels"].get(c["level"], 0.0) + ms
+        if lib_ms is not None:
+            a["library_ms"] = (a["library_ms"] or 0.0) + lib_ms
         a["ms"] += ms
         a["plain_ms"] += plain_ms
         a["nbytes"] += nbytes
         a["nops"] += nops
+        lib_note = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
         print(f"kernel {name} {c['level']}: exact, {ms:.3f} ms at {outs[0].shape[0]} frames "
-              f"(plain {plain_ms:.3f} ms at {n} frames, bound {bound_ms(nbytes, nops)[0]:.3f} ms)", flush=True)
+              f"(plain {plain_ms:.3f} ms at {n} frames, bound {bound_ms(nbytes, nops)[0]:.3f} ms{lib_note})", flush=True)
         if name == "speckle_filter":
             SPECKLE_RECORDS.setdefault(path, dict(args=args, kwargs=kwargs))
 
@@ -688,7 +774,7 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
         src, replaces = KERNELS[name][1:]
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces, launches=counts[name],
                          max_abs_err=0, ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, path=path, frames=a["frames"], plain_frames=n,
+                         library_ms=a["library_ms"], path=path, frames=a["frames"], plain_frames=n,
                          storage=None if a["storage"] is None else str(a["storage"]).removeprefix("torch."),
                          ms_by_level=a["levels"]))
     return rows
@@ -1411,9 +1497,11 @@ def phase_wide_range(dev) -> dict:
     CPU, exact: stereo_sgbm at D = 320 on 48x480 (8 paths, LR and speckle
     on); the per-frame stereo_sgbm_hier at D = 512, band 320, G = 8 on
     32x640 (p3); the banded cost at band 256, G = 8, ndisp 256, block 21 on
-    (1, 8, 300), where its rings take device scratch; BM at ndisp 320 and
-    1024; then the exact8 pipeline at D = 512 on 240x640, 2 frames, its
-    kernels' launch counts moved."""
+    (1, 8, 300), where its rings take device scratch; BM at ndisp 320, 1024
+    and 1040; band 1028 (ndisp 1040) through every banded kernel in int16
+    and int32; then the exact8 pipeline at D = 512 on 240x640 (2 frames),
+    at D = 1040 on 240x1280 with the LR check and at D = 2064 on 96x2304
+    without it (1 frame each), its kernels' launch counts moved."""
     out = {}
     left, right = (torch.from_numpy(a) for a in scene(seed=2, H=48, W=480))
     p = PARAMS._replace(num_disparities=320)
@@ -1437,7 +1525,7 @@ def phase_wide_range(dev) -> dict:
                       banded_cuda.banded_cost_plain(l, r, s, **kw))
     if err != 0:
         raise AssertionError(f"banded_cost at band 256, block 21 (device scratch): max abs err {err}")
-    for nd in (320, 1024):
+    for nd in (320, 1024, 1040):
         base = rng.integers(0, 256, (2, 24, 2 * nd + 60))
         lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a.astype(np.int32)))
                   for a in (base[..., : nd + 60], base[..., nd - 40: 2 * nd + 20]))
@@ -1446,24 +1534,54 @@ def phase_wide_range(dev) -> dict:
         if not torch.equal(got.cpu(), ref):
             raise AssertionError(f"bm_disparity at ndisp {nd} differs between the card and the CPU")
         out[f"bm ndisp={nd} valid share"] = float((ref > -1).float().mean())
-    h, w, b = 240, 640, 2
-    maps, Q = rig(h, w)
-    frames = [scene(seed=s, H=h, W=w) for s in range(b)]
-    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
-    p = PARAMS._replace(num_disparities=512)
+    K, G, nd = 1028, 4, 1040
+    P1, P2 = P3.P1, P3.P2
+    for dtype, bound in ((torch.int16, 2325), (torch.int32, 40000)):
+        name = str(dtype).removeprefix("torch.")
+        l, r = (torch.from_numpy(rng.integers(0, 256, (2, 9, nd + 60)).astype(np.int32)).to(dev) for _ in range(2))
+        s = torch.from_numpy(cost_shift_map(rng, 2, 9, nd + 60, K, G, nd, 1)).to(dev)
+        kw = dict(band=K, G=G, ndisp=nd, ftzero=P3.ftzero, block_size=P3.block_size, min_x=40, dtype=dtype)
+        err = max_abs_err(banded_cuda.banded_cost(l, r, s, **kw), banded_cuda.banded_cost_plain(l, r, s, **kw))
+        C = torch.from_numpy(rng.integers(0, bound + 1, (2, 7, 45, K))).to(dtype).to(dev)
+        sv = torch.from_numpy(rng.integers(0, 4, (2, 7, 45)) * G + (rng.random((2, 7, 45)) < 0.1)).to(torch.int32)
+        sv = sv.to(dev)
+        for diag in (False, True):
+            err = max(err, max_abs_err(banded_cuda.banded_vertical(C, sv, G, P1, P2, cost_bound=bound,
+                                                                   with_diagonals=diag),
+                                       banded_cuda.vertical_plain(C, sv, G, P1, P2, diag)))
+        for rev in (False, True):
+            err = max(err, max_abs_err(banded_cuda.banded_horizontal(C, sv, G, P1, P2, cost_bound=bound, reverse=rev),
+                                       banded_cuda.horizontal_plain(C, sv, G, P1, P2, rev)))
+        vols = [torch.from_numpy(rng.integers(0, 9000, (2, 7, 45, K))).to(dtype).to(dev) for _ in range(3)]
+        for sub in (False, True):
+            err = max(err, max_abs_err(banded_cuda.banded_wta(vols, P3.uniqueness_ratio, sub),
+                                       banded_cuda.banded_wta_plain(vols, P3.uniqueness_ratio, sub)))
+        if err != 0:
+            raise AssertionError(f"band {K} {name}: a banded kernel differs from its plain form (max abs err {err})")
+        out[f"band {K} {name}"] = "exact"
     wrappers = {"cost": cost_cuda.cost_volume, "vertical": sgm_cuda.vertical, "horizontal": sgm_cuda.horizontal,
                 "wta4": sgm_cuda.wta4, "lr_fail": lr_cuda.lr_fail, "speckle_filter": speckle_cuda.speckle_filter}
-    before = {k: fn.launches for k, fn in wrappers.items()}
-    d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device=dev)
-    counts = {k: fn.launches - before[k] for k, fn in wrappers.items()}
-    d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device="cpu")
-    if min(counts.values()) == 0 or not torch.equal(d_gpu.cpu(), d_cpu):
-        raise AssertionError(f"the exact8 pipeline at D=512 differs between the card and the CPU ({counts})")
-    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
-    out["exact8 D=512 240x640"] = dict(launches=counts, valid_share=float((d_cpu[..., 512:] > -1).float().mean()))
+    for (h, w, b), p in (((240, 640, 2), PARAMS._replace(num_disparities=512)),
+                         ((240, 1280, 1), PARAMS._replace(num_disparities=1040)),
+                         ((96, 2304, 1), PARAMS._replace(num_disparities=2064, disp12_max_diff=-1))):
+        maps, Q = rig(h, w)
+        frames = [scene(seed=s, H=h, W=w) for s in range(b)]
+        lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device=dev)
+        counts = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, params=p, device="cpu")
+        if p.disp12_max_diff < 0:
+            counts.pop("lr_fail")
+        label = f"exact8 D={p.num_disparities} {h}x{w}{'' if p.disp12_max_diff >= 0 else ' (LR check off)'}"
+        if min(counts.values()) == 0 or not torch.equal(d_gpu.cpu(), d_cpu):
+            raise AssertionError(f"{label} differs between the card and the CPU ({counts})")
+        torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+        valid = float((d_cpu[..., p.num_disparities:] > -1).float().mean())
+        out[label] = dict(launches=counts, valid_share=valid)
+        del d_gpu, p_gpu, d_cpu, p_cpu
     print(f"wide ranges, card == CPU: {json.dumps(out)}", flush=True)
     return out
-
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1490,7 +1608,11 @@ def main() -> int:
     e2e, counts, disp = phase_main_path(dev, rows)
     print(f"main path 1280x720 D={D} B={B}: {e2e['ms_per_call']:.2f} ms per call, "
           f"{e2e['mpx_per_s']:.2f} Mpx/s, {e2e['frames_per_s']:.2f} frames/s on {card}", flush=True)
-    rows += phase_recorded_kernels(record_exact_call(dev, disp), counts, B, "exact8")
+    exact_records = record_exact_call(dev, disp)
+    cost_record = next(c for c in exact_records if c["name"] == "cost")
+    rows += phase_recorded_kernels([c for c in exact_records if c["name"] != "cost"], counts, B, "exact8")
+    cost_kernel = phase_cost_kernel(dev, cost_record, reports)
+    del exact_records, cost_record
     breakdown = phase_breakdown(dev)
     print("breakdown ms per 4-frame call:", json.dumps(breakdown), flush=True)
     disp_exact = disp.cpu()  # the fused R->L phase compares with it later
@@ -1572,6 +1694,7 @@ def main() -> int:
                       "geometry": geometry, "banded_horizontal_full_shape": horizontal_bands,
                       "settings": settings, "banded_cost_levels": banded_cost_levels,
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
+                      "cost_kernel": cost_kernel,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,7 @@
 // Layout: banded volumes (P, H, Wv, K) of T, frames on the grid; T is int16
 // where the wrappers find that the volumes' bound fits it and int32
 // otherwise, and every kernel is one template over T. The cost kernel
-// (banded_cost.cu) takes any K % 4 == 0 from 4 to 1024 at run time; the
+// (banded_cost.cu) takes any K % 4 == 0 from 4 at run time; the
 // scans and the WTA here take K up to 64 (banded.cuh: instantiated at the
 // next power of two, K at run time), banded_wide.cu and banded_wide32.cu
 // the bands above 64. The TPU

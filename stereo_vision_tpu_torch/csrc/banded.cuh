@@ -2,7 +2,7 @@
 // banded_wide.cu): lane loads and stores, the carry realignment, the banded
 // SGM step and the WTA statistics.
 //
-// A pixel's band is K lanes, 4 <= K <= 1024 with K % 4 == 0, stored as T
+// A pixel's band is K lanes, K >= 4 with K % 4 == 0, stored as T
 // (int16_t or int). In memory a pixel holds exactly K lanes, so its lanes
 // start on a 4-lane word (8 bytes in int16, 16 in int32) and whole 16-byte
 // words where K % 8 == 0 in int16. In registers a thread holds KP lanes, KP

@@ -1,6 +1,6 @@
 // The banded cost of the hierarchical matcher (matcher="sgbm_hier"):
 // banded_cost_kernel, in a source of its own beside banded.cu, at every band
-// K % 4 == 0 from 4 to 1024, int16 or int32 output. The lane, shift and
+// K % 4 == 0 from 4, int16 or int32 output. The lane, shift and
 // window semantics are banded.cu's (header).
 
 #include <climits>
@@ -469,11 +469,11 @@ SVT_EXPORT long long svt_banded_cost_scratch_bytes(int P, int H, int Wo, int K, 
 // int16 (bytes 2) or int32 (bytes 4), in tiles of TX columns
 // (svt_banded_cost_tile) with the rings in shared memory, or with `scratch`
 // (svt_banded_cost_scratch_bytes of it; TX then unused) in device scratch.
-// K % 4 == 0, 4 <= K <= 1024.
+// K % 4 == 0, K >= 4.
 SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
                                int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride, int TX,
                                int bytes, void* scratch, void* stream) {
-  if (stride < 1 || K < 4 || K > svt::kMaxRange || K % 4 || bs < 1 || bs % 2 == 0) return cudaErrorInvalidValue;
+  if (stride < 1 || K < 4 || K % 4 || bs < 1 || bs % 2 == 0) return cudaErrorInvalidValue;
   if (P == 0 || H == 0 || min_x >= W) return cudaSuccess;
   if (TX < 1 && !scratch) return cudaErrorInvalidValue;
   const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right), s = static_cast<const int*>(shift);

@@ -1,9 +1,11 @@
-// The banded scans and WTA at bands above 64 (64 < K <= 1024, K % 4 == 0):
-// a pixel's lanes spread over a group of 32 threads, LPT = KP / 32 lanes a
+// The banded scans and WTA at bands above 64 (K % 4 == 0): up to 1024, a
+// pixel's lanes spread over a group of 32 threads, LPT = KP / 32 lanes a
 // thread (KP = 128, 256, 512 or 1024; lanes at and past K hold kBig, as
-// banded.cuh sets out). The kernels of banded.cu keep a pixel's lanes in
-// one thread's registers, which stops at 64. One source a storage type
-// (banded_wide.cu: int16, banded_wide32.cu: int32), built beside banded.cu.
+// banded.cuh sets out); above 1024, a warp walks the band in steps of 32
+// with its carry read back from memory (wide_range.cuh: banded_chunk_*
+// below). The kernels of banded.cu keep a pixel's lanes in one thread's
+// registers, which stops at 64. One source a storage type (banded_wide.cu:
+// int16, banded_wide32.cu: int32), built beside banded.cu.
 //
 // Replaces, at these bands, stereo_vision_tpu/stereo/banded_pallas.py:
 //   _vert_kernel:666 without diagonals -> banded_line_kernel (banded_group.cuh)
@@ -12,7 +14,7 @@
 //   _vert_kernel with diagonals         -> banded_wide_diag_kernel;
 //   _horiz_kernel:759                   -> banded_line_kernel over rows (#18);
 //   _wta_kernel:815 (6-stat and sub)    -> banded_wta_wide_kernel.
-// (The cost kernel, banded_cost.cu, takes every K up to 1024 itself.)
+// (The cost kernel, banded_cost.cu, takes every K itself.)
 //
 // What bounds them: bytes, as their forms at K <= 64 (each scan reads one
 // volume and writes one or two); the scans are also chains of dependent
@@ -22,6 +24,7 @@
 #include <climits>
 
 #include "banded_group.cuh"
+#include "wide_range.cuh"
 
 namespace {
 
@@ -201,12 +204,194 @@ banded_wta_wide_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const
   }
 }
 
+// ------------------------------------------------------ bands above 1024
+
+// The line scan (rows: the horizontal scans; columns: the vertical pair
+// without diagonals) above 1024: one warp a line, as banded_line_kernel's
+// groups, its carry the previous pixel's stored lanes.
+template <typename T, bool kColumns>
+__global__ void __launch_bounds__(kWideThreads)
+banded_chunk_line_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __restrict__ out,
+                         T* __restrict__ out_up, int lines, int n, int Wv, int K, int G, int P1, int P2, int reverse) {
+  const int lane = threadIdx.x & 31;
+  const int line = (int)(((long long)blockIdx.x * kWideThreads + threadIdx.x) / 32);
+  if (line >= lines) return;  // whole warp
+  size_t first;
+  T* o = out;
+  bool rev = reverse;
+  if constexpr (kColumns) {
+    const int half = lines / 2, up = line >= half, rem = line - up * half, b = rem / Wv;
+    first = (size_t)b * n * Wv + (rem - b * Wv);
+    o = up ? out_up : out;
+    rev = up;
+  } else {
+    first = (size_t)line * Wv;
+  }
+  const size_t pstride = kColumns ? (size_t)Wv : 1;
+  auto pos = [&](int ti) { return (size_t)(rev ? n - 1 - ti : ti) * pstride; };
+  const T* crow = C + first * K;
+  T* orow = o + first * K;
+  const int* srow = shift + first;
+  int sprev = srow[pos(0)];  // delta 0 at the first step
+  for (int ti = 0; ti < n; ++ti) {
+    const size_t x = pos(ti);
+    const int delta = srow[x] - sprev;
+    sprev = srow[x];
+    const int sh = delta == G ? G : delta == -G ? -G : 0;
+    const bool reset = delta > G || delta < -G;
+    const T* prev = ti == 0 ? nullptr : orow + pos(ti - 1) * K;
+    const T* cp = crow + x * K;
+    T* op = orow + x * K;
+    const int m = svt::band_min(prev, sh, K, lane);
+    for (int k = lane; k < K; k += 32)
+      op[k] = static_cast<T>(svt::band_update(prev, sh, reset, m, static_cast<int>(cp[k]), k, K, P1, P2));
+    __syncwarp();  // the pixel's lanes, stored by every lane, are the next step's carry
+  }
+}
+
+// The 8-path vertical above 1024: banded_wide_diag_kernel with a warp a
+// column and its three carries' band minima taken before the update.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+banded_chunk_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __restrict__ out_dn,
+                         T* __restrict__ out_up, T* scratch, int H, int Wv, int K, int G, int P1, int P2) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int b = blockIdx.x, up = blockIdx.y;
+  const size_t plane = (size_t)Wv * K;
+  T* carry = scratch ? scratch + ((size_t)b * 2 + up) * 6 * plane : reinterpret_cast<T*>(wide_smem);
+  const T* Cb = C + (size_t)b * H * plane;
+  T* Ob = (up ? out_up : out_dn) + (size_t)b * H * plane;
+  const int* Sb = shift + (size_t)b * H * Wv;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const bool two = 2 * G < K;
+  const int reach = two ? 2 * G : G;
+  const int step = up ? -1 : 1;
+  // The realignment of a carry by delta (+-G, and +-2G where `two`).
+  auto shift_of = [&](int delta, bool diag) {
+    return delta == G ? G : delta == -G ? -G : diag && two && delta == 2 * G ? 2 * G
+                                            : diag && two && delta == -2 * G ? -2 * G : 0;
+  };
+  int y = up ? H - 1 : 0;
+  for (int ti = 0; ti < H; ++ti, y += step) {
+    const T* rd = carry + (size_t)(ti & 1) * 3 * plane;  // the previous row's carries: (1,1), (-1,1), vertical
+    T* wr = carry + (size_t)((ti + 1) & 1) * 3 * plane;
+    const int* sp = Sb + (size_t)(y - step) * Wv;  // the previous row's shifts (ti > 0)
+    for (int x = warp; x < Wv; x += nwarps) {
+      const T* cp = Cb + ((size_t)y * Wv + x) * K;
+      const int sy = Sb[(size_t)y * Wv + x];
+      // Carries: 0 vertical (x), 1 (1,1) from x - 1, 2 (-1,1) from x + 1; none
+      // (the cost itself) on the first row or from outside the frame.
+      const T* prev[3] = {nullptr, nullptr, nullptr};
+      int sh[3] = {0, 0, 0}, m[3] = {0, 0, 0};
+      bool reset[3] = {true, true, true};
+      if (ti > 0) {
+        const int px[3] = {x, x - 1, x + 1};
+        const T* src[3] = {rd + 2 * plane, rd, rd + plane};
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          if (px[i] < 0 || px[i] >= Wv) continue;
+          const int delta = sy - sp[px[i]];
+          const int lim = i == 0 ? G : reach;
+          prev[i] = src[i] + (size_t)px[i] * K;
+          sh[i] = shift_of(delta, i > 0);
+          reset[i] = delta > lim || delta < -lim;
+          m[i] = svt::band_min(prev[i], sh[i], K, lane);
+        }
+      }
+      for (int k = lane; k < K; k += 32) {
+        const int c = static_cast<int>(cp[k]);
+        int L[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) L[i] = prev[i] ? svt::band_update(prev[i], sh[i], reset[i], m[i], c, k, K, P1, P2) : c;
+        wr[(size_t)x * K + k] = static_cast<T>(L[1]);
+        wr[plane + (size_t)x * K + k] = static_cast<T>(L[2]);
+        wr[2 * plane + (size_t)x * K + k] = static_cast<T>(L[0]);
+        Ob[((size_t)y * Wv + x) * K + k] = static_cast<T>(L[0] + L[1] + L[2]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The WTA (6-stat and sub) above 1024: one warp a pixel.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+banded_chunk_wta_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const T* __restrict__ v2,
+                        const T* __restrict__ v3, int nvol, int npix, int K, int uniq, int sub, int* __restrict__ minS,
+                        int* __restrict__ best, int* __restrict__ m2, int* __restrict__ m3, int* __restrict__ m4,
+                        uint8_t* __restrict__ uok) {
+  const int p = (int)(((long long)blockIdx.x * kWideThreads + threadIdx.x) / 32);
+  if (p >= npix) return;  // whole warp
+  const int lane = threadIdx.x & 31;
+  const T* const vols[4] = {v0, v1, v2, v3};
+  const size_t base = (size_t)p * K;
+  auto S = [&](int k) {
+    int s = 0;
+    for (int v = 0; v < nvol; ++v) s += static_cast<int>(vols[v][base + k]);
+    return s;
+  };
+  const svt::WideStats ws = svt::wide_wta(S, K, uniq, lane);
+  const WtaStats w{ws.mn, ws.best, ws.sm, ws.s0, ws.sp, ws.ok};
+  if (lane == 0) {
+    minS[p] = w.mn;
+    best[p] = w.bst;
+    uok[p] = w.ok ? 1 : 0;
+    if (sub) {
+      m2[p] = subpixel16(w, K);
+    } else {
+      m2[p] = w.a;
+      m3[p] = w.z;
+      m4[p] = w.c;
+    }
+  }
+}
+
+template <typename T>
+struct ChunkScans {
+  static unsigned blocks(long long warps) { return (unsigned)((warps * 32 + kWideThreads - 1) / kWideThreads); }
+  static cudaError_t vertical(const void* C, const int* s, void* dn, void* up, int P, int H, int Wv, int K, int G,
+                              int P1, int P2, cudaStream_t st) {
+    const int lines = 2 * P * Wv;
+    banded_chunk_line_kernel<T, true><<<blocks(lines), kWideThreads, 0, st>>>(
+        static_cast<const T*>(C), s, static_cast<T*>(dn), static_cast<T*>(up), lines, H, Wv, K, G, P1, P2, 0);
+    return cudaGetLastError();
+  }
+  static cudaError_t horizontal(const void* C, const int* s, void* out, int P, int H, int Wv, int K, int G, int P1,
+                                int P2, int reverse, cudaStream_t st) {
+    const int lines = P * H;
+    banded_chunk_line_kernel<T, false><<<blocks(lines), kWideThreads, 0, st>>>(
+        static_cast<const T*>(C), s, static_cast<T*>(out), nullptr, lines, Wv, Wv, K, G, P1, P2, reverse);
+    return cudaGetLastError();
+  }
+  static cudaError_t diag(const void* C, const int* s, void* dn, void* up, void* scratch, int P, int H, int Wv, int K,
+                          int G, int P1, int P2, cudaStream_t st) {
+    const size_t smem = scratch ? 0 : (size_t)6 * Wv * K * sizeof(T);
+    cudaError_t e = cudaFuncSetAttribute(banded_chunk_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+    banded_chunk_diag_kernel<T><<<dim3(P, 2), kWideThreads, smem, st>>>(
+        static_cast<const T*>(C), s, static_cast<T*>(dn), static_cast<T*>(up), static_cast<T*>(scratch), H, Wv, K, G,
+        P1, P2);
+    return cudaGetLastError();
+  }
+  static cudaError_t wta(const void* const* vp, int nvol, int npix, int K, int uniq, int sub, int* const* maps,
+                         uint8_t* uok, cudaStream_t st) {
+    banded_chunk_wta_kernel<T><<<blocks(npix), kWideThreads, 0, st>>>(
+        static_cast<const T*>(vp[0]), static_cast<const T*>(vp[1]), static_cast<const T*>(vp[2]),
+        static_cast<const T*>(vp[3]), nvol, npix, K, uniq, sub, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
+    return cudaGetLastError();
+  }
+};
+
+// The widest band the register forms take; above it, ChunkScans.
+constexpr int kRegisterBand = 1024;
+
 // ---------------------------------------------------------------- dispatch
 
 // Fn<KP / 32>::run(args...) for 64 < K <= 1024, K % 4 == 0.
 template <template <int> class Fn, typename... Args>
 cudaError_t wide_dispatch(int K, Args... args) {
-  if (K <= 64 || K > svt::kMaxRange || K % 4) return cudaErrorInvalidValue;
+  if (K <= 64 || K > kRegisterBand || K % 4) return cudaErrorInvalidValue;
   if (K <= 128) return Fn<4>::run(args...);
   if (K <= 256) return Fn<8>::run(args...);
   if (K <= 512) return Fn<16>::run(args...);
@@ -281,6 +466,10 @@ int wide_vertical_entry(const void* C, const void* shift, void* dn, void* up, vo
   if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
   const auto s = static_cast<const int*>(shift);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (K > kRegisterBand && K % 4 == 0) {
+    if (diagonals) return ChunkScans<T>::diag(C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, st);
+    return ChunkScans<T>::vertical(C, s, dn, up, P, H, Wv, K, G, P1, P2, st);
+  }
   if (diagonals) return wide_dispatch<WideScans<T>::template Diag>(K, C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, st);
   return wide_dispatch<WideScans<T>::template Vertical>(K, C, s, dn, up, P, H, Wv, K, G, P1, P2, st);
 }
@@ -289,6 +478,9 @@ template <typename T>
 int wide_horizontal_entry(const void* C, const void* shift, void* out, int P, int H, int Wv, int K, int G, int P1,
                           int P2, int reverse, void* stream) {
   if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
+  if (K > kRegisterBand && K % 4 == 0)
+    return ChunkScans<T>::horizontal(C, static_cast<const int*>(shift), out, P, H, Wv, K, G, P1, P2, reverse,
+                                     static_cast<cudaStream_t>(stream));
   return wide_dispatch<WideScans<T>::template Horizontal>(K, C, static_cast<const int*>(shift), out, P, H, Wv, K, G,
                                                           P1, P2, reverse, static_cast<cudaStream_t>(stream));
 }
@@ -301,6 +493,10 @@ int wide_wta_entry(const void* v0, const void* v1, const void* v2, const void* v
   const void* v[4] = {v0, v1, v2, v3};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(m2), static_cast<int*>(m3),
                   static_cast<int*>(m4)};
+  if (K > kRegisterBand && K % 4 == 0)
+    return ChunkScans<T>::wta(static_cast<const void* const*>(v), nvol, npix, K, uniq, sub,
+                              static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
+                              static_cast<cudaStream_t>(stream));
   return wide_dispatch<WideScans<T>::template Wta>(K, static_cast<const void* const*>(v), nvol, npix, K, uniq, sub,
                                                    static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
                                                    static_cast<cudaStream_t>(stream));

@@ -15,9 +15,6 @@ SVT_EXPORT const char* svt_error_string(int err) {
 namespace svt {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-// The widest disparity range or band any kernel takes (the wrappers refuse
-// above it: stereo/cost_cuda.py MAX_RANGE).
-constexpr int kMaxRange = 1024;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 

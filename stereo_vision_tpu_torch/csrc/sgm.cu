@@ -14,7 +14,9 @@
 // Layout: one warp owns the D disparities of one pixel, VPL = D/32 (rounded
 // up to 1, 2, 4, 8, 16 or 32; D <= 1024) consecutive disparities per lane,
 // d = lane*VPL + k. The main paths run VPL <= 8; 16 and 32 are the wide
-// ranges' (their registers and spills are in PERF.md).
+// ranges' (their registers and spills are in PERF.md). Above 1024 each
+// kernel has a form whose warp walks the range in steps of 32 with its
+// carry in device memory (wide_range.cuh): the *_wide kernels below.
 // The d +- 1 neighbours of an SGM step come from the lane's own registers or
 // one shuffle; min over d is a 5-step shuffle reduction, so no step needs a
 // block barrier. Disparities d >= D hold a large sentinel that no min takes.
@@ -52,6 +54,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "wide_range.cuh"
 
 namespace {
 
@@ -326,6 +329,194 @@ horizontal_rl_wta(const T* __restrict__ C, const T* __restrict__ v0, const T* __
   }
 }
 
+// ------------------------------------------------ ranges above 1024
+
+// The forms above 1024 disparities: one warp a pixel (or a row), walking
+// d = lane, lane + 32, ... with wide_sgm_step / wide_wta. A carry is read
+// back from the volume it was stored to (the horizontal scans: the previous
+// column's; the vertical step: Lin), or from a ping-pong pair of rows of
+// scratch (the fused R->L WTA, whose own volume is never stored).
+
+// vertical_step above 1024: the same carry slots, minima and sums.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+vertical_step_wide(const T* __restrict__ C, T* __restrict__ s_dn, T* __restrict__ s_up, const T* __restrict__ Lin,
+                   T* __restrict__ Lout, const int* __restrict__ min_in, int* __restrict__ min_out, int B, int H,
+                   int W, int D, int P1, int P2, int with_diag, int i) {
+  const int lane = threadIdx.x & 31;
+  const int x = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int b = blockIdx.y, set = blockIdx.z;
+  if (x >= W) return;  // whole warp
+  const int row = set == 0 ? i : H - 1 - i;
+  const size_t pix = ((size_t)b * H + row) * W + x;
+  const T* cp = C + pix * D;
+  T* acc = (set == 0 ? s_dn : s_up) + pix * D;
+  const int ndir = with_diag ? 3 : 1;
+  for (int dir = 0; dir < ndir; ++dir) {
+    const int px = x - (dir == 1) + (dir == 2);
+    const size_t slot = ((size_t)(set * 3 + dir) * B + b) * W;
+    const bool zero = i == 0 || px < 0 || px >= W;
+    T* lo = Lout + (slot + x) * D;
+    const int mn = svt::wide_sgm_step<T>(
+        zero ? nullptr : Lin + (slot + px) * D, zero ? 0 : min_in[slot + px],
+        [&](int d) { return static_cast<int>(cp[d]); },
+        [&](int d, int v) {
+          lo[d] = static_cast<T>(v);
+          acc[d] = static_cast<T>(dir == 0 ? v : static_cast<int>(acc[d]) + v);
+        },
+        D, P1, P2, lane);
+    if (lane == 0) min_out[slot + x] = mn;
+  }
+}
+
+// horizontal_scan above 1024: the carry is the previous column's stored L.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+horizontal_scan_wide(const T* __restrict__ C, T* __restrict__ out, int rows, int W, int D, int P1, int P2,
+                     int reverse) {
+  const int lane = threadIdx.x & 31;
+  const int rid = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (rid >= rows) return;  // whole warp
+  const T* crow = C + (size_t)rid * W * D;
+  T* orow = out + (size_t)rid * W * D;
+  int m = 0;
+  for (int t = 0; t < W; ++t) {
+    const int x = reverse ? W - 1 - t : t;
+    const T* cp = crow + (size_t)x * D;
+    T* op = orow + (size_t)x * D;
+    m = svt::wide_sgm_step<T>(
+        t == 0 ? nullptr : orow + (size_t)(reverse ? x + 1 : x - 1) * D, m,
+        [&](int d) { return static_cast<int>(cp[d]); }, [&](int d, int v) { op[d] = static_cast<T>(v); }, D, P1,
+        P2, lane);
+    __syncwarp();  // the column's L, stored by every lane, is the next step's carry
+  }
+}
+
+// The six maps of one pixel from its statistics (lane 0 writes).
+__device__ __forceinline__ void store_stats(const svt::WideStats& w, int lane, long long p, int* __restrict__ minS,
+                                            int* __restrict__ best, int* __restrict__ sm, int* __restrict__ s0,
+                                            int* __restrict__ sp, uint8_t* __restrict__ uok) {
+  if (lane == 0) {
+    minS[p] = w.mn;
+    best[p] = w.best;
+    sm[p] = w.sm;
+    s0[p] = w.s0;
+    sp[p] = w.sp;
+    uok[p] = w.ok ? 1 : 0;
+  }
+}
+
+// wta_kernel above 1024.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+wta_wide_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const T* __restrict__ v2,
+                const T* __restrict__ v3, int nvol, int* __restrict__ minS, int* __restrict__ best,
+                int* __restrict__ sm, int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok,
+                long long npix, int D, int uniq) {
+  const int lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= npix) return;  // whole warp
+  const size_t base = (size_t)p * D;
+  const T* vols[4] = {v0, v1, v2, v3};
+  auto S = [&](int d) {
+    int s = 0;
+    for (int j = 0; j < nvol; ++j) s += static_cast<int>(vols[j][base + d]);
+    return s;
+  };
+  store_stats(svt::wide_wta(S, D, uniq, lane), lane, p, minS, best, sm, s0, sp, uok);
+}
+
+// wta_stats_kernel above 1024.
+__global__ void __launch_bounds__(kWarps * 32)
+wta_stats_wide_kernel(const int* __restrict__ S, int* __restrict__ minS, int* __restrict__ best,
+                      int* __restrict__ sm, int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok,
+                      long long npix, int D, int uniq) {
+  const int lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= npix) return;  // whole warp
+  const int* v = S + (size_t)p * D;
+  store_stats(svt::wide_wta([&](int d) { return v[d]; }, D, uniq, lane), lane, p, minS, best, sm, s0, sp, uok);
+}
+
+// horizontal_rl_wta above 1024: the R->L carry goes through rows (t & 1) of
+// Lbuf, [2][rows][D] of T; at each column the WTA reads it back with the
+// three stored volumes.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+horizontal_rl_wta_wide(const T* __restrict__ C, const T* __restrict__ v0, const T* __restrict__ v1,
+                       const T* __restrict__ v2, T* __restrict__ Lbuf, int rows, int W, int D, int P1, int P2,
+                       int uniq, int* __restrict__ minS, int* __restrict__ best, int* __restrict__ sm,
+                       int* __restrict__ s0, int* __restrict__ sp, uint8_t* __restrict__ uok) {
+  const int lane = threadIdx.x & 31;
+  const int rid = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (rid >= rows) return;  // whole warp
+  const T* crow = C + (size_t)rid * W * D;
+  int m = 0;
+  for (int t = 0; t < W; ++t) {
+    const int x = W - 1 - t;
+    const T* cp = crow + (size_t)x * D;
+    T* cur = Lbuf + ((size_t)(t & 1) * rows + rid) * D;
+    const T* prev = t == 0 ? nullptr : Lbuf + ((size_t)((t + 1) & 1) * rows + rid) * D;
+    m = svt::wide_sgm_step<T>(
+        prev, m, [&](int d) { return static_cast<int>(cp[d]); }, [&](int d, int v) { cur[d] = static_cast<T>(v); },
+        D, P1, P2, lane);
+    __syncwarp();  // cur, stored by every lane, is read back below and carried
+    const long long p = (long long)rid * W + x;
+    const size_t base = (size_t)p * D;
+    auto S = [&](int d) {
+      return static_cast<int>(cur[d]) + static_cast<int>(v0[base + d]) + static_cast<int>(v1[base + d]) +
+             static_cast<int>(v2[base + d]);
+    };
+    store_stats(svt::wide_wta(S, D, uniq, lane), lane, p, minS, best, sm, s0, sp, uok);
+  }
+}
+
+// The launches of the forms above 1024, for the storage type T.
+template <typename T>
+struct Wide {
+  static cudaError_t vertical(const void* C, void* dn, void* up, void* L, void* m, int B, int H, int W, int D, int P1,
+                              int P2, int with_diag, cudaStream_t st) {
+    const size_t lset = (size_t)6 * B * W * D, mset = (size_t)6 * B * W;
+    const dim3 grid((W + kWarps - 1) / kWarps, B, 2);
+    T* Lb = static_cast<T*>(L);
+    int* mb = static_cast<int*>(m);
+    for (int i = 0; i < H; ++i) {
+      const int src = (i + 1) & 1, dst = i & 1;
+      vertical_step_wide<T><<<grid, kWarps * 32, 0, st>>>(static_cast<const T*>(C), static_cast<T*>(dn),
+                                                         static_cast<T*>(up), Lb + src * lset, Lb + dst * lset,
+                                                         mb + src * mset, mb + dst * mset, B, H, W, D, P1, P2,
+                                                         with_diag, i);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+  static cudaError_t horizontal(const void* C, void* out, int rows, int W, int D, int P1, int P2, int reverse,
+                                cudaStream_t st) {
+    horizontal_scan_wide<T><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
+        static_cast<const T*>(C), static_cast<T*>(out), rows, W, D, P1, P2, reverse);
+    return cudaGetLastError();
+  }
+  static cudaError_t wta(const void* const* v, int nvol, int* const* maps, uint8_t* uok, int npix, int D, int uniq,
+                         cudaStream_t st) {
+    wta_wide_kernel<T><<<(npix + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
+        static_cast<const T*>(v[0]), static_cast<const T*>(v[1]), static_cast<const T*>(v[2]),
+        static_cast<const T*>(v[3]), nvol, maps[0], maps[1], maps[2], maps[3], maps[4], uok, npix, D, uniq);
+    return cudaGetLastError();
+  }
+  static cudaError_t rl_wta(const void* C, const void* const* v, void* Lbuf, int rows, int W, int D, int P1, int P2,
+                            int uniq, int* const* maps, uint8_t* uok, cudaStream_t st) {
+    horizontal_rl_wta_wide<T><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
+        static_cast<const T*>(C), static_cast<const T*>(v[0]), static_cast<const T*>(v[1]),
+        static_cast<const T*>(v[2]), static_cast<T*>(Lbuf), rows, W, D, P1, P2, uniq, maps[0], maps[1], maps[2],
+        maps[3], maps[4], uok);
+    return cudaGetLastError();
+  }
+};
+
+// The widest range the register forms take; above it, the forms of Wide.
+constexpr int kRegisterRange = 1024;
+
 template <typename T, int VPL>
 cudaError_t vertical(const T* C, T* s_dn, T* s_up, T* Lbuf, int* mbuf, int B, int H, int W, int D, int P1, int P2,
                      int with_diag, cudaStream_t stream) {
@@ -443,21 +634,30 @@ struct RlWtaFn {
 
 }  // namespace
 
-// (B, H, W, D) cost -> down-set and up-set sums, H launches; every volume
+// (B, H, W, D) cost -> down-set and up-set sums, H launches; any D; every volume
 // int16 (bytes 2) or int32 (bytes 4). Lbuf: 2 x 6 x B x W x D carries of
 // that type; mbuf: 2 x 6 x B x W int32 minima.
 SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* Lbuf, void* mbuf, int B, int H,
                                 int W, int D, int P1, int P2, int with_diag, int bytes, void* stream) {
-  if (D > svt::kMaxRange) return cudaErrorInvalidValue;
-  return dispatch<VerticalFn>(bytes, D, C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag,
-                              static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (D > kRegisterRange) {
+    if (bytes == 2) return Wide<int16_t>::vertical(C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag, st);
+    if (bytes == 4) return Wide<int>::vertical(C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag, st);
+    return cudaErrorInvalidValue;
+  }
+  return dispatch<VerticalFn>(bytes, D, C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag, st);
 }
 
 // (B, H, W, D) cost -> one horizontal direction volume of the same type.
 SVT_EXPORT int svt_sgm_horizontal(const void* C, void* out, int B, int H, int W, int D, int P1, int P2,
                                   int reverse, int bytes, void* stream) {
-  if (D > svt::kMaxRange) return cudaErrorInvalidValue;
-  return dispatch<HorizontalFn>(bytes, D, C, out, B * H, W, D, P1, P2, reverse, static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (D > kRegisterRange) {
+    if (bytes == 2) return Wide<int16_t>::horizontal(C, out, B * H, W, D, P1, P2, reverse, st);
+    if (bytes == 4) return Wide<int>::horizontal(C, out, B * H, W, D, P1, P2, reverse, st);
+    return cudaErrorInvalidValue;
+  }
+  return dispatch<HorizontalFn>(bytes, D, C, out, B * H, W, D, P1, P2, reverse, st);
 }
 
 // nvol (2-4) (npix, D) volumes of one type -> six per-pixel maps (v2, v3
@@ -465,10 +665,17 @@ SVT_EXPORT int svt_sgm_horizontal(const void* C, void* out, int B, int H, int W,
 SVT_EXPORT int svt_sgm_wta(const void* v0, const void* v1, const void* v2, const void* v3, int nvol,
                            void* minS, void* best, void* sm, void* s0, void* sp, void* uok, int npix, int D,
                            int uniq, int bytes, void* stream) {
-  if (D > svt::kMaxRange || D < 3 || nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
+  if (D < 3 || nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
   const void* v[4] = {v0, v1, v2, v3};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
+  if (D > kRegisterRange) {
+    const auto st = static_cast<cudaStream_t>(stream);
+    const auto u = static_cast<uint8_t*>(uok);
+    if (bytes == 2) return Wide<int16_t>::wta(v, nvol, maps, u, npix, D, uniq, st);
+    if (bytes == 4) return Wide<int>::wta(v, nvol, maps, u, npix, D, uniq, st);
+    return cudaErrorInvalidValue;
+  }
   return dispatch<WtaFn>(bytes, D, static_cast<const void* const*>(v), nvol, static_cast<int* const*>(maps),
                          static_cast<uint8_t*>(uok), npix, D, uniq, static_cast<cudaStream_t>(stream));
 }
@@ -476,12 +683,17 @@ SVT_EXPORT int svt_sgm_wta(const void* v0, const void* v1, const void* v2, const
 // One int32 (npix, D) aggregated volume -> six per-pixel maps.
 SVT_EXPORT int svt_sgm_wta_stats(const void* S, void* minS, void* best, void* sm, void* s0, void* sp, void* uok,
                                  long long npix, int D, int uniq, void* stream) {
-  if (D > svt::kMaxRange || D < 3) return cudaErrorInvalidValue;
+  if (D < 3) return cudaErrorInvalidValue;
   const auto s = static_cast<const int*>(S);
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
   const auto u = static_cast<uint8_t*>(uok);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (D > kRegisterRange) {
+    wta_stats_wide_kernel<<<(npix + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(s, maps[0], maps[1], maps[2],
+                                                                                maps[3], maps[4], u, npix, D, uniq);
+    return cudaGetLastError();
+  }
   switch (vpl_for(D)) {
     case 1: return wta_stats<1>(s, maps, u, npix, D, uniq, st);
     case 2: return wta_stats<2>(s, maps, u, npix, D, uniq, st);
@@ -492,15 +704,31 @@ SVT_EXPORT int svt_sgm_wta_stats(const void* S, void* minS, void* best, void* sm
   }
 }
 
+// Bytes of the carry rows svt_sgm_horizontal_rl_wta needs for B x H rows
+// of D disparities stored in `bytes` a value: 0 where the carry stays in
+// registers (D <= 1024).
+SVT_EXPORT long long svt_sgm_rl_wta_scratch_bytes(int B, int H, int D, int bytes) {
+  return D > kRegisterRange ? 2LL * B * H * D * bytes : 0;
+}
+
 // (B, H, W, D) cost + three direction volumes, all of one type -> six
-// per-pixel maps of the four-direction sum, the R->L direction scanned in place.
+// per-pixel maps of the four-direction sum, the R->L direction scanned in
+// place. Lbuf: svt_sgm_rl_wta_scratch_bytes of it (null where that is 0).
 SVT_EXPORT int svt_sgm_horizontal_rl_wta(const void* C, const void* v0, const void* v1, const void* v2, void* minS,
                                          void* best, void* sm, void* s0, void* sp, void* uok, int B, int H, int W,
-                                         int D, int P1, int P2, int uniq, int bytes, void* stream) {
-  if (D > svt::kMaxRange || D < 3) return cudaErrorInvalidValue;
+                                         int D, int P1, int P2, int uniq, int bytes, void* Lbuf, void* stream) {
+  if (D < 3) return cudaErrorInvalidValue;
   const void* v[3] = {v0, v1, v2};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
+  if (D > kRegisterRange) {
+    if (!Lbuf) return cudaErrorInvalidValue;
+    const auto st = static_cast<cudaStream_t>(stream);
+    const auto u = static_cast<uint8_t*>(uok);
+    if (bytes == 2) return Wide<int16_t>::rl_wta(C, v, Lbuf, B * H, W, D, P1, P2, uniq, maps, u, st);
+    if (bytes == 4) return Wide<int>::rl_wta(C, v, Lbuf, B * H, W, D, P1, P2, uniq, maps, u, st);
+    return cudaErrorInvalidValue;
+  }
   return dispatch<RlWtaFn>(bytes, D, C, static_cast<const void* const*>(v), B * H, W, D, P1, P2, uniq,
                            static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
                            static_cast<cudaStream_t>(stream));

@@ -19,3 +19,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_index(t: torch.Tensor) -> int:
+    """The CUDA device index of ``t`` (the current device for a bare ``cuda``)."""
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()

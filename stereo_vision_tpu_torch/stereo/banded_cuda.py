@@ -16,14 +16,15 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain form
 (built from :mod:`.banded`, the port of the JAX scan reference) for CPU
 tensors; ``launches`` on each wrapper counts kernel launches. The layout
 is the port's own: banded volumes are (P, H, Wv, K) with the frames on the
-CUDA grid. The kernels take every band K with K % 4 == 0 and 4 <= K <= 1024
+CUDA grid. The kernels take every band K with K % 4 == 0 and K >= 4
 (:func:`check_band`). The sources: ``csrc/banded_cost.cu`` (the cost kernel
 at every band), ``csrc/banded.cu`` (the scans and the WTA up to K = 64,
 the fused WTA and the downsample), ``csrc/banded_diag.cu``
 (int16) and ``csrc/banded_diag32.cu`` (int32) for the 8-path vertical up to
 K = 64, and ``csrc/banded_wide.cu`` (int16) and ``csrc/banded_wide32.cu``
 (int32) for the scans and the WTA above K = 64, where a pixel's lanes
-spread over a group of 32 threads.
+spread over a group of 32 threads (above 1024, a warp walks them with its
+carry in device memory).
 
 Integer ranges: a windowed cost is at most ``cost_bound`` (block_size^2 *
 (2*ftzero + 63)); a banded SGM update keeps c <= L <= c + P2, so one
@@ -41,8 +42,9 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.device import device_index
 from stereo_vision_tpu_torch.stereo.banded import banded_cost_volume, horizontal_plain, vertical_plain
-from stereo_vision_tpu_torch.stereo.cost_cuda import MAX_RANGE, check_range, cost_dtype
+from stereo_vision_tpu_torch.stereo.cost_cuda import cost_dtype
 from stereo_vision_tpu_torch.stereo.sgbm import subpixel_disp16
 from stereo_vision_tpu_torch.stereo.sgm_cuda import storage_dtype, wta_scan
 
@@ -115,10 +117,6 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _device_index(t: torch.Tensor) -> int:
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
-
-
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
@@ -129,12 +127,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def check_band(K: int) -> None:
     """The bands the CUDA kernels take: K % 4 == 0 (a pixel's lanes then
-    start on a 4-lane word) and 4 <= K <= 1024 (the widest disparity range
-    the exact path's kernels take; above, ROADMAP C.3). Bands above 64
-    spread a pixel's lanes over a group of 32 threads."""
-    check_range(K, "the CUDA banded kernels")
+    start on a 4-lane word) and K >= 4. Bands above 64 spread a pixel's
+    lanes over a group of 32 threads; above 1024 a warp walks them with its
+    carry in device memory."""
     if K % 4 or not 4 <= K:
-        raise ValueError(f"the CUDA banded kernels take a band K with K % 4 == 0 and 4 <= K <= {MAX_RANGE}, got {K}")
+        raise ValueError(f"the CUDA banded kernels take a band K with K % 4 == 0 and K >= 4, got {K}")
 
 
 def _check_shift(s: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -200,7 +197,7 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
     # The kernel's rings take shared memory in proportion to its tile; the
     # tile shrinks until they fit, and where no tile fits they go to device
     # scratch.
-    dev = _device_index(left)
+    dev = device_index(left)
     tile = lib.svt_banded_cost_tile(band, ndisp, block_size, W - min_x, dev)
     nbytes = lib.svt_banded_cost_scratch_bytes(P, H, W - min_x, band, ndisp, block_size, dev) if tile == 0 else 0
     if tile < 0 or nbytes < 0:
@@ -236,7 +233,7 @@ def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_dia
     dn, up = torch.empty_like(C), torch.empty_like(C)
     if K > WIDE_BAND:
         lib = _wide_lib(C)
-        nbytes = lib.svt_banded_wide_diag_scratch_bytes(P, Wv, K, _device_index(C)) if with_diagonals else 0
+        nbytes = lib.svt_banded_wide_diag_scratch_bytes(P, Wv, K, device_index(C)) if with_diagonals else 0
         if nbytes < 0:
             raise RuntimeError(f"svt_banded_wide_diag_scratch_bytes: device query failed on {C.device}")
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
@@ -249,7 +246,7 @@ def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_dia
         # The kernel keeps its carry rows in shared memory where they fit and
         # says how much device scratch it needs where they do not.
         lib = _lib("banded_diag" if C.dtype == torch.int16 else "banded_diag32")
-        nbytes = lib.svt_banded_vertical_diag_scratch_bytes(P, Wv, K, _device_index(C))
+        nbytes = lib.svt_banded_vertical_diag_scratch_bytes(P, Wv, K, device_index(C))
         if nbytes < 0:
             raise ValueError(f"the CUDA diagonal scan does not take {Wv} columns on {C.device}")
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None

@@ -16,21 +16,23 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.device import device_index
 from stereo_vision_tpu_torch.stereo.bm import valid_disparity_plain
-from stereo_vision_tpu_torch.stereo.cost_cuda import check_range
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # lp, rp, out, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, stream
-    "svt_bm_disparity": [_P] * 3 + [_I] * 9 + [_P],
+    # lp, rp, out, B, H, W, D, mindisp, bs, cap, uniq, tex_thr, scratch, stream
+    "svt_bm_disparity": ([_P] * 3 + [_I] * 9 + [_P, _P], _I),
+    # B, H, W, D, mindisp, bs, device -> bytes of device scratch the call needs (-1: refused)
+    "svt_bm_scratch_bytes": ([_I] * 7, ctypes.c_longlong),
 }
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("bm")
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -41,7 +43,8 @@ def bm_disparity(lp, rp, *, ndisp: int, mindisp: int, block_size: int, cap: int,
     from ``mindisp`` (ties to the smallest), cv2's subpixel parabola, and
     ``mindisp - 1`` where the texture sum of |lp - cap| is below ``tex_thr``,
     the uniqueness check (``uniq`` percent) fails or the window's disparity
-    range leaves the frame. The CUDA kernel takes ndisp <= 1024."""
+    range leaves the frame. The CUDA kernel takes any ndisp (above 1024 in
+    its wide form)."""
     if lp.dim() != 3 or lp.shape != rp.shape or lp.device != rp.device:
         raise ValueError(f"expected two (B, H, W) images on one device, got {tuple(lp.shape)}, {tuple(rp.shape)}")
     B, H, W = lp.shape
@@ -56,11 +59,17 @@ def bm_disparity(lp, rp, *, ndisp: int, mindisp: int, block_size: int, cap: int,
         raise ValueError(f"unsupported device {lp.device}")
     if lp.dtype != torch.int32 or rp.dtype != torch.int32 or not (lp.is_contiguous() and rp.is_contiguous()):
         raise TypeError("the CUDA BM kernel takes contiguous int32 images")
-    check_range(ndisp, "the CUDA BM kernel")
     out = torch.empty((B, H - block_size + 1, W - block_size + 1), dtype=torch.float32, device=lp.device)
     lib = _lib()
+    # Above 1024 disparities, or where the window sums of a strip pass a
+    # block's shared memory, the kernel's wide form may keep them in scratch.
+    nbytes = lib.svt_bm_scratch_bytes(B, H, W, ndisp, mindisp, block_size, device_index(lp))
+    if nbytes < 0:
+        raise RuntimeError(f"svt_bm_scratch_bytes: device query failed on {lp.device}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=lp.device) if nbytes else None
     err = lib.svt_bm_disparity(lp.data_ptr(), rp.data_ptr(), out.data_ptr(), B, H, W, ndisp, mindisp, block_size,
-                               cap, uniq, tex_thr, torch.cuda.current_stream(lp.device).cuda_stream)
+                               cap, uniq, tex_thr, None if scratch is None else scratch.data_ptr(),
+                               torch.cuda.current_stream(lp.device).cuda_stream)
     _build.check(lib, err, "svt_bm_disparity")
     bm_disparity.launches += 1
     return out

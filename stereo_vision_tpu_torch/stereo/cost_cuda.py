@@ -26,35 +26,25 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.device import device_index
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # left, right, out, B, H, W, D, mindisp, block_size, ftzero, x_offset, out_bytes, stream
-    "svt_cost_volume": [_P, _P, _P] + [_I] * 9 + [_P],
+    # left, right, out, B, H, W, D, mindisp, block_size, ftzero, x_offset, out_bytes, TX, scratch, stream
+    "svt_cost_volume": ([_P, _P, _P] + [_I] * 10 + [_P, _P], _I),
+    # D, block_size, device -> output columns a block (0: no tile fits, -1: refused)
+    "svt_cost_volume_tile": ([_I] * 3, _I),
+    # B, H, Wo, D, block_size, device -> bytes of device scratch where no tile fits (-1: refused)
+    "svt_cost_volume_scratch_bytes": ([_I] * 6, _LL),
 }
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("cost")
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    # D, block_size -> bytes of shared memory a block of the kernel needs
-    fn = lib.svt_cost_volume_smem
-    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
-
-
-# The widest disparity range (exact path, BM) and band (hier) any CUDA
-# kernel of the port takes; above it the wrappers refuse (ROADMAP C.3).
-MAX_RANGE = 1024
-
-
-def check_range(n: int, what: str) -> None:
-    """Refuse a disparity range or band ``n`` above :data:`MAX_RANGE`."""
-    if n > MAX_RANGE:
-        raise ValueError(f"{what} takes at most {MAX_RANGE} disparities or lanes, got {n}: wider ranges are not "
-                         "ported to the card (ROADMAP C.3)")
 
 
 def window_bound(block_size: int, ftzero: int) -> int:
@@ -176,9 +166,8 @@ def cost_volume(
     cost for columns x >= x_offset, of ``dtype`` (default: int16 where
     :func:`window_bound` fits it, else int32).
 
-    CUDA tensors launch ``csrc/cost.cu`` (odd ``block_size`` whose block
-    fits the device's shared memory, ``ndisp`` <= 1024); CPU tensors run
-    :func:`cost_volume_plain`.
+    CUDA tensors launch ``csrc/cost.cu`` (any odd ``block_size``, any
+    ``ndisp``); CPU tensors run :func:`cost_volume_plain`.
     """
     if left.shape != right.shape or left.dim() != 3:
         raise ValueError(f"expected two (B, H, W) images, got {tuple(left.shape)} and {tuple(right.shape)}")
@@ -197,18 +186,21 @@ def cost_volume(
                                  ftzero=ftzero, x_offset=x_offset).to(dtype)
     if left.device.type != "cuda":
         raise ValueError(f"unsupported device {left.device}")
-    check_range(ndisp, "the CUDA cost kernel")
     lib = _lib()
-    smem = lib.svt_cost_volume_smem(ndisp, block_size)
-    optin = torch.cuda.get_device_properties(left.device).shared_memory_per_block_optin
-    if smem > optin:
-        raise ValueError(f"the CUDA cost kernel at block_size {block_size}, ndisp {ndisp} needs {smem} bytes of "
-                         f"shared memory a block; {left.device} has {optin}")
+    # The kernel's column sums and ring take shared memory in proportion to
+    # its tile; where no tile fits they go to device scratch.
+    dev = device_index(left)
+    tile = lib.svt_cost_volume_tile(ndisp, block_size, dev)
+    nbytes = lib.svt_cost_volume_scratch_bytes(B, H, W - x_offset, ndisp, block_size, dev) if tile == 0 else 0
+    if tile < 0 or nbytes < 0:
+        raise RuntimeError(f"svt_cost_volume: device query failed on {left.device}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=left.device) if tile == 0 else None
     left, right = left.contiguous(), right.contiguous()
     out = torch.empty((B, H, W - x_offset, ndisp), dtype=dtype, device=left.device)
     stream = torch.cuda.current_stream(left.device).cuda_stream
     err = lib.svt_cost_volume(left.data_ptr(), right.data_ptr(), out.data_ptr(), B, H, W, ndisp, mindisp,
-                              block_size, ftzero, x_offset, out.element_size(), stream)
+                              block_size, ftzero, x_offset, out.element_size(), tile,
+                              None if scratch is None else scratch.data_ptr(), stream)
     _build.check(lib, err, "svt_cost_volume")
     cost_volume.launches += 1
     return out

@@ -35,7 +35,6 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
-from stereo_vision_tpu_torch.stereo.cost_cuda import check_range
 
 _BIG = 1 << 29  # out-of-range d±1 neighbour: far above any reachable L
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -48,8 +47,12 @@ _SIGNATURES = {
     "svt_sgm_wta": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 4 + [_P],
     # S, minS, best, sm, s0, sp, uok, npix, D, uniq, stream
     "svt_sgm_wta_stats": [_P] * 7 + [ctypes.c_longlong] + [_I] * 2 + [_P],
-    # C, v0, v1, v2, minS, best, sm, s0, sp, uok, B, H, W, D, P1, P2, uniq, bytes, stream
-    "svt_sgm_horizontal_rl_wta": [_P] * 10 + [_I] * 8 + [_P],
+    # C, v0, v1, v2, minS, best, sm, s0, sp, uok, B, H, W, D, P1, P2, uniq, bytes, Lbuf, stream
+    "svt_sgm_horizontal_rl_wta": [_P] * 10 + [_I] * 8 + [_P, _P],
+}
+_QUERIES = {
+    # B, H, D, bytes -> bytes of the fused R->L WTA's carry rows (0: in registers)
+    "svt_sgm_rl_wta_scratch_bytes": [_I] * 4,
 }
 # Fuse the R->L scan with the WTA in sgm_reduce (horizontal_rl_wta), as
 # sgm_pallas._FUSED_RL_WTA does in the JAX package, and off by default as
@@ -63,6 +66,9 @@ def _lib() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    for name, argtypes in _QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_longlong
     return lib
 
 
@@ -211,7 +217,6 @@ def _check_volume(C: torch.Tensor, P1: int, P2: int, cost_bound: int, ndir: int)
     if C.device.type == "cuda":
         if C.dtype not in (torch.int16, torch.int32) or not C.is_contiguous():
             raise TypeError("the CUDA SGM kernels take a contiguous int16 or int32 cost volume")
-        check_range(C.shape[-1], "the CUDA SGM kernels")
         if C.dtype == torch.int16 and storage_dtype(cost_bound, P2, ndir) == torch.int32:
             return C.to(torch.int32)
     elif C.device.type != "cpu":
@@ -281,7 +286,6 @@ def wta4(volumes, uniqueness_ratio: int):
         raise ValueError(f"expected (B, H, W, D>=3) volumes, got {tuple(v0.shape)}")
     if v0.device.type == "cpu":
         return wta4_plain(volumes, uniqueness_ratio)
-    check_range(v0.shape[-1], "the CUDA WTA kernel")
     if v0.dtype not in (torch.int16, torch.int32) or any(v.dtype != v0.dtype or not v.is_contiguous() for v in volumes):
         raise TypeError("the CUDA WTA kernel takes contiguous volumes of one type, int16 or int32")
     B, H, W, D = v0.shape
@@ -304,7 +308,6 @@ def wta_stats(S, uniqueness_ratio: int):
         return wta_scan(S, S.shape[-1], uniqueness_ratio)
     if S.device.type != "cuda":
         raise ValueError(f"unsupported device {S.device}")
-    check_range(S.shape[-1], "the CUDA WTA kernel")
     if S.dtype != torch.int32 or not S.is_contiguous():
         raise TypeError("the CUDA WTA kernel takes a contiguous int32 volume")
     B, H, W, D = S.shape
@@ -353,16 +356,19 @@ def horizontal_rl_wta(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: i
         return horizontal_rl_wta_plain(C, s_dn, s_up, s_lr, P1, P2, uniqueness_ratio)
     if C.device.type != "cuda":
         raise ValueError(f"unsupported device {C.device}")
-    check_range(C.shape[-1], "the fused R->L WTA kernel")
     if C.dtype not in (torch.int16, torch.int32) or any(t.dtype != C.dtype or not t.is_contiguous()
                                                          for t in (C, *vols)):
         raise TypeError("the fused R->L WTA kernel takes contiguous tensors of one type, int16 or int32")
     B, H, W, D = C.shape
     maps, uok = _maps(C)
     lib = _lib()
+    # Above 1024 disparities the scan's carry goes through a pair of rows of scratch.
+    nbytes = lib.svt_sgm_rl_wta_scratch_bytes(B, H, D, C.element_size())
+    Lbuf = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
     err = lib.svt_sgm_horizontal_rl_wta(C.data_ptr(), *(v.data_ptr() for v in vols),
                                         *(m.data_ptr() for m in maps), uok.data_ptr(), B, H, W, D, P1, P2,
-                                        uniqueness_ratio, C.element_size(), _stream(C))
+                                        uniqueness_ratio, C.element_size(),
+                                        None if Lbuf is None else Lbuf.data_ptr(), _stream(C))
     _build.check(lib, err, "svt_sgm_horizontal_rl_wta")
     horizontal_rl_wta.launches += 1
     return (*maps, uok)

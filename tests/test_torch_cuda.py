@@ -370,10 +370,15 @@ def test_bm_kernel_matches_plain(dev, W, D, bs, mindisp, uniq, tex):
 
 
 def test_bm_kernel_refuses_what_it_does_not_take(dev):
-    lp = torch.zeros((1, 16, 300), dtype=torch.int32, device=dev)
+    """ndisp 1040, once refused, equals the plain form (the kernel's wide
+    form); int16 images are still refused."""
+    left, right = _images(1040, 1, 16, 1100)
+    lp, rp = bm.prefilter_xsobel(left), bm.prefilter_xsobel(right)
     kw = dict(ndisp=16, mindisp=0, block_size=5, cap=31, uniq=15, tex_thr=10)
-    with pytest.raises(ValueError, match="ROADMAP C.3"):
-        bm_cuda.bm_disparity(lp, lp, **dict(kw, ndisp=1040))
+    wide = dict(kw, ndisp=1040)
+    assert torch.equal(bm_cuda.bm_disparity(lp.to(dev), rp.to(dev), **wide).cpu(),
+                       bm_cuda.bm_disparity(lp, rp, **wide))
+    lp = lp.to(dev)
     with pytest.raises(TypeError, match="int32"):
         bm_cuda.bm_disparity(lp.to(torch.int16), lp.to(torch.int16), **kw)
 
@@ -734,11 +739,10 @@ def test_banded_cost_kernel_settings_match_plain(dev, K, G, D, bs, stride, min_x
     assert torch.equal(out.cpu(), ref)
 
 
-def test_banded_cost_kernel_refuses_where_no_tile_fits(dev):
+def test_banded_cost_kernel_takes_scratch_where_no_tile_fits(dev):
     """Band 256 at block 21: one tile's ring of 21 rows of 256-lane costs
     alone passes the shared memory of a block, so the kernel keeps its rings
-    in device scratch; it equals its plain form there (the name is the one
-    the test had while the kernel refused this input)."""
+    in device scratch; it equals its plain form there."""
     left, right = _images(0, 1, 8, 300)
     s = torch.zeros((1, 8, 300), dtype=torch.int32)
     kw = dict(band=256, G=8, ndisp=256, block_size=21)
@@ -798,11 +802,13 @@ def test_hier_band_128_card_equals_cpu(dev):
 # of the exact, banded and BM families, and the union-find speckle kernel.
 
 
-@pytest.mark.parametrize("D", [320, 512, 1024])
+@pytest.mark.parametrize("D", [320, 512, 1024, 1040, 2064])
 @pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
 def test_exact_kernels_wide_ranges_match_plain(dev, D, dtype):
     """The cost kernel and every SGM entry (vertical, both horizontals, the
-    WTA, the one-volume WTA and the fused R->L WTA) at D = 320, 512, 1024."""
+    WTA, the one-volume WTA and the fused R->L WTA) at D = 320, 512, 1024,
+    and above 1024 (the forms that walk the range with their carry in
+    device memory)."""
     left, right = _images(D, 1, 5, D + 40)
     kw = dict(ndisp=D, block_size=3, ftzero=15, x_offset=D - 7)
     C = cost_cuda.cost_volume(left.to(dev), right.to(dev), dtype=dtype, **kw)
@@ -824,29 +830,35 @@ def test_exact_kernels_wide_ranges_match_plain(dev, D, dtype):
                       (sgm_cuda.wta_stats(sum(v.to(torch.int32) for v in vols), 10),
                        sgm_cuda.wta_scan(sum(v.to(torch.int32) for v in cpu), D, 10))):
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
-    with pytest.raises(ValueError, match="ROADMAP C.3"):
-        cost_cuda.cost_volume(left[:, :, :40].to(dev), right[:, :, :40].to(dev), ndisp=1040)
+    narrow = dict(ndisp=D + 16, block_size=5)  # a range wider than the 40-column frame
+    got = cost_cuda.cost_volume(left[:, :, :40].to(dev), right[:, :, :40].to(dev), **narrow)
+    assert torch.equal(got.cpu(), cost_cuda.cost_volume_plain(left[:, :, :40], right[:, :, :40], **narrow))
 
 
-@pytest.mark.parametrize("D,mindisp", [(320, 0), (1024, 0), (512, 16)])
-def test_bm_kernel_wide_ranges_match_plain(dev, D, mindisp):
+@pytest.mark.parametrize("D,mindisp,bs", [(320, 0, 7), (1024, 0, 7), (512, 16, 7), (1040, 0, 7), (2064, 16, 7),
+                                          (1024, 0, 51), (2064, -8, 21), (48, 0, 101)])
+def test_bm_kernel_wide_ranges_match_plain(dev, D, mindisp, bs):
+    """Up to 1024 the register form; above, and where an 8-column strip's
+    window sums pass the shared memory (block 51 at 1024, 101 at 48), the
+    wide form, its sums in device scratch where they do not fit."""
     rng = np.random.default_rng(D)
-    W = D + 80
-    base = rng.integers(0, 256, (2, 21, W + D))
-    left, right = base[..., :W], base[..., D - 40 : D - 40 + W] + rng.integers(-3, 4, (2, 21, W))
+    W = D + 80 + bs  # the window centres that see the whole range: 80
+    base = rng.integers(0, 256, (2, max(21, bs + 4), W + D))
+    left, right = base[..., :W], base[..., D - 40 : D - 40 + W] + rng.integers(-3, 4, (2, base.shape[1], W))
     lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a.astype(np.int32))) for a in (left, right))
-    kw = dict(ndisp=D, mindisp=mindisp, block_size=7, cap=31, uniq=15, tex_thr=10)
+    kw = dict(ndisp=D, mindisp=mindisp, block_size=bs, cap=31, uniq=15, tex_thr=10)
     ref = bm_cuda.bm_disparity(lp, rp, **kw)
     out = bm_cuda.bm_disparity(lp.to(dev), rp.to(dev), **kw)
     assert (ref > mindisp - 1).float().mean() > 0.02 and torch.equal(out.cpu(), ref)
 
 
-@pytest.mark.parametrize("K,G", [(260, 4), (320, 8), (512, 16), (1024, 8)])
+@pytest.mark.parametrize("K,G", [(260, 4), (320, 8), (512, 16), (1024, 8), (1028, 4), (2052, 8)])
 @pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
 def test_wide_band_kernels_above_256_match_plain(dev, K, G, dtype):
-    """Bands 260-1024 (16 and 32 lanes a thread): the cost kernel and the
-    vertical scan with and without diagonals, both horizontals and the WTA
-    (6-stat, sub), on per-pixel random shift maps, as test_wide_band_kernels_match_plain."""
+    """Bands 260-1024 (16 and 32 lanes a thread) and above 1024 (a warp
+    walking the band): the cost kernel and the vertical scan with and
+    without diagonals, both horizontals and the WTA (6-stat, sub), on
+    per-pixel random shift maps, as test_wide_band_kernels_match_plain."""
     P, H, Wv = 2, 7, 37
     rng = np.random.default_rng(K + 1)
     ndisp = K + 64
@@ -877,7 +889,9 @@ def test_wide_band_kernels_above_256_match_plain(dev, K, G, dtype):
 
 def test_wide_range_inputs_card_equal_cpu(dev):
     """The inputs ROADMAP C.3 logged: stereo_sgbm at D = 320 on 48 x 480,
-    the per-frame stereo_sgbm_hier at D = 512, band 320, G = 8 on 32 x 640."""
+    the per-frame stereo_sgbm_hier at D = 512, band 320, G = 8 on 32 x 640;
+    above 1024, stereo_sgbm at D = 1040 with the LR check on 8 x 1100 and
+    at D = 2064 without it, stereo_bm at 1040."""
     left, right = (torch.from_numpy(a) for a in scene(seed=2, H=48, W=480))
     p = StereoSGBMParams(num_disparities=320, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=50,
                          speckle_range=2)
@@ -889,6 +903,14 @@ def test_wide_range_inputs_card_equal_cpu(dev):
     hp = hier.HierParams(band=320, granularity=8)
     ref = hier.stereo_sgbm_hier(left, right, p, hp)
     assert torch.equal(hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp).cpu(), ref)
+    for D, W, lr in ((1040, 1100, 1), (2064, 2130, -1)):
+        left, right = _images(D, 1, 8, W)
+        p = StereoSGBMParams(num_disparities=D, uniqueness_ratio=10, disp12_max_diff=lr, speckle_window_size=20,
+                             speckle_range=2, num_paths=8 if lr >= 0 else 4)
+        assert torch.equal(stereo_sgbm(left.to(dev), right.to(dev), p).cpu(), stereo_sgbm(left, right, p))
+    left, right = _images(7, 1, 16, 1100)
+    p = bm.StereoBMParams(num_disparities=1040, block_size=7)
+    assert torch.equal(bm.stereo_bm(left.to(dev), right.to(dev), p).cpu(), bm.stereo_bm(left, right, p))
 
 
 def _speckle_adversarial(P, H, W):
@@ -912,3 +934,31 @@ def test_speckle_kernel_adversarial_maps_match_plain(dev, P, H, W, S, cap):
     torch.cuda.synchronize()
     assert speckle_cuda.speckle_filter.device_launches == n + 5
     assert torch.equal(out.cpu(), ref)
+
+
+# ----------------------------------------------- the exact cost kernel (#1)
+# Its grid of blocks, strips, tiles and disparity chunks against the plain
+# form: blocks up to 51 (V and the ring in device scratch where no tile
+# fits), D to 1040 (several chunks, a partial last one), negative and
+# positive min_disparity, x_offset 0 and D, both storage types, a width no
+# tile divides and frames shorter than the block.
+
+
+@pytest.mark.parametrize("bs", [1, 3, 5, 11, 21, 51])
+@pytest.mark.parametrize("D", [16, 48, 128, 256, 1024, 1040])
+def test_cost_kernel_grid_matches_plain(dev, bs, D):
+    H, W = 7, D + 16 + 37
+    left, right = _images(D + bs, 2, H, W)
+    ld, rd = left.to(dev), right.to(dev)
+    for mindisp in (-8, 0, 16):
+        full = cost_cuda.cost_volume_plain(left, right, ndisp=D, mindisp=mindisp, block_size=bs)
+        for x_off in (0, D):
+            want = full[:, :, x_off:]
+            for dtype in (torch.int16, torch.int32):
+                if dtype == torch.int16 and cost_cuda.window_bound(bs, 15) >= 1 << 15:
+                    continue
+                n = cost_cuda.cost_volume.launches
+                got = cost_cuda.cost_volume(ld, rd, ndisp=D, mindisp=mindisp, block_size=bs, x_offset=x_off,
+                                            dtype=dtype)
+                assert cost_cuda.cost_volume.launches == n + 1 and got.dtype == dtype
+                assert torch.equal(got.cpu(), want.to(dtype)), (mindisp, x_off, dtype)

@@ -12,7 +12,8 @@ integer or k/16).
   kernel fits a block's shared memory), against JAX's ``banded_cost_volume``.
 
 The CUDA kernels are held to these plain forms on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``). Inputs are numpy-seeded.
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); the limit test holds the
+refusals left to the reference's own. Inputs are numpy-seeded.
 """
 
 import jax
@@ -23,6 +24,7 @@ import torch
 
 from stereo_vision_tpu.stereo import banded as jb
 from stereo_vision_tpu.stereo import bm as jbm
+from stereo_vision_tpu.stereo import lr_pallas as jlr
 from stereo_vision_tpu.stereo import hier as jh
 from stereo_vision_tpu.stereo import sgbm as jsgbm
 from stereo_vision_tpu_torch import convert
@@ -97,13 +99,24 @@ def test_banded_cost_where_no_tile_fits_matches_jax():
 
 
 def test_wide_range_limits():
-    """Ranges and bands up to 1024 pass the wrappers' checks; above, the
-    refusal names ROADMAP C.3."""
-    for n in (257, 320, 512, 1024):
-        cost_cuda.check_range(n, "a kernel")
-        if n % 4 == 0:
-            banded_cuda.check_band(n)
-    for check in (lambda: cost_cuda.check_range(1040, "the CUDA cost kernel"),
-                  lambda: banded_cuda.check_band(1028)):
-        with pytest.raises(ValueError, match="ROADMAP C.3"):
-            check()
+    """The refusals left are the reference's own: the LR check's 11-bit pack
+    field (ndisp + |min_disparity| < 2048), where JAX's LR check asserts the
+    same; bands are taken at every K % 4 == 0, above 1024 too."""
+    for n in (1028, 2052, 4096):
+        banded_cuda.check_band(n)
+    rng = np.random.default_rng(0)
+    for ndisp, mindisp in ((2032, 15), (2048, 0), (2040, 8), (1040, 1100)):
+        refused = ndisp + abs(mindisp) >= 1 << 11
+        Wv = 6
+        W = ndisp + mindisp + Wv
+        best = rng.integers(0, ndisp, (1, 2, Wv)).astype(np.int32)
+        disp = best.astype(np.float32) + mindisp
+        maps = (_t(best * 0 + 5), _t(best), _t(disp))
+        kw = dict(W=W, min_x=ndisp + mindisp, ndisp=ndisp, mindisp=mindisp, max_diff=1)
+        if refused:
+            with pytest.raises(ValueError, match="pack field"):
+                sgbm.lr_fail(*maps, **kw)
+            with pytest.raises(AssertionError, match="pack field"):
+                jlr.lr_fail_pallas(*(jnp.asarray(a[0]) for a in (best * 0 + 5, best, best, best)), W, ndisp, mindisp, 1)
+        else:
+            assert sgbm.lr_fail(*maps, **kw).shape == (1, 2, Wv)
