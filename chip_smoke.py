@@ -124,7 +124,22 @@ After 18:
      runs, its bound, its tile and the ptxas registers and spills of its
      instantiations; then its grid (blocks 1-51, D = 16-1040, min_disparity
      -8, 0 and 16, x_offset 0 and D, int16 and int32, 5-row frames of
-     D + 53 columns), card against plain.
+     D + 53 columns), card against plain;
+ 26. (run right after 15) the BM kernel (#11): five timed runs on the
+     recorded bm1080 call's arguments, then its row form's settings (across
+     the 16-bit packing bound: blocks 31 / 33 at cap 31, 21 / 23 at cap 63,
+     cap 150; odd D, negative and positive min_disparity, ragged and narrow
+     frames, H = block, rejecting thresholds, constant frames whose every
+     disparity ties), card against plain, with the form each takes;
+ 27. (run right after 25) the vertical scan (#2): its cluster plan on the
+     exact8 cost volume the recorded call made (cluster size, columns and
+     warps a block, carries, clusters resident), one device launch,
+     exact on the first frame, five timed runs; then its grid (D = 16, 128,
+     200, 1000; one column to 16 blocks of a cluster; H = 1 to 9; B = 1, 2,
+     5; int16 and int32; with and without diagonals), card against plain.
+The exact8 main path (5) and the two-stage call (13) assert one device launch
+of the vertical scan and print its cluster size; the bm phases (14, 15)
+assert the packed row form.
 The downsample kernel's rows carry a library time: torch's avg_pool2d,
 rounded half to even, on the same arguments (equal to the kernel's output).
 Every row of the kernels line names the storage type its volumes ran in
@@ -422,12 +437,19 @@ def phase_main_path(dev, rows: list[dict]) -> tuple[dict, dict, torch.Tensor]:
                 "wta4": sgm_cuda.wta4, "lr_fail": lr_cuda.lr_fail, "speckle_filter": speckle_cuda.speckle_filter}
     for fn in wrappers.values():
         fn.launches = 0
+    sgm_cuda.vertical.device_launches = 0
     disp, pts = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    print("main path launches:", json.dumps(counts), flush=True)
+    plan = sgm_cuda.vertical.plan
+    print("main path launches:", json.dumps(counts), f"(vertical: {sgm_cuda.vertical.device_launches} device "
+          f"launch, clusters of {plan['cluster']} blocks of {plan['columns']} columns)", flush=True)
+    if sgm_cuda.vertical.device_launches != 1:
+        raise AssertionError(f"the exact8 vertical scan made {sgm_cuda.vertical.device_launches} device launches")
     for row in rows:
         row["launches"] = counts[row["name"]]
+        if row["name"] == "vertical":
+            row.update(device_launches=sgm_cuda.vertical.device_launches, cluster=plan["cluster"])
     if min(counts.values()) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
 
@@ -601,6 +623,8 @@ class Recorder:
         for k, v in vars(fn).items():
             if isinstance(v, int):
                 setattr(wrapper, k, 0)
+            elif isinstance(v, dict):
+                setattr(wrapper, k, dict.fromkeys(v, 0))
         return wrapper
 
     def __enter__(self):
@@ -988,9 +1012,13 @@ def phase_sgm_sites(dev) -> tuple[dict, list[dict]]:
     counted = (sgm_cuda.aggregate_8, sgm_cuda.wta_stats)
     for fn in counted:
         fn.launches = 0
+    sgm_cuda.vertical.device_launches = 0
     maps = sgm_cuda.wta_stats(sgm_cuda.aggregate_8(C, p.P1, p.P2, 8, cost_bound=p.cost_bound), p.uniqueness_ratio)
     torch.cuda.synchronize()
     counts = {"aggregate_8": counted[0].launches, "wta_stats": counted[1].launches}
+    if sgm_cuda.vertical.device_launches != 1:
+        raise AssertionError(f"aggregate_8 made {sgm_cuda.vertical.device_launches} device launches of the "
+                             "vertical scan, not 1")
     print("two-stage reduce launches:", json.dumps(counts), flush=True)
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -1013,6 +1041,10 @@ def check_bm_kernel(dev) -> dict:
         kw = dict(ndisp=p.num_disparities, mindisp=p.min_disparity, block_size=p.block_size, cap=p.prefilter_cap,
                   uniq=p.uniqueness_ratio, tex_thr=p.texture_threshold)
         npix = (480 - p.block_size + 1) * (640 - p.block_size + 1)
+        form = bm_cuda.kernel_form(ndisp=p.num_disparities, mindisp=p.min_disparity, block_size=p.block_size,
+                                   cap=p.prefilter_cap)
+        if form != "packed16":
+            raise AssertionError(f"{label} takes the {form} form of the BM kernel, not packed16")
         row, res = check_kernel("bm_disparity", SOURCES["bm"], KERNELS["bm_disparity"][2],
                                 lambda: bm_cuda.bm_disparity(lp, rp, **kw),
                                 lambda: bm.valid_disparity_plain(lp, rp, **kw), 2 * lp.numel() * 4 + npix * 4,
@@ -1040,12 +1072,14 @@ def phase_bm_small_pipeline(dev) -> None:
 def phase_bm_main_path(dev, lt, rt) -> tuple[dict, dict, torch.Tensor]:
     maps, Q = rig(BM_H, BM_W)
     bm_cuda.bm_disparity.launches = 0
+    bm_cuda.bm_disparity.launches_by_form = dict.fromkeys(bm_cuda.FORMS, 0)
     disp, pts = batched_stereo_pipeline(lt, rt, maps, Q, matcher="bm", params=BM_PARAMS, device=dev)
     torch.cuda.synchronize()
     counts = {"bm_disparity": bm_cuda.bm_disparity.launches}
-    print("bm1080 main path launches:", json.dumps(counts), flush=True)
-    if counts["bm_disparity"] != 1:
-        raise AssertionError(f"the BM main path launched its kernel {counts['bm_disparity']} times, not once")
+    forms = bm_cuda.bm_disparity.launches_by_form
+    print("bm1080 main path launches:", json.dumps(counts), "by form", json.dumps(forms), flush=True)
+    if counts["bm_disparity"] != 1 or forms["packed16"] != 1:
+        raise AssertionError(f"the BM main path did not launch the packed row form once: {counts}, {forms}")
     d = disp.cpu().numpy()
     if d.shape != (BM_B, BM_H, BM_W) or pts.shape != (BM_B, BM_H, BM_W, 3) or not np.isfinite(d).all():
         raise AssertionError(f"bad bm output: disparity {d.shape}, points {tuple(pts.shape)}")
@@ -1583,6 +1617,104 @@ def phase_wide_range(dev) -> dict:
     print(f"wide ranges, card == CPU: {json.dumps(out)}", flush=True)
     return out
 
+
+# Phase 26: the BM row form's settings (the cuda tests'): (W, H, D, block,
+# min_disparity, cap, uniqueness, texture, the form it takes) across the
+# 16-bit packing bound (bs^2 * 2 cap < 2^16) and beside it.
+BM_GRID = ((300, 40, 13, 31, 0, 31, 15, 10, "packed16"), (300, 40, 13, 33, 0, 31, 15, 10, "int32"),
+           (200, 30, 22, 21, 0, 63, 15, 10, "packed16"), (200, 30, 22, 23, 0, 63, 15, 10, "int32"),
+           (130, 12, 7, 5, 3, 31, 40, 60, "packed16"), (260, 9, 37, 5, -9, 31, 15, 10, "packed16"),
+           (60, 7, 30, 7, 16, 31, 15, 10, "packed16"), (500, 5, 64, 5, 0, 31, 15, 10, "packed16"),
+           (301, 11, 33, 3, -1, 31, 0, 0, "packed16"), (250, 9, 48, 9, -4, 150, 15, 10, "int32"),
+           (400, 16, 128, 5, 0, 31, 15, 10, "packed16"))
+
+
+def phase_bm_rows(dev, record: dict) -> dict:
+    """The BM kernel (#11): five timed runs of 5 launches on the arguments the
+    recorded bm1080 call gave it (the packed row form), then BM_GRID, each
+    setting on random frames and on constant ones (every disparity ties), card
+    against the plain form, with the form each took."""
+    args, kwargs = record["args"], record["kwargs"]
+    kern = lambda: bm_cuda.bm_disparity(*args, **kwargs)
+    if not torch.equal(kern(), record["out"]):
+        raise AssertionError("a second launch of the BM kernel differs from the bm1080 main path's")
+    runs = [event_ms(kern, 5) for _ in range(5)]
+    form = bm_cuda.kernel_form(ndisp=kwargs["ndisp"], mindisp=kwargs["mindisp"], block_size=kwargs["block_size"],
+                               cap=kwargs["cap"])
+    print(f"kernel bm_disparity (bm1080 recorded, {form}): runs {[round(r, 4) for r in runs]} ms", flush=True)
+    t0 = time.perf_counter()
+    cases = 0
+    for W_, H_, D_, bs, md, cap, uniq, tex, want in BM_GRID:
+        rng = np.random.default_rng(W_ + D_ + bs)
+        base = rng.integers(0, 256, (2, H_, W_ + 40))
+        left, right = base[..., 20: 20 + W_], base[..., 13: 13 + W_] + rng.integers(-3, 4, (2, H_, W_))
+        lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a.astype(np.int32)), cap) for a in (left, right))
+        flat = torch.full((1, H_, W_), cap, dtype=torch.int32)
+        kw = dict(ndisp=D_, mindisp=md, block_size=bs, cap=cap, uniq=uniq, tex_thr=tex)
+        got_form = bm_cuda.kernel_form(ndisp=D_, mindisp=md, block_size=bs, cap=cap)
+        for lt, rt in ((lp, rp), (flat, flat)):
+            n = bm_cuda.bm_disparity.launches_by_form[want]
+            out = bm_cuda.bm_disparity(lt.to(dev), rt.to(dev), **kw)
+            if (got_form != want or bm_cuda.bm_disparity.launches_by_form[want] != n + 1
+                    or not torch.equal(out.cpu(), bm.valid_disparity_plain(lt, rt, **kw))):
+                raise AssertionError(f"BM grid {W_}x{H_} D={D_} block {bs} min_disparity {md} cap {cap}: the "
+                                     f"{got_form} form (want {want}) differs from the plain form")
+            cases += 1
+    print(f"kernel bm_disparity grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return dict(form=form, runs_ms=runs, grid_cases=cases)
+
+
+# Phase 27: the cluster vertical scan's settings (the cuda tests'): D at 1,
+# 4, 8 and 32 values a lane, (B, H, W) from one column to 16 blocks of a
+# cluster, int16 and int32, with and without diagonals.
+VERTICAL_GRID_D = (16, 128, 200, 1000)
+VERTICAL_GRID_SHAPES = ((1, 1, 1), (5, 2, 2), (1, 7, 37), (2, 9, 300), (1, 3, 1152))
+
+
+def phase_vertical_cluster(dev, C: torch.Tensor) -> dict:
+    """The vertical scan (#2) on the exact8 cost volume the recorded call
+    made: its plan (cluster size, columns and warps a block, where the
+    carries are, clusters resident), exact against its plain form on the
+    first frame, one device launch a call, five timed runs of 5 calls; then
+    the grid, card against plain."""
+    p = PARAMS
+    plan = sgm_cuda.vertical_plan(C)
+    kern = lambda: sgm_cuda.vertical(C, p.P1, p.P2, True, p.cost_bound)
+    n = sgm_cuda.vertical.device_launches
+    got = kern()
+    torch.cuda.synchronize()
+    if sgm_cuda.vertical.device_launches != n + 1:
+        raise AssertionError(f"the vertical scan made {sgm_cuda.vertical.device_launches - n} device launches")
+    ref = sgm_cuda.vertical_plain(C[:1], p.P1, p.P2, True)
+    if any(max_abs_err(a[:1], r) != 0 for a, r in zip(got, ref)):
+        raise AssertionError("the cluster vertical scan differs from its plain form on exact8's cost volume")
+    del got, ref
+    runs = [event_ms(kern, 5) for _ in range(5)]
+    print(f"kernel vertical (exact8 recorded): plan {json.dumps(plan)}, runs {[round(r, 4) for r in runs]} ms",
+          flush=True)
+    t0 = time.perf_counter()
+    cases = 0
+    for D_ in VERTICAL_GRID_D:
+        for B_, H_, W_ in VERTICAL_GRID_SHAPES:
+            for dtype in (torch.int16, torch.int32):
+                rng = np.random.default_rng(D_ + W_ + H_)
+                bound, (P1, P2) = (2325, (200, 800)) if dtype == torch.int16 else (40000, (8, 32000))
+                Cc = torch.from_numpy(rng.integers(0, bound + 1, (B_, H_, W_, D_))).to(dtype)
+                Cd = Cc.to(dev)
+                for diag in (True, False):
+                    n = sgm_cuda.vertical.device_launches
+                    out = sgm_cuda.vertical(Cd, P1, P2, diag, bound)
+                    ok = sgm_cuda.vertical.device_launches == n + 1 and all(
+                        torch.equal(a.cpu().to(torch.int32), r)
+                        for a, r in zip(out, sgm_cuda.vertical_plain(Cc, P1, P2, diag)))
+                    if not ok:
+                        raise AssertionError(f"vertical grid B={B_} H={H_} W={W_} D={D_} {dtype} diagonals={diag} "
+                                             f"(plan {sgm_cuda.vertical_plan(Cd)}) differs from its plain form")
+                    cases += 1
+    print(f"kernel vertical grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return dict(plan=plan, runs_ms=runs, grid_cases=cases)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1612,6 +1744,7 @@ def main() -> int:
     cost_record = next(c for c in exact_records if c["name"] == "cost")
     rows += phase_recorded_kernels([c for c in exact_records if c["name"] != "cost"], counts, B, "exact8")
     cost_kernel = phase_cost_kernel(dev, cost_record, reports)
+    vertical_cluster = phase_vertical_cluster(dev, cost_record["out"])
     del exact_records, cost_record
     breakdown = phase_breakdown(dev)
     print("breakdown ms per 4-frame call:", json.dumps(breakdown), flush=True)
@@ -1677,6 +1810,7 @@ def main() -> int:
     print(f"bm1080 breakdown ms per {BM_B}-frame call:", json.dumps(bm_breakdown), flush=True)
     _, records = record_bm_call(dev, lt, rt, bm_disp, keep=True)
     rows += phase_recorded_kernels(records, counts, BM_PLAIN_FRAMES, "bm1080")
+    bm_rows = phase_bm_rows(dev, records[0])
     del lt, rt, bm_disp, records
     torch.cuda.empty_cache()
     speckle = phase_speckle(dev)
@@ -1694,7 +1828,7 @@ def main() -> int:
                       "geometry": geometry, "banded_horizontal_full_shape": horizontal_bands,
                       "settings": settings, "banded_cost_levels": banded_cost_levels,
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
-                      "cost_kernel": cost_kernel,
+                      "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

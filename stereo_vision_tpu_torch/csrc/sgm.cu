@@ -1,7 +1,7 @@
 // Semi-global aggregation and winner-take-all for exact SGBM.
 //
 // Replaces the kernel bodies of stereo_vision_tpu/stereo/sgm_pallas.py:
-//   _vertical_kernel   -> vertical_step  (3 down + 3 up directions; the
+//   _vertical_kernel   -> vertical_cluster (3 down + 3 up directions; the
 //                         sgm_reduce_pallas and aggregate_8_pallas sites)
 //   _horizontal_kernel -> horizontal_scan (L->R, or R->L; both sites)
 //   _wta4_kernel       -> wta_kernel     (sum of 2-4 direction volumes ->
@@ -33,14 +33,15 @@
 // the cost and three volumes (850 MB) and writes only the maps. The scans
 // are also latency-bound chains: H (or W) dependent steps.
 //
-// Vertical design: a diagonal moves one column per row, so no block can own
-// a column strip, and blocks carry nothing between them. One launch per row
-// step (row i for the down set, row H-1-i for the up set, both in the same
-// launch) with the six carries ping-ponged in global memory: a carry set is
-// 6*B*W*D int16 (7 MB at 720p, B=4), which stays in the 50 MB L2. This was
-// chosen over a persistent cooperative kernel with a grid-wide barrier per
-// row because it needs no co-residency limit on the grid and is simple;
-// its cost is one launch (a few us) per row.
+// Vertical design (redesigned for Hopper): a diagonal moves one
+// column per row, so a block that owns a column strip needs its neighbours'
+// edge carries every row. The first design launched once a row (720
+// launches an exact8 call, 9.3 us each, carries round-tripping through L2).
+// vertical_cluster makes it one launch: a thread block cluster per (frame,
+// set) whose blocks split the columns and walk all H rows, the carries in
+// shared memory, the strip edges' carries read from the neighbour blocks'
+// shared memory (distributed shared memory) behind a split cluster barrier
+// a row.
 //
 // Horizontal design: one warp per (frame, row) keeps its carry in registers
 // and walks the W columns, prefetching the next column's costs.
@@ -51,10 +52,16 @@
 // registers, and the reduction's shuffles lengthen the scan's serial chain
 // (the trade the reference measured; sgm_cuda._FUSED_RL_WTA picks the form).
 
+#include <algorithm>
+#include <cstdint>
 #include <type_traits>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "wide_range.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -141,45 +148,262 @@ __device__ __forceinline__ int sgm_step(const int (&c)[VPL], const int (&L)[VPL]
   return warp_min(m);
 }
 
-// Row step i of the vertical scans. blockIdx.z = 0: down set on row i;
-// 1: up set on row H-1-i (the reference's y-flipped scan, with the SAME
-// column-shift directions). Carry slots: [set*3 + dir][b][x][d], dir 0 =
-// vertical, 1 = predecessor at x-1, 2 = predecessor at x+1; a predecessor
-// outside the image is a zero carry, as is every carry at i = 0.
-template <typename T, int VPL>
-__global__ void __launch_bounds__(kWarps * 32)
-vertical_step(const T* __restrict__ C, T* __restrict__ s_dn, T* __restrict__ s_up,
-              const T* __restrict__ Lin, T* __restrict__ Lout, const int* __restrict__ min_in,
-              int* __restrict__ min_out, int B, int H, int W, int D, int P1, int P2, int with_diag, int i) {
-  const int lane = threadIdx.x & 31;
-  const int x = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int b = blockIdx.y, set = blockIdx.z;
-  if (x >= W) return;  // whole warp
-  const int row = set == 0 ? i : H - 1 - i;
-  int c[VPL];
-  load_vec<T, VPL>(C + (((size_t)b * H + row) * W + x) * D, D, lane, c, 0);
-  int acc[VPL];
+// ------------------------------------------------ the vertical scans
+
+// One thread block cluster per (frame, set): blockIdx.y = frame, blockIdx.z
+// = set (0: the down set on rows 0..H-1; 1: the up set on rows H-1..0, the
+// reference's y-flipped scan with the SAME column shifts), blockIdx.x = the
+// block's rank in its cluster of CS blocks, which owns columns rank * SW ..
+// rank * SW + SW - 1. Every block walks all H rows; a warp takes a column at
+// a time (d over its lanes, VPL a lane, as the other scans). Its three
+// carries (dir 0 vertical, 1 from x-1, 2 from x+1) of the previous row are
+// read from a ping-pong pair of carry rows, [slot][dir][column][d], in the
+// block's shared memory (or, where they do not fit, in a slot of device
+// scratch), and those of the columns beside the strip from the neighbour
+// blocks' (distributed shared memory). A row: the strip's two edge columns
+// first, then barrier.cluster.arrive.release, the interior columns, the
+// block barrier, and barrier.cluster.wait.acquire before the next row reads
+// the neighbours' edge carries, so the interior columns hide the cluster
+// barrier. A predecessor outside the frame, and every carry at the first
+// row, is the zero carry.
+
+__host__ __device__ constexpr int vertical_warps(int vpl) { return vpl <= 4 ? 32 : vpl == 8 ? 16 : 8; }
+
+// The packed int16 step: a lane's VPL values as N = VPL / 2 words of two
+// unsigned 16-bit halves (d = lane * VPL + 2w, + 1; D % VPL == 0, so lanes
+// from lane_out = D / VPL on hold none, and their values are never stored,
+// taken into the minimum or seen as a neighbour), every real value below
+// kPackedOut (int16 storage of three carries bounds each by cost_bound + P2
+// < 2^15 / 3, and minL + P2 by 2^15 * 2 / 3),
+// and d >= D at kPackedOut, so that kPackedOut + P1 never wraps (P1 <=
+// kPackedOut). L'[d] = c + min(L, L[d-1] + P1, L[d+1] + P1, minL + P2) - minL
+// in four 16x2 operations a word, the neighbours by byte permutes and a
+// shuffle at the lane's ends; returns min over d of L'.
+constexpr unsigned kPackedOut = 0x7fffu;
+constexpr unsigned kPackedOut2 = 0x7fff7fffu;
+
+template <int N>
+__device__ __forceinline__ int sgm_step_packed(const unsigned (&c)[N], const unsigned (&L)[N], int minL, int P1,
+                                               int P2, int lane, int lane_out, unsigned (&Ln)[N]) {
+  unsigned below = __shfl_up_sync(kFullMask, L[N - 1], 1);  // its high half: L at d = lane * VPL - 1
+  unsigned above = __shfl_down_sync(kFullMask, L[0], 1);    // its low half: L at d = lane * VPL + VPL
+  if (lane == 0) below = kPackedOut2;
+  if (lane + 1 >= lane_out) above = kPackedOut2;  // lanes from lane_out on hold no disparity
+  unsigned Lm[N + 1];  // Lm[w]: L at d - 1 of word w; Lm[w + 1] is L at d + 1 of word w
+  Lm[0] = __byte_perm(below, L[0], 0x5432);
 #pragma unroll
-  for (int k = 0; k < VPL; ++k) acc[k] = 0;
-  const int ndir = with_diag ? 3 : 1;
-  for (int dir = 0; dir < ndir; ++dir) {
-    const int px = x - (dir == 1) + (dir == 2);
-    const size_t slot = ((size_t)(set * 3 + dir) * B + b) * W;
-    int L[VPL], Ln[VPL];
-    int m = 0;
-    if (i == 0 || px < 0 || px >= W) {
-      zero_carry<VPL>(D, lane, L);
-    } else {
-      load_vec<T, VPL>(Lin + (slot + px) * D, D, lane, L, kBig);
-      m = min_in[slot + px];
-    }
-    const int mn = sgm_step<VPL>(c, L, m, P1, P2, D, lane, Ln);
-    store_vec<T, VPL>(Lout + (slot + x) * D, D, lane, Ln);
-    if (lane == 0) min_out[slot + x] = mn;
+  for (int w = 1; w < N; ++w) Lm[w] = __byte_perm(L[w - 1], L[w], 0x5432);
+  Lm[N] = __byte_perm(L[N - 1], above, 0x5432);
+  const unsigned m2 = (unsigned)minL * 0x10001u, p1 = (unsigned)P1 * 0x10001u;
+  const unsigned mp2 = (unsigned)(minL + P2) * 0x10001u;
+  unsigned lo = 0xffffffffu;
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) acc[k] += Ln[k];
+  for (int w = 0; w < N; ++w) {
+    const unsigned cand = __viaddmin_u16x2(__vminu2(Lm[w], Lm[w + 1]), p1, __vminu2(L[w], mp2));
+    Ln[w] = __vadd2(__vsub2(cand, m2), c[w]);  // cand >= minL: no borrow
+    lo = __vminu2(lo, Ln[w]);
   }
-  store_vec<T, VPL>((set == 0 ? s_dn : s_up) + (((size_t)b * H + row) * W + x) * D, D, lane, acc);
+  return (int)__reduce_min_sync(kFullMask, lane < lane_out ? min(lo & 0xffffu, lo >> 16) : 0xffffffffu);
+}
+
+// A lane's N words of a D-vector of int16 at p (D % (2N) == 0); lanes past D
+// read nothing and get `fill`.
+template <int N>
+__device__ __forceinline__ void load_words(const int16_t* p, int D, int lane, unsigned (&w)[N], unsigned fill) {
+  if (lane * 2 * N >= D) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) w[k] = fill;
+  } else if constexpr (N == 1) {
+    w[0] = reinterpret_cast<const unsigned*>(p)[lane];
+  } else if constexpr (N == 2) {
+    const uint2 v = reinterpret_cast<const uint2*>(p)[lane];
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    const uint4 v = reinterpret_cast<const uint4*>(p)[lane];
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_words(int16_t* p, int D, int lane, const unsigned (&w)[N]) {
+  if (lane * 2 * N >= D) return;
+  if constexpr (N == 1)
+    reinterpret_cast<unsigned*>(p)[lane] = w[0];
+  else if constexpr (N == 2)
+    reinterpret_cast<uint2*>(p)[lane] = make_uint2(w[0], w[1]);
+  else
+    reinterpret_cast<uint4*>(p)[lane] = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+struct VerticalArgs {
+  const void* C;
+  void* s_dn;
+  void* s_up;
+  void* scratch;  // the carry rows of every block where they are not in shared memory
+  int B, H, W, D, P1, P2, with_diag;
+  int SW;  // columns a block
+};
+
+__host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Bytes of a block's carry rows (T [2][3][SW][D]) and their minima (int [2][3][SW]).
+__host__ __device__ constexpr size_t carry_bytes(int SW, int D, int elem) {
+  return round16((size_t)6 * SW * D * elem) + round16((size_t)6 * SW * 4);
+}
+
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+
+// kPacked: the packed int16 step (sgm_step_packed; int16, VPL 2, 4 or 8,
+// D % VPL == 0, with diagonals); else the int32 step of the other scans.
+// kSmem: the carry rows in shared memory (else in scratch), so that the
+// compiler addresses this block's as shared memory.
+template <typename T, int VPL, bool kPacked, bool kSmem>
+__global__ void __launch_bounds__(vertical_warps(VPL) * 32)
+vertical_cluster(VerticalArgs a) {
+  static_assert(!kPacked || (std::is_same<T, int16_t>::value && VPL % 2 == 0 && VPL <= 8), "packed: int16, VPL 2-8");
+  constexpr int N = kPacked ? VPL / 2 : VPL;  // registers a lane holds of a D-vector
+  using Reg = typename std::conditional<kPacked, unsigned, int>::type;
+  extern __shared__ __align__(16) unsigned char vsm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank()), CS = static_cast<int>(cluster.num_blocks());
+  const int b = blockIdx.y, set = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, NW = blockDim.x >> 5;
+  const int H = a.H, W = a.W, D = a.D, SW = a.SW;
+  const int x0 = rank * SW, n = max(0, min(SW, W - x0));  // this block's columns
+  const size_t cset = (size_t)6 * SW * D;
+  const size_t region = carry_bytes(SW, D, sizeof(T));
+  unsigned char* mine = kSmem ? vsm : static_cast<unsigned char*>(a.scratch) +
+                                         ((size_t)(set * a.B + b) * CS + rank) * region;
+  // The carry rows and minima of this block and of its neighbours.
+  auto carries = [&](unsigned char* base) { return reinterpret_cast<T*>(base); };
+  auto minima = [&](unsigned char* base) { return reinterpret_cast<int*>(base + round16(cset * sizeof(T))); };
+  unsigned char* left = nullptr;
+  unsigned char* right = nullptr;
+  if (rank > 0) left = kSmem ? cluster.map_shared_rank(mine, rank - 1) : mine - region;
+  if (rank + 1 < CS) right = kSmem ? cluster.map_shared_rank(mine, rank + 1) : mine + region;
+  T* car = carries(mine);
+  int* mins = minima(mine);
+
+  const T* C = static_cast<const T*>(a.C) + (size_t)b * H * W * D;
+  T* S = static_cast<T*>(set ? a.s_up : a.s_dn) + (size_t)b * H * W * D;
+  const int ndir = a.with_diag ? 3 : 1;
+  auto row_of = [&](int i) { return set == 0 ? i : H - 1 - i; };
+
+  // Roles: with three warps or more, warp 0 takes the strip's first column
+  // and warp 1 its last (the columns whose carries the neighbour blocks
+  // read), the other warps the interior. The edge warps arrive at the
+  // cluster barrier with release semantics once their carries are stored,
+  // before their sums; the interior warps arrive relaxed, before their
+  // columns, so that no arrival waits for the interior's stores to drain.
+  const bool roles = NW >= 3;
+  const bool edge_warp = roles && warp < 2;
+  const int last = n - 1;
+  // This warp's columns of a row: j0, j0 + dj, ... below j1.
+  const int j0 = edge_warp ? (warp == 0 ? 0 : last > 0 ? last : n) : roles ? warp - 1 : warp;
+  const int dj = edge_warp ? n : roles ? NW - 2 : NW;
+  const int j1 = edge_warp ? n : roles ? last : n;
+
+  // A lane's registers of a D-vector: packed words, or int32 values (entries
+  // past D at `fill` / kBig).
+  auto load = [&](const T* p, Reg (&r)[N], bool carry) {
+    if constexpr (kPacked)
+      load_words<N>(p, D, lane, r, carry ? kPackedOut2 : 0u);
+    else
+      load_vec<T, VPL>(p, D, lane, r, carry ? kBig : 0);
+  };
+  auto store = [&](T* p, const Reg (&r)[N]) {
+    if constexpr (kPacked)
+      store_words<N>(p, D, lane, r);
+    else
+      store_vec<T, VPL>(p, D, lane, r);
+  };
+  Reg pad[N];  // the zero carry: 0, and the padding's out-of-range value
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if constexpr (kPacked)
+      pad[k] = lane * VPL >= D ? kPackedOut2 : 0u;
+    else
+      pad[k] = lane * VPL + k < D ? 0 : kBig;
+  }
+  // The packed step's lanes: those past D hold no disparity (D % VPL == 0),
+  // and the last that does sees the padding above it.
+  const int lane_out = D / VPL;
+
+  // Column j of row step i: its ndir carries from the previous row's (loads,
+  // steps, stores, so that the steps' reductions overlap), their sum in acc.
+  // Offsets are int elements from the row's bases (carries: [slot][dir][SW][D]).
+  Reg acc[N];
+  const int SWD = SW * D;
+  const T* crow = nullptr;  // this row's costs of column 0 of the strip
+  int prv3 = 0, cur3 = 0;   // the previous and this row's carry slot, times 3
+  auto column = [&](int i, int j) {
+    Reg c[N], L[3][N], Ln[3][N];
+    int m[3], mn[3];
+    const int jo = j * D;
+    load(crow + jo, c, false);
+#pragma unroll
+    for (int dir = 0; dir < 3; ++dir) {
+      if (dir >= ndir) break;
+      const int dd = dir == 1 ? -1 : dir == 2 ? 1 : 0, pj = j + dd;  // the predecessor's column
+      if (i == 0 || x0 + pj < 0 || x0 + pj >= W) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) L[dir][k] = pad[k];
+        m[dir] = 0;
+      } else if (pj < 0 || pj >= SW) {  // a neighbour block's edge column
+        unsigned char* base = pj < 0 ? left : right;
+        const int col = pj < 0 ? SW - 1 : 0;
+        load(carries(base) + (prv3 + dir) * SWD + col * D, L[dir], true);
+        m[dir] = minima(base)[(prv3 + dir) * SW + col];
+      } else {
+        load(car + (prv3 + dir) * SWD + jo + dd * D, L[dir], true);
+        m[dir] = mins[(prv3 + dir) * SW + pj];
+      }
+    }
+#pragma unroll
+    for (int dir = 0; dir < 3; ++dir) {
+      if (dir >= ndir) break;
+      if constexpr (kPacked)
+        mn[dir] = sgm_step_packed<N>(c, L[dir], m[dir], a.P1, a.P2, lane, lane_out, Ln[dir]);
+      else
+        mn[dir] = sgm_step<VPL>(c, L[dir], m[dir], a.P1, a.P2, D, lane, Ln[dir]);
+    }
+#pragma unroll
+    for (int dir = 0; dir < 3; ++dir) {
+      if (dir >= ndir) break;
+      store(car + (cur3 + dir) * SWD + jo, Ln[dir]);
+      if (lane == 0) mins[(cur3 + dir) * SW + j] = mn[dir];
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if constexpr (kPacked)
+        acc[k] = ndir == 3 ? __vadd2(Ln[0][k], __vadd2(Ln[1][k], Ln[2][k])) : Ln[0][k];
+      else
+        acc[k] = ndir == 3 ? Ln[0][k] + Ln[1][k] + Ln[2][k] : Ln[0][k];
+    }
+  };
+  cluster.sync();  // every block of the cluster runs before any reads another's shared memory
+  const bool diag = ndir == 3;
+  const bool early = roles && !edge_warp;  // arrives before its columns
+  for (int i = 0; i < H; ++i) {
+    if (diag && early) cluster_arrive_relaxed();
+    crow = C + ((size_t)row_of(i) * W + x0) * D;
+    cur3 = (i & 1) * 3;
+    prv3 = 3 - cur3;
+    T* srow = S + ((size_t)row_of(i) * W + x0) * D;
+    for (int j = j0; j < j1; j += dj) {
+      column(i, j);
+      if (edge_warp && diag) cluster_arrive();  // the edge carries are written
+      store(srow + j * D, acc);
+    }
+    if (diag && !early && !edge_warp) cluster_arrive();  // one or two warps a block: after every column
+    if (diag && edge_warp && j0 >= j1) cluster_arrive();  // an edge warp without a column
+    __syncthreads();
+    if (diag) cluster_wait();
+  }
 }
 
 // One warp per (frame, row): the L->R (reverse: R->L) scan over W columns.
@@ -337,7 +561,9 @@ horizontal_rl_wta(const T* __restrict__ C, const T* __restrict__ v0, const T* __
 // column's; the vertical step: Lin), or from a ping-pong pair of rows of
 // scratch (the fused R->L WTA, whose own volume is never stored).
 
-// vertical_step above 1024: the same carry slots, minima and sums.
+// The vertical scans above 1024: one launch a row step (row i of the down
+// set, row H-1-i of the up set), the carries ping-ponged through device
+// memory, [slot][set * 3 + dir][b][x][d].
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 vertical_step_wide(const T* __restrict__ C, T* __restrict__ s_dn, T* __restrict__ s_up, const T* __restrict__ Lin,
@@ -518,22 +744,6 @@ struct Wide {
 constexpr int kRegisterRange = 1024;
 
 template <typename T, int VPL>
-cudaError_t vertical(const T* C, T* s_dn, T* s_up, T* Lbuf, int* mbuf, int B, int H, int W, int D, int P1, int P2,
-                     int with_diag, cudaStream_t stream) {
-  const size_t lset = (size_t)6 * B * W * D, mset = (size_t)6 * B * W;
-  const dim3 grid((W + kWarps - 1) / kWarps, B, 2);
-  for (int i = 0; i < H; ++i) {
-    const int src = (i + 1) & 1, dst = i & 1;
-    vertical_step<T, VPL><<<grid, kWarps * 32, 0, stream>>>(C, s_dn, s_up, Lbuf + src * lset, Lbuf + dst * lset,
-                                                            mbuf + src * mset, mbuf + dst * mset, B, H, W, D, P1,
-                                                            P2, with_diag, i);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
-}
-
-template <typename T, int VPL>
 cudaError_t horizontal(const T* C, T* out, int rows, int W, int D, int P1, int P2, int reverse,
                        cudaStream_t stream) {
   horizontal_scan<T, VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(C, out, rows, W, D, P1, P2,
@@ -596,12 +806,99 @@ cudaError_t dispatch(int bytes, int D, Args... args) {
   return cudaErrorInvalidValue;
 }
 
+// The vertical scans' launch geometry: the cluster size CS (16, 8, 4, 2 or
+// 1 blocks, at most W), SW = ceil(W / CS) columns a block, NW warps a block,
+// whether the carry rows are in shared memory, the clusters the card holds
+// at once, the shared-memory and scratch bytes, and the device launches of
+// the call.
+struct VerticalPlan {
+  long long CS, SW, NW, smem_carry, active, smem, scratch, launches;
+};
+
+cudaLaunchConfig_t cluster_config(int CS, int B, int NW, size_t smem, cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS, B, 2);
+  cfg.blockDim = dim3(32 * NW);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CS;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster kernel a call runs: the packed int16 step where it applies,
+// the carries where the plan put them.
+template <typename T, int VPL>
+auto vertical_kernel(int D, int P1, int with_diag, bool smem) {
+  constexpr bool kPackable = std::is_same<T, int16_t>::value && (VPL == 2 || VPL == 4 || VPL == 8);
+  if constexpr (kPackable) {
+    // Where int16 storage holds three carries every value is below 2^15 / 3,
+    // so minL + P2 < 2^15 too.
+    if (with_diag && D % VPL == 0 && P1 <= (int)kPackedOut)
+      return smem ? vertical_cluster<T, VPL, true, true> : vertical_cluster<T, VPL, true, false>;
+  }
+  return smem ? vertical_cluster<T, VPL, false, true> : vertical_cluster<T, VPL, false, false>;
+}
+
+// Of the cluster sizes (the carry rows in shared memory where they fit a
+// block, else in scratch), the one with the least work a block times waves
+// of clusters (2B clusters, `active` at once; x2 with the carries in
+// scratch), then the fewest waves.
+template <typename T, int VPL>
+struct VerticalPlanFn {
+  static cudaError_t run(int B, int W, int D, VerticalPlan* out) {
+    const auto kern = vertical_cluster<T, VPL, false, true>;  // the other forms have the same shape
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    *out = {};
+    long long best = -1;
+    for (int cs : {16, 8, 4, 2, 1}) {
+      if (cs > 1 && cs > W) continue;
+      const int sw = (W + cs - 1) / cs, nw = std::min(vertical_warps(VPL), sw);
+      const size_t carry = carry_bytes(sw, D, sizeof(T));
+      const bool smem = carry <= (size_t)optin;
+      const size_t bytes = smem ? carry : 0;
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (e != cudaSuccess) return e;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = cluster_config(cs, B, nw, bytes, nullptr, &attr);
+      int active = 0;
+      if (cudaOccupancyMaxActiveClusters(&active, kern, &cfg) != cudaSuccess || active < 1) {
+        cudaGetLastError();  // a size the card does not hold
+        continue;
+      }
+      const long long waves = (2LL * B + active - 1) / active;
+      const long long cost = (waves * sw * (smem ? 1 : 2)) << 8 | std::min(waves, 255LL);
+      if (best < 0 || cost < best) {
+        best = cost;
+        *out = {cs, sw, nw, smem, active, (long long)bytes, smem ? 0 : (long long)(2LL * B * cs * carry), 1};
+      }
+    }
+    return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
+  }
+};
+
 template <typename T, int VPL>
 struct VerticalFn {
-  static cudaError_t run(const void* C, void* dn, void* up, void* L, void* m, int B, int H, int W, int D, int P1,
-                         int P2, int with_diag, cudaStream_t st) {
-    return vertical<T, VPL>(static_cast<const T*>(C), static_cast<T*>(dn), static_cast<T*>(up), static_cast<T*>(L),
-                            static_cast<int*>(m), B, H, W, D, P1, P2, with_diag, st);
+  static cudaError_t run(const VerticalPlan& p, const void* C, void* dn, void* up, void* scratch, int B, int H, int W,
+                         int D, int P1, int P2, int with_diag, cudaStream_t st) {
+    const auto kern = vertical_kernel<T, VPL>(D, P1, with_diag, p.smem_carry != 0);
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (e != cudaSuccess) return e;
+    if (!p.smem_carry && !scratch) return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config((int)p.CS, B, (int)p.NW, (size_t)p.smem, st, &attr);
+    const VerticalArgs a{C, dn, up, scratch, B, H, W, D, P1, P2, with_diag, (int)p.SW};
+    e = cudaLaunchKernelEx(&cfg, kern, a);
+    return e != cudaSuccess ? e : cudaGetLastError();
   }
 };
 
@@ -634,18 +931,57 @@ struct RlWtaFn {
 
 }  // namespace
 
-// (B, H, W, D) cost -> down-set and up-set sums, H launches; any D; every volume
-// int16 (bytes 2) or int32 (bytes 4). Lbuf: 2 x 6 x B x W x D carries of
-// that type; mbuf: 2 x 6 x B x W int32 minima.
-SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* Lbuf, void* mbuf, int B, int H,
-                                int W, int D, int P1, int P2, int with_diag, int bytes, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
+// The plan of svt_sgm_vertical for a (B, H, W, D) cost stored in `bytes`
+// a value (2: int16, 4: int32), on the current device: 8 long longs
+// (VerticalPlan). D > 1024: no cluster (CS 0), H row launches of the wide
+// form, its ping-pong carries and minima in scratch.
+SVT_EXPORT int svt_sgm_vertical_plan(int B, int H, int W, int D, int bytes, long long* out) {
+  VerticalPlan* p = reinterpret_cast<VerticalPlan*>(out);
+  if (B < 1 || H < 1 || W < 1 || D < 1 || (bytes != 2 && bytes != 4)) return cudaErrorInvalidValue;
   if (D > kRegisterRange) {
-    if (bytes == 2) return Wide<int16_t>::vertical(C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag, st);
-    if (bytes == 4) return Wide<int>::vertical(C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag, st);
+    *p = {};
+    p->scratch = (long long)round16((size_t)12 * B * W * D * bytes) + 48LL * B * W;
+    p->launches = H;
+    return cudaSuccess;
+  }
+  const int vpl = vpl_for(D);
+  if (bytes == 2) {
+    switch (vpl) {
+      case 1: return VerticalPlanFn<int16_t, 1>::run(B, W, D, p);
+      case 2: return VerticalPlanFn<int16_t, 2>::run(B, W, D, p);
+      case 4: return VerticalPlanFn<int16_t, 4>::run(B, W, D, p);
+      case 8: return VerticalPlanFn<int16_t, 8>::run(B, W, D, p);
+      case 16: return VerticalPlanFn<int16_t, 16>::run(B, W, D, p);
+      default: return VerticalPlanFn<int16_t, 32>::run(B, W, D, p);
+    }
+  }
+  switch (vpl) {
+    case 1: return VerticalPlanFn<int, 1>::run(B, W, D, p);
+    case 2: return VerticalPlanFn<int, 2>::run(B, W, D, p);
+    case 4: return VerticalPlanFn<int, 4>::run(B, W, D, p);
+    case 8: return VerticalPlanFn<int, 8>::run(B, W, D, p);
+    case 16: return VerticalPlanFn<int, 16>::run(B, W, D, p);
+    default: return VerticalPlanFn<int, 32>::run(B, W, D, p);
+  }
+}
+
+// (B, H, W, D) cost -> down-set and up-set sums, every volume int16 (bytes 2)
+// or int32 (bytes 4), by the plan svt_sgm_vertical_plan gave for the same
+// arguments (`plan`, its 8 long longs): D <= 1024 one cluster launch; above,
+// H launches of the wide form. scratch: the plan's scratch bytes (or null).
+SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* scratch, int B, int H, int W, int D,
+                                int P1, int P2, int with_diag, int bytes, const long long* plan, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const VerticalPlan& p = *reinterpret_cast<const VerticalPlan*>(plan);
+  if (D > kRegisterRange) {
+    if (!scratch) return cudaErrorInvalidValue;
+    void* mbuf = static_cast<unsigned char*>(scratch) + round16((size_t)12 * B * W * D * bytes);
+    if (bytes == 2) return Wide<int16_t>::vertical(C, s_dn, s_up, scratch, mbuf, B, H, W, D, P1, P2, with_diag, st);
+    if (bytes == 4) return Wide<int>::vertical(C, s_dn, s_up, scratch, mbuf, B, H, W, D, P1, P2, with_diag, st);
     return cudaErrorInvalidValue;
   }
-  return dispatch<VerticalFn>(bytes, D, C, s_dn, s_up, Lbuf, mbuf, B, H, W, D, P1, P2, with_diag, st);
+  if (p.CS < 1) return cudaErrorInvalidValue;
+  return dispatch<VerticalFn>(bytes, D, p, C, s_dn, s_up, scratch, B, H, W, D, P1, P2, with_diag, st);
 }
 
 // (B, H, W, D) cost -> one horizontal direction volume of the same type.

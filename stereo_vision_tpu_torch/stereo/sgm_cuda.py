@@ -4,7 +4,7 @@ Replaces the entry points of ``stereo_vision_tpu/stereo/sgm_pallas.py``
 (``sgm_reduce_pallas``, ``aggregate_8_pallas``, ``wta_stats_pallas``) and
 their kernel bodies:
 
-- ``_vertical_kernel``  -> :func:`vertical`   (``csrc/sgm.cu`` vertical_step)
+- ``_vertical_kernel``  -> :func:`vertical`   (``csrc/sgm.cu`` vertical_cluster)
 - ``_horizontal_kernel`` -> :func:`horizontal` (``csrc/sgm.cu`` horizontal_scan)
 - ``_wta4_kernel``      -> :func:`wta4`       (``csrc/sgm.cu`` wta_kernel)
 - ``_wta_kernel``       -> :func:`wta_stats`  (``csrc/sgm.cu`` wta_stats_kernel)
@@ -39,8 +39,10 @@ from stereo_vision_tpu_torch import _build
 _BIG = 1 << 29  # out-of-range d±1 neighbour: far above any reachable L
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # C, s_dn, s_up, L scratch, min scratch, B, H, W, D, P1, P2, with_diag, bytes, stream
-    "svt_sgm_vertical": [_P] * 5 + [_I] * 8 + [_P],
+    # C, s_dn, s_up, scratch, B, H, W, D, P1, P2, with_diag, bytes, plan (8 long longs), stream
+    "svt_sgm_vertical": [_P] * 4 + [_I] * 8 + [_P, _P],
+    # B, H, W, D, bytes, plan out (8 long longs)
+    "svt_sgm_vertical_plan": [_I] * 5 + [_P],
     # C, out, B, H, W, D, P1, P2, reverse, bytes, stream
     "svt_sgm_horizontal": [_P] * 2 + [_I] * 8 + [_P],
     # v0..v3, nvol, minS, best, sm, s0, sp, uok, npix, D, uniq, bytes, stream
@@ -59,6 +61,15 @@ _QUERIES = {
 # there: the fused form saves the fourth direction volume's write and read
 # but puts the WTA's reductions inside the scan's serial column chain.
 _FUSED_RL_WTA = False
+
+
+# The fields of svt_sgm_vertical_plan: the cluster size (0: the wide form's
+# row launches), columns a block, warps a block, carries in shared memory (1)
+# or in scratch (0), clusters the card holds at once, shared-memory bytes a
+# block, scratch bytes, device launches.
+_PLAN_FIELDS = ("cluster", "columns", "warps", "carries_in_smem", "active_clusters", "smem_bytes", "scratch_bytes",
+                "device_launches")
+_plans: dict[tuple, tuple] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -235,25 +246,55 @@ def _maps(like: torch.Tensor):
         torch.empty(shape, dtype=torch.bool, device=like.device)
 
 
+def _plan(C: torch.Tensor):
+    """svt_sgm_vertical_plan's long longs for the CUDA volume ``C``, cached by
+    device, shape and type."""
+    B, H, W, D = C.shape
+    key = (C.device.index, B, H, W, D, C.element_size())
+    plan = _plans.get(key)
+    if plan is None:
+        lib = _lib()
+        plan = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+        with torch.cuda.device(C.device):
+            err = lib.svt_sgm_vertical_plan(B, H, W, D, C.element_size(), plan)
+        _build.check(lib, err, "svt_sgm_vertical_plan")
+        _plans[key] = plan
+    return plan
+
+
+def vertical_plan(C: torch.Tensor) -> dict:
+    """How :func:`vertical` launches on a (B, H, W, D) CUDA cost volume: the
+    fields of ``_PLAN_FIELDS`` (one cluster launch, or above 1024 disparities
+    H row launches)."""
+    return dict(zip(_PLAN_FIELDS, _plan(C)))
+
+
 def vertical(C, P1: int, P2: int, with_diagonals: bool, cost_bound: int):
     """(B, H, W, D) cost -> (down-set sum, up-set sum) volumes.
 
-    One wrapper call runs the H-step row scan (one kernel launch per row
-    step on CUDA, counted once in ``vertical.launches``)."""
+    On CUDA one launch of a thread block cluster a (frame, set) walks the H
+    rows (counted in ``vertical.launches``; ``vertical.device_launches``
+    counts device launches: 1 a call, H above 1024 disparities; ``vertical.plan``
+    is the last call's :func:`vertical_plan`)."""
     C = _check_volume(C, P1, P2, cost_bound, 3 if with_diagonals else 1)
     if C.device.type == "cpu":
         return vertical_plain(C, P1, P2, with_diagonals)
     B, H, W, D = C.shape
     s_dn = torch.empty_like(C)
     s_up = torch.empty_like(C)
-    Lbuf = torch.empty((2, 6, B, W, D), dtype=C.dtype, device=C.device)
-    mbuf = torch.empty((2, 6, B, W), dtype=torch.int32, device=C.device)
+    if C.numel() == 0:
+        return s_dn, s_up
+    plan = _plan(C)
+    nbytes = plan[_PLAN_FIELDS.index("scratch_bytes")]
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
     lib = _lib()
-    err = lib.svt_sgm_vertical(C.data_ptr(), s_dn.data_ptr(), s_up.data_ptr(), Lbuf.data_ptr(),
-                               mbuf.data_ptr(), B, H, W, D, P1, P2, int(with_diagonals), C.element_size(),
-                               _stream(C))
+    err = lib.svt_sgm_vertical(C.data_ptr(), s_dn.data_ptr(), s_up.data_ptr(),
+                               None if scratch is None else scratch.data_ptr(), B, H, W, D, P1, P2,
+                               int(with_diagonals), C.element_size(), plan, _stream(C))
     _build.check(lib, err, "svt_sgm_vertical")
     vertical.launches += 1
+    vertical.device_launches += plan[_PLAN_FIELDS.index("device_launches")]
+    vertical.plan = dict(zip(_PLAN_FIELDS, plan))
     return s_dn, s_up
 
 
@@ -394,6 +435,8 @@ def sgm_reduce(C, P1: int, P2: int, uniqueness_ratio: int, *, cost_bound: int, n
 
 
 vertical.launches = 0
+vertical.device_launches = 0
+vertical.plan = None
 horizontal.launches = 0
 wta4.launches = 0
 wta_stats.launches = 0

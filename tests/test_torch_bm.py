@@ -73,6 +73,21 @@ def test_stereo_bm_matches_jax(H, W, D, bs, mindisp, uniq, tex):
     assert torch.equal(one, mine[0])
 
 
+@pytest.mark.parametrize("bs,cap", [(21, 63), (23, 63)])
+def test_stereo_bm_at_the_packing_bound_matches_jax(bs, cap):
+    """Blocks on both sides of the CUDA kernel's 16-bit packing bound
+    (bs^2 * 2 cap < 2^16: bs 21 packs at cap 63, bs 23 does not): the plain
+    form the card tests hold the kernel to equals the JAX package."""
+    left, right = _pair(bs + cap, 2, bs + 9, 128, 6)
+    jp = jbm.StereoBMParams(num_disparities=16, block_size=bs, prefilter_cap=cap, uniqueness_ratio=5,
+                            texture_threshold=20, backend="xla")
+    ref = _jax_bm(left, right, jp)
+    mine = bm.stereo_bm(torch.from_numpy(left), torch.from_numpy(right), convert.bm_params_from_reference(jp))
+    valid = ref > -1
+    assert 0.1 < valid[:, bs // 2 : -(bs // 2), bs // 2 + 15 : -(bs // 2)].mean() < 1.0
+    np.testing.assert_array_equal(mine.numpy(), ref)
+
+
 def test_bm_plain_form_matches_pallas_interpret():
     """The plain form of the BM kernel against ``bm_stats_pallas`` in
     interpret mode (min_disparity 0, the Pallas route), through JAX's own

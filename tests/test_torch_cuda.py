@@ -838,8 +838,8 @@ def test_exact_kernels_wide_ranges_match_plain(dev, D, dtype):
 @pytest.mark.parametrize("D,mindisp,bs", [(320, 0, 7), (1024, 0, 7), (512, 16, 7), (1040, 0, 7), (2064, 16, 7),
                                           (1024, 0, 51), (2064, -8, 21), (48, 0, 101)])
 def test_bm_kernel_wide_ranges_match_plain(dev, D, mindisp, bs):
-    """Up to 1024 the register form; above, and where an 8-column strip's
-    window sums pass the shared memory (block 51 at 1024, 101 at 48), the
+    """Up to 1024 the row form (block 101 at 48 in its int32 form); above,
+    and where no row layout fits the shared memory (block 51 at 1024), the
     wide form, its sums in device scratch where they do not fit."""
     rng = np.random.default_rng(D)
     W = D + 80 + bs  # the window centres that see the whole range: 80
@@ -962,3 +962,75 @@ def test_cost_kernel_grid_matches_plain(dev, bs, D):
                                             dtype=dtype)
                 assert cost_cuda.cost_volume.launches == n + 1 and got.dtype == dtype
                 assert torch.equal(got.cpu(), want.to(dtype)), (mindisp, x_off, dtype)
+
+
+# The BM row form (its packed and int32 forms) and the cluster vertical scan.
+
+
+@pytest.mark.parametrize(
+    "W,H,D,bs,mindisp,cap,uniq,tex,form",
+    [(300, 40, 13, 31, 0, 31, 15, 10, "packed16"), (300, 40, 13, 33, 0, 31, 15, 10, "int32"),
+     (200, 30, 22, 21, 0, 63, 15, 10, "packed16"), (200, 30, 22, 23, 0, 63, 15, 10, "int32"),
+     (130, 12, 7, 5, 3, 31, 40, 60, "packed16"), (260, 9, 37, 5, -9, 31, 15, 10, "packed16"),
+     (60, 7, 30, 7, 16, 31, 15, 10, "packed16"), (500, 5, 64, 5, 0, 31, 15, 10, "packed16"),
+     (301, 11, 33, 3, -1, 31, 0, 0, "packed16"), (250, 9, 48, 9, -4, 150, 15, 10, "int32"),
+     (400, 16, 128, 5, 0, 31, 15, 10, "packed16")],
+)
+def test_bm_row_forms_match_plain(dev, W, H, D, bs, mindisp, cap, uniq, tex, form):
+    """Both row forms, on either side of the 16-bit packing bound (bs^2 * 2 cap
+    < 2^16: 31 / 33 at cap 31, 21 / 23 at cap 63) and at cap 150 (no bytes):
+    D not a multiple of 4 or 32, negative and positive min_disparity, W not a
+    multiple of the strip and a frame narrower than one, H = bs, thresholds
+    that reject pixels, and ties (constant frames)."""
+    rng = np.random.default_rng(W + D + bs)
+    base = rng.integers(0, 256, (2, H, W + 40))
+    left, right = base[..., 20 : 20 + W], base[..., 13 : 13 + W] + rng.integers(-3, 4, (2, H, W))
+    lp, rp = (bm.prefilter_xsobel(torch.from_numpy(a.astype(np.int32)), cap) for a in (left, right))
+    flat = torch.full((1, H, W), cap, dtype=torch.int32)
+    kw = dict(ndisp=D, mindisp=mindisp, block_size=bs, cap=cap, uniq=uniq, tex_thr=tex)
+    assert bm_cuda.kernel_form(ndisp=D, mindisp=mindisp, block_size=bs, cap=cap) == form
+    for lt, rt in ((lp, rp), (flat, flat)):
+        ref = bm_cuda.bm_disparity(lt, rt, **kw)
+        n = bm_cuda.bm_disparity.launches_by_form[form]
+        out = bm_cuda.bm_disparity(lt.to(dev), rt.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert bm_cuda.bm_disparity.launches_by_form[form] == n + 1
+        assert torch.equal(out.cpu(), ref)
+    valid = ref > mindisp - 1  # the constant frame: every disparity ties, texture 0
+    assert not valid.any() or tex <= 0
+
+
+@pytest.mark.parametrize("D", [16, 128, 200, 1000])  # 1, 4, 8 and 32 values a lane
+@pytest.mark.parametrize("B,H,W", [(1, 1, 1), (5, 2, 2), (1, 7, 37), (2, 9, 300), (1, 3, 1152)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_vertical_cluster_matches_plain(dev, D, B, H, W, dtype):
+    """The cluster vertical scan with and without diagonals: one column, two
+    (two blocks of a cluster), 37 and 300 (up to 16 blocks, W not a multiple
+    of the strip) and 1152; H = 1 and 2; B = 1, 2 and 5; int16 and int32
+    (carries in scratch where they pass the shared memory). One device
+    launch a call."""
+    rng = np.random.default_rng(D + W + H)
+    bound, (P1, P2) = (2325, (200, 800)) if dtype == torch.int16 else (40000, (8, 32000))
+    C = torch.from_numpy(rng.integers(0, bound + 1, (B, H, W, D))).to(dtype)
+    Cd = C.to(dev)
+    plan = sgm_cuda.vertical_plan(Cd)
+    assert plan["device_launches"] == 1 and 1 <= plan["cluster"] <= min(16, max(W, 1))
+    assert -(-W // plan["columns"]) <= plan["cluster"]
+    for diag in (True, False):
+        n = sgm_cuda.vertical.device_launches
+        got = sgm_cuda.vertical(Cd, P1, P2, diag, bound)
+        torch.cuda.synchronize()
+        assert sgm_cuda.vertical.device_launches == n + 1
+        for a, r in zip(got, sgm_cuda.vertical_plain(C, P1, P2, diag)):
+            assert a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), r)
+
+
+def test_aggregate_8_runs_the_cluster_vertical(dev):
+    """aggregate_8 at 8 paths: one device launch of the cluster kernel, exact."""
+    rng = np.random.default_rng(8)
+    C = torch.from_numpy(rng.integers(0, 2326, (2, 23, 150, 64)).astype(np.int16))
+    n = (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.device_launches)
+    out = sgm_cuda.aggregate_8(C.to(dev), 200, 800, 8, cost_bound=2325)
+    torch.cuda.synchronize()
+    assert (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.device_launches) == (n[0] + 1, n[1] + 1)
+    assert torch.equal(out.cpu(), sgm_cuda._aggregate_8(C, 200, 800, 8))

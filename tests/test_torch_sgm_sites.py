@@ -54,6 +54,24 @@ def test_aggregate_8_few_paths_matches_scan(num_paths):
         sgm_cuda.aggregate_8(torch.from_numpy(C), 7, 86, 5, cost_bound=2325)
 
 
+@pytest.mark.parametrize("H,W", [(6, 1), (5, 2), (1, 9)])
+def test_vertical_plain_at_narrow_shapes_matches_jax(H, W):
+    """The vertical scans' plain form, which the card tests hold the cluster
+    kernel to, at a single column, two columns and a single row: the
+    2-path sum (vertical pair) against the scan reference, the 8-path sum
+    (with the diagonals) against the scan reference and aggregate_8_pallas
+    in interpret mode."""
+    C = _costs(H * 10 + W, 1, H, W, 16)
+    s_dn, s_up = sgm_cuda.vertical_plain(torch.from_numpy(C), 200, 800, with_diagonals=False)
+    ref = jsgbm._aggregate_8(jnp.asarray(C[0]), 200, 800, backend="scan", num_paths=2)
+    np.testing.assert_array_equal((s_dn + s_up)[0].numpy(), np.asarray(ref))
+    mine = sgm_cuda.aggregate_8(torch.from_numpy(C), 200, 800, 8, cost_bound=2325)
+    ref = jsgbm._aggregate_8(jnp.asarray(C[0]), 200, 800, backend="scan", num_paths=8)
+    np.testing.assert_array_equal(mine[0].numpy(), np.asarray(ref))
+    ref = jsp.aggregate_8_pallas(jnp.asarray(C[0]), 200, 800, num_paths=8, interpret=True)
+    np.testing.assert_array_equal(mine[0].numpy(), np.asarray(ref))
+
+
 @pytest.mark.parametrize("uniq", [0, 10])
 def test_wta_stats_matches_pallas(uniq):
     C = _costs(uniq, 2, 13, 21, 16)
