@@ -137,6 +137,21 @@ After 18:
      exact on the first frame, five timed runs; then its grid (D = 16, 128,
      200, 1000; one column to 16 blocks of a cluster; H = 1 to 9; B = 1, 2,
      5; int16 and int32; with and without diagonals), card against plain.
+ 28. (run last, after 23) the banded vertical scan (#17): on the arguments
+     each hier main path's recorded call gave it (hier4x3's coarse, mid and
+     full levels, hier16x3's coarse and full, hier4x8's full level with
+     diagonals) its plan (banded_cuda.vertical_plan: form, threads, columns,
+     cluster, ring, shared memory), exact against its plain form on the
+     first frame, one device launch a call (torch.profiler, "not measured"
+     where it records no device time), five timed runs of 5 calls and the
+     bound; then its grid (K = 4, 8, 12, 16, 32, 64 with their G; 1, 33,
+     1152 and 4097 columns; 1 and 17 rows; int16 and int32; with and
+     without diagonals), card against plain.
+Phase 20 also holds ROADMAP C.1-C.4's settings card against CPU: a frame no
+wider than its range (stereo_sgbm, no kernel launched; the per-frame and
+batched hier at 32x64), BM on frames smaller than the block (no kernel
+launched), blocks 4 and 6 through both cost kernels and through stereo_sgbm
+and the per-frame hier, and hier_params ignored by matcher="sgbm" / "bm".
 The exact8 main path (5) and the two-stage call (13) assert one device launch
 of the vertical scan and print its cluster size; the bm phases (14, 15)
 assert the packed row form.
@@ -791,6 +806,8 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
               f"(plain {plain_ms:.3f} ms at {n} frames, bound {bound_ms(nbytes, nops)[0]:.3f} ms{lib_note})", flush=True)
         if name == "speckle_filter":
             SPECKLE_RECORDS.setdefault(path, dict(args=args, kwargs=kwargs))
+        if name in ("banded_vertical", "banded_vertical_diag") and path in VERTICAL_PATHS:
+            VERTICAL_RECORDS.setdefault(path, []).append(dict(level=c["level"], args=args, kwargs=kwargs))
 
     rows = []
     for name, a in acc.items():
@@ -807,6 +824,10 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
 # The speckle kernel's arguments on each main path's recorded call, kept by
 # phase_recorded_kernels for phase 23.
 SPECKLE_RECORDS: dict[str, dict] = {}
+# The vertical scan's (#17) arguments on the hier main paths' recorded calls,
+# by level, kept by phase_recorded_kernels for phase 28.
+VERTICAL_PATHS = ("hier4x3", "hier4x8", "hier16x3")
+VERTICAL_RECORDS: dict[str, list[dict]] = {}
 
 
 def check_wta16(records: list[dict]) -> None:
@@ -1345,6 +1366,78 @@ def phase_settings(dev) -> dict:
     out["hier band 12 valid share"] = float((ref > -1).float().mean())
     print(f"per-frame stereo_sgbm_hier 64x256 band 12: CUDA == CPU (valid share "
           f"{out['hier band 12 valid share']:.4f})", flush=True)
+    out.update(settings_repaired(dev))
+    return out
+
+
+def settings_repaired(dev) -> dict:
+    """The settings ROADMAP C.1-C.4 logged (the reference computes them; the
+    card once refused them), card against CPU, exact: a frame no
+    wider than its range (stereo_sgbm, no kernel launched; the per-frame and
+    batched hier at 32x64, D=64); BM on frames smaller than the block (no
+    kernel launched); even blocks 4 and 6 through both cost kernels against
+    their plain forms and through stereo_sgbm and the per-frame hier;
+    hier_params with matcher="sgbm" and "bm" ignored."""
+    out = {}
+    rng = np.random.default_rng(0)
+    for h, w, d, md in ((8, 16, 16, 0), (8, 12, 16, 0), (8, 16, 8, 8)):
+        l, r = (torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32)) for _ in range(2))
+        p = StereoSGBMParams(num_disparities=d, min_disparity=md, block_size=3)
+        n = cost_cuda.cost_volume.launches
+        got = stereo_sgbm(l.to(dev), r.to(dev), p)
+        if cost_cuda.cost_volume.launches != n or not torch.equal(got.cpu(), stereo_sgbm(l, r, p)):
+            raise AssertionError(f"stereo_sgbm at {h}x{w}, D={d}, min_disparity {md}: card != CPU or a kernel ran")
+    hp = hier.HierParams(band=16, granularity=8, tile=1, local_window=1)
+    frames = [scene(seed=s, H=32, W=64, box_disp=20) for s in range(8)]
+    L, R = (torch.from_numpy(np.stack([f[i] for f in frames]).astype(np.int32)) for i in (0, 1))
+    p = P3._replace(num_disparities=64)
+    if not torch.equal(hier.stereo_sgbm_hier(L[0].to(dev), R[0].to(dev), p, hp).cpu(),
+                       hier.stereo_sgbm_hier(L[0], R[0], p, hp)):
+        raise AssertionError("per-frame stereo_sgbm_hier at 32x64, D=64: card != CPU")
+    if not torch.equal(hier.stereo_sgbm_hier_batch(L.to(dev), R.to(dev), p, hp).cpu(),
+                       hier.stereo_sgbm_hier_batch(L, R, p, hp)):
+        raise AssertionError("stereo_sgbm_hier_batch at 8 x 32x64, D=64: card != CPU")
+    out["no wider than the range"] = "card == CPU"
+    for h, w in ((4, 20), (20, 4)):
+        l, r = (torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32)) for _ in range(2))
+        p = StereoBMParams(num_disparities=8, block_size=5)
+        n = bm_cuda.bm_disparity.launches
+        got = bm.stereo_bm(l.to(dev), r.to(dev), p)
+        if bm_cuda.bm_disparity.launches != n or not torch.equal(got.cpu(), bm.stereo_bm(l, r, p)):
+            raise AssertionError(f"stereo_bm at {h}x{w}, block 5: card != CPU or a kernel ran")
+    out["BM smaller than the block"] = "card == CPU"
+    l, r = (torch.from_numpy(a.astype(np.int32)) for a in scene(seed=2, H=48, W=256))
+    for bs in (4, 6):
+        for d, md, xo, dtype in ((64, 0, 64, torch.int16), (200, 3, 0, torch.int32)):
+            kw = dict(ndisp=d, mindisp=md, block_size=bs, x_offset=xo)
+            ref = cost_cuda.cost_volume_plain(l[None], r[None], **kw).to(torch.int32)
+            if not torch.equal(cost_cuda.cost_volume(l[None].to(dev), r[None].to(dev), dtype=dtype, **kw).cpu()
+                               .to(torch.int32), ref):
+                raise AssertionError(f"cost kernel at block {bs}, D={d}: differs from its plain form")
+        for K, G, dtype in ((4, 2, torch.int16), (16, 8, torch.int32)):
+            sh = torch.from_numpy((rng.integers(0, (64 - K) // G + 1, (1, 48, 256)) * G).astype(np.int32))
+            kw = dict(band=K, G=G, ndisp=64, block_size=bs, min_x=64, dtype=dtype)
+            if not torch.equal(banded_cuda.banded_cost(l[None].to(dev), r[None].to(dev), sh.to(dev), **kw).cpu(),
+                               banded_cuda.banded_cost_plain(l[None], r[None], sh, ftzero=15, **kw)):
+                raise AssertionError(f"banded cost kernel at block {bs}, K={K}: differs from its plain form")
+        p = PARAMS._replace(num_disparities=64, block_size=bs)
+        if not torch.equal(stereo_sgbm(l.to(dev), r.to(dev), p).cpu(), stereo_sgbm(l, r, p)):
+            raise AssertionError(f"stereo_sgbm at block {bs}: card != CPU")
+        p = P3._replace(num_disparities=64, block_size=bs)
+        if not torch.equal(hier.stereo_sgbm_hier(l.to(dev), r.to(dev), p, hp).cpu(),
+                           hier.stereo_sgbm_hier(l, r, p, hp)):
+            raise AssertionError(f"per-frame stereo_sgbm_hier at block {bs}: card != CPU")
+    out["even blocks 4 and 6"] = "kernels == plain, card == CPU"
+    maps, Q = rig(48, 256)
+    lb, rb = (np.stack([scene(seed=s, H=48, W=256)[i] for s in range(2)]) for i in (0, 1))
+    for matcher, p in (("sgbm", PARAMS._replace(num_disparities=64)), ("bm", StereoBMParams(num_disparities=64))):
+        d0, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher=matcher, params=p, device=dev)
+        d1, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher=matcher, params=p, hier_params=hier.HIER_FAST,
+                                        device=dev)
+        if not torch.equal(d0, d1):
+            raise AssertionError(f"matcher={matcher!r} does not ignore hier_params")
+    out["hier_params with sgbm and bm"] = "ignored"
+    print(f"settings ROADMAP C.1-C.4: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1715,6 +1808,97 @@ def phase_vertical_cluster(dev, C: torch.Tensor) -> dict:
     return dict(plan=plan, runs_ms=runs, grid_cases=cases)
 
 
+def device_launches(fn, match: str) -> int | str:
+    """Device launches of kernels whose name holds ``match`` in one call of
+    ``fn()``, from torch.profiler ("not measured" where it records no
+    device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return sum(e.count for e in events if match in e.key) if events else "not measured"
+
+
+# Phase 28: the vertical scan's settings: bands, granularities, widths across
+# warp, block and cluster edges, one row and more rows than a ring holds,
+# both storage types, with and without diagonals.
+VERTICAL_KERNEL_NAMES = {"ring": "banded_vertical_kernel", "group": "banded_line_kernel",
+                         "cluster": "banded_diag_cluster_kernel", "strips": "banded_diag_strips_kernel"}
+VERTICAL17_GRID = dict(K_G=((4, 2), (8, 4), (12, 4), (16, 8), (32, 8), (64, 16)), Wv=(1, 33, 1152, 4097),
+                       H=(1, 17))
+
+
+def phase_banded_vertical(dev) -> dict:
+    """The banded vertical scan (#17), both forms, on the arguments each hier
+    main path's recorded call gave it (hier4x3's three levels, hier16x3's
+    two, hier4x8's full level with diagonals; ``VERTICAL_RECORDS``): its plan
+    (``banded_cuda.vertical_plan``), exact against its plain form on the
+    first frame, one device launch a call (torch.profiler), five timed runs
+    of 5 calls (CUDA events) and the bound (the volume read, two written,
+    the shift map read); then its grid, card against plain."""
+    out = {}
+    for path in VERTICAL_PATHS:
+        for rec in VERTICAL_RECORDS.get(path, []):
+            C, s, G, P1, P2 = rec["args"]
+            kw = rec["kwargs"]
+            diag = bool(kw.get("with_diagonals"))
+            if diag != (path == "hier4x8" and rec["level"] == "full"):
+                continue  # hier4x8's coarse and mid levels run the form hier4x3 times
+            kern = lambda: banded_cuda.banded_vertical(C, s, G, P1, P2, **kw)
+            got = kern()
+            torch.cuda.synchronize()
+            plan = dict(banded_cuda.banded_vertical.plan)
+            ref = banded_cuda.vertical_plain(C[:1], s[:1], G, P1, P2, diag)
+            if any(max_abs_err(a[:1], r) != 0 for a, r in zip(got, ref)):
+                raise AssertionError(f"banded_vertical ({path} {rec['level']}) differs from its plain form")
+            del got, ref
+            launches = device_launches(kern, VERTICAL_KERNEL_NAMES[plan["form"]])
+            if launches not in (1, "not measured") or plan["device_launches"] != 1:
+                raise AssertionError(f"banded_vertical ({path} {rec['level']}) made {launches} device launches")
+            runs = [event_ms(kern, 5) for _ in range(5)]
+            b_ms, b_by = bound_ms(3 * C.numel() * C.element_size() + s.numel() * 4,
+                                  (6 if diag else 2) * C.numel() * 10)
+            key = f"{path} {rec['level']}"
+            out[key] = dict(shape=list(C.shape), storage=str(C.dtype).removeprefix("torch."), plan=plan,
+                            device_launches=launches, runs_ms=runs, ms=min(runs), bound_ms=b_ms, bound_by=b_by)
+            print(f"kernel banded_vertical{'_diag' if diag else ''} ({key}, {tuple(C.shape)}): plan "
+                  f"{json.dumps(plan)}, {launches} device launch(es), runs {[round(r, 4) for r in runs]} ms, "
+                  f"bound {b_ms:.4f} ms by {b_by}", flush=True)
+    for want in ("hier4x3 full", "hier4x3 mid", "hier4x3 coarse", "hier16x3 full", "hier16x3 coarse",
+                 "hier4x8 full"):
+        if want not in out:
+            raise AssertionError(f"no recorded call of the vertical scan at {want}")
+    t0 = time.perf_counter()
+    cases = 0
+    for K, G in VERTICAL17_GRID["K_G"]:
+        for Wv in VERTICAL17_GRID["Wv"]:
+            for H_ in VERTICAL17_GRID["H"]:
+                for dtype in (torch.int16, torch.int32):
+                    rng = np.random.default_rng(K + Wv + H_)
+                    bound, P1, P2 = (2325, 200, 800) if dtype == torch.int16 else (40000, 8, 32000)
+                    Cc = torch.from_numpy(rng.integers(0, bound + 1, (1, H_, Wv, K))).to(dtype)
+                    tiles = rng.integers(0, 6, (1, -(-H_ // 4), -(-Wv // 4))) * G
+                    sc = torch.from_numpy(np.repeat(np.repeat(tiles, 4, 1), 4, 2)[:, :H_, :Wv].astype(np.int32))
+                    if H_ == 1:  # per-pixel random shifts, on the G grid and off it
+                        sc = sc + torch.from_numpy((rng.random((1, 1, Wv)) < 0.1) * rng.integers(1, 3, (1, 1, Wv)))
+                        sc = sc.to(torch.int32)
+                    for diag in (False, True):
+                        out_ = banded_cuda.banded_vertical(Cc.to(dev), sc.to(dev), G, P1, P2,
+                                                           cost_bound=2325 if dtype == torch.int16 else 20000,
+                                                           with_diagonals=diag)
+                        ref = banded_cuda.vertical_plain(Cc, sc, G, P1, P2, diag)
+                        if not all(torch.equal(a.cpu().to(torch.int32), r) for a, r in zip(out_, ref)):
+                            raise AssertionError(f"banded_vertical grid K={K} G={G} Wv={Wv} H={H_} {dtype} "
+                                                 f"diagonals={diag} (plan {banded_cuda.banded_vertical.plan}) differs "
+                                                 "from its plain form")
+                        cases += 1
+    print(f"kernel banded_vertical grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    out["grid_cases"] = cases
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1816,6 +2000,9 @@ def main() -> int:
     speckle = phase_speckle(dev)
     SPECKLE_RECORDS.clear()
     torch.cuda.empty_cache()
+    banded_vertical = phase_banded_vertical(dev)
+    VERTICAL_RECORDS.clear()
+    torch.cuda.empty_cache()
 
     names = [r["name"] for r in rows]
     for r in rows:  # a kernel that runs on several paths: one row each
@@ -1829,7 +2016,7 @@ def main() -> int:
                       "settings": settings, "banded_cost_levels": banded_cost_levels,
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
-                      "build_s": build_s}), flush=True)
+                      "banded_vertical": banded_vertical, "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

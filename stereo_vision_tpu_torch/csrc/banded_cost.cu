@@ -89,12 +89,12 @@ __device__ __forceinline__ void window4(const V* a, int stride, int delta, const
 }
 
 // Byte offsets of a cost block's shared memory for a tile of TX columns
-// (NC = TX + 2r window columns; right columns at most NC + ndisp + 3).
+// (NC = TX + bs - 1 window columns; right columns at most NC + ndisp + 3).
 struct CostLayout {
   int NC, NCr, NRcap;
   size_t acc, pix, rawL, rawR, sob, chL, chR, ring, range, bytes;
   __host__ __device__ CostLayout(int TX, int K, int ndisp, int bs) {
-    NC = TX + 2 * (bs / 2);
+    NC = TX + bs - 1;
     NCr = NC + 4;
     NRcap = NC + ndisp + 4;
     size_t o = 0;
@@ -166,17 +166,19 @@ __device__ __forceinline__ void cost_block(unsigned char* cost_smem, const int* 
   int* ring = reinterpret_cast<int*>(cost_smem + lay.ring);
   int* range = reinterpret_cast<int*>(cost_smem + lay.range);
   const int NC = lay.NC, NCr = lay.NCr, NRcap = lay.NRcap, NS = NCr + NRcap;
-  const int r = bs / 2, KC = K / 4, tid = threadIdx.x, nt = blockDim.x;
+  // The window spans -r .. r1 = bs - 1 - r about its centre (r = bs / 2; an
+  // even block reaches one less below and to the right, as the reference's).
+  const int r = bs / 2, r1 = bs - 1 - r, KC = K / 4, tid = threadIdx.x, nt = blockDim.x;
   const size_t plane = (size_t)K * NC;  // one row of the cost ring
 
   const int x0 = min_x + tile * TX;
   const int y0 = strip * kCostStrip, y1 = min(y0 + kCostStrip, H);
-  const int nsrc = y1 - y0 + 2 * r;
+  const int nsrc = y1 - y0 + bs - 1;
   const int Wo = W - min_x;
   const int* L = left + (size_t)b * H * W;
   const int* R = right + (size_t)b * H * W;
   const int* S = shift + (size_t)b * H * W;
-  const int cmin = clampi(x0 - r, 0, W - 1), cmax = clampi(x0 + TX - 1 + r, 0, W - 1);
+  const int cmin = clampi(x0 - r, 0, W - 1), cmax = clampi(x0 + TX - 1 + r1, 0, W - 1);
   auto src_row = [&](int k) { return clampi(y0 - r + k, 0, H - 1); };
 
   // The disparities the strip's shifts reach: [dlo, dhi].
@@ -318,10 +320,10 @@ __device__ __forceinline__ void cost_block(unsigned char* cost_smem, const int* 
       }
     }
     __syncthreads();
-    if (k < 2 * r) continue;  // the ring does not hold a window yet
-    // C. Row pass for output row y = y0 + k - 2r: its window is ring rows
-    // k - 2r .. k, its centre k - r.
-    const int y = y0 + k - 2 * r, cslot = (k - r) % bs, first = (k - 2 * r) % bs;
+    if (k < bs - 1) continue;  // the ring does not hold a window yet
+    // C. Row pass for output row y = y0 + k - (bs - 1): its window is ring
+    // rows k - (bs - 1) .. k, its centre k - r1.
+    const int y = y0 + k - (bs - 1), cslot = (k - r1) % bs, first = (k - (bs - 1)) % bs;
     const int* crow = ring + cslot * NC;
     for (int ch = tid / NC, j = tid % NC; ch < KC; next_item(ch, j, nt, NC)) {
       const int lane0 = 4 * ch;
@@ -473,7 +475,7 @@ SVT_EXPORT long long svt_banded_cost_scratch_bytes(int P, int H, int Wo, int K, 
 SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
                                int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride, int TX,
                                int bytes, void* scratch, void* stream) {
-  if (stride < 1 || K < 4 || K % 4 || bs < 1 || bs % 2 == 0) return cudaErrorInvalidValue;
+  if (stride < 1 || K < 4 || K % 4 || bs < 1) return cudaErrorInvalidValue;
   if (P == 0 || H == 0 || min_x >= W) return cudaSuccess;
   if (TX < 1 && !scratch) return cudaErrorInvalidValue;
   const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right), s = static_cast<const int*>(shift);

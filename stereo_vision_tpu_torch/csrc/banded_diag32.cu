@@ -1,12 +1,4 @@
 // The 8-path vertical scan (banded_diag.cuh) for int32 costs and volumes.
 
+#define SVT_DIAG_T int
 #include "banded_diag.cuh"
-
-SVT_EXPORT long long svt_banded_vertical_diag_scratch_bytes(int P, int Wv, int K, int device) {
-  return diag_scratch_bytes<int>(P, Wv, K, device);
-}
-
-SVT_EXPORT int svt_banded_vertical_diag(const void* C, const void* shift, void* dn, void* up, void* scratch, int P,
-                                        int H, int Wv, int K, int G, int P1, int P2, void* stream) {
-  return diag_entry<int>(C, shift, dn, up, scratch, P, H, Wv, K, G, P1, P2, stream);
-}

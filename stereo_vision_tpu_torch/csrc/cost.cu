@@ -21,9 +21,11 @@
 // Design: a block owns one frame, a strip of kStrip output rows, a tile of
 // TX output columns and a chunk of Dc = 32 * DPT disparities (the chunks on
 // the grid, so any D runs and shared memory does not grow with D). It walks
-// down the strip's kStrip + 2r source rows, so each source row is staged
-// once a strip and each pixel cost computed once a block (the window's 2r
-// halo rows and columns are the only work done twice). Per source row:
+// down the strip's kStrip + bs - 1 source rows, so each source row is
+// staged once a strip and each pixel cost computed once a block (the
+// window's bs - 1 halo rows and columns are the only work done twice). The
+// window spans -r .. bs - 1 - r, r = bs / 2, about its centre: an even
+// block, as the reference's, reaches one less below and to the right. Per source row:
 //   S1. the clipped x-Sobel and the raw value of the row's left columns
 //       (the window's, +-1) and right columns (those the chunk's shifts
 //       reach, +-1), one thread a column, from image values loaded a row
@@ -46,7 +48,7 @@
 //       as one DPT-wide vector a column), stored as one 8-byte (int16) or
 //       16-byte (int32) vector a lane.
 // No division at run time: d is the fastest thread index, Dc a template
-// constant. V and the ring take NC * Dc * (4 + 2 bs) bytes (NC = TX + 2r);
+// constant. V and the ring take NC * Dc * (4 + 2 bs) bytes (NC = TX + bs - 1);
 // TX is 32, 24, 16 or 8, the widest that leaves four blocks an SM (24 at
 // block 5, D >= 128), else three, two, one; where none fits (large
 // blocks), V and the ring live in a slot of device scratch, one a resident
@@ -79,7 +81,7 @@ struct Layout {
   int NC, NRcap;
   size_t ring, rings, stage;
   __host__ __device__ Layout(int TX, int Dc, int bs) {
-    NC = TX + 2 * (bs / 2);
+    NC = TX + bs - 1;
     NRcap = NC + Dc - 1;
     ring = (size_t)NC * Dc * 4;
     rings = (ring + (size_t)bs * NC * Dc * 2 + 15) / 16 * 16;
@@ -178,12 +180,14 @@ __device__ __forceinline__ void cost_block(unsigned char* rings, int* stage, con
   int* tS = reinterpret_cast<int*>(chR + NRcap);  // Sobel of left columns cmin - 1 .., then right columns qlo - 1 ..
   int* tR = tS + NC + NRcap + 4;                   // raw values of the same columns
 
-  const int r = bs / 2, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // The window spans -r .. bs - 1 - r about its centre (r = bs / 2; an even
+  // block reaches one less below and to the right, as the reference's).
+  const int r = bs / 2, r1 = bs - 1 - r, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int dc0 = chunk * Dc, dn = min(Dc, D - dc0);
   const int x0 = x_off + tile * TX;
-  const int y0 = strip * kStrip, nsrc = min(kStrip, H - y0) + 2 * r;
+  const int y0 = strip * kStrip, nsrc = min(kStrip, H - y0) + bs - 1;
   const int Wo = W - x_off;
-  const int cmin = clampi(x0 - r, 0, W - 1), cmax = clampi(x0 + TX - 1 + r, 0, W - 1);
+  const int cmin = clampi(x0 - r, 0, W - 1), cmax = clampi(x0 + TX - 1 + r1, 0, W - 1);
   const int smin = max(dc0 + mindisp, 0), smax = max(dc0 + dn - 1 + mindisp, 0);
   const int qlo = cmin - smax, qhi = cmax - smin;  // right columns (below 0: column 0)
   const int nL = cmax - cmin + 1, nR = qhi - qlo + 1, nT = nL + nR + 4;
@@ -199,7 +203,7 @@ __device__ __forceinline__ void cost_block(unsigned char* rings, int* stage, con
   // - 1 with il = j, so that (j, d) and (j + 1, d + 1) read one right
   // column; each warp then takes a run of cpw consecutive columns.
   const int cpw = (NC + kWarps - 1) / kWarps;
-  const bool diag = x0 - r >= 0 && x0 + TX - 1 + r <= W - 1 && dc0 + mindisp >= 0 && dn == Dc && cpw <= 32;
+  const bool diag = x0 - r >= 0 && x0 + TX - 1 + r1 <= W - 1 && dc0 + mindisp >= 0 && dn == Dc && cpw <= 32;
   const int j0 = min(warp * cpw, NC), j1 = min(j0 + cpw, NC);
   // Output columns of this warp's runs in the horizontal pass.
   const int per = (TX + kWarps - 1) / kWarps;
@@ -304,9 +308,9 @@ __device__ __forceinline__ void cost_block(unsigned char* rings, int* stage, con
     }
     }
     __syncthreads();
-    if (k < 2 * r) continue;  // the window is not full yet (uniform over the block)
-    // H. Output row y = y0 + k - 2r: the box of window columns t .. t + 2r.
-    const int y = y0 + k - 2 * r;
+    if (k < bs - 1) continue;  // the window is not full yet (uniform over the block)
+    // H. Output row y = y0 + k - (bs - 1): the box of window columns t .. t + bs - 1.
+    const int y = y0 + k - (bs - 1);
     T* orow = out + (((size_t)b * H + y) * Wo + (x0 - x_off)) * D + dc0 + dv;
     const bool whole = dv + DPT <= dn && D % DPT == 0;
     int hs[DPT];
@@ -322,7 +326,7 @@ __device__ __forceinline__ void cost_block(unsigned char* rings, int* stage, con
         }
       } else {
         int vin[DPT], vout[DPT];
-        load_ints<DPT>(V + (size_t)(t + 2 * r) * Dc + dv, vin);
+        load_ints<DPT>(V + (size_t)(t + bs - 1) * Dc + dv, vin);
         load_ints<DPT>(V + (size_t)(t - 1) * Dc + dv, vout);
 #pragma unroll
         for (int q = 0; q < DPT; ++q) hs[q] += vin[q] - vout[q];
@@ -475,11 +479,11 @@ SVT_EXPORT long long svt_cost_volume_scratch_bytes(int B, int H, int Wo, int D, 
 // (out_bytes 2) or int32 (out_bytes 4), any D, in tiles of TX columns
 // (svt_cost_volume_tile) or, with `scratch` (svt_cost_volume_scratch_bytes
 // of it; TX then unused), over V and the ring in device scratch.
-// mindisp + D >= 1, odd bs.
+// mindisp + D >= 1, any bs >= 1.
 SVT_EXPORT int svt_cost_volume(const void* left, const void* right, void* out, int B, int H, int W, int D,
                                int mindisp, int bs, int ftzero, int x_off, int out_bytes, int TX, void* scratch,
                                void* stream) {
-  if (bs < 1 || bs % 2 == 0 || D < 1 || mindisp + D < 1 || x_off < 0 || x_off >= W) return cudaErrorInvalidValue;
+  if (bs < 1 || D < 1 || mindisp + D < 1 || x_off < 0 || x_off >= W) return cudaErrorInvalidValue;
   if (TX < 1 && !scratch) return cudaErrorInvalidValue;
   if (B == 0 || H == 0) return cudaSuccess;
   const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right);

@@ -65,7 +65,8 @@ def batched_stereo_pipeline(
     :class:`StereoBMParams`); ``"sgbm"`` the exact 8-path SGBM; ``"sgbm_hier"`` the
     hierarchical banded one, which needs B == 128 // band frames: without
     ``hier_params`` the preset follows the batch size (8: HIER_FAST,
-    16: HIER8_FAST, 32: HIER4_FAST, else the band-32 default). With
+    16: HIER8_FAST, 32: HIER4_FAST, else the band-32 default); the other
+    matchers ignore ``hier_params``, as the reference does. With
     ``stats_only`` it returns the (B, 2) per-frame [valid_fraction,
     median_depth] instead.
 
@@ -78,8 +79,6 @@ def batched_stereo_pipeline(
     want = StereoBMParams if matcher == "bm" else StereoSGBMParams
     if params is not None and not isinstance(params, want):
         raise TypeError(f"matcher={matcher!r} takes {want.__name__} params, got {type(params).__name__}")
-    if hier_params is not None and matcher != "sgbm_hier":
-        raise ValueError("hier_params applies only to matcher='sgbm_hier'")
     dev = resolve_device(device)
     mx1, my1, mx2, my2 = (_to(m, dev, torch.float32) for m in maps)
     Q = _to(Q, dev, torch.float32)

@@ -52,10 +52,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The 8-path vertical's entry points: one source a storage type
 # (banded_diag.cu: int16, banded_diag32.cu: int32).
 _DIAG_SIGNATURES = {
-    # C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, stream
-    "svt_banded_vertical_diag": ([_P] * 5 + [_I] * 7 + [_P], _I),
-    # P, Wv, K, device -> bytes of scratch the diagonal scan needs (-1: refused)
-    "svt_banded_vertical_diag_scratch_bytes": ([_I] * 4, _LL),
+    # C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, form, CS, NT, S, stream
+    "svt_banded_vertical_diag": ([_P] * 5 + [_I] * 11 + [_P], _I),
+    # K, CS, NT, S -> clusters of the cluster form the current device holds at once
+    "svt_banded_diag_clusters": ([_I] * 4, _I),
 }
 # The scans and the WTA above K = 64: one source a storage type
 # (banded_wide.cu: int16, banded_wide32.cu: int32).
@@ -82,8 +82,10 @@ _SIGNATURES = {
         "svt_banded_cost_scratch_bytes": ([_I] * 7, _LL),
     },
     "banded": {
-        # C, s, dn, up, P, H, Wv, K, G, P1, P2, bytes, stream
-        "svt_banded_vertical": ([_P] * 4 + [_I] * 8 + [_P], _I),
+        # C, s, dn, up, P, H, Wv, K, G, P1, P2, bytes, form, NT, S, stream
+        "svt_banded_vertical": ([_P] * 4 + [_I] * 11 + [_P], _I),
+        # device -> the shared memory a block may opt in to (-1: query failed)
+        "svt_banded_smem_optin": ([_I], _I),
         # C, s, out, P, H, Wv, K, G, P1, P2, reverse, bytes, stream
         "svt_banded_horizontal": ([_P] * 3 + [_I] * 9 + [_P], _I),
         # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, bytes, stream
@@ -186,8 +188,8 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
     P, H, W = left.shape
     if not 0 <= min_x < W or ndisp < 1 or band < 1 or G < 0 or stride < 1:
         raise ValueError(f"bad min_x={min_x} / ndisp={ndisp} / band={band} / G={G} / stride={stride}")
-    if block_size % 2 != 1 or block_size < 1:
-        raise ValueError(f"block_size must be odd and >= 1, got {block_size}")
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
     dtype = cost_dtype(block_size, ftzero, dtype)
     kw = dict(band=band, G=G, ndisp=ndisp, ftzero=ftzero, block_size=block_size, min_x=min_x, stride=stride)
     if not _on_cuda(left):
@@ -216,13 +218,185 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
 # ------------------------------------------------------------------ scans
 
 
+# The vertical scan's plan (#17). Forms: "ring" (no diagonals: a thread a
+# chain, a ring of rows in shared memory), "group" (no diagonals, few chains
+# of a wide band: a group of threads a chain), "cluster" (8 paths: a thread
+# block cluster a chain), "strips" (8 paths, a width no cluster covers: one
+# block a chain, its carry rows in device scratch), "wide" (K > 64:
+# banded_wide.cu's kernels, planned there).
+RING_THREADS = (256, 128, 64, 32)  # the ring form's block sizes, largest first
+RING_DEPTHS = (2, 4, 8, 16)  # rows a ring holds
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+STRIP_THREADS = 256
+GROUP_THREADS = 128  # the group form's block (csrc/banded_group.cuh kHorizThreads)
+GROUP_BELOW = 64  # threads an SM: a ring form with fewer than these a SM takes the group form
+DIAG_HALO = 32  # the cluster form's halo columns on each side of a block's own (csrc/banded_diag.cuh kDiagHalo)
+IN_FLIGHT = 32 << 10  # bytes of reads an SM keeps in flight: ~20 KB streams 3.35 TB/s at ~0.8 us
+
+
+def _pow2(K: int) -> int:
+    """KP: the power of two at or above K (at least 4)."""
+    return max(4, 1 << (K - 1).bit_length())
+
+
+def diag_max_threads(K: int) -> int:
+    """Threads a block of the cluster form may have at band K (its carries
+    take ~4 KP registers a thread): ``csrc/banded_diag.cuh``'s."""
+    kp = _pow2(K)
+    return 1024 if kp <= 4 else 512 if kp <= 16 else 256 if kp == 32 else 128
+
+
+def _ring_depth(row_bytes: int, per_sm: int, block_threads: int, smem_optin: int, read_bytes: int) -> int:
+    """The fewest rows (a power of two from 2 to 16) that keep IN_FLIGHT
+    bytes of reads (``read_bytes`` a thread and row) in flight on an SM
+    running ``per_sm`` threads, their slots (``row_bytes`` a thread) within
+    half the opt-in shared memory a block (so that two blocks fit an SM),
+    else within all of it; 0 where even 2 rows do not fit."""
+    for cap in (smem_optin // 2, smem_optin):
+        fits = [S for S in RING_DEPTHS if S * row_bytes * block_threads <= cap]
+        if fits:
+            return next((S for S in fits if S * read_bytes * per_sm >= IN_FLIGHT), fits[-1])
+    return 0
+
+
+def vertical_plan(P: int, H: int, Wv: int, K: int, dtype: torch.dtype, with_diagonals: bool, *, sm_count: int,
+                  smem_optin: int, active_clusters=None) -> dict:
+    """How :func:`banded_vertical` launches #17 on a (P, H, Wv, K) volume of
+    ``dtype`` (int16 or int32), chosen from the shape before the launch.
+
+    ``sm_count`` and ``smem_optin`` describe the card (132 SMs and 232,448
+    bytes on an H100); ``active_clusters(CS, NT, S)`` says how many clusters
+    of CS blocks of NT threads with an S-row ring it holds at once (on the
+    card the wrapper asks CUDA's occupancy calculator; without it, a model:
+    the blocks an SM holds by threads and shared memory, times the SMs,
+    over CS). Returns the form, ``threads`` (a block), ``cols_per_thread``,
+    ``cols_per_block``, ``cluster`` (blocks a cluster), ``ring`` (rows),
+    ``smem_bytes`` and ``scratch_bytes`` (a call), ``grid`` (blocks on x, y,
+    z) and ``device_launches`` (1).
+
+    - ring (no diagonals): a thread a (frame, column, direction), two
+      columns where a band is 8 bytes; the block size (32 to 256 threads)
+      whose busiest SM runs the fewest threads, the larger on ties;
+    - group (no diagonals, K >= 16, where the ring form would run fewer
+      than GROUP_BELOW threads an SM): a group of min(KP, 32) threads a
+      (frame, column, direction), ``cols_per_block`` of them a block of
+      GROUP_THREADS (the grid's x counts chains, down and up);
+    - cluster (8 paths): a cluster of CS blocks a (frame, direction), each
+      owning SW = ceil(Wv / CS) columns rounded up to a warp and running NT
+      = SW + 2 * DIAG_HALO threads (SW for one block), at most
+      :func:`diag_max_threads`; of the sizes the card holds, the one whose
+      busiest SM walks the fewest columns a row (waves of clusters counted),
+      the smaller size on ties;
+    - strips (8 paths, where no cluster of at most 16 blocks covers Wv or
+      the card holds none): one block a chain, carry rows in scratch.
+    The ring's depth keeps ~32 KB of reads in flight an SM."""
+    if dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"the CUDA banded scans store int16 or int32, not {dtype}")
+    check_band(K)
+    elem, chains = (2 if dtype == torch.int16 else 4), 2 * P
+    ceil = lambda a, b: -(-a // b)
+    plan = dict(form="", threads=0, cols_per_thread=1, cols_per_block=0, cluster=1, ring=0, smem_bytes=0,
+                scratch_bytes=0, grid=(0, P, 2), device_launches=1)
+    if K > WIDE_BAND:
+        return dict(plan, form="wide")
+    KP = _pow2(K)
+    cost_bytes = lambda cpt: (cpt * K * elem + 15) // 16 * 16  # a thread's cost slot
+    if not with_diagonals:
+        cpt = 2 if KP * elem == 8 else 1
+        row, read = cost_bytes(cpt) + 4 * cpt, cpt * (K * elem + 4)
+        threads = ceil(Wv, cpt)
+        if KP >= 16 and chains * threads < sm_count * GROUP_BELOW:
+            # Too few chains to fill the SMs a thread each: a group of
+            # min(KP, 32) threads a chain (banded_group.cuh's line kernel).
+            per_block = GROUP_THREADS // min(KP, 32)
+            return dict(plan, form="group", threads=GROUP_THREADS, cols_per_block=per_block,
+                        grid=(ceil(chains * Wv, per_block), 1, 1))
+        # The threads the busiest SM runs at NT threads a block; the block
+        # size that makes them fewest (blocks spread evenly, none mostly
+        # idle), the larger on ties.
+        busiest = lambda n: ceil(ceil(threads, n) * chains, sm_count) * n
+        NT = min(RING_THREADS, key=lambda n: (busiest(n), -n))
+        S = _ring_depth(row, min(2048, busiest(NT)), NT, smem_optin, read)
+        while S == 0 and NT > 32:  # a band too wide for the ring at this block size
+            NT //= 2
+            S = _ring_depth(row, min(2048, busiest(NT)), NT, smem_optin, read)
+        if S == 0:
+            raise ValueError(f"the ring of band {K} fits no block in {smem_optin} bytes of shared memory")
+        return dict(plan, form="ring", threads=NT, cols_per_thread=cpt, cols_per_block=NT * cpt, ring=S,
+                    smem_bytes=S * NT * row, grid=(ceil(threads, NT), P, 2))
+    row, read = cost_bytes(1) + 4, K * elem + 4
+    best = None
+    for CS in CLUSTER_SIZES:
+        SW = ceil(ceil(Wv, CS), 32) * 32  # a block's own columns, whole warps of them
+        NT = SW + (2 * DIAG_HALO if CS > 1 else 0)
+        if NT > diag_max_threads(K) or (CS > 1 and (CS - 1) * SW >= Wv):
+            continue  # too wide a block, or a block with no column
+        blocks_sm = ceil(chains * CS, sm_count)  # blocks an SM runs where every cluster is resident
+        S = _ring_depth(row, min(2048, blocks_sm * NT), NT, smem_optin, read)
+        smem = S * NT * row + 2 * (NT // 32) * 2 * (KP + 4) * 4 + (4 * DIAG_HALO * KP * 4 if CS > 1 else 0)
+        if S == 0 or smem > smem_optin:
+            continue
+        if active_clusters is not None:
+            active = active_clusters(CS, NT, S)
+        else:
+            per_sm = min(32, 2048 // NT, smem_optin // max(smem, 1))
+            active = sm_count * per_sm // CS
+        if active < 1:
+            continue
+        # Waves of clusters times the columns the busiest SM walks a row.
+        cost = (ceil(chains, active) * ceil(min(chains, active) * CS, sm_count) * NT, CS)
+        if best is None or cost < best[0]:
+            best = (cost, dict(plan, form="cluster", threads=NT, cols_per_block=SW, cluster=CS, ring=S,
+                               smem_bytes=smem, grid=(CS, P, 2)))
+    if best is not None:
+        return best[1]
+    NT = min(STRIP_THREADS, ceil(Wv, 32) * 32)
+    return dict(plan, form="strips", threads=NT, cols_per_block=Wv, scratch_bytes=12 * P * Wv * K * elem,
+                grid=(P, 2, 1))
+
+
+_LIMITS: dict[int, tuple[int, int]] = {}  # device -> (SMs, opt-in shared memory a block)
+_CLUSTERS: dict[tuple, int] = {}  # (device, dtype, K, CS, NT, S) -> clusters held at once
+
+
+def device_plan(C: torch.Tensor, with_diagonals: bool) -> dict:
+    """:func:`vertical_plan` for a CUDA volume C, with its card's limits and
+    (8 paths) its occupancy calculator's clusters."""
+    dev = device_index(C)
+    if dev not in _LIMITS:
+        optin = _lib().svt_banded_smem_optin(dev)
+        if optin < 0:
+            raise RuntimeError(f"svt_banded_smem_optin: device query failed on {C.device}")
+        _LIMITS[dev] = (torch.cuda.get_device_properties(dev).multi_processor_count, optin)
+    sm_count, optin = _LIMITS[dev]
+    P, H, Wv, K = C.shape
+
+    def active(CS, NT, S):
+        key = (dev, C.dtype, K, CS, NT, S)
+        if key not in _CLUSTERS:
+            with torch.cuda.device(dev):
+                _CLUSTERS[key] = _diag_lib(C).svt_banded_diag_clusters(K, CS, NT, S)
+        return _CLUSTERS[key]
+
+    return vertical_plan(P, H, Wv, K, C.dtype, with_diagonals, sm_count=sm_count, smem_optin=optin,
+                         active_clusters=active)
+
+
+def _diag_lib(t: torch.Tensor) -> ctypes.CDLL:
+    """The library of the 8-path vertical for t's storage type."""
+    return _lib("banded_diag" if t.dtype == torch.int16 else "banded_diag32")
+
+
 def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_diagonals: bool = False):
     """(P, H, Wv, K) banded cost + (P, H, Wv) shift map -> (down, up)
     direction volumes (int16 or int32 on CUDA, as :func:`_check_volume`
     stores them; int32 plain). With diagonals (8 paths) each volume is the
     sum of its set of three: vertical, (1,1) and (-1,1) carries (the up set
-    scans the y-flipped volume with the same column shifts). ``launches``
-    counts both kernels, ``diagonal_launches`` the diagonal one."""
+    scans the y-flipped volume with the same column shifts).
+
+    On CUDA one device launch a call, by :func:`vertical_plan` (the last
+    call's in ``banded_vertical.plan``); ``launches`` counts the calls that
+    launched, ``diagonal_launches`` those with diagonals."""
     C = _check_volume(C, P2, cost_bound, 3 if with_diagonals else 1)
     if P1 < 0 or P2 < 0:
         raise ValueError("P1 and P2 must be >= 0")
@@ -231,6 +405,8 @@ def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_dia
     s = _check_shift(s, C)
     P, H, Wv, K = C.shape
     dn, up = torch.empty_like(C), torch.empty_like(C)
+    if C.numel() == 0:
+        return dn, up
     if K > WIDE_BAND:
         lib = _wide_lib(C)
         nbytes = lib.svt_banded_wide_diag_scratch_bytes(P, Wv, K, device_index(C)) if with_diagonals else 0
@@ -241,25 +417,26 @@ def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_dia
                                            None if scratch is None else scratch.data_ptr(), P, H, Wv, K, G, P1, P2,
                                            int(with_diagonals), _stream(C))
         _build.check(lib, err, "svt_banded_wide_vertical")
-        banded_vertical.diagonal_launches += int(with_diagonals)
-    elif with_diagonals:
-        # The kernel keeps its carry rows in shared memory where they fit and
-        # says how much device scratch it needs where they do not.
-        lib = _lib("banded_diag" if C.dtype == torch.int16 else "banded_diag32")
-        nbytes = lib.svt_banded_vertical_diag_scratch_bytes(P, Wv, K, device_index(C))
-        if nbytes < 0:
-            raise ValueError(f"the CUDA diagonal scan does not take {Wv} columns on {C.device}")
-        scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
-        err = lib.svt_banded_vertical_diag(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(),
-                                           None if scratch is None else scratch.data_ptr(), P, H, Wv, K, G, P1, P2,
-                                           _stream(C))
-        _build.check(lib, err, "svt_banded_vertical_diag")
-        banded_vertical.diagonal_launches += 1
+        banded_vertical.plan = dict(form="wide", device_launches=1)
     else:
-        lib = _lib()
-        err = lib.svt_banded_vertical(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(), P, H, Wv, K, G, P1,
-                                      P2, C.element_size(), _stream(C))
-        _build.check(lib, err, "svt_banded_vertical")
+        plan = device_plan(C, with_diagonals)
+        if with_diagonals:
+            lib = _diag_lib(C)
+            nbytes = plan["scratch_bytes"]
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
+            err = lib.svt_banded_vertical_diag(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(),
+                                               None if scratch is None else scratch.data_ptr(), P, H, Wv, K, G, P1,
+                                               P2, 0 if plan["form"] == "cluster" else 1, plan["cluster"],
+                                               plan["threads"], plan["ring"], _stream(C))
+            _build.check(lib, err, "svt_banded_vertical_diag")
+        else:
+            lib = _lib()
+            err = lib.svt_banded_vertical(C.data_ptr(), s.data_ptr(), dn.data_ptr(), up.data_ptr(), P, H, Wv, K, G,
+                                          P1, P2, C.element_size(), 0 if plan["form"] == "ring" else 1,
+                                          plan["threads"], plan["ring"], _stream(C))
+            _build.check(lib, err, "svt_banded_vertical")
+        banded_vertical.plan = plan
+    banded_vertical.diagonal_launches += int(with_diagonals)
     banded_vertical.launches += 1
     return dn, up
 
@@ -421,6 +598,13 @@ def banded_stats_pack(left, right, s, params, band: int, G: int, min_x: int, str
     lane k is disparity s + stride * k (the coarse level's strided search)."""
     if params.num_paths not in (2, 3, 4, 8):
         raise ValueError(f"num_paths must be 2, 3, 4 or 8, got {params.num_paths}")
+    if min_x >= left.shape[-1]:
+        # No column in the region (a frame no wider than the level's range):
+        # the reference's maps are empty, and no kernel runs.
+        empty = lambda dtype: torch.empty((*left.shape[:2], 0), dtype=dtype, device=left.device)
+        if fused:
+            return empty(torch.int32), empty(torch.int32)
+        return (*(empty(torch.int32) for _ in range(3 if sub else 5)), empty(torch.bool))
     P1, P2, bound = params.P1, params.P2, params.cost_bound
     summed = 3 if params.num_paths == 8 else 1
     C = banded_cost(left, right, s, band=band, G=G, ndisp=params.num_disparities, ftzero=params.ftzero,
@@ -476,6 +660,7 @@ def downsample_box(img: torch.Tensor, f: int, fx: int | None = None) -> torch.Te
 banded_cost.launches = 0
 banded_vertical.launches = 0
 banded_vertical.diagonal_launches = 0
+banded_vertical.plan = None
 banded_horizontal.launches = 0
 banded_wta.launches = 0
 banded_wta_fused.launches = 0

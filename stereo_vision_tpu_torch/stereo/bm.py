@@ -134,14 +134,18 @@ def stereo_bm(left, right, params: StereoBMParams = StereoBMParams()) -> torch.T
     left, right = left.reshape(-1, *left.shape[-2:]), right.reshape(-1, *right.shape[-2:])
     B, H, W = left.shape
     bs, mindisp = params.block_size, params.min_disparity
-    if bs < 1 or H < bs or W < bs:
-        raise ValueError(f"block_size {bs} does not fit a {H}x{W} frame")
+    if bs < 1:
+        raise ValueError(f"block_size must be >= 1, got {bs}")
+    full = torch.full((B, H, W), float(mindisp - 1), dtype=torch.float32, device=left.device)
+    if H < bs or W < bs:
+        # No window fits the frame: the reference's map is all invalid, and
+        # no kernel runs.
+        return full[0] if squeeze else full
     lp = prefilter_xsobel(left, params.prefilter_cap).contiguous()
     rp = prefilter_xsobel(right, params.prefilter_cap).contiguous()
     disp_v = bm_disparity(lp, rp, ndisp=params.num_disparities, mindisp=mindisp, block_size=bs,
                           cap=params.prefilter_cap, uniq=params.uniqueness_ratio, tex_thr=params.texture_threshold)
     # Paste the window-centre region back into full-frame coordinates.
     wsz2 = bs // 2
-    full = torch.full((B, H, W), float(mindisp - 1), dtype=torch.float32, device=left.device)
     full[:, wsz2 : wsz2 + disp_v.shape[1], wsz2 : wsz2 + disp_v.shape[2]] = disp_v
     return full[0] if squeeze else full

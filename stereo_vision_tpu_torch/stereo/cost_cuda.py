@@ -122,7 +122,9 @@ def _bt_channel_cost(p1row: torch.Tensor, p2row: torch.Tensor, ndisp: int, mindi
 
 def _box_filter_same(x: torch.Tensor, bs: int) -> torch.Tensor:
     """bs x bs box sum over axes (-3, -2) of (..., H, W, D), replicate-padded
-    (cv2 clamp), accumulated in the input dtype."""
+    (cv2 clamp), accumulated in the input dtype. The window spans -bs//2 ..
+    bs - 1 - bs//2 on each axis (an even block reaches one less below and to
+    the right), as the reference's."""
     r = bs // 2
     H, W = x.shape[-3], x.shape[-2]
     xp = torch.cat([x[..., :1, :, :]] * r + [x] + [x[..., -1:, :, :]] * r, dim=-3)
@@ -166,8 +168,10 @@ def cost_volume(
     cost for columns x >= x_offset, of ``dtype`` (default: int16 where
     :func:`window_bound` fits it, else int32).
 
-    CUDA tensors launch ``csrc/cost.cu`` (any odd ``block_size``, any
-    ``ndisp``); CPU tensors run :func:`cost_volume_plain`.
+    CUDA tensors launch ``csrc/cost.cu`` (any ``block_size``, any
+    ``ndisp``); CPU tensors run :func:`cost_volume_plain`. An even block's
+    window spans -bs//2 .. bs//2 - 1 about its centre, as the reference's
+    ``_box_filter_same``.
     """
     if left.shape != right.shape or left.dim() != 3:
         raise ValueError(f"expected two (B, H, W) images, got {tuple(left.shape)} and {tuple(right.shape)}")
@@ -178,8 +182,8 @@ def cost_volume(
     B, H, W = left.shape
     if not 0 <= x_offset < W or ndisp < 1 or mindisp + ndisp < 1:
         raise ValueError(f"bad x_offset={x_offset} / min_disparity={mindisp} / ndisp={ndisp} for width {W}")
-    if block_size % 2 != 1 or block_size < 1:
-        raise ValueError(f"block_size must be odd and >= 1, got {block_size}")
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
     dtype = cost_dtype(block_size, ftzero, dtype)
     if left.device.type == "cpu":
         return cost_volume_plain(left, right, ndisp=ndisp, mindisp=mindisp, block_size=block_size,

@@ -195,6 +195,9 @@ def _assemble_disparity(stats, s_v, W: int, min_x: int, ndisp_full: int, band: i
         minS, k, sm, s0, sp, unique_ok = stats
         sub16 = subpixel_disp16(k, sm, s0, sp, band)
     P, H = minS.shape[:2]
+    full = torch.full((P, H, W), -1.0, dtype=torch.float32, device=minS.device)
+    if minS.shape[-1] == 0:  # no column with the full range: all invalid, no LR check to run
+        return full
     if s_v is None:
         best_abs, d16 = stride * k, stride * sub16
     elif stride != 1:
@@ -206,7 +209,6 @@ def _assemble_disparity(stats, s_v, W: int, min_x: int, ndisp_full: int, band: i
     if params.disp12_max_diff >= 0:
         valid = valid & ~lr_fail_packed(minS * 2048 + best_abs, d16, W=W, ndisp=ndisp_full,
                                         max_diff=params.disp12_max_diff)
-    full = torch.full((P, H, W), -1.0, dtype=torch.float32, device=minS.device)
     full[..., min_x:] = torch.where(valid, disp, -1.0)
     return full
 
@@ -224,11 +226,13 @@ def _assemble_fused(pack, du, W: int, min_x: int, params: StereoSGBMParams) -> t
     float32 disparity (pre-speckle, invalid -1); equal to
     :func:`_assemble_disparity` on the same core."""
     P, H = pack.shape[:2]
+    full = torch.full((P, H, W), -1.0, dtype=torch.float32, device=pack.device)
+    if pack.shape[-1] == 0:  # no column with the full range: all invalid, no LR check to run
+        return full
     d16 = du & 32767
     valid = du >= 32768  # the unique_ok bit
     if params.disp12_max_diff >= 0:
         valid = valid & ~lr_fail_packed(pack, d16, W=W, ndisp=min_x, max_diff=params.disp12_max_diff)
-    full = torch.full((P, H, W), -1.0, dtype=torch.float32, device=pack.device)
     full[..., min_x:] = torch.where(valid, d16.to(torch.float32) / 16.0, -1.0)
     return full
 

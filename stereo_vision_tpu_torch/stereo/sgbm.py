@@ -178,8 +178,13 @@ def stereo_sgbm(left, right, params: StereoSGBMParams = StereoSGBMParams()) -> t
     ndisp = params.num_disparities
     mindisp = params.min_disparity
     minX1 = max(mindisp + ndisp, 0)
+    invalid_val = float(mindisp - 1)
     if minX1 >= W:
-        raise ValueError(f"width {W} leaves no column with the full disparity range {minX1}")
+        # No column sees the full disparity range: the reference's map is all
+        # invalid (its speckle filter leaves invalid pixels as they are), and
+        # no kernel runs on the empty region.
+        full = torch.full((B, H, W), invalid_val, dtype=torch.float32, device=left.device)
+        return full[0] if squeeze else full
 
     minS, best, sm, s0, sp, unique_ok = sgbm_stats(left, right, params)
     disp = subpixel_disp16(best, sm, s0, sp, ndisp).to(torch.float32) / 16.0 + mindisp
@@ -191,7 +196,6 @@ def stereo_sgbm(left, right, params: StereoSGBMParams = StereoSGBMParams()) -> t
 
         valid = valid & ~lr_cuda.lr_fail(minS, best, disp, W=W, min_x=minX1, ndisp=ndisp,
                                          mindisp=mindisp, max_diff=params.disp12_max_diff)
-    invalid_val = float(mindisp - 1)
     full = torch.full((B, H, W), invalid_val, dtype=torch.float32, device=left.device)
     full[..., minX1:] = torch.where(valid, disp, invalid_val)
 

@@ -181,5 +181,9 @@ def test_bm_wrapper_checks_its_arguments():
         bm_cuda.bm_disparity(lp, lp, **dict(kw, ndisp=0))
     with pytest.raises(ValueError, match="negative"):  # as the JAX path refuses to pad by it
         bm_cuda.bm_disparity(lp, lp, **dict(kw, mindisp=-8))
-    with pytest.raises(ValueError, match="does not fit"):
-        bm.stereo_bm(lp[0, :4], lp[0, :4], bm.StereoBMParams(block_size=5))
+    # A frame smaller than the block has no window: the reference's map is all invalid.
+    small = lp[0, :4].numpy()
+    ref = np.asarray(jbm.stereo_bm(jnp.asarray(small), jnp.asarray(small), jbm.StereoBMParams(block_size=5, backend="xla")))
+    mine = bm.stereo_bm(torch.from_numpy(small), torch.from_numpy(small), bm.StereoBMParams(block_size=5))
+    np.testing.assert_array_equal(mine.numpy(), ref)
+    assert (ref == -1.0).all()

@@ -308,25 +308,33 @@ def test_banded_diagonal_vertical_matches_plain(dev, K, G, Wv):
     the G grid and off it; wide rows take several columns a thread, and
     large K * Wv the device-memory carry rows."""
     P, H = 2, 11
-    rng = np.random.default_rng(K * Wv + G)
-    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int16))
-    s = rng.integers(0, 5, (P, H, Wv)) * G + (rng.random((P, H, Wv)) < 0.1) * rng.integers(1, 3, (P, H, Wv))
-    s = torch.from_numpy(s.astype(np.int32))
     P1, P2 = 200, 800
-    n, nd = banded_cuda.banded_vertical.launches, banded_cuda.banded_vertical.diagonal_launches
-    dn, up = banded_cuda.banded_vertical(C.to(dev), s.to(dev), G, P1, P2, cost_bound=2325, with_diagonals=True)
-    torch.cuda.synchronize()
-    assert banded_cuda.banded_vertical.launches == n + 1 and banded_cuda.banded_vertical.diagonal_launches == nd + 1
-    ref_dn, ref_up = banded_cuda.vertical_plain(C, s, G, P1, P2, True)
-    assert dn.dtype == torch.int16
-    assert torch.equal(dn.cpu().to(torch.int32), ref_dn) and torch.equal(up.cpu().to(torch.int32), ref_up)
+    for W in (Wv, 1, 31, 33, 1152):  # and widths across warp, block and cluster edges
+        rng = np.random.default_rng(K * W + G)
+        C = torch.from_numpy(rng.integers(0, 2326, (P, H, W, K)).astype(np.int16))
+        s = rng.integers(0, 5, (P, H, W)) * G + (rng.random((P, H, W)) < 0.1) * rng.integers(1, 3, (P, H, W))
+        s = torch.from_numpy(s.astype(np.int32))
+        n, nd = banded_cuda.banded_vertical.launches, banded_cuda.banded_vertical.diagonal_launches
+        dn, up = banded_cuda.banded_vertical(C.to(dev), s.to(dev), G, P1, P2, cost_bound=2325, with_diagonals=True)
+        torch.cuda.synchronize()
+        assert banded_cuda.banded_vertical.launches == n + 1 and banded_cuda.banded_vertical.diagonal_launches == nd + 1
+        ref_dn, ref_up = banded_cuda.vertical_plain(C, s, G, P1, P2, True)
+        assert dn.dtype == torch.int16
+        assert torch.equal(dn.cpu().to(torch.int32), ref_dn) and torch.equal(up.cpu().to(torch.int32), ref_up)
 
 
 def test_banded_diagonal_vertical_refuses_wide_rows(dev):
-    C = torch.zeros((1, 2, 4097, 4), dtype=torch.int16, device=dev)
-    s = torch.zeros((1, 2, 4097), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="does not take 4097 columns"):
-        banded_cuda.banded_vertical(C, s, 2, 200, 800, cost_bound=2325, with_diagonals=True)
+    """Rows wider than 4096 columns, which the first 8-path kernel refused:
+    the card now equals the plain form there (the cluster form at 4097 and
+    8192 columns, the strips form beyond what a cluster covers)."""
+    rng = np.random.default_rng(4097)
+    for Wv, form in ((4097, "cluster"), (8192, "cluster"), (20000, "strips")):
+        C = torch.from_numpy(rng.integers(0, 2326, (1, 5, Wv, 4)).astype(np.int16))
+        s = _random_shift_map(rng, 1, 5, Wv, 2)
+        out = banded_cuda.banded_vertical(C.to(dev), s.to(dev), 2, 200, 800, cost_bound=2325, with_diagonals=True)
+        assert banded_cuda.banded_vertical.plan["form"] == form
+        ref = banded_cuda.vertical_plain(C, s, 2, 200, 800, True)
+        assert all(torch.equal(a.cpu().to(torch.int32), r) for a, r in zip(out, ref))
 
 
 def test_hier_pipeline_eight_paths_cuda_matches_cpu(dev):
@@ -600,13 +608,15 @@ def test_banded_vertical_and_wta_bands_match_plain(dev, K, G, dtype):
     and sub) over three volumes."""
     P, H, Wv = 2, 11, 300
     rng = np.random.default_rng(K + G)
-    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int32)).to(dtype)
-    s = _random_shift_map(rng, P, H, Wv, G)
     bound = 2325 if dtype == torch.int16 else 40000
-    for diag in (False, True):
-        out = banded_cuda.banded_vertical(C.to(dev), s.to(dev), G, 200, 800, cost_bound=bound, with_diagonals=diag)
-        ref = banded_cuda.vertical_plain(C, s, G, 200, 800, diag)
-        assert all(a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), b) for a, b in zip(out, ref))
+    for W in (Wv, 1, 31, 33, 1152):  # and widths across warp, block and cluster edges
+        C = torch.from_numpy(rng.integers(0, 2326, (P, H, W, K)).astype(np.int32)).to(dtype)
+        s = _random_shift_map(rng, P, H, W, G)
+        for diag in (False, True):
+            out = banded_cuda.banded_vertical(C.to(dev), s.to(dev), G, 200, 800, cost_bound=bound, with_diagonals=diag)
+            ref = banded_cuda.vertical_plain(C, s, G, 200, 800, diag)
+            assert all(a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), b) for a, b in zip(out, ref))
+    C = torch.from_numpy(rng.integers(0, 2326, (P, H, Wv, K)).astype(np.int32)).to(dtype)
     vols = [torch.from_numpy(rng.integers(0, 9000, (P, H, Wv, K)).astype(np.int32)).to(dtype) for _ in range(3)]
     for v in vols:  # ties at the minimum: the smaller k wins
         v[:, :, :4, K - 3] = v[:, :, :4, 2] = 0
@@ -1034,3 +1044,121 @@ def test_aggregate_8_runs_the_cluster_vertical(dev):
     torch.cuda.synchronize()
     assert (sgm_cuda.aggregate_8.launches, sgm_cuda.vertical.device_launches) == (n[0] + 1, n[1] + 1)
     assert torch.equal(out.cpu(), sgm_cuda._aggregate_8(C, 200, 800, 8))
+
+
+# The banded vertical scan's forms (#17) across the plan's edges: widths that
+# cross warp, block and cluster edges, one row and more rows than a ring
+# holds, shift maps constant on 4x4 tiles and per-pixel random, both storage
+# types, every power-of-two band and one between.
+@pytest.mark.parametrize("K,G", [(4, 2), (8, 4), (12, 4), (16, 8), (32, 8), (64, 16)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_banded_vertical_forms_match_plain(dev, K, G, dtype):
+    bound, P1, P2 = (2325, 200, 800) if dtype == torch.int16 else (40000, 8, 32000)
+    cost_bound = 2325 if dtype == torch.int16 else 20000
+    rng = np.random.default_rng(K * 7 + G)
+    for Wv in (1, 31, 33, 1152, 4097, 8192):
+        for H in (1, 17):  # 17 rows: more than the deepest ring the plans take at these shapes
+            P = 2 if Wv <= 1152 else 1
+            C = torch.from_numpy(rng.integers(0, bound + 1, (P, H, Wv, K))).to(dtype)
+            if H == 1:
+                s = _random_shift_map(rng, P, H, Wv, G)
+            else:
+                tiles = rng.integers(0, 6, (P, -(-H // 4), -(-Wv // 4))) * G
+                s = torch.from_numpy(np.repeat(np.repeat(tiles, 4, 1), 4, 2)[:, :H, :Wv].astype(np.int32))
+            for maps in ((s, _random_shift_map(rng, P, H, Wv, G)) if H > 1 else (s,)):
+                for diag in (False, True):
+                    n = banded_cuda.banded_vertical.launches
+                    out = banded_cuda.banded_vertical(C.to(dev), maps.to(dev), G, P1, P2, cost_bound=cost_bound,
+                                                      with_diagonals=diag)
+                    plan = banded_cuda.banded_vertical.plan
+                    assert banded_cuda.banded_vertical.launches == n + 1 and plan["device_launches"] == 1
+                    assert plan["form"] in (("cluster", "strips") if diag else ("ring", "group"))
+                    ref = banded_cuda.vertical_plain(C, maps, G, P1, P2, diag)
+                    assert all(a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), r) for a, r in zip(out, ref)), \
+                        (Wv, H, diag, plan)
+
+
+# The settings the reference computes and the card once refused (ROADMAP C.1,
+# C.2, C.3, C.4), card against CPU.
+@pytest.mark.parametrize("H,W,D,mindisp", [(8, 16, 16, 0), (8, 12, 16, 0), (8, 16, 8, 8), (8, 17, 16, 0)])
+def test_sgbm_frame_no_wider_than_range_card_equals_cpu(dev, H, W, D, mindisp):
+    rng = np.random.default_rng(0)
+    left, right = (torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.int32)) for _ in range(2))
+    p = StereoSGBMParams(num_disparities=D, min_disparity=mindisp, block_size=3)
+    n = cost_cuda.cost_volume.launches
+    got = stereo_sgbm(left.to(dev), right.to(dev), p)
+    assert torch.equal(got.cpu(), stereo_sgbm(left, right, p))
+    assert (cost_cuda.cost_volume.launches == n) == (W <= mindisp + D)  # no kernel on an empty region
+
+
+@pytest.mark.parametrize("W", [64, 67])
+def test_hier_no_wider_than_range_card_equals_cpu(dev, W):
+    left, right = (torch.from_numpy(a.astype(np.int32)) for a in scene(seed=3, H=32, W=W, box_disp=20))
+    p = StereoSGBMParams(num_disparities=64)
+    hp = hier.HierParams(band=16, granularity=8, tile=1, local_window=1)
+    got = hier.stereo_sgbm_hier(left.to(dev), right.to(dev), p, hp)
+    assert torch.equal(got.cpu(), hier.stereo_sgbm_hier(left, right, p, hp))
+    frames = [scene(seed=s, H=32, W=W, box_disp=20) for s in range(8)]
+    L, R = (torch.from_numpy(np.stack([f[i] for f in frames]).astype(np.int32)) for i in (0, 1))
+    p = StereoSGBMParams(num_disparities=64, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=30,
+                         speckle_range=2)
+    got = hier.stereo_sgbm_hier_batch(L.to(dev), R.to(dev), p, hp)
+    assert torch.equal(got.cpu(), hier.stereo_sgbm_hier_batch(L, R, p, hp))
+
+
+@pytest.mark.parametrize("H,W", [(4, 20), (20, 4), (5, 5)])
+def test_bm_frame_smaller_than_block_card_equals_cpu(dev, H, W):
+    rng = np.random.default_rng(1)
+    left, right = (torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.int32)) for _ in range(2))
+    p = bm.StereoBMParams(num_disparities=8, block_size=5)
+    n = bm_cuda.bm_disparity.launches
+    got = bm.stereo_bm(left.to(dev), right.to(dev), p)
+    assert torch.equal(got.cpu(), bm.stereo_bm(left, right, p))
+    assert (bm_cuda.bm_disparity.launches == n) == (H < 5 or W < 5)
+
+
+@pytest.mark.parametrize("bs", [2, 4, 6])
+def test_even_blocks_card_equal_plain(dev, bs):
+    """Both cost kernels at an even block against their plain forms (int16
+    and int32, several disparity ranges, stride and shift maps), then
+    stereo_sgbm at ROADMAP C.3's input and the per-frame hier, card == CPU."""
+    rng = np.random.default_rng(bs)
+    left, right = _images(bs, 2, 23, 150)
+    for D, md, xo, dtype in ((16, 0, 16, torch.int16), (64, 0, 64, torch.int32), (48, 3, 0, torch.int16),
+                             (200, 0, 100, torch.int16)):
+        kw = dict(ndisp=D, mindisp=md, block_size=bs, x_offset=xo)
+        ref = cost_cuda.cost_volume_plain(left, right, **kw)
+        out = cost_cuda.cost_volume(left.to(dev), right.to(dev), dtype=dtype, **kw)
+        assert out.dtype == dtype and torch.equal(out.cpu().to(torch.int32), ref.to(torch.int32))
+    for K, G, nd, stride, dtype in ((4, 2, 64, 1, torch.int16), (16, 8, 64, 1, torch.int32), (8, 4, 32, 2, torch.int16),
+                                    (68, 4, 128, 1, torch.int16)):
+        s = (_random_shift_map(rng, 2, 23, 150, G).clamp(max=nd - K) if stride == 1
+             else torch.zeros((2, 23, 150), dtype=torch.int32))
+        kw = dict(band=K, G=G, ndisp=nd, block_size=bs, min_x=nd, stride=stride, dtype=dtype)
+        ref = banded_cuda.banded_cost_plain(left, right, s, ftzero=15, **kw)
+        out = banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), **kw)
+        assert torch.equal(out.cpu(), ref)
+    rng = np.random.default_rng(7)
+    l1, r1 = (torch.from_numpy(rng.integers(0, 256, (12, 56)).astype(np.int32)) for _ in range(2))
+    p = StereoSGBMParams(num_disparities=16, block_size=bs, uniqueness_ratio=5)
+    assert torch.equal(stereo_sgbm(l1.to(dev), r1.to(dev), p).cpu(), stereo_sgbm(l1, r1, p))
+    l2, r2 = (torch.from_numpy(a.astype(np.int32)) for a in scene(seed=2, H=32, W=128))
+    p = StereoSGBMParams(num_disparities=64, block_size=bs, uniqueness_ratio=10, disp12_max_diff=1, num_paths=3)
+    hp = hier.HierParams(band=16, granularity=8, tile=1, local_window=1)
+    got = hier.stereo_sgbm_hier(l2.to(dev), r2.to(dev), p, hp)
+    assert torch.equal(got.cpu(), hier.stereo_sgbm_hier(l2, r2, p, hp))
+
+
+@pytest.mark.parametrize("matcher", ["sgbm", "bm"])
+def test_other_matchers_ignore_hier_params_on_the_card(dev, matcher):
+    frames = [scene(seed=s, H=24, W=96) for s in range(2)]
+    L, R = (np.stack([f[i] for f in frames]) for i in (0, 1))
+    yy, xx = np.mgrid[0:24, 0:96].astype(np.float32)
+    maps = (xx + 0.2, yy, xx, yy + 0.1)
+    Q = np.array([[1, 0, 0, -48], [0, 1, 0, -12], [0, 0, 0, 300.0], [0, 0, 10.0, 0]], np.float32)
+    params = (StereoSGBMParams(num_disparities=16, uniqueness_ratio=10) if matcher == "sgbm"
+              else bm.StereoBMParams(num_disparities=16, block_size=5))
+    d0, _ = batched_stereo_pipeline(L, R, maps, Q, matcher=matcher, params=params, device=dev)
+    d1, _ = batched_stereo_pipeline(L, R, maps, Q, matcher=matcher, params=params, hier_params=HIER_FAST, device=dev)
+    dc, _ = batched_stereo_pipeline(L, R, maps, Q, matcher=matcher, params=params, device="cpu")
+    assert torch.equal(d0, d1) and torch.equal(d0.cpu(), dc)
