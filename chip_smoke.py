@@ -147,11 +147,26 @@ After 18:
      bound; then its grid (K = 4, 8, 12, 16, 32, 64 with their G; 1, 33,
      1152 and 4097 columns; 1 and 17 rows; int16 and int32; with and
      without diagonals), card against plain.
-Phase 20 also holds ROADMAP C.1-C.4's settings card against CPU: a frame no
-wider than its range (stereo_sgbm, no kernel launched; the per-frame and
-batched hier at 32x64), BM on frames smaller than the block (no kernel
-launched), blocks 4 and 6 through both cost kernels and through stereo_sgbm
-and the per-frame hier, and hier_params ignored by matcher="sgbm" / "bm".
+ 29. (run after 28) the banded WTA (#20) on the arguments each hier main
+     path's recorded call gave it (hier4x3's three levels, hier16x3's two,
+     hier4x8's full level) and the packed LR check (#10) on hier4x3's and
+     hier16x3's: exact against the plain form on the first frame, one
+     device launch a call, five timed runs of 5 calls, the bound and the
+     time of torch's copy of the same bytes (also on the kernels line's
+     rows, "copy_ms"); then #20's grid (K = 1, 2, 3, 4, 8, 12, 16, 20, 32,
+     36, 64; int16 and int32; 2-4 volumes; both forms; 1, 31-33, 255-257
+     and 1007 pixels; random, tied, end and boundary
+     lanes, int32 sums near 2^31) and #10's (widths 17 to 20000, ranges 16
+     to 2047, 1, 7 and 23,040 rows, max_diff 0-2, random maps, rows at one
+     disparity, d16 < 0, lookups at and past the shifts -1 and ndisp),
+     card against plain.
+Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
+frame no wider than its range (stereo_sgbm, no kernel launched; the
+per-frame and batched hier at 32x64), BM on frames smaller than the block
+(no kernel launched), blocks 4 and 6 through both cost kernels and through
+stereo_sgbm and the per-frame hier, hier_params ignored by matcher="sgbm" /
+"bm", and the per-frame hier with 1, 2 and 3 coarse lanes (and its refusal
+at 5 and 6, before any launch).
 The exact8 main path (5) and the two-stage call (13) assert one device launch
 of the vertical scan and print its cluster size; the bm phases (14, 15)
 assert the packed row form.
@@ -184,7 +199,8 @@ from stereo_vision_tpu_torch.stereo import (banded_cuda, bm, bm_cuda, cost_cuda,
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
-from stereo_vision_tpu_torch.synth.scenes import agreement, scene, scene_occ, scene_truth, speckle_patterns
+from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, lr_maps, scene, scene_occ,
+                                                  scene_truth, speckle_patterns, wta_volumes)
 
 H, W, D, B = 720, 1280, 128, 4
 # bench.py's exact8 mode (BASELINE config #2).
@@ -808,6 +824,8 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
             SPECKLE_RECORDS.setdefault(path, dict(args=args, kwargs=kwargs))
         if name in ("banded_vertical", "banded_vertical_diag") and path in VERTICAL_PATHS:
             VERTICAL_RECORDS.setdefault(path, []).append(dict(level=c["level"], args=args, kwargs=kwargs))
+        if name in ("banded_wta", "lr_fail_packed") and f"{path} {c['level']}" in WTA_LR_LEVELS[name]:
+            WTA_LR_RECORDS[name].setdefault(f"{path} {c['level']}", dict(args=args, kwargs=kwargs))
 
     rows = []
     for name, a in acc.items():
@@ -828,6 +846,13 @@ SPECKLE_RECORDS: dict[str, dict] = {}
 # by level, kept by phase_recorded_kernels for phase 28.
 VERTICAL_PATHS = ("hier4x3", "hier4x8", "hier16x3")
 VERTICAL_RECORDS: dict[str, list[dict]] = {}
+# The WTA's (#20) and the packed LR check's (#10) arguments on the hier main
+# paths' recorded calls, by path and level, kept by phase_recorded_kernels for
+# phase 29.
+WTA_LR_LEVELS = {"banded_wta": ("hier4x3 coarse", "hier4x3 mid", "hier4x3 full", "hier16x3 coarse", "hier16x3 full",
+                                "hier4x8 full"),
+                 "lr_fail_packed": ("hier4x3 full", "hier16x3 full")}
+WTA_LR_RECORDS: dict[str, dict[str, dict]] = {"banded_wta": {}, "lr_fail_packed": {}}
 
 
 def check_wta16(records: list[dict]) -> None:
@@ -1371,13 +1396,15 @@ def phase_settings(dev) -> dict:
 
 
 def settings_repaired(dev) -> dict:
-    """The settings ROADMAP C.1-C.4 logged (the reference computes them; the
-    card once refused them), card against CPU, exact: a frame no
+    """The settings ROADMAP C.1-C.4 and C.7 logged (the reference computes
+    them; the card once refused them), card against CPU, exact: a frame no
     wider than its range (stereo_sgbm, no kernel launched; the per-frame and
     batched hier at 32x64, D=64); BM on frames smaller than the block (no
     kernel launched); even blocks 4 and 6 through both cost kernels against
     their plain forms and through stereo_sgbm and the per-frame hier;
-    hier_params with matcher="sgbm" and "bm" ignored."""
+    hier_params with matcher="sgbm" and "bm" ignored; the per-frame
+    stereo_sgbm_hier with 1, 2 and 3 coarse lanes (and a refusal where the
+    reference raises, before any launch)."""
     out = {}
     rng = np.random.default_rng(0)
     for h, w, d, md in ((8, 16, 16, 0), (8, 12, 16, 0), (8, 16, 8, 8)):
@@ -1437,7 +1464,30 @@ def settings_repaired(dev) -> dict:
         if not torch.equal(d0, d1):
             raise AssertionError(f"matcher={matcher!r} does not ignore hier_params")
     out["hier_params with sgbm and bm"] = "ignored"
-    print(f"settings ROADMAP C.1-C.4: {json.dumps(out)}", flush=True)
+    # C.7: the per-frame strided coarse search at Kc = 1, 2, 3 lanes, and the
+    # refusal where the reference raises (Kc = 5 and 6 at G = 8).
+    rng = np.random.default_rng(0)
+    for d, stride, w in ((64, 16, 128), (64, 8, 128), (192, 16, 256)):
+        l = torch.from_numpy(rng.integers(0, 256, (16, w)).astype(np.int32))
+        r = torch.roll(l, -8 if d == 64 else -40, 1)
+        p, hp = StereoSGBMParams(num_disparities=d, block_size=3), hier.HierParams(band=16, granularity=8,
+                                                                                  coarse_stride=stride)
+        n = banded_cuda.banded_wta.launches
+        got = hier.stereo_sgbm_hier(l.to(dev), r.to(dev), p, hp)
+        if banded_cuda.banded_wta.launches != n + 2 or not torch.equal(got.cpu(), hier.stereo_sgbm_hier(l, r, p, hp)):
+            raise AssertionError(f"per-frame stereo_sgbm_hier at D={d}, coarse_stride {stride}: card != CPU")
+    for d, stride in ((64, 3), (192, 8)):
+        n = banded_cuda.downsample_box.launches
+        try:
+            hier.stereo_sgbm_hier(l.to(dev), r.to(dev), StereoSGBMParams(num_disparities=d, block_size=3),
+                                  hier.HierParams(band=16, granularity=8, coarse_stride=stride))
+        except ValueError as e:
+            if "lanes at granularity 8" not in str(e) or banded_cuda.downsample_box.launches != n:
+                raise
+        else:
+            raise AssertionError(f"per-frame stereo_sgbm_hier at D={d}, coarse_stride {stride} did not refuse")
+    out["C.7 coarse lanes 1-3"] = "card == CPU; Kc 5 and 6 refused"
+    print(f"settings ROADMAP C.1-C.4, C.7: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1899,6 +1949,104 @@ def phase_banded_vertical(dev) -> dict:
     return out
 
 
+# Phase 29: the WTA's (#20) and the packed LR check's (#10) settings: bands
+# (1-3 lanes, off and on the powers of two, the group form above 32), storage
+# types, 2-4 volumes, both forms, pixel counts about a warp's and a block's
+# run; widths, ranges
+# and row counts of the LR check (23,040 rows only where a call's plain form
+# stays under a second: 30 M pixels at most, ranges to 128).
+WTA_GRID_K = (1, 2, 3, 4, 8, 12, 16, 20, 32, 36, 64)
+WTA_GRID_PIXELS = (1, 31, 32, 33, 255, 256, 257, 1007)  # a thread a pixel, 32 a warp, 256 a block at K <= 16
+LR_GRID = dict(W=(17, 96, 1280, 4096, 20000), ndisp=(16, 128, 1024, 2047), rows=(1, 7, 23040), max_diff=(0, 1, 2))
+
+
+def copy_ms(nbytes: int) -> float:
+    """torch's copy of nbytes / 2 bytes into another buffer (nbytes moved):
+    the least of five runs of 5 calls, CUDA events."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return min(event_ms(lambda: dst.copy_(src), 5) for _ in range(5))
+
+
+def phase_wta_lr(dev) -> dict:
+    """The banded WTA (#20) on the arguments each hier main path's recorded
+    call gave it (hier4x3's three levels, hier16x3's two, hier4x8's full
+    level) and the packed LR check (#10) on hier4x3's and hier16x3's: exact
+    against the plain form (run on the card) on the first frame, one device
+    launch a call (torch.profiler), five timed runs of 5 calls (CUDA events),
+    the bound (every input read once, every output written once) and the
+    time of torch's copy of as many bytes; then each kernel's grid, card
+    against plain, exact."""
+    out = {"banded_wta": {}, "lr_fail_packed": {}}
+    for name, kern_name in (("banded_wta", "banded_wta_kernel"), ("lr_fail_packed", "lr_fail_kernel")):
+        fn, plain = KERNELS[name][0], PLAIN[name]
+        for key in WTA_LR_LEVELS[name]:
+            rec = WTA_LR_RECORDS[name].get(key)
+            if rec is None:
+                raise AssertionError(f"no recorded call of {name} at {key}")
+            args, kwargs = rec["args"], rec["kwargs"]
+            kern = lambda: fn(*args, **kwargs)
+            got = kern()
+            ref = plain(*_head(args, 1), **_head(kwargs, 1))
+            torch.cuda.synchronize()
+            gots, refs = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+            if len(gots) != len(refs) or any(not torch.equal(a[:1], r) for a, r in zip(gots, refs)):
+                raise AssertionError(f"{name} ({key}) differs from its plain form")
+            launches = device_launches(kern, kern_name)
+            if launches not in (1, "not measured"):
+                raise AssertionError(f"{name} ({key}) made {launches} device launches")
+            runs = [event_ms(kern, 5) for _ in range(5)]
+            nbytes = _nbytes(args) + _nbytes(gots)
+            b_ms, b_by = bound_ms(nbytes, _ops(name, args, kwargs, gots[0].numel()))
+            c_ms = copy_ms(nbytes)
+            shape = list((args[0][0] if name == "banded_wta" else args[0]).shape)
+            out[name][key] = dict(shape=shape, device_launches=launches, runs_ms=runs, ms=min(runs), bound_ms=b_ms,
+                                  bound_by=b_by, copy_ms=c_ms, bytes=nbytes)
+            print(f"kernel {name} ({key}, {tuple(shape)}): exact, {launches} device launch(es), runs "
+                  f"{[round(r, 4) for r in runs]} ms, bound {b_ms:.4f} ms by {b_by}, copy {c_ms:.4f} ms", flush=True)
+            del got, ref, gots, refs
+    t0 = time.perf_counter()
+    cases = 0
+    for K in WTA_GRID_K:
+        for dtype in (torch.int16, torch.int32):
+            rng = np.random.default_rng(K)
+            modes = WTA_MODES if dtype == torch.int32 else WTA_MODES[:-1]
+            for nvol in (2, 3, 4):
+                for n in WTA_GRID_PIXELS:
+                    for mode in modes:
+                        vols = [torch.from_numpy(v).to(dtype).to(dev) for v in wta_volumes(
+                            rng, (1, 1, n, K), mode, nvol, np.int32 if mode == "near_bound" else np.int16)]
+                        for sub in (False, True):
+                            got = banded_cuda.banded_wta(vols, 10, sub)
+                            ref = banded_cuda.banded_wta_plain(vols, 10, sub)
+                            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                                raise AssertionError(f"banded_wta grid K={K} {dtype} {nvol} volumes n={n} {mode} "
+                                                     f"sub={sub} differs from its plain form")
+                            cases += 1
+    out["banded_wta"]["grid_cases"] = cases
+    print(f"kernel banded_wta grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    cases = 0
+    for W_ in LR_GRID["W"]:
+        for nd in LR_GRID["ndisp"]:
+            for rows in LR_GRID["rows"]:
+                if nd >= W_ or (rows > 7 and (rows * W_ > 30_000_000 or nd > 128)):
+                    continue
+                rng = np.random.default_rng(W_ + nd + rows)
+                for mode in LR_MODES:
+                    pack, d16 = (torch.from_numpy(m).to(dev) for m in lr_maps(rng, (1, rows, W_ - nd), nd, mode))
+                    for md in LR_GRID["max_diff"]:
+                        kw = dict(W=W_, ndisp=nd, max_diff=md)
+                        if not torch.equal(lr_cuda.lr_fail_packed(pack, d16, **kw),
+                                           lr_cuda.lr_fail_packed_plain(pack, d16, **kw)):
+                            raise AssertionError(f"lr_fail_packed grid W={W_} ndisp={nd} rows={rows} {mode} "
+                                                 f"max_diff={md} differs from its plain form")
+                        cases += 1
+    out["lr_fail_packed"]["grid_cases"] = cases
+    print(f"kernel lr_fail_packed grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2003,6 +2151,14 @@ def main() -> int:
     banded_vertical = phase_banded_vertical(dev)
     VERTICAL_RECORDS.clear()
     torch.cuda.empty_cache()
+    wta_lr = phase_wta_lr(dev)
+    for r in WTA_LR_RECORDS.values():
+        r.clear()
+    torch.cuda.empty_cache()
+    for r in rows:  # the copy time of the same bytes beside each #20 / #10 row of a main path
+        levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
+        if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
+            r["copy_ms"] = sum(v["copy_ms"] for v in levels.values())
 
     names = [r["name"] for r in rows]
     for r in rows:  # a kernel that runs on several paths: one row each
@@ -2016,7 +2172,7 @@ def main() -> int:
                       "settings": settings, "banded_cost_levels": banded_cost_levels,
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
-                      "banded_vertical": banded_vertical, "build_s": build_s}), flush=True)
+                      "banded_vertical": banded_vertical, "wta_lr": wta_lr, "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

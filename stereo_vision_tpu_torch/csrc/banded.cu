@@ -6,7 +6,7 @@
 //   _vert_kernel (without diagonals)          -> banded_vertical_kernel
 //   _vert_kernel (with diagonals, 8 paths)    -> banded_diag.cuh
 //   _horiz_kernel                             -> banded_line_kernel (banded_group.cuh)
-//   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel
+//   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel (banded_wta.cu)
 //   _wta_fused_kernel (band 16)               -> banded_wta_fused_kernel
 // and the image pyramid's box mean:
 //   _downsample_kernel (downsample_box_pack)  -> downsample_box_kernel
@@ -29,11 +29,11 @@
 //     takes the centre pixel's own value.
 // Layout: banded volumes (P, H, Wv, K) of T, frames on the grid; T is int16
 // where the wrappers find that the volumes' bound fits it and int32
-// otherwise, and every kernel is one template over T. The cost kernel
-// (banded_cost.cu) takes any K % 4 == 0 from 4 at run time; the
-// scans and the WTA here take K up to 64 (banded.cuh: instantiated at the
-// next power of two, K at run time), banded_wide.cu and banded_wide32.cu
-// the bands above 64. The TPU
+// otherwise, and every kernel is one template over T; a pixel's lanes lie
+// lane_stride(K) (K rounded up to 4) apart. The cost kernel (banded_cost.cu)
+// takes any K >= 1 at run time; the scans here take K up to 64 (banded.cuh:
+// instantiated at the next power of two, at least 4, K at run time),
+// banded_wide.cu and banded_wide32.cu the bands above 64. The TPU
 // kernels' 128-lane frame packing, float32-for-int and tile-entry delta
 // rows are not carried over.
 //
@@ -41,9 +41,10 @@
 // 1280x720, K=4, 1152 valid columns; one int16 volume = 212 MB): the cost
 // kernel writes one volume and reads the images and shift map (~169 us at
 // 3.35 TB/s); vertical reads one and writes two (~222 us with the shift
-// map); each horizontal reads one and writes one (~127 us); the WTA reads
-// three and writes four int32 maps and a bool map (~318 us). The scans are also dependent chains
-// of H (or Wv) steps. The fused WTA (hier16x3 full level: 8 frames, K=16,
+// map); each horizontal reads one and writes one (~127 us); the WTA
+// (banded_wta.cu) reads three and writes three int32 maps and a bool map
+// (~293 us). The scans are also dependent chains of H (or Wv) steps. The
+// fused WTA (hier16x3 full level: 8 frames, K=16,
 // three 212 MB volumes and a 26.5 MB shift map in, two 26.5 MB int32 maps
 // out) is bytes-bound at ~0.21 ms; its operations take under 0.02 ms at
 // 67 T/s.
@@ -53,8 +54,8 @@
 //   vertical: see banded_vertical_kernel (redesigned for Hopper: a ring of
 //     rows in shared memory a thread, fed by cp.async S rows ahead).
 //   horizontal: see banded_line_kernel.
-//   wta: one thread per pixel sums the 2-4 volumes in int32 and reduces
-//     over the K lanes. The fused form shares that reduction and the
+//   wta: see banded_wta.cu. The fused form (band 16): one thread per pixel
+//     sums the 2-4 volumes in int32, reduces over the K lanes, takes the
 //     subpixel step, reads the pixel's shift and writes the LR check's pack
 //     (minS * 2048 + best + s) and d16 + 32768 * unique_ok; the TPU kernel's
 //     8-rows-a-step (W, 128) lane layout and its group-sum matmuls have no
@@ -152,17 +153,18 @@ __device__ __forceinline__ void vertical_ring(const RingArgs& a, int K) {
   const int H = a.H, Wv = a.Wv, S = a.S;
   if (x >= Wv) return;  // no collective below: a thread past the frame leaves
   const int ncol = min(CPT, Wv - x);
-  const int CB = ring_cost_bytes(CPT, K, sizeof(T));
+  const int KS = svt::lane_stride(K);  // a pixel's lanes in memory
+  const int CB = ring_cost_bytes(CPT, KS, sizeof(T));
   unsigned char* cring = ring_smem + (size_t)tid * CB;
   int* sring = reinterpret_cast<int*>(ring_smem + (size_t)S * NT * CB) + tid * CPT;
-  const size_t plane = (size_t)Wv * K;
-  const T* Cb = static_cast<const T*>(a.C) + (size_t)b * H * plane + (size_t)x * K;
+  const size_t plane = (size_t)Wv * KS;
+  const T* Cb = static_cast<const T*>(a.C) + (size_t)b * H * plane + (size_t)x * KS;
   const int* Sb = a.s + (size_t)b * H * Wv + x;
-  T* Ob = static_cast<T*>(up ? a.up : a.dn) + (size_t)b * H * plane + (size_t)x * K;
+  T* Ob = static_cast<T*>(up ? a.up : a.dn) + (size_t)b * H * plane + (size_t)x * KS;
   // The columns' bands go as 16-byte copies where every row keeps them
-  // aligned, else as 8-byte ones (a band is a multiple of 8 bytes).
-  const int nbytes = ncol * K * (int)sizeof(T);
-  const bool w16 = nbytes % 16 == 0 && (plane * sizeof(T)) % 16 == 0 && ((size_t)x * K * sizeof(T)) % 16 == 0;
+  // aligned, else as 8-byte ones (a band in memory is a multiple of 8 bytes).
+  const int nbytes = ncol * KS * (int)sizeof(T);
+  const bool w16 = nbytes % 16 == 0 && (plane * sizeof(T)) % 16 == 0 && ((size_t)x * KS * sizeof(T)) % 16 == 0;
   const bool s8 = CPT == 2 && ncol == 2 && Wv % 2 == 0;  // both shifts as one 8-byte copy
   auto row_of = [&](int i) { return up ? H - 1 - i : i; };
   auto issue = [&](int i) {
@@ -205,7 +207,7 @@ __device__ __forceinline__ void vertical_ring(const RingArgs& a, int K) {
       if (j >= ncol) break;
       int c[KP];
 #pragma unroll
-      for (int k = 0; k < KP; ++k) c[k] = k < K ? static_cast<int>(h[j * K + k]) : kBig;
+      for (int k = 0; k < KP; ++k) c[k] = k < K ? static_cast<int>(h[j * KS + k]) : kBig;
       const int sv = sy[j];
       svt::banded_step<KP>(c, L[j], t == 0 ? 0 : sv - sprev[j], K, a.G, a.P1, a.P2);
       sprev[j] = sv;
@@ -221,7 +223,7 @@ __device__ __forceinline__ void vertical_ring(const RingArgs& a, int K) {
         *reinterpret_cast<int4*>(o) = wv;
       } else {
         svt::store_lanes<T, KP>(o, K, L[0]);
-        if (ncol == 2) svt::store_lanes<T, KP>(o + K, K, L[1]);
+        if (ncol == 2) svt::store_lanes<T, KP>(o + KS, K, L[1]);
       }
     } else {
       svt::store_lanes<T, KP>(o, K, L[0]);
@@ -230,11 +232,13 @@ __device__ __forceinline__ void vertical_ring(const RingArgs& a, int K) {
   }
 }
 
-// K == KP takes a copy of the scan in which K is a constant, so that the
-// band's masks fold away and the power-of-two bands run as before.
-template <typename T, int KP>
+// kConstK (K == KP) takes a copy of the scan in which K is a constant, so
+// that the band's masks fold away and the power-of-two bands run as before;
+// the other bands (K % 4 != 0 at KP <= 8, any K below KP above) a kernel of
+// their own, so that neither copy's registers weigh on the other's.
+template <typename T, int KP, bool kConstK>
 __global__ void __launch_bounds__(kRingMaxThreads) banded_vertical_kernel(RingArgs a) {
-  if (KP <= 8 || a.K == KP) {  // K % 4 == 0 leaves K == KP for KP <= 8
+  if constexpr (kConstK) {
     vertical_ring<T, KP>(a, KP);
   } else {
     vertical_ring<T, KP>(a, a.K);
@@ -287,44 +291,6 @@ __device__ __forceinline__ WtaStats wta_reduce(const int (&S)[KP], int K, int un
   return w;
 }
 
-// One thread per pixel: minS, best, the uniqueness verdict, and either the
-// samples a, z, c or, with sub, the subpixel parabola.
-template <typename T, int KP>
-__device__ __forceinline__ void wta_pixel(const T* const (&vols)[4], int nvol, int p, int K, int uniq, int sub,
-                                          int* __restrict__ minS, int* __restrict__ best, int* __restrict__ m2,
-                                          int* __restrict__ m3, int* __restrict__ m4, uint8_t* __restrict__ uok) {
-  int S[KP];
-  sum_volumes<T, KP>(vols, nvol, p, K, S);
-  const WtaStats w = wta_reduce<KP>(S, K, uniq);
-  minS[p] = w.mn;
-  best[p] = w.bst;
-  uok[p] = w.ok ? 1 : 0;
-  if (sub) {
-    m2[p] = subpixel16(w, K);
-  } else {
-    m2[p] = w.a;
-    m3[p] = w.z;
-    m4[p] = w.c;
-  }
-}
-
-// K == KP takes a copy in which K is a constant (see banded_vertical_kernel).
-template <typename T, int KP>
-__global__ void __launch_bounds__(kScanThreads)
-banded_wta_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const T* __restrict__ v2,
-                  const T* __restrict__ v3, int nvol, int npix, int K, int uniq, int sub, int* __restrict__ minS,
-                  int* __restrict__ best, int* __restrict__ m2, int* __restrict__ m3, int* __restrict__ m4,
-                  uint8_t* __restrict__ uok) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  const T* const vols[4] = {v0, v1, v2, v3};
-  if (KP <= 8 || K == KP) {
-    wta_pixel<T, KP>(vols, nvol, p, KP, uniq, sub, minS, best, m2, m3, m4, uok);
-  } else {
-    wta_pixel<T, KP>(vols, nvol, p, K, uniq, sub, minS, best, m2, m3, m4, uok);
-  }
-}
-
 // The fused form: one thread per pixel writes the LR check's
 // pack = minS * 2048 + (best + s) and du = (sub16 + 16 * s) + 32768 * unique_ok,
 // s the pixel's shift, in [0, ndisp - K] with 16 * ndisp < 32768 (the
@@ -351,10 +317,10 @@ banded_wta_fused_kernel(const T* __restrict__ v0, const T* __restrict__ v1, cons
 // ------------------------------------------------------------- dispatch
 
 // Fn<T, KP>::run(args...) for the storage type of `bytes` (2: int16, 4:
-// int32) and KP the power of two at or above K (4 <= K <= 64, K % 4 == 0).
+// int32) and KP the power of two at or above K (at least 4; 1 <= K <= 64).
 template <template <typename, int> class Fn, typename... Args>
 cudaError_t dispatch(int bytes, int K, Args... args) {
-  if (K < 4 || K > 64 || K % 4) return cudaErrorInvalidValue;
+  if (K < 1 || K > 64) return cudaErrorInvalidValue;
   const int kp = K <= 4 ? 4 : K <= 8 ? 8 : K <= 16 ? 16 : K <= 32 ? 32 : 64;
   if (bytes == 2) {
     switch (kp) {
@@ -399,8 +365,8 @@ struct VerticalFn {
     constexpr int CPT = ring_cpt<T, KP>();
     if (NT < 32 || NT > kRingMaxThreads || NT % 32 || (a.S != 2 && a.S != 4 && a.S != 8 && a.S != 16))
       return cudaErrorInvalidValue;
-    const size_t smem = ring_smem_bytes(CPT, a.K, sizeof(T), NT, a.S);
-    const auto kern = banded_vertical_kernel<T, KP>;
+    const size_t smem = ring_smem_bytes(CPT, svt::lane_stride(a.K), sizeof(T), NT, a.S);
+    const auto kern = a.K == KP ? banded_vertical_kernel<T, KP, true> : banded_vertical_kernel<T, KP, false>;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     const int cols = NT * CPT;
@@ -416,17 +382,6 @@ struct HorizontalFn {
     constexpr int GS = KP < 32 ? KP : 32;
     return line_launch<T, GS, KP / GS, false>(static_cast<const T*>(C), s, static_cast<T*>(out), nullptr, rows, Wv,
                                               Wv, K, G, P1, P2, reverse, st);
-  }
-};
-
-template <typename T, int KP>
-struct WtaFn {
-  static cudaError_t run(const void* const* vp, int nvol, int npix, int K, int uniq, int sub, int* const* maps,
-                         uint8_t* uok, cudaStream_t st) {
-    banded_wta_kernel<T, KP><<<(npix + kScanThreads - 1) / kScanThreads, kScanThreads, 0, st>>>(
-        static_cast<const T*>(vp[0]), static_cast<const T*>(vp[1]), static_cast<const T*>(vp[2]),
-        static_cast<const T*>(vp[3]), nvol, npix, K, uniq, sub, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
-    return cudaGetLastError();
   }
 };
 
@@ -476,22 +431,6 @@ SVT_EXPORT int svt_banded_horizontal(const void* C, const void* shift, void* out
   if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
   return dispatch<HorizontalFn>(bytes, K, C, static_cast<const int*>(shift), out, P * H, Wv, K, G, P1, P2, reverse,
                                 static_cast<cudaStream_t>(stream));
-}
-
-// nvol (2-4) (npix, K) volumes of one type -> minS, best and either sub16
-// (sub) or sm, s0, sp (int32), and the uniqueness verdict (uint8). m3/m4 and
-// v2/v3 may be null when unused.
-SVT_EXPORT int svt_banded_wta(const void* v0, const void* v1, const void* v2, const void* v3, int nvol, void* minS,
-                              void* best, void* m2, void* m3, void* m4, void* uok, int npix, int K, int uniq,
-                              int sub, int bytes, void* stream) {
-  if (nvol < 2 || nvol > 4) return cudaErrorInvalidValue;
-  if (npix == 0) return cudaSuccess;
-  const void* v[4] = {v0, v1, v2, v3};
-  int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(m2), static_cast<int*>(m3),
-                  static_cast<int*>(m4)};
-  return dispatch<WtaFn>(bytes, K, static_cast<const void* const*>(v), nvol, npix, K, uniq, sub,
-                         static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
-                         static_cast<cudaStream_t>(stream));
 }
 
 // nvol (2-4) (npix, 16) volumes of one type + the int32 (npix) shift map ->

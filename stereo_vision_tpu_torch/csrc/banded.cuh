@@ -2,14 +2,15 @@
 // banded_wide.cu): lane loads and stores, the carry realignment, the banded
 // SGM step and the WTA statistics.
 //
-// A pixel's band is K lanes, K >= 4 with K % 4 == 0, stored as T
-// (int16_t or int). In memory a pixel holds exactly K lanes, so its lanes
-// start on a 4-lane word (8 bytes in int16, 16 in int32) and whole 16-byte
-// words where K % 8 == 0 in int16. In registers a thread holds KP lanes, KP
-// the power of two at or above K (K <= 64; above, a group of 32 threads
-// holds KP / 32 lanes each, banded_wide.cuh); lanes k >= K hold kBig (or
-// the load's fill), so that no shift brings a value in from them and no
-// minimum takes them.
+// A pixel's band is K lanes, K >= 1, stored as T (int16_t or int). In
+// memory a pixel holds KS = lane_stride(K) lanes, K rounded up to 4, so its
+// lanes start on a 4-lane word (8 bytes in int16, 16 in int32) and whole
+// 16-byte words where KS % 8 == 0 in int16; the lanes k >= K of a pixel in
+// memory hold whatever a store left there and are never read as values. In
+// registers a thread holds KP lanes, KP the power of two at or above K (at
+// least 4; K <= 64; above, a group of 32 threads holds KP / 32 lanes each,
+// banded_wide.cuh); lanes k >= K hold kBig (or the load's fill), so that no
+// shift brings a value in from them and no minimum takes them.
 #pragma once
 
 #include <type_traits>
@@ -20,10 +21,13 @@ namespace svt {
 
 constexpr int kBig = 1 << 29;  // out-of-band carry lane
 
+// Lanes a pixel's band of K takes in memory: K rounded up to 4.
+__host__ __device__ constexpr int lane_stride(int K) { return (K + 3) & ~3; }
+
 // Whether the K lanes of one pixel go as 16-byte words (else 8-byte ones).
 template <typename T>
 __device__ __forceinline__ bool wide_words(int K) {
-  return sizeof(T) == 4 || K % 8 == 0;
+  return sizeof(T) == 4 || lane_stride(K) % 8 == 0;
 }
 
 // KP lanes of T as raw 8-byte words: a load kept in flight while other work

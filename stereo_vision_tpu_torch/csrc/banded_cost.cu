@@ -1,6 +1,8 @@
 // The banded cost of the hierarchical matcher (matcher="sgbm_hier"):
 // banded_cost_kernel, in a source of its own beside banded.cu, at every band
-// K % 4 == 0 from 4, int16 or int32 output. The lane, shift and
+// K >= 1, int16 or int32 output (a pixel's lanes lane_stride(K) apart; the
+// lanes from K to the next multiple of 4 are computed as if the band went
+// on, and no kernel reads them). The lane, shift and
 // window semantics are banded.cu's (header).
 
 #include <climits>
@@ -89,11 +91,13 @@ __device__ __forceinline__ void window4(const V* a, int stride, int delta, const
 }
 
 // Byte offsets of a cost block's shared memory for a tile of TX columns
-// (NC = TX + bs - 1 window columns; right columns at most NC + ndisp + 3).
+// (NC = TX + bs - 1 window columns; right columns at most NC + ndisp + 3)
+// and band K (its rings hold K rounded up to 4 lanes).
 struct CostLayout {
   int NC, NCr, NRcap;
   size_t acc, pix, rawL, rawR, sob, chL, chR, ring, range, bytes;
-  __host__ __device__ CostLayout(int TX, int K, int ndisp, int bs) {
+  __host__ __device__ CostLayout(int TX, int band, int ndisp, int bs) {
+    const int K = svt::lane_stride(band);
     NC = TX + bs - 1;
     NCr = NC + 4;
     NRcap = NC + ndisp + 4;
@@ -168,8 +172,11 @@ __device__ __forceinline__ void cost_block(unsigned char* cost_smem, const int* 
   const int NC = lay.NC, NCr = lay.NCr, NRcap = lay.NRcap, NS = NCr + NRcap;
   // The window spans -r .. r1 = bs - 1 - r about its centre (r = bs / 2; an
   // even block reaches one less below and to the right, as the reference's).
-  const int r = bs / 2, r1 = bs - 1 - r, KC = K / 4, tid = threadIdx.x, nt = blockDim.x;
-  const size_t plane = (size_t)K * NC;  // one row of the cost ring
+  // KS lanes a pixel in memory, computed in KC chunks of 4; lanes k >= K
+  // are no window term's source (window4).
+  const int KS = svt::lane_stride(K);
+  const int r = bs / 2, r1 = bs - 1 - r, KC = KS / 4, tid = threadIdx.x, nt = blockDim.x;
+  const size_t plane = (size_t)KS * NC;  // one row of the cost ring
 
   const int x0 = min_x + tile * TX;
   const int y0 = strip * kCostStrip, y1 = min(y0 + kCostStrip, H);
@@ -192,7 +199,7 @@ __device__ __forceinline__ void cost_block(unsigned char* cost_smem, const int* 
     const int k = i / NC, j = i - k * NC;
     const int sv = __ldg(S + (size_t)src_row(k) * W + clampi(x0 - r + j, 0, W - 1));
     lo = min(lo, clampi(sv, 0, ndisp - 1));
-    hi = max(hi, clampi(sv + stride * (K - 1), 0, ndisp - 1));
+    hi = max(hi, clampi(sv + stride * (KS - 1), 0, ndisp - 1));
   }
   lo = __reduce_min_sync(svt::kFullMask, lo);
   hi = __reduce_max_sync(svt::kFullMask, hi);
@@ -350,7 +357,7 @@ __device__ __forceinline__ void cost_block(unsigned char* cost_smem, const int* 
       const int c4[4] = {ctr[lane0 * NC], ctr[(lane0 + 1) * NC], ctr[(lane0 + 2) * NC], ctr[(lane0 + 3) * NC]};
       int sum[4] = {0, 0, 0, 0};
       for (int dx = 0; dx < bs; ++dx) window4(acc + t + dx, NC, sc - crow[t + dx], c4, lane0, G, K, sum);
-      store4(out + (((size_t)b * H + y) * Wo + (x - min_x)) * K + lane0, sum);
+      store4(out + (((size_t)b * H + y) * Wo + (x - min_x)) * KS + lane0, sum);
     }
     if (r == 0) __syncthreads();  // bs 1: the next row's shifts take this row's ring slot
   }
@@ -471,11 +478,11 @@ SVT_EXPORT long long svt_banded_cost_scratch_bytes(int P, int H, int Wo, int K, 
 // int16 (bytes 2) or int32 (bytes 4), in tiles of TX columns
 // (svt_banded_cost_tile) with the rings in shared memory, or with `scratch`
 // (svt_banded_cost_scratch_bytes of it; TX then unused) in device scratch.
-// K % 4 == 0, K >= 4.
+// K >= 1; a pixel of `out` holds lane_stride(K) lanes, its first K the band's.
 SVT_EXPORT int svt_banded_cost(const void* left, const void* right, const void* shift, void* out, int P, int H,
                                int W, int K, int G, int ndisp, int bs, int ftzero, int min_x, int stride, int TX,
                                int bytes, void* scratch, void* stream) {
-  if (stride < 1 || K < 4 || K % 4 || bs < 1) return cudaErrorInvalidValue;
+  if (stride < 1 || K < 1 || bs < 1) return cudaErrorInvalidValue;
   if (P == 0 || H == 0 || min_x >= W) return cudaSuccess;
   if (TX < 1 && !scratch) return cudaErrorInvalidValue;
   const auto l = static_cast<const int*>(left), r = static_cast<const int*>(right), s = static_cast<const int*>(shift);

@@ -82,7 +82,8 @@ struct DiagArgs {
 // (1,1) carry, side 1 lane 0's (-1,1) carry) and, CS > 1, the mailboxes
 // ([2][2 sides][kDiagHalo][KP] ints).
 __host__ __device__ constexpr size_t diag_smem_bytes(int K, int KP, int elem, int NT, int S, int CS) {
-  return (size_t)S * NT * (((K * elem + 15) / 16 * 16) + 4) + (size_t)2 * (NT / 32) * 2 * (KP + 4) * 4 +
+  return (size_t)S * NT * (((svt::lane_stride(K) * elem + 15) / 16 * 16) + 4) +
+         (size_t)2 * (NT / 32) * 2 * (KP + 4) * 4 +
          (CS > 1 ? (size_t)4 * kDiagHalo * KP * 4 : 0);
 }
 
@@ -120,7 +121,8 @@ __device__ __forceinline__ void diag_cluster(const DiagArgs& a, int K) {
   const int x = rank * SW - h + tid;
   const bool live = x >= 0 && x < Wv;                 // in the frame: it loads its column
   const bool own = live && tid >= h && tid < h + SW;  // its sums are this block's to store
-  const int CB = (K * (int)sizeof(T) + 15) / 16 * 16;
+  const int KS = svt::lane_stride(K);  // a pixel's lanes in memory
+  const int CB = (KS * (int)sizeof(T) + 15) / 16 * 16;
   unsigned char* cring = diag_smem + (size_t)tid * CB;
   int* sring = reinterpret_cast<int*>(diag_smem + (size_t)S * NT * CB) + tid;
   int* edges = reinterpret_cast<int*>(diag_smem + (size_t)S * NT * (CB + 4));  // [2][NW][2][EP]
@@ -128,12 +130,13 @@ __device__ __forceinline__ void diag_cluster(const DiagArgs& a, int K) {
   auto edge = [&](int slot, int w, int side) { return edges + ((slot * NW + w) * 2 + side) * EP; };
   auto mailbox = [&](int* base, int slot, int side, int j) { return base + ((slot * 2 + side) * h + j) * KP; };
 
-  const size_t plane = (size_t)Wv * K;
+  const size_t plane = (size_t)Wv * KS;
   const int xc = live ? x : 0;
-  const T* Cb = static_cast<const T*>(a.C) + (size_t)b * H * plane + (size_t)xc * K;
+  const T* Cb = static_cast<const T*>(a.C) + (size_t)b * H * plane + (size_t)xc * KS;
   const int* Sb = a.s + (size_t)b * H * Wv + xc;
-  T* Ob = static_cast<T*>(up ? a.up : a.dn) + (size_t)b * H * plane + (size_t)xc * K;
-  const int nbytes = K * (int)sizeof(T), unit = nbytes % 16 == 0 ? 16 : 8;  // a band is a multiple of 8 bytes
+  T* Ob = static_cast<T*>(up ? a.up : a.dn) + (size_t)b * H * plane + (size_t)xc * KS;
+  // A band in memory is a multiple of 8 bytes.
+  const int nbytes = KS * (int)sizeof(T), unit = nbytes % 16 == 0 ? 16 : 8;
   auto row_of = [&](int i) { return up ? H - 1 - i : i; };
   auto issue = [&](int i) {
     if (live && i < H) {
@@ -285,7 +288,7 @@ __device__ __forceinline__ void diag_cluster(const DiagArgs& a, int K) {
 // fold away and the power-of-two bands run as before.
 template <typename T, int KP>
 __global__ void __launch_bounds__(diag_max_threads(KP)) banded_diag_cluster_kernel(DiagArgs a) {
-  if (KP <= 8 || a.K == KP) {  // K % 4 == 0 leaves K == KP for KP <= 8
+  if (a.K == KP) {
     diag_cluster<T, KP>(a, KP);
   } else {
     diag_cluster<T, KP>(a, a.K);
@@ -299,7 +302,8 @@ template <typename T, int KP>
 __device__ __forceinline__ void diag_strips(const DiagArgs& a, int K) {
   const int b = blockIdx.x, up = blockIdx.y, NT = blockDim.x;
   const int H = a.H, Wv = a.Wv, G = a.G, P1 = a.P1, P2 = a.P2;
-  const size_t plane = (size_t)Wv * K;
+  const int KS = svt::lane_stride(K);  // a pixel's lanes in memory
+  const size_t plane = (size_t)Wv * KS;
   const T* Cb = static_cast<const T*>(a.C) + (size_t)b * H * plane;
   const int* Sb = a.s + (size_t)b * H * Wv;
   T* Ob = static_cast<T*>(up ? a.up : a.dn) + (size_t)b * H * plane;
@@ -312,35 +316,35 @@ __device__ __forceinline__ void diag_strips(const DiagArgs& a, int K) {
     const int* sp = Sb + (size_t)(y - step) * Wv;  // the previous row's shifts (t > 0)
     for (int x = threadIdx.x; x < Wv; x += NT) {
       int c[KP], Lv[KP], Ld[KP], Lu[KP];
-      svt::load_lanes<T, KP>(Cb + ((size_t)y * Wv + x) * K, K, c, kBig);
+      svt::load_lanes<T, KP>(Cb + ((size_t)y * Wv + x) * KS, K, c, kBig);
       const int sy = Sb[(size_t)y * Wv + x];
       if (t == 0) {
 #pragma unroll
         for (int k = 0; k < KP; ++k) Lv[k] = Ld[k] = Lu[k] = c[k];
       } else {
-        svt::load_lanes<T, KP>(rd + (size_t)x * K, K, Lv, kBig);
+        svt::load_lanes<T, KP>(rd + (size_t)x * KS, K, Lv, kBig);
         svt::banded_step<KP>(c, Lv, sy - sp[x], K, G, P1, P2);
         if (x > 0) {
-          svt::load_lanes<T, KP>(rd + plane + (size_t)(x - 1) * K, K, Ld, kBig);
+          svt::load_lanes<T, KP>(rd + plane + (size_t)(x - 1) * KS, K, Ld, kBig);
           svt::banded_step<KP, true>(c, Ld, sy - sp[x - 1], K, G, P1, P2);
         } else {
 #pragma unroll
           for (int k = 0; k < KP; ++k) Ld[k] = c[k];
         }
         if (x + 1 < Wv) {
-          svt::load_lanes<T, KP>(rd + 2 * plane + (size_t)(x + 1) * K, K, Lu, kBig);
+          svt::load_lanes<T, KP>(rd + 2 * plane + (size_t)(x + 1) * KS, K, Lu, kBig);
           svt::banded_step<KP, true>(c, Lu, sy - sp[x + 1], K, G, P1, P2);
         } else {
 #pragma unroll
           for (int k = 0; k < KP; ++k) Lu[k] = c[k];
         }
       }
-      svt::store_lanes<T, KP>(wr + (size_t)x * K, K, Lv);
-      svt::store_lanes<T, KP>(wr + plane + (size_t)x * K, K, Ld);
-      svt::store_lanes<T, KP>(wr + 2 * plane + (size_t)x * K, K, Lu);
+      svt::store_lanes<T, KP>(wr + (size_t)x * KS, K, Lv);
+      svt::store_lanes<T, KP>(wr + plane + (size_t)x * KS, K, Ld);
+      svt::store_lanes<T, KP>(wr + 2 * plane + (size_t)x * KS, K, Lu);
 #pragma unroll
       for (int k = 0; k < KP; ++k) Ld[k] += Lv[k] + Lu[k];
-      svt::store_lanes<T, KP>(Ob + ((size_t)y * Wv + x) * K, K, Ld);
+      svt::store_lanes<T, KP>(Ob + ((size_t)y * Wv + x) * KS, K, Ld);
     }
     __syncthreads();  // the row's carries are written before the next row reads them
   }
@@ -348,7 +352,7 @@ __device__ __forceinline__ void diag_strips(const DiagArgs& a, int K) {
 
 template <typename T, int KP>
 __global__ void __launch_bounds__(kStripThreads) banded_diag_strips_kernel(DiagArgs a) {
-  if (KP <= 8 || a.K == KP) {
+  if (a.K == KP) {
     diag_strips<T, KP>(a, KP);
   } else {
     diag_strips<T, KP>(a, a.K);
@@ -428,7 +432,7 @@ struct DiagFn {
 template <typename T>
 cudaError_t diag_entry(const DiagArgs& a, int P, int form, int CS, int NT, cudaStream_t st) {
   const int K = a.K;
-  if (K < 4 || K > 64 || K % 4) return cudaErrorInvalidValue;
+  if (K < 1 || K > 64) return cudaErrorInvalidValue;
   if (P == 0 || a.H == 0 || a.Wv == 0) return cudaSuccess;
   if (K <= 4) return DiagFn<T, 4>::run(a, P, form, CS, NT, st);
   if (K <= 8) return DiagFn<T, 8>::run(a, P, form, CS, NT, st);
@@ -439,7 +443,7 @@ cudaError_t diag_entry(const DiagArgs& a, int P, int form, int CS, int NT, cudaS
 
 template <typename T>
 int diag_clusters(int K, int CS, int NT, int S) {
-  if (K < 4 || K > 64 || K % 4) return 0;
+  if (K < 1 || K > 64) return 0;
   if (K <= 4) return DiagFn<T, 4>::clusters(K, CS, NT, S);
   if (K <= 8) return DiagFn<T, 8>::clusters(K, CS, NT, S);
   if (K <= 16) return DiagFn<T, 16>::clusters(K, CS, NT, S);
@@ -456,7 +460,8 @@ int diag_clusters(int K, int CS, int NT, int S) {
 // 8-path vertical (each the sum of its vertical and two diagonal carries),
 // every volume of T, by the plan banded_cuda.vertical_plan gave: form 0
 // (clusters of CS blocks of NT threads, an S-row ring; CS * NT >= Wv) or 1
-// (one block of NT threads a chain; scratch: 12 * P * Wv * K values of T).
+// (one block of NT threads a chain; scratch: 12 * P * Wv * lane_stride(K)
+// values of T).
 SVT_EXPORT int svt_banded_vertical_diag(const void* C, const void* shift, void* dn, void* up, void* scratch, int P,
                                         int H, int Wv, int K, int G, int P1, int P2, int form, int CS, int NT, int S,
                                         void* stream) {

@@ -155,8 +155,9 @@ banded_line_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __
     first = (size_t)line * Wv;
   }
   const size_t pstride = kColumns ? (size_t)Wv : 1;  // pixels between steps
-  const T* crow = C + first * K;
-  T* orow = o + first * K;
+  const int KS = svt::lane_stride(K);  // a pixel's lanes in memory
+  const T* crow = C + first * KS;
+  T* orow = o + first * KS;
   const int* srow = shift + first;
 
   bool valid[LPT];
@@ -180,7 +181,7 @@ banded_line_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __
     const size_t x = pos(u);
     sn[u] = __ldg(srow + x);
 #pragma unroll
-    for (int j = 0; j < LPT; ++j) cn[u][j] = svt::load_lane(crow + x * K + lofs[j]);
+    for (int j = 0; j < LPT; ++j) cn[u][j] = svt::load_lane(crow + x * KS + lofs[j]);
   }
   int sprev = sn[0];  // delta 0 at the first step
 
@@ -197,7 +198,7 @@ banded_line_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __
       const size_t x = pos(base + U + u);
       sn[u] = __ldg(srow + x);
 #pragma unroll
-      for (int j = 0; j < LPT; ++j) cn[u][j] = svt::load_lane(crow + x * K + lofs[j]);
+      for (int j = 0; j < LPT; ++j) cn[u][j] = svt::load_lane(crow + x * KS + lofs[j]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -212,7 +213,7 @@ banded_line_kernel(const T* __restrict__ C, const int* __restrict__ shift, T* __
       const size_t x = pos(ti);
 #pragma unroll
       for (int j = 0; j < LPT; ++j)
-        if (live && valid[j]) orow[x * K + t + GS * j] = static_cast<T>(L[j]);
+        if (live && valid[j]) orow[x * KS + t + GS * j] = static_cast<T>(L[j]);
     }
   }
 }

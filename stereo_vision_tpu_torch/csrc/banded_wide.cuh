@@ -1,4 +1,4 @@
-// The banded scans and WTA at bands above 64 (K % 4 == 0): up to 1024, a
+// The banded scans and WTA at bands above 64: up to 1024, a
 // pixel's lanes spread over a group of 32 threads, LPT = KP / 32 lanes a
 // thread (KP = 128, 256, 512 or 1024; lanes at and past K hold kBig, as
 // banded.cuh sets out); above 1024, a warp walks the band in steps of 32
@@ -74,7 +74,7 @@ __device__ __forceinline__ void carry_step(const int (&c)[LPT], const T* prev, i
 // diagonal carries (predecessors (y', x - 1), (y', x + 1)), y' the row
 // visited before, each a group step, and their sum stored. All three carry
 // sets go through a ping-pong pair of rows, [2 rows][3 sets][Wv][K] of T, in
-// shared memory or at scratch + (frame * 2 + direction) * 6 * Wv * K; one
+// shared memory or at scratch + (frame * 2 + direction) * 6 * Wv * KS; one
 // __syncthreads a row.
 template <typename T, int LPT>
 __global__ void __launch_bounds__(wide_diag_threads(LPT))
@@ -82,7 +82,8 @@ banded_wide_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift, 
                         T* __restrict__ out_up, T* scratch, int H, int Wv, int K, int G, int P1, int P2) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   const int b = blockIdx.x, up = blockIdx.y;
-  const size_t plane = (size_t)Wv * K;
+  const int KS = svt::lane_stride(K);  // a pixel's lanes in memory
+  const size_t plane = (size_t)Wv * KS;
   T* carry = scratch ? scratch + ((size_t)b * 2 + up) * 6 * plane : reinterpret_cast<T*>(wide_smem);
   const T* Cb = C + (size_t)b * H * plane;
   T* Ob = (up ? out_up : out_dn) + (size_t)b * H * plane;
@@ -96,7 +97,7 @@ banded_wide_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift, 
     T* wr = carry + (size_t)((ti + 1) & 1) * 3 * plane;
     const int* sp = Sb + (size_t)(y - step) * Wv;  // the previous row's shifts (ti > 0)
     for (int x = group; x < Wv; x += ngroups) {
-      const T* cp = Cb + ((size_t)y * Wv + x) * K;
+      const T* cp = Cb + ((size_t)y * Wv + x) * KS;
       int c[LPT], Lv[LPT], Ld[LPT], Lu[LPT];
 #pragma unroll
       for (int j = 0; j < LPT; ++j) {
@@ -108,15 +109,15 @@ banded_wide_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift, 
 #pragma unroll
         for (int j = 0; j < LPT; ++j) Lv[j] = Ld[j] = Lu[j] = c[j];
       } else {
-        carry_step<T, LPT>(c, rd + 2 * plane + (size_t)x * K, sy - sp[x], t, K, G, false, P1, P2, Lv);
+        carry_step<T, LPT>(c, rd + 2 * plane + (size_t)x * KS, sy - sp[x], t, K, G, false, P1, P2, Lv);
         if (x > 0) {
-          carry_step<T, LPT>(c, rd + (size_t)(x - 1) * K, sy - sp[x - 1], t, K, G, two, P1, P2, Ld);
+          carry_step<T, LPT>(c, rd + (size_t)(x - 1) * KS, sy - sp[x - 1], t, K, G, two, P1, P2, Ld);
         } else {
 #pragma unroll
           for (int j = 0; j < LPT; ++j) Ld[j] = c[j];  // a zero carry from outside the frame
         }
         if (x + 1 < Wv) {
-          carry_step<T, LPT>(c, rd + plane + (size_t)(x + 1) * K, sy - sp[x + 1], t, K, G, two, P1, P2, Lu);
+          carry_step<T, LPT>(c, rd + plane + (size_t)(x + 1) * KS, sy - sp[x + 1], t, K, G, two, P1, P2, Lu);
         } else {
 #pragma unroll
           for (int j = 0; j < LPT; ++j) Lu[j] = c[j];
@@ -126,10 +127,10 @@ banded_wide_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift, 
       for (int j = 0; j < LPT; ++j) {
         const int k = t + kWideGroup * j;
         if (k < K) {
-          wr[(size_t)x * K + k] = static_cast<T>(Ld[j]);
-          wr[plane + (size_t)x * K + k] = static_cast<T>(Lu[j]);
-          wr[2 * plane + (size_t)x * K + k] = static_cast<T>(Lv[j]);
-          Ob[((size_t)y * Wv + x) * K + k] = static_cast<T>(Ld[j] + Lv[j] + Lu[j]);
+          wr[(size_t)x * KS + k] = static_cast<T>(Ld[j]);
+          wr[plane + (size_t)x * KS + k] = static_cast<T>(Lu[j]);
+          wr[2 * plane + (size_t)x * KS + k] = static_cast<T>(Lv[j]);
+          Ob[((size_t)y * Wv + x) * KS + k] = static_cast<T>(Ld[j] + Lv[j] + Lu[j]);
         }
       }
     }
@@ -159,7 +160,7 @@ banded_wta_wide_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const
   for (int j = 0; j < LPT; ++j) {
     const int k = t + kWideGroup * j;
     int sum = 0;
-    for (int v = 0; v < nvol; ++v) sum += k < K ? static_cast<int>(vols[v][(size_t)p * K + k]) : 0;
+    for (int v = 0; v < nvol; ++v) sum += k < K ? static_cast<int>(vols[v][(size_t)p * svt::lane_stride(K) + k]) : 0;
     S[j] = k < K ? sum : kBig;
   }
   int mn = S[0], bst = t;  // the thread's own minimum and its smallest lane
@@ -229,8 +230,9 @@ banded_chunk_line_kernel(const T* __restrict__ C, const int* __restrict__ shift,
   }
   const size_t pstride = kColumns ? (size_t)Wv : 1;
   auto pos = [&](int ti) { return (size_t)(rev ? n - 1 - ti : ti) * pstride; };
-  const T* crow = C + first * K;
-  T* orow = o + first * K;
+  const int KS = svt::lane_stride(K);  // a pixel's lanes in memory
+  const T* crow = C + first * KS;
+  T* orow = o + first * KS;
   const int* srow = shift + first;
   int sprev = srow[pos(0)];  // delta 0 at the first step
   for (int ti = 0; ti < n; ++ti) {
@@ -239,9 +241,9 @@ banded_chunk_line_kernel(const T* __restrict__ C, const int* __restrict__ shift,
     sprev = srow[x];
     const int sh = delta == G ? G : delta == -G ? -G : 0;
     const bool reset = delta > G || delta < -G;
-    const T* prev = ti == 0 ? nullptr : orow + pos(ti - 1) * K;
-    const T* cp = crow + x * K;
-    T* op = orow + x * K;
+    const T* prev = ti == 0 ? nullptr : orow + pos(ti - 1) * KS;
+    const T* cp = crow + x * KS;
+    T* op = orow + x * KS;
     const int m = svt::band_min(prev, sh, K, lane);
     for (int k = lane; k < K; k += 32)
       op[k] = static_cast<T>(svt::band_update(prev, sh, reset, m, static_cast<int>(cp[k]), k, K, P1, P2));
@@ -257,7 +259,8 @@ banded_chunk_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift,
                          T* __restrict__ out_up, T* scratch, int H, int Wv, int K, int G, int P1, int P2) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   const int b = blockIdx.x, up = blockIdx.y;
-  const size_t plane = (size_t)Wv * K;
+  const int KS = svt::lane_stride(K);  // a pixel's lanes in memory
+  const size_t plane = (size_t)Wv * KS;
   T* carry = scratch ? scratch + ((size_t)b * 2 + up) * 6 * plane : reinterpret_cast<T*>(wide_smem);
   const T* Cb = C + (size_t)b * H * plane;
   T* Ob = (up ? out_up : out_dn) + (size_t)b * H * plane;
@@ -277,7 +280,7 @@ banded_chunk_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift,
     T* wr = carry + (size_t)((ti + 1) & 1) * 3 * plane;
     const int* sp = Sb + (size_t)(y - step) * Wv;  // the previous row's shifts (ti > 0)
     for (int x = warp; x < Wv; x += nwarps) {
-      const T* cp = Cb + ((size_t)y * Wv + x) * K;
+      const T* cp = Cb + ((size_t)y * Wv + x) * KS;
       const int sy = Sb[(size_t)y * Wv + x];
       // Carries: 0 vertical (x), 1 (1,1) from x - 1, 2 (-1,1) from x + 1; none
       // (the cost itself) on the first row or from outside the frame.
@@ -292,7 +295,7 @@ banded_chunk_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift,
           if (px[i] < 0 || px[i] >= Wv) continue;
           const int delta = sy - sp[px[i]];
           const int lim = i == 0 ? G : reach;
-          prev[i] = src[i] + (size_t)px[i] * K;
+          prev[i] = src[i] + (size_t)px[i] * KS;
           sh[i] = shift_of(delta, i > 0);
           reset[i] = delta > lim || delta < -lim;
           m[i] = svt::band_min(prev[i], sh[i], K, lane);
@@ -303,10 +306,10 @@ banded_chunk_diag_kernel(const T* __restrict__ C, const int* __restrict__ shift,
         int L[3];
 #pragma unroll
         for (int i = 0; i < 3; ++i) L[i] = prev[i] ? svt::band_update(prev[i], sh[i], reset[i], m[i], c, k, K, P1, P2) : c;
-        wr[(size_t)x * K + k] = static_cast<T>(L[1]);
-        wr[plane + (size_t)x * K + k] = static_cast<T>(L[2]);
-        wr[2 * plane + (size_t)x * K + k] = static_cast<T>(L[0]);
-        Ob[((size_t)y * Wv + x) * K + k] = static_cast<T>(L[0] + L[1] + L[2]);
+        wr[(size_t)x * KS + k] = static_cast<T>(L[1]);
+        wr[plane + (size_t)x * KS + k] = static_cast<T>(L[2]);
+        wr[2 * plane + (size_t)x * KS + k] = static_cast<T>(L[0]);
+        Ob[((size_t)y * Wv + x) * KS + k] = static_cast<T>(L[0] + L[1] + L[2]);
       }
     }
     __syncthreads();
@@ -324,7 +327,7 @@ banded_chunk_wta_kernel(const T* __restrict__ v0, const T* __restrict__ v1, cons
   if (p >= npix) return;  // whole warp
   const int lane = threadIdx.x & 31;
   const T* const vols[4] = {v0, v1, v2, v3};
-  const size_t base = (size_t)p * K;
+  const size_t base = (size_t)p * svt::lane_stride(K);
   auto S = [&](int k) {
     int s = 0;
     for (int v = 0; v < nvol; ++v) s += static_cast<int>(vols[v][base + k]);
@@ -365,7 +368,7 @@ struct ChunkScans {
   }
   static cudaError_t diag(const void* C, const int* s, void* dn, void* up, void* scratch, int P, int H, int Wv, int K,
                           int G, int P1, int P2, cudaStream_t st) {
-    const size_t smem = scratch ? 0 : (size_t)6 * Wv * K * sizeof(T);
+    const size_t smem = scratch ? 0 : (size_t)6 * Wv * svt::lane_stride(K) * sizeof(T);
     cudaError_t e = cudaFuncSetAttribute(banded_chunk_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
@@ -388,10 +391,10 @@ constexpr int kRegisterBand = 1024;
 
 // ---------------------------------------------------------------- dispatch
 
-// Fn<KP / 32>::run(args...) for 64 < K <= 1024, K % 4 == 0.
+// Fn<KP / 32>::run(args...) for 64 < K <= 1024.
 template <template <int> class Fn, typename... Args>
 cudaError_t wide_dispatch(int K, Args... args) {
-  if (K <= 64 || K > kRegisterBand || K % 4) return cudaErrorInvalidValue;
+  if (K <= 64 || K > kRegisterBand) return cudaErrorInvalidValue;
   if (K <= 128) return Fn<4>::run(args...);
   if (K <= 256) return Fn<8>::run(args...);
   if (K <= 512) return Fn<16>::run(args...);
@@ -420,7 +423,7 @@ struct WideScans {
   struct Diag {
     static cudaError_t run(const void* C, const int* s, void* dn, void* up, void* scratch, int P, int H, int Wv, int K,
                            int G, int P1, int P2, cudaStream_t st) {
-      const size_t smem = scratch ? 0 : (size_t)6 * Wv * K * sizeof(T);
+      const size_t smem = scratch ? 0 : (size_t)6 * Wv * svt::lane_stride(K) * sizeof(T);
       cudaError_t e = cudaFuncSetAttribute(banded_wide_diag_kernel<T, LPT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
@@ -445,14 +448,14 @@ struct WideScans {
 };
 
 // Bytes of device scratch the 8-path wide scan needs for P frames on
-// `device`: 0 where a block's carry rows (6 * Wv * K values of T) fit the
+// `device`: 0 where a block's carry rows (6 * Wv * lane_stride(K) values of T) fit the
 // device's opt-in shared memory per block, else those bytes for each
 // (frame, direction) block; -1 for a failed device query.
 template <typename T>
 long long wide_diag_scratch_bytes(int P, int Wv, int K, int device) {
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
-  const long long carries = 6LL * Wv * K * (long long)sizeof(T);
+  const long long carries = 6LL * Wv * svt::lane_stride(K) * (long long)sizeof(T);
   return carries <= optin ? 0 : 2LL * P * carries;
 }
 
@@ -466,7 +469,7 @@ int wide_vertical_entry(const void* C, const void* shift, void* dn, void* up, vo
   if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
   const auto s = static_cast<const int*>(shift);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (K > kRegisterBand && K % 4 == 0) {
+  if (K > kRegisterBand) {
     if (diagonals) return ChunkScans<T>::diag(C, s, dn, up, scratch, P, H, Wv, K, G, P1, P2, st);
     return ChunkScans<T>::vertical(C, s, dn, up, P, H, Wv, K, G, P1, P2, st);
   }
@@ -478,7 +481,7 @@ template <typename T>
 int wide_horizontal_entry(const void* C, const void* shift, void* out, int P, int H, int Wv, int K, int G, int P1,
                           int P2, int reverse, void* stream) {
   if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
-  if (K > kRegisterBand && K % 4 == 0)
+  if (K > kRegisterBand)
     return ChunkScans<T>::horizontal(C, static_cast<const int*>(shift), out, P, H, Wv, K, G, P1, P2, reverse,
                                      static_cast<cudaStream_t>(stream));
   return wide_dispatch<WideScans<T>::template Horizontal>(K, C, static_cast<const int*>(shift), out, P, H, Wv, K, G,
@@ -493,7 +496,7 @@ int wide_wta_entry(const void* v0, const void* v1, const void* v2, const void* v
   const void* v[4] = {v0, v1, v2, v3};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(m2), static_cast<int*>(m3),
                   static_cast<int*>(m4)};
-  if (K > kRegisterBand && K % 4 == 0)
+  if (K > kRegisterBand)
     return ChunkScans<T>::wta(static_cast<const void* const*>(v), nvol, npix, K, uniq, sub,
                               static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
                               static_cast<cudaStream_t>(stream));

@@ -16,10 +16,11 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain form
 (built from :mod:`.banded`, the port of the JAX scan reference) for CPU
 tensors; ``launches`` on each wrapper counts kernel launches. The layout
 is the port's own: banded volumes are (P, H, Wv, K) with the frames on the
-CUDA grid. The kernels take every band K with K % 4 == 0 and K >= 4
-(:func:`check_band`). The sources: ``csrc/banded_cost.cu`` (the cost kernel
-at every band), ``csrc/banded.cu`` (the scans and the WTA up to K = 64,
-the fused WTA and the downsample), ``csrc/banded_diag.cu``
+CUDA grid, a pixel's K lanes in K rounded up to 4 (:func:`lane_stride`).
+The kernels take every band K >= 1 (:func:`check_band`). The sources:
+``csrc/banded_cost.cu`` (the cost kernel at every band), ``csrc/banded.cu``
+(the scans up to K = 64, the fused WTA and the downsample),
+``csrc/banded_wta.cu`` (the WTA up to K = 64), ``csrc/banded_diag.cu``
 (int16) and ``csrc/banded_diag32.cu`` (int32) for the 8-path vertical up to
 K = 64, and ``csrc/banded_wide.cu`` (int16) and ``csrc/banded_wide32.cu``
 (int32) for the scans and the WTA above K = 64, where a pixel's lanes
@@ -88,12 +89,14 @@ _SIGNATURES = {
         "svt_banded_smem_optin": ([_I], _I),
         # C, s, out, P, H, Wv, K, G, P1, P2, reverse, bytes, stream
         "svt_banded_horizontal": ([_P] * 3 + [_I] * 9 + [_P], _I),
-        # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, bytes, stream
-        "svt_banded_wta": ([_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P], _I),
         # v0..v3, nvol, s, pack, du, npix, K, uniq, bytes, stream
         "svt_banded_wta_fused": ([_P] * 4 + [_I] + [_P] * 3 + [_I] * 4 + [_P], _I),
         # in, out, P, H, W, fy, fx, stream
         "svt_downsample_box": ([_P] * 2 + [_I] * 5 + [_P], _I),
+    },
+    "banded_wta": {
+        # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, bytes, stream
+        "svt_banded_wta": ([_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P], _I),
     },
     "banded_diag": _DIAG_SIGNATURES,
     "banded_diag32": _DIAG_SIGNATURES,
@@ -102,11 +105,17 @@ _SIGNATURES = {
 }
 
 
+_LIBS: dict[str, ctypes.CDLL] = {}  # source -> its library, signatures set
+
+
 def _lib(source: str = "banded") -> ctypes.CDLL:
-    lib = _build.library(source)
-    for name, (argtypes, restype) in _SIGNATURES[source].items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
+    lib = _LIBS.get(source)
+    if lib is None:
+        lib = _build.library(source)
+        for name, (argtypes, restype) in _SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        _LIBS[source] = lib
     return lib
 
 
@@ -128,12 +137,42 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def check_band(K: int) -> None:
-    """The bands the CUDA kernels take: K % 4 == 0 (a pixel's lanes then
-    start on a 4-lane word) and K >= 4. Bands above 64 spread a pixel's
-    lanes over a group of 32 threads; above 1024 a warp walks them with its
-    carry in device memory."""
-    if K % 4 or not 4 <= K:
-        raise ValueError(f"the CUDA banded kernels take a band K with K % 4 == 0 and K >= 4, got {K}")
+    """The bands the CUDA kernels take: every K >= 1. The cost kernel, the
+    scans (ring, group, cluster and strips forms; above 64 the wide forms)
+    and the WTA all take any K; the fused WTA takes K = 16 only. A pixel's
+    K lanes are stored in :func:`lane_stride` (K rounded up to 4) lanes, so
+    that they start on a 4-lane word; the lanes past K hold nothing a kernel
+    reads (:func:`lanes_view`). Bands above 64 spread a pixel's lanes over a
+    group of 32 threads; above 1024 a warp walks them with its carry in
+    device memory."""
+    if K < 1:
+        raise ValueError(f"the CUDA banded kernels take a band K >= 1, got {K}")
+
+
+def lane_stride(K: int) -> int:
+    """Lanes a pixel's band of K takes in the CUDA kernels' memory: K
+    rounded up to a multiple of 4."""
+    return -(-K // 4) * 4
+
+
+def empty_lanes(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """An uninitialised (..., K) volume in the CUDA kernels' layout: a view
+    of the first K lanes of a contiguous (..., lane_stride(K)) tensor (the
+    whole tensor where K % 4 == 0)."""
+    K = shape[-1]
+    return torch.empty((*shape[:-1], lane_stride(K)), dtype=dtype, device=device)[..., :K]
+
+
+def lanes_view(C: torch.Tensor) -> torch.Tensor:
+    """C in the CUDA kernels' layout (see :func:`empty_lanes`): as given
+    where it already is, else copied into it. A contiguous volume is in it
+    where K % 4 == 0."""
+    want = torch.empty((*C.shape[:-1], lane_stride(C.shape[-1])), device="meta").stride()
+    if C.data_ptr() % 16 == 0 and all(a == b for a, b, d in zip(C.stride(), want, C.shape) if d > 1):
+        return C
+    out = empty_lanes(C.shape, C.dtype, C.device)
+    out.copy_(C)
+    return out
 
 
 def _check_shift(s: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -151,10 +190,13 @@ def _check_volume(C: torch.Tensor, P2: int, cost_bound: int, summed: int = 1) ->
         raise ValueError(f"expected a (P, H, Wv, K) banded volume, got {tuple(C.shape)}")
     if _on_cuda(C):
         check_band(C.shape[-1])
-        if C.dtype not in (torch.int16, torch.int32) or not C.is_contiguous() or C.data_ptr() % 16:
-            raise TypeError("the CUDA banded scans take a contiguous, 16-byte aligned int16 or int32 volume")
+        if C.dtype not in (torch.int16, torch.int32):
+            raise TypeError("the CUDA banded scans take an int16 or int32 volume")
+        if C.shape[-1] % 4 == 0 and (not C.is_contiguous() or C.data_ptr() % 16):
+            raise TypeError("the CUDA banded scans take a contiguous, 16-byte aligned volume")
         if C.dtype == torch.int16 and storage_dtype(cost_bound, P2, summed) == torch.int32:
-            return C.to(torch.int32)
+            C = C.to(torch.int32)
+        return lanes_view(C) if C.shape[-1] % 4 else C
     return C
 
 
@@ -206,7 +248,7 @@ def banded_cost(left, right, s, *, band: int, G: int, ndisp: int, ftzero: int = 
         raise RuntimeError(f"svt_banded_cost: device query failed on {left.device}")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=left.device) if tile == 0 else None
     left, right, s = left.contiguous(), right.contiguous(), s.contiguous()
-    out = torch.empty((P, H, W - min_x, band), dtype=dtype, device=left.device)
+    out = empty_lanes((P, H, W - min_x, band), dtype, left.device)
     err = lib.svt_banded_cost(left.data_ptr(), right.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, W, band, G,
                               ndisp, block_size, ftzero, min_x, stride, tile, out.element_size(),
                               None if scratch is None else scratch.data_ptr(), _stream(left))
@@ -300,10 +342,11 @@ def vertical_plan(P: int, H: int, Wv: int, K: int, dtype: torch.dtype, with_diag
     if K > WIDE_BAND:
         return dict(plan, form="wide")
     KP = _pow2(K)
-    cost_bytes = lambda cpt: (cpt * K * elem + 15) // 16 * 16  # a thread's cost slot
+    KS = lane_stride(K)
+    cost_bytes = lambda cpt: (cpt * KS * elem + 15) // 16 * 16  # a thread's cost slot
     if not with_diagonals:
         cpt = 2 if KP * elem == 8 else 1
-        row, read = cost_bytes(cpt) + 4 * cpt, cpt * (K * elem + 4)
+        row, read = cost_bytes(cpt) + 4 * cpt, cpt * (KS * elem + 4)
         threads = ceil(Wv, cpt)
         if KP >= 16 and chains * threads < sm_count * GROUP_BELOW:
             # Too few chains to fill the SMs a thread each: a group of
@@ -324,7 +367,7 @@ def vertical_plan(P: int, H: int, Wv: int, K: int, dtype: torch.dtype, with_diag
             raise ValueError(f"the ring of band {K} fits no block in {smem_optin} bytes of shared memory")
         return dict(plan, form="ring", threads=NT, cols_per_thread=cpt, cols_per_block=NT * cpt, ring=S,
                     smem_bytes=S * NT * row, grid=(ceil(threads, NT), P, 2))
-    row, read = cost_bytes(1) + 4, K * elem + 4
+    row, read = cost_bytes(1) + 4, KS * elem + 4
     best = None
     for CS in CLUSTER_SIZES:
         SW = ceil(ceil(Wv, CS), 32) * 32  # a block's own columns, whole warps of them
@@ -351,7 +394,7 @@ def vertical_plan(P: int, H: int, Wv: int, K: int, dtype: torch.dtype, with_diag
     if best is not None:
         return best[1]
     NT = min(STRIP_THREADS, ceil(Wv, 32) * 32)
-    return dict(plan, form="strips", threads=NT, cols_per_block=Wv, scratch_bytes=12 * P * Wv * K * elem,
+    return dict(plan, form="strips", threads=NT, cols_per_block=Wv, scratch_bytes=12 * P * Wv * KS * elem,
                 grid=(P, 2, 1))
 
 
@@ -404,7 +447,7 @@ def banded_vertical(C, s, G: int, P1: int, P2: int, *, cost_bound: int, with_dia
         return vertical_plain(C, s, G, P1, P2, with_diagonals)
     s = _check_shift(s, C)
     P, H, Wv, K = C.shape
-    dn, up = torch.empty_like(C), torch.empty_like(C)
+    dn, up = (empty_lanes(C.shape, C.dtype, C.device) for _ in range(2))
     if C.numel() == 0:
         return dn, up
     if K > WIDE_BAND:
@@ -452,7 +495,7 @@ def banded_horizontal(C, s, G: int, P1: int, P2: int, *, cost_bound: int, revers
         return horizontal_plain(C, s, G, P1, P2, reverse)
     s = _check_shift(s, C)
     P, H, Wv, K = C.shape
-    out = torch.empty_like(C)
+    out = empty_lanes(C.shape, C.dtype, C.device)
     if K > WIDE_BAND:
         lib = _wide_lib(C)
         err = lib.svt_banded_wide_horizontal(C.data_ptr(), s.data_ptr(), out.data_ptr(), P, H, Wv, K, G, P1, P2,
@@ -482,23 +525,27 @@ def banded_wta_plain(volumes, uniqueness_ratio: int, sub: bool = False):
     return minS, best, sm, s0, sp, uok
 
 
-def _check_wta_volumes(volumes: list, what: str) -> None:
-    """2-4 (P, H, Wv, K >= 3) volumes of one shape on one device; on CUDA,
-    contiguous and aligned, of one type (int16 or int32), with fewer than
-    2^31 pixels."""
+def _check_wta_volumes(volumes: list, what: str) -> list:
+    """2-4 (P, H, Wv, K >= 1) volumes of one shape on one device; on CUDA,
+    of one type (int16 or int32), contiguous and aligned where K % 4 == 0,
+    with fewer than 2^31 pixels. Returns them, on CUDA in the kernels'
+    layout (:func:`lanes_view`)."""
     v0 = volumes[0]
     if not 2 <= len(volumes) <= 4 or any(v.shape != v0.shape or v.device != v0.device for v in volumes):
         raise ValueError(f"{what} takes 2-4 direction volumes of one shape on one device")
-    if v0.dim() != 4 or v0.shape[-1] < 3:
-        raise ValueError(f"expected (P, H, Wv, K>=3) volumes, got {tuple(v0.shape)}")
+    if v0.dim() != 4 or v0.shape[-1] < 1:
+        raise ValueError(f"expected (P, H, Wv, K>=1) volumes, got {tuple(v0.shape)}")
     if _on_cuda(v0):
         check_band(v0.shape[-1])
-        if v0.dtype not in (torch.int16, torch.int32) or any(
-                v.dtype != v0.dtype or not v.is_contiguous() or v.data_ptr() % 16 for v in volumes):
-            raise TypeError(f"the CUDA kernel of {what} takes contiguous, 16-byte aligned volumes of one type, "
-                            "int16 or int32")
+        if v0.dtype not in (torch.int16, torch.int32) or any(v.dtype != v0.dtype for v in volumes):
+            raise TypeError(f"the CUDA kernel of {what} takes volumes of one type, int16 or int32")
+        if v0.shape[-1] % 4 == 0 and any(not v.is_contiguous() or v.data_ptr() % 16 for v in volumes):
+            raise TypeError(f"the CUDA kernel of {what} takes contiguous, 16-byte aligned volumes")
         if v0.shape[:3].numel() >= 1 << 31:
             raise ValueError(f"the CUDA kernel of {what} takes fewer than 2^31 pixels a call")
+        if v0.shape[-1] % 4:
+            return [lanes_view(v) for v in volumes]
+    return volumes
 
 
 def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
@@ -507,8 +554,7 @@ def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
     sub16, unique_ok) where sub16 is the subpixel parabola in lane units
     (``ndisp = K``). Maps are int32, ``unique_ok`` bool; ties go to the
     smallest k, uniqueness is band-local (|k - best| > 1)."""
-    volumes = list(volumes)
-    _check_wta_volumes(volumes, "banded_wta")
+    volumes = _check_wta_volumes(list(volumes), "banded_wta")
     v0 = volumes[0]
     if not _on_cuda(v0):
         return banded_wta_plain(volumes, uniqueness_ratio, sub)
@@ -523,7 +569,7 @@ def banded_wta(volumes, uniqueness_ratio: int, sub: bool = False):
                                       int(sub), _stream(v0))
         _build.check(lib, err, "svt_banded_wide_wta")
     else:
-        lib = _lib()
+        lib = _lib("banded_wta")
         err = lib.svt_banded_wta(*ptrs, len(volumes), *mptrs, uok.data_ptr(), P * H * Wv, K, uniqueness_ratio,
                                  int(sub), v0.element_size(), _stream(v0))
         _build.check(lib, err, "svt_banded_wta")
@@ -559,8 +605,7 @@ def banded_wta_fused(volumes, s, uniqueness_ratio: int, *, ndisp: int, volume_bo
     volume's values (int16 volumes: 2^15 - 1 by their type; int32 volumes
     need it): minS * 2048 stays inside int32 when the volumes' sum is
     bounded below 2^20."""
-    volumes = list(volumes)
-    _check_wta_volumes(volumes, "banded_wta_fused")
+    volumes = _check_wta_volumes(list(volumes), "banded_wta_fused")
     v0 = volumes[0]
     P, H, Wv, K = v0.shape
     if K != FUSED_BAND:

@@ -416,6 +416,17 @@ def stereo_sgbm_hier_batch(left, right, params: StereoSGBMParams = StereoSGBMPar
     return _full_level(left, right, params, hp, prior, prior_hp, fused)
 
 
+def _check_window_lanes(K: int, G: int, what: str) -> None:
+    """The reference's per-frame banded core aligns a window's bands by
+    concatenating a neighbour's lanes from G on with the centre's last K - G
+    (stereo_vision_tpu/stereo/banded.py ``align_window``): where K < G < 2K
+    that row has fewer than K lanes, and its ``jnp.where`` fails to
+    broadcast. The per-frame entry refuses those bands before any launch."""
+    if K < G < 2 * K:
+        raise ValueError(f"{what} is {K} lanes at granularity {G}: the reference's window alignment takes no "
+                         f"band of K lanes with K < G < 2K")
+
+
 def stereo_sgbm_hier(left, right, params: StereoSGBMParams = StereoSGBMParams(),
                      hp: HierParams = HierParams()) -> torch.Tensor:
     """Hierarchical SGBM disparity of one (H, W) rectified 8-bit pair: the
@@ -436,6 +447,12 @@ def stereo_sgbm_hier(left, right, params: StereoSGBMParams = StereoSGBMParams(),
         raise ValueError("a mid level needs a band that is a multiple of 8 and a factor dividing num_disparities")
     if left.dim() != 2 or right.shape != left.shape:
         raise ValueError(f"expected one (H, W) pair, got {tuple(left.shape)} and {tuple(right.shape)}")
+    bands = [(B, G, "the full level's band")] + [(lv.band, lv.granularity, "a mid level's band")
+                                                  for lv in _prior_levels(hp)]
+    if hp.coarse_stride > 1:
+        bands.append(((D // fx) // hp.coarse_stride, G, "the strided coarse search's lane count"))
+    for K, g, what in bands:
+        _check_window_lanes(K, g, what)
     left, right = _as_frames(left[None]), _as_frames(right[None])
     _, prior, prior_hp = _prior(left, right, params, hp, exact_coarse=True)
     return _full_level(left, right, params, hp, prior, prior_hp, fused=False)[0]

@@ -31,12 +31,17 @@ _SIGNATURES = {
 }
 
 
+_LIBS: list[ctypes.CDLL] = []  # the library, signatures set
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("lr")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
+    if not _LIBS:
+        lib = _build.library("lr")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _LIBS.append(lib)
+    return _LIBS[0]
 
 
 def lr_fail_packed_plain(pack, d16, *, W: int, ndisp: int, max_diff: int) -> torch.Tensor:
@@ -64,7 +69,9 @@ def lr_fail_packed(pack, d16, *, W: int, ndisp: int, max_diff: int) -> torch.Ten
         return lr_fail_packed_plain(pack, d16, **kw)
     if pack.device.type != "cuda":
         raise ValueError(f"unsupported device {pack.device}")
-    pack, d16 = pack.contiguous(), d16.contiguous()
+    # The kernel reads 16-byte words: contiguous maps on 16-byte addresses.
+    pack, d16 = (m.contiguous() for m in (pack, d16))
+    pack, d16 = (m if m.data_ptr() % 16 == 0 else m.clone() for m in (pack, d16))
     fail = torch.empty((P, H, Wv), dtype=torch.bool, device=pack.device)
     lib = _lib()
     err = lib.svt_lr_fail_packed(pack.data_ptr(), d16.data_ptr(), fail.data_ptr(), P * H, W, Wv, ndisp, max_diff,

@@ -157,6 +157,20 @@ def horizontal_plain(C, P1: int, P2: int, reverse: bool = False):
     return _aggregate_horiz(C, P1, P2)
 
 
+LANE_FILL = -(1 << 31)  # what the reference's take_along_axis reads outside [-D, D)
+
+
+def _take_lane(S, i):
+    """S[..., i] with the reference's ``jnp.take_along_axis`` rule: an index
+    in [-D, 0) counts from the end, one outside [-D, D) reads LANE_FILL.
+    Only bands below 3 reach either (the WTA's clamped samples)."""
+    D = S.shape[-1]
+    j = torch.where(i < 0, i + D, i)
+    inside = (j >= 0) & (j < D)
+    v = torch.gather(S, -1, j.clamp(0, D - 1)[..., None])[..., 0]
+    return torch.where(inside, v, torch.full_like(v, LANE_FILL))
+
+
 def wta_scan(S, ndisp: int, uniqueness_ratio: int):
     """WTA + uniqueness + subpixel samples from an aggregated (..., D)
     volume: (minS, best, sm, s0, sp, unique_ok); ties go to the smallest d."""
@@ -169,9 +183,8 @@ def wta_scan(S, ndisp: int, uniqueness_ratio: int):
         unique_ok = ~offender.any(dim=-1)
     else:
         unique_ok = torch.ones_like(best, dtype=torch.bool)
-    d0 = best.clamp(1, ndisp - 2)
-    take = lambda i: torch.gather(S, -1, i[..., None])[..., 0]
-    s0, sm, sp = take(d0), take(d0 - 1), take(d0 + 1)
+    d0 = best.clamp(1, ndisp - 2)  # clamp(best, 1, -1) == -1 at ndisp 1, 0 at ndisp 2
+    s0, sm, sp = _take_lane(S, d0), _take_lane(S, d0 - 1), _take_lane(S, d0 + 1)
     i32 = lambda a: a.to(torch.int32)
     return i32(minS), i32(best), i32(sm), i32(s0), i32(sp), unique_ok
 

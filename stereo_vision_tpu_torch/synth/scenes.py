@@ -110,3 +110,69 @@ def speckle_patterns() -> np.ndarray:
     F[5] = 12.0
     F[6] = np.where(np.indices((72, 100)).sum(0) % 2 == 0, 2.0, -1.0)
     return F
+
+
+WTA_MODES = ("random", "ties", "ends", "boundary", "near_bound")
+
+
+def wta_volumes(rng, shape, mode: str, nvol: int = 3, dtype=np.int16) -> list[np.ndarray]:
+    """``nvol`` direction volumes of ``shape`` (..., K) made to break a
+    banded WTA: "random"; "ties" (every lane equal on a third of the pixels,
+    two minima 1 or 2 lanes apart on the rest); "ends" (the minimum at lane
+    0, or at lane K - 1 on every other pixel); "boundary" (a lane 2 or more
+    from the minimum exactly at the uniqueness boundary of ratio 10, minS *
+    110 == S[k] * 100, which passes, or one below it); "near_bound" (int32
+    volumes whose sum lies within 2^24 of 2^31 - 1, so that the uniqueness
+    products wrap). The sum of the volumes is the pattern; the split between
+    them is random."""
+    K = shape[-1]
+    if mode == "near_bound":
+        top = (2**31 - 1) // nvol
+        return [rng.integers(top - (1 << 22), top, shape).astype(np.int32) for _ in range(nvol)]
+    S = rng.integers(2000, 6000, shape).astype(np.int64)
+    flat = S.reshape(-1, K)
+    n = flat.shape[0]
+    if mode == "ties":
+        k = rng.integers(0, max(K - 2, 1), n)
+        gap = 1 + np.arange(n) % 2
+        flat[np.arange(n), k] = 1000
+        flat[np.arange(n), np.minimum(k + gap, K - 1)] = 1000
+        flat[::3] = 3000
+    elif mode == "ends":
+        flat[:, 0] = 1000
+        flat[::2, K - 1] = 900
+    elif mode == "boundary":
+        flat[:, 0] = 1000
+        flat[:, K - 1] = 1100 - np.arange(n) % 2  # 1100 passes, 1099 fails (K >= 3)
+    elif mode != "random":
+        raise ValueError(f"unknown mode {mode}")
+    parts = [rng.integers(0, 400, shape) for _ in range(nvol - 1)]
+    first = S - sum(parts)
+    return [a.astype(dtype) for a in (first, *parts)]
+
+
+LR_MODES = ("random", "one_disparity", "negative", "edges")
+
+
+def lr_maps(rng, shape, ndisp: int, mode: str) -> tuple[np.ndarray, np.ndarray]:
+    """The packed LR check's int32 (pack, d16) maps of ``shape`` (..., Wv):
+    WTA-like winners and costs with ties, d16 within half a pixel of the
+    winner; "one_disparity" (every row at one winner and one cost: every
+    scatter of a row collides), "negative" (d16 < 0 on a third of the
+    pixels), "edges" (lookups at the shifts -1 and ndisp and beyond them)."""
+    rows = shape[:-1]
+    cost = rng.integers(0, 60, shape)
+    best = rng.integers(0, ndisp, shape)
+    d16 = np.clip(best * 16 + rng.integers(-8, 9, shape), 0, None)
+    if mode == "one_disparity":
+        cost[:] = 7
+        best = np.broadcast_to(rng.integers(0, ndisp, (*rows, 1)), shape).copy()
+        d16 = best * 16 + rng.integers(-8, 9, shape)
+    elif mode == "negative":
+        d16 = np.where(rng.random(shape) < 0.33, rng.integers(-40, 0, shape), d16)
+    elif mode == "edges":
+        edge = rng.choice([-33, -17, -16, -1, 16 * ndisp - 15, 16 * ndisp, 16 * ndisp + 16, 16 * ndisp + 40], shape)
+        d16 = np.where(rng.random(shape) < 0.5, edge, d16)
+    elif mode != "random":
+        raise ValueError(f"unknown mode {mode}")
+    return (cost * 2048 + best).astype(np.int32), d16.astype(np.int32)

@@ -138,10 +138,39 @@ def test_banded_stats_match_jax(name, num_paths, sub):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("K", [4, 16])
-def test_banded_wta_matches_jax(K):
+def _adversarial_volumes(rng, K, mode):
+    """Three int16 volumes whose sum S has: "ties" every lane equal on some
+    pixels and two minima 1 and 2 lanes apart on others; "ends" its minimum
+    at lane 0 or K - 1; "boundary" a second lane exactly at the uniqueness
+    boundary (minS * 110 == S[k] * 100, which passes) or one below it."""
+    shape = (P, 5, 9, K)
+    S = rng.integers(2000, 6000, shape).astype(np.int32)
+    if mode == "ties":
+        k = rng.integers(0, K - 2, shape[:3])
+        gap = 1 + (np.arange(9) % 2)[None, None, :]  # minima 1 and 2 lanes apart
+        np.put_along_axis(S, k[..., None], 1000, -1)
+        np.put_along_axis(S, (k + gap)[..., None], 1000, -1)
+        S[:, 0] = 3000
+    elif mode == "ends":
+        S[..., 0] = 1000
+        S[:, :2, :, -1] = 900
+    elif mode == "boundary":
+        S[..., 0] = 1000
+        S[..., K - 1] = 1100 - (np.arange(9) % 2)[None, None, :]  # 1100 passes, 1099 fails
+    v1 = rng.integers(0, 400, shape)
+    v2 = rng.integers(0, 400, shape)
+    return [(S - v1 - v2).astype(np.int16), v1.astype(np.int16), v2.astype(np.int16)]
+
+
+@pytest.mark.parametrize("K,mode", [pytest.param(4, "random", id="4"), pytest.param(16, "random", id="16"),
+                                    (4, "ties"), (16, "ties"), (8, "ends"), (3, "ends"), (16, "boundary"),
+                                    (5, "boundary")])
+def test_banded_wta_matches_jax(K, mode):
     rng = np.random.default_rng(K)
-    vols = [rng.integers(0, 3000, (P, 5, 9, K)).astype(np.int16) for _ in range(3)]
+    if mode == "random":
+        vols = [rng.integers(0, 3000, (P, 5, 9, K)).astype(np.int16) for _ in range(3)]
+    else:
+        vols = _adversarial_volumes(rng, K, mode)
     S = jnp.asarray(sum(v.astype(np.int32) for v in vols))
     ref = jsgbm.wta_scan(S, K, 10)
     six = banded_cuda.banded_wta([_t(v) for v in vols], 10)
@@ -155,20 +184,27 @@ def test_banded_wta_matches_jax(K):
 def test_cuda_only_limits_raise(monkeypatch):
     """What the CUDA kernels refuse, and the storage type they pick, checked
     before any launch (a CPU tensor stands in for a CUDA one): a bound past
-    int16 takes the int32 form, a band off K % 4 == 0 (or below 4) and
-    volumes of two types are refused; bands above 1024 are taken."""
+    int16 takes the int32 form, a band below 1 and volumes of two types are
+    refused; every band K >= 1 is taken, a band off K % 4 == 0 in the
+    kernels' layout (its lanes lane_stride(K) apart: a contiguous volume is
+    copied into it, a view of that layout taken as it is)."""
     monkeypatch.setattr(banded_cuda, "_on_cuda", lambda t: True)
     C = torch.zeros((1, 4, 8, 8), dtype=torch.int16)
-    s = torch.zeros((1, 4, 8), dtype=torch.int32)
     assert banded_cuda._check_volume(C, 32000, 2325).dtype == torch.int32
     assert banded_cuda._check_volume(C, 32, 100).dtype == torch.int16
     assert banded_cuda._check_volume(torch.zeros((1, 4, 8, 12), dtype=torch.int16), 32, 100).shape[-1] == 12
     assert banded_cuda._check_volume(torch.zeros((1, 4, 8, 68), dtype=torch.int16), 32, 100).shape[-1] == 68
-    for K in (4, 68, 128, 256, 260, 1024, 1028, 2052):
+    for K in (1, 2, 3, 4, 10, 68, 128, 256, 260, 1024, 1028, 1030, 2052):
         banded_cuda.check_band(K)
-    for K, match in ((2, "K % 4 == 0 and K >= 4"), (10, "K % 4 == 0 and K >= 4"), (1030, "K % 4 == 0 and K >= 4")):
-        with pytest.raises(ValueError, match=match):
-            banded_cuda.banded_horizontal(torch.zeros((1, 4, 8, K), dtype=torch.int16), s, 4, 8, 32, cost_bound=100)
+    for K, KS in ((1, 4), (2, 4), (3, 4), (10, 12), (1030, 1032)):
+        assert banded_cuda.lane_stride(K) == KS
+        v = torch.arange(2 * 4 * 8 * K, dtype=torch.int16).reshape(2, 4, 8, K)
+        laid = banded_cuda._check_volume(v, 32, 100)
+        assert laid.stride() == (4 * 8 * KS, 8 * KS, KS, 1) and torch.equal(laid, v)
+        assert banded_cuda.lanes_view(laid).data_ptr() == laid.data_ptr()  # already in the layout: no copy
+        assert banded_cuda.empty_lanes(v.shape, v.dtype, "cpu").stride() == laid.stride()
+    with pytest.raises(ValueError, match="K >= 1"):
+        banded_cuda.check_band(0)
     with pytest.raises(TypeError):
         banded_cuda.banded_wta([C, C.to(torch.int32)], 10)
 

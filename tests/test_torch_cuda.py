@@ -19,6 +19,7 @@ from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
+from stereo_vision_tpu_torch.synth import scenes
 from stereo_vision_tpu_torch.synth.scenes import scene, speckle_patterns
 
 pytestmark = pytest.mark.cuda
@@ -1162,3 +1163,110 @@ def test_other_matchers_ignore_hier_params_on_the_card(dev, matcher):
     d1, _ = batched_stereo_pipeline(L, R, maps, Q, matcher=matcher, params=params, hier_params=HIER_FAST, device=dev)
     dc, _ = batched_stereo_pipeline(L, R, maps, Q, matcher=matcher, params=params, device="cpu")
     assert torch.equal(d0, d1) and torch.equal(d0.cpu(), dc)
+
+
+# Bands off K % 4 == 0 and below 4 (ROADMAP C.7: the strided coarse search
+# at 1-3 lanes), the WTA (#20) and the packed LR check (#10) redesigned.
+@pytest.mark.parametrize("K,G", [(1, 8), (2, 8), (3, 8), (3, 2), (5, 4), (6, 2), (7, 4), (9, 4), (13, 8), (20, 8),
+                                 (36, 8), (65, 16), (70, 8)])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_banded_kernels_at_any_band_match_plain(dev, K, G, dtype):
+    """Every banded kernel at bands off K % 4 == 0 (a pixel's lanes
+    lane_stride(K) apart): the cost at s == 0 with a stride and on random
+    shift maps, the vertical scan (every plan form) with and without
+    diagonals, both horizontals and the WTA, each fed the card's own output
+    (its padded layout) and a contiguous copy."""
+    P, H, Wv = 2, 9, 37
+    rng = np.random.default_rng(K * 10 + G)
+    ndisp = 4 * K + 16
+    left, right = _images(K, P, H, ndisp + Wv)
+    for stride, kind in ((max(ndisp // K // 2, 1), "zero"), (1, "random")):
+        s = _cost_shift_map(rng, P, H, ndisp + Wv, ndisp, K, G, stride, kind)
+        kw = dict(band=K, G=G, ndisp=ndisp, ftzero=15, block_size=5, min_x=ndisp, stride=stride, dtype=dtype)
+        cost = banded_cuda.banded_cost(left.to(dev), right.to(dev), s.to(dev), **kw)
+        assert cost.dtype == dtype and torch.equal(cost.cpu(), banded_cuda.banded_cost_plain(left, right, s, **kw))
+    C, s = cost.cpu(), s[:, :, ndisp:].contiguous()
+    for Cd in (cost, C.to(dev)):
+        for diag in (False, True):
+            out = banded_cuda.banded_vertical(Cd, s.to(dev), G, 200, 800, cost_bound=2325, with_diagonals=diag)
+            ref = banded_cuda.vertical_plain(C, s, G, 200, 800, diag)
+            assert all(torch.equal(a.cpu().to(torch.int32), b) for a, b in zip(out, ref))
+        vols = list(out)
+        for rev in (False, True):
+            out = banded_cuda.banded_horizontal(Cd, s.to(dev), G, 200, 800, cost_bound=2325, reverse=rev)
+            assert torch.equal(out.cpu().to(torch.int32), banded_cuda.horizontal_plain(C, s, G, 200, 800, rev))
+            vols.append(out)
+        for sub in (False, True):
+            got = banded_cuda.banded_wta(vols, 10, sub)
+            ref = banded_cuda.banded_wta_plain([v.cpu() for v in vols], 10, sub)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+
+
+WTA_GRID_K = (1, 2, 3, 4, 8, 12, 16, 20, 32, 36, 64)
+WTA_GRID_PIXELS = (1, 31, 32, 33, 255, 256, 257, 1007)  # a thread a pixel, 32 a warp, 256 a block at K <= 16
+
+
+@pytest.mark.parametrize("K", WTA_GRID_K)
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_banded_wta_grid_matches_plain(dev, K, dtype):
+    """The WTA (#20) over 2-4 volumes, both forms, at pixel counts 1, 31 and
+    about a warp's run (32) and a block's (256), and 1000 + 7, on adversarial
+    volumes (ties, the minimum at either end, uniqueness at its boundary;
+    int32 sums near 2^31), against its plain form, exact."""
+    rng = np.random.default_rng(K)
+    modes = scenes.WTA_MODES if dtype == torch.int32 else scenes.WTA_MODES[:-1]
+    for nvol in (2, 3, 4):
+        for n in WTA_GRID_PIXELS:
+            for mode in modes:
+                store = np.int32 if mode == "near_bound" else np.int16
+                vols = [torch.from_numpy(v).to(dtype) for v in scenes.wta_volumes(rng, (1, 1, n, K), mode, nvol, store)]
+                for sub in (False, True):
+                    got = banded_cuda.banded_wta([v.to(dev) for v in vols], 10, sub)
+                    ref = banded_cuda.banded_wta_plain(vols, 10, sub)
+                    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)), (nvol, n, mode, sub)
+
+
+@pytest.mark.parametrize("W,ndisp", [(W, nd) for W in (17, 96, 1280, 4096, 20000) for nd in (16, 128, 1024, 2047)
+                                     if nd < W])
+def test_lr_packed_grid_matches_plain(dev, W, ndisp):
+    """The packed LR check (#10), a warp a row, against its plain form (run
+    on the card) on rows of any width (maps whose rows do not start on 16
+    bytes), every disparity range of the pack's field, max_diff 0-2, and
+    maps made to break it (every scatter of a row colliding, d16 < 0,
+    lookups at and past the shifts -1 and ndisp)."""
+    rng = np.random.default_rng(W + ndisp)
+    for rows in (1, 7, 33):
+        for mode in scenes.LR_MODES:
+            pack, d16 = scenes.lr_maps(rng, (1, rows, W - ndisp), ndisp, mode)
+            for max_diff in (0, 1, 2):
+                kw = dict(W=W, ndisp=ndisp, max_diff=max_diff)
+                pk, dd = torch.from_numpy(pack).to(dev), torch.from_numpy(d16).to(dev)
+                got = lr_cuda.lr_fail_packed(pk, dd, **kw)
+                assert torch.equal(got, lr_cuda.lr_fail_packed_plain(pk, dd, **kw)), (rows, mode, max_diff)
+
+
+@pytest.mark.parametrize("D,stride,W", [(64, 16, 128), (64, 8, 128), (192, 16, 256), (192, 3, 256)])
+def test_per_frame_hier_few_coarse_lanes_card_equals_cpu(dev, D, stride, W):
+    """ROADMAP C.7: the per-frame stereo_sgbm_hier with the strided coarse
+    search at Kc = 1, 2, 3 (D = 64 at strides 16 and 8, D = 192 at stride
+    16) and 16 (D = 192, stride 3): the card equals the CPU."""
+    rng = np.random.default_rng(0)
+    left = rng.integers(0, 256, (16, W)).astype(np.int32)
+    right = np.roll(left, -8 if D == 64 else -40, axis=1)
+    p = StereoSGBMParams(num_disparities=D, block_size=3)
+    hp = hier.HierParams(band=16, granularity=8, coarse_stride=stride)
+    L, R = torch.from_numpy(left), torch.from_numpy(right)
+    got = hier.stereo_sgbm_hier(L.to(dev), R.to(dev), p, hp)
+    assert torch.equal(got.cpu(), hier.stereo_sgbm_hier(L, R, p, hp))
+
+
+@pytest.mark.parametrize("D,stride", [(64, 3), (192, 8)])
+def test_per_frame_hier_refuses_kc_5_and_6_on_the_card(dev, D, stride):
+    """Where the reference raises (Kc = 5 and 6 at G = 8), the card raises
+    before any launch."""
+    L = torch.zeros((16, 256), dtype=torch.int32, device=dev)
+    n = banded_cuda.downsample_box.launches
+    with pytest.raises(ValueError, match="lanes at granularity 8"):
+        hier.stereo_sgbm_hier(L, L, StereoSGBMParams(num_disparities=D, block_size=3),
+                              hier.HierParams(band=16, granularity=8, coarse_stride=stride))
+    assert banded_cuda.downsample_box.launches == n

@@ -20,18 +20,39 @@ from stereo_vision_tpu.stereo import sgbm as jsgbm
 from stereo_vision_tpu_torch.stereo import lr_cuda
 
 
-def _inputs(P, H, W, ndisp, seed):
+def _inputs(P, H, W, ndisp, seed, mode="random"):
+    """WTA-like maps; ``mode``: "random" (above), "one_disparity" (every
+    row at one winner with equal costs: every scatter of a row collides),
+    "negative" (d16 in [-16, 0) on a third of the pixels), "edges"
+    (lookups at the shifts -1 and ndisp). The Pallas kernel's grouped
+    select covers the shifts [-1, ndisp] (floor -1 is what its invalid
+    pixels carry), the range the lookups of the scan reference read."""
     rng = np.random.default_rng(seed)
     Wv = W - ndisp
     minS = rng.integers(0, 60, (P, H, Wv)).astype(np.int32)  # a narrow range: ties in the projection
     best = rng.integers(0, ndisp, (P, H, Wv)).astype(np.int32)
     d16 = np.clip(best * 16 + rng.integers(-8, 9, (P, H, Wv)), 0, None).astype(np.int32)
+    if mode == "one_disparity":
+        minS[:] = 7
+        best[:] = rng.integers(0, ndisp, (P, H, 1))
+        d16 = best * 16 + rng.integers(-8, 9, (P, H, Wv)).astype(np.int32)
+    elif mode == "negative":
+        d16 = np.where(rng.random((P, H, Wv)) < 0.33, rng.integers(-16, 0, (P, H, Wv)), d16).astype(np.int32)
+    elif mode == "edges":
+        edge = rng.choice([-16, -9, -1, 16 * ndisp - 15, 16 * ndisp - 1, 16 * ndisp], (P, H, Wv))
+        d16 = np.where(rng.random((P, H, Wv)) < 0.5, edge, d16).astype(np.int32)
     return minS * 2048 + best, d16, minS, best
 
 
-@pytest.mark.parametrize("H,W,ndisp,max_diff,seed", [(40, 256, 64, 1, 0), (50, 320, 32, 1, 1), (9, 96, 16, 0, 2)])
-def test_lr_fail_packed_plain_matches_jax(H, W, ndisp, max_diff, seed):
-    pack, d16, minS, best = _inputs(2, H, W, ndisp, seed)
+@pytest.mark.parametrize("H,W,ndisp,max_diff,seed,mode", [
+    pytest.param(40, 256, 64, 1, 0, "random", id="40-256-64-1-0"),
+    pytest.param(50, 320, 32, 1, 1, "random", id="50-320-32-1-1"),
+    pytest.param(9, 96, 16, 0, 2, "random", id="9-96-16-0-2"),
+    (9, 96, 16, 1, 3, "one_disparity"), (7, 80, 32, 0, 4, "one_disparity"), (9, 96, 16, 1, 5, "negative"),
+    (9, 96, 16, 2, 6, "edges"), (9, 96, 16, 0, 7, "edges"),
+])
+def test_lr_fail_packed_plain_matches_jax(H, W, ndisp, max_diff, seed, mode):
+    pack, d16, minS, best = _inputs(2, H, W, ndisp, seed, mode)
     n = lr_cuda.lr_fail_packed.launches
     mine = lr_cuda.lr_fail_packed(torch.from_numpy(pack), torch.from_numpy(d16), W=W, ndisp=ndisp, max_diff=max_diff)
     assert lr_cuda.lr_fail_packed.launches == n  # CPU tensors take the plain form
@@ -44,7 +65,7 @@ def test_lr_fail_packed_plain_matches_jax(H, W, ndisp, max_diff, seed):
         scan = np.asarray(jsgbm.lr_fail(jnp.asarray(minS[b]), jnp.asarray(best[b]), jnp.asarray(d16[b] / 16.0),
                                         W=W, min_x=ndisp, ndisp=ndisp, mindisp=0, max_diff=max_diff, backend="scan"))
         np.testing.assert_array_equal(mine[b].numpy(), scan)
-    assert mine.any() and not mine.all()
+    assert mine.any() and not mine.all() or mode == "one_disparity"
 
 
 def test_lr_fail_packed_checks_its_arguments():

@@ -105,6 +105,9 @@ def test_plan_follows_the_clusters_the_card_holds():
 def test_plan_refuses_what_the_kernels_do_not_store():
     with pytest.raises(TypeError):
         vertical_plan(1, 1, 8, 4, torch.float32, False, sm_count=132, smem_optin=232_448)
+    # A band off K % 4 == 0 is planned at its memory stride (K = 6: 8 lanes a column).
+    six = vertical_plan(1, 1, 8, 6, torch.int16, False, sm_count=132, smem_optin=232_448)
+    assert six["form"] == "ring" and six["smem_bytes"] == six["ring"] * six["threads"] * (16 + 4)
     with pytest.raises(ValueError):
-        vertical_plan(1, 1, 8, 6, torch.int16, False, sm_count=132, smem_optin=232_448)
+        vertical_plan(1, 1, 8, 0, torch.int16, False, sm_count=132, smem_optin=232_448)
     assert vertical_plan(1, 1, 8, 68, torch.int16, True, sm_count=132, smem_optin=232_448)["form"] == "wide"
