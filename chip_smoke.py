@@ -142,8 +142,8 @@ After 18:
      full levels, hier16x3's coarse and full, hier4x8's full level with
      diagonals) its plan (banded_cuda.vertical_plan: form, threads, columns,
      cluster, ring, shared memory), exact against its plain form on the
-     first frame, one device launch a call (torch.profiler, "not measured"
-     where it records no device time), five timed runs of 5 calls and the
+     first frame, one device launch a call (the kernel nodes of a CUDA
+     graph captured from the call), five timed runs of 5 calls and the
      bound; then its grid (K = 4, 8, 12, 16, 32, 64 with their G; 1, 33,
      1152 and 4097 columns; 1 and 17 rows; int16 and int32; with and
      without diagonals), card against plain.
@@ -160,6 +160,21 @@ After 18:
      to 2047, 1, 7 and 23,040 rows, max_diff 0-2, random maps, rows at one
      disparity, d16 < 0, lookups at and past the shifts -1 and ndisp),
      card against plain.
+ 30. (run after 29) the fused R->L scan + WTA (#5) on the arguments the
+     exact8 fused call (12) gave it and the fused banded WTA (#19) on the
+     hier16x3 fused call's (17): exact against the plain form on the first
+     frame, one device launch a call and no other, five timed runs of 5
+     calls, the bound, torch's copy of the same bytes, and what each
+     replaces on the unfused path timed on the same arguments (#5: #3's R->L
+     launch then #4, whose maps must equal #5's; #19: #20 on the same
+     volumes; on the kernels line's rows as "copy_ms", "replaced" and
+     "replaced_ms"); then
+     #5's grid (D = 3, 4, 31, 32, 128, 129, 1024, int16 and int32, uniq 0
+     and 10, widths 1, 2, 31 and 1152, 5 and 9 rows; every other row's costs
+     zero, so that adversarial lanes from synth.scenes.wta_volumes survive
+     in the sum) and #19's (2-4 volumes, int16 and int32, 1-1007 pixels,
+     shifts at 0, at ndisp - 16 and random, adversarial lanes), card
+     against plain.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -181,6 +196,7 @@ Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -216,7 +232,7 @@ VALID_FLOOR, WITHIN1_FLOOR = 0.90, 0.98
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu"
-           for name in ("cost", "sgm", "banded", "banded_cost", "lr", "speckle", "bm")}
+           for name in ("cost", "sgm", "banded", "banded_cost", "banded_wta", "lr", "speckle", "bm")}
 # The hier main path: bench.py's hier4x3 mode (HIER4_FAST with p3, 32 frames
 # per call, bench.py:162-188).
 HIER_P, HP = 32, hier.HIER4_FAST
@@ -258,7 +274,7 @@ KERNELS = {
                         "stereo_vision_tpu/stereo/banded_pallas.py:666 _vert_kernel"),
     "banded_horizontal": (banded_cuda.banded_horizontal, SOURCES["banded"],
                           "stereo_vision_tpu/stereo/banded_pallas.py:759 _horiz_kernel"),
-    "banded_wta": (banded_cuda.banded_wta, SOURCES["banded"],
+    "banded_wta": (banded_cuda.banded_wta, SOURCES["banded_wta"],
                    "stereo_vision_tpu/stereo/banded_pallas.py:815 _wta_kernel"),
     "lr_fail_packed": (lr_cuda.lr_fail_packed, SOURCES["lr"], "stereo_vision_tpu/stereo/lr_pallas.py:30 _lr_kernel"),
     "speckle_filter": (speckle_cuda.speckle_filter, SOURCES["speckle"],
@@ -271,7 +287,7 @@ KERNELS = {
                           "stereo_vision_tpu/stereo/sgm_pallas.py:538 _horizontal_rl_wta_kernel:360"),
     "bm_disparity": (bm_cuda.bm_disparity, SOURCES["bm"],
                      "stereo_vision_tpu/stereo/bm_pallas.py:183 bm_stats_pallas:135 (_bm_kernel:27)"),
-    "banded_wta_fused": (banded_cuda.banded_wta_fused, SOURCES["banded"],
+    "banded_wta_fused": (banded_cuda.banded_wta_fused, SOURCES["banded_wta"],
                          "stereo_vision_tpu/stereo/banded_pallas.py:1204 _wta_fused_kernel:888"),
 }
 HIER_KERNEL_NAMES = ("downsample_box", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
@@ -826,6 +842,8 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
             VERTICAL_RECORDS.setdefault(path, []).append(dict(level=c["level"], args=args, kwargs=kwargs))
         if name in ("banded_wta", "lr_fail_packed") and f"{path} {c['level']}" in WTA_LR_LEVELS[name]:
             WTA_LR_RECORDS[name].setdefault(f"{path} {c['level']}", dict(args=args, kwargs=kwargs))
+        if name in ("horizontal_rl_wta", "banded_wta_fused"):
+            FUSED_RECORDS.setdefault(name, dict(args=args, kwargs=kwargs, path=path))
 
     rows = []
     for name, a in acc.items():
@@ -853,6 +871,10 @@ WTA_LR_LEVELS = {"banded_wta": ("hier4x3 coarse", "hier4x3 mid", "hier4x3 full",
                                 "hier4x8 full"),
                  "lr_fail_packed": ("hier4x3 full", "hier16x3 full")}
 WTA_LR_RECORDS: dict[str, dict[str, dict]] = {"banded_wta": {}, "lr_fail_packed": {}}
+# The fused R->L WTA's (#5) arguments on the exact8 fused call and the fused
+# banded WTA's (#19) on the hier16x3 fused call, kept by
+# phase_recorded_kernels for phase 30.
+FUSED_RECORDS: dict[str, dict] = {}
 
 
 def check_wta16(records: list[dict]) -> None:
@@ -1858,17 +1880,57 @@ def phase_vertical_cluster(dev, C: torch.Tensor) -> dict:
     return dict(plan=plan, runs_ms=runs, grid_cases=cases)
 
 
-def device_launches(fn, match: str) -> int | str:
-    """Device launches of kernels whose name holds ``match`` in one call of
-    ``fn()``, from torch.profiler ("not measured" where it records no
-    device time)."""
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of libcuda's graph API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint), ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernels(fn) -> list[str]:
+    """The (mangled) names of the kernels one call of ``fn()`` launches: the
+    kernel nodes of a CUDA graph captured from the call (captured, not run),
+    read through libcuda's graph API. Raises where a name cannot be read."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
         fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_time_total > 0]
-    return sum(e.count for e in events if match in e.key) if events else "not measured"
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc: int, what: str) -> None:
+        if rc != 0:
+            raise AssertionError(f"{what} failed (CUresult {rc})")
+
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = _KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams_v2")
+        name, rc = ctypes.c_char_p(), -1
+        if params.func:
+            rc = cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func))
+        for handle in (params.kern, params.func):  # a kernel launched by its library handle
+            if rc != 0 and handle:
+                rc = cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(handle))
+        check(rc, "cuFuncGetName / cuKernelGetName")
+        names.append(name.value.decode())
+    g.reset()
+    return names
+
+
+def device_launches(fn, match: str) -> int:
+    """Device launches of kernels whose name holds ``match`` in one call of
+    ``fn()`` (:func:`graph_kernels`)."""
+    return sum(match in k for k in graph_kernels(fn))
 
 
 # Phase 28: the vertical scan's settings: bands, granularities, widths across
@@ -1885,7 +1947,7 @@ def phase_banded_vertical(dev) -> dict:
     main path's recorded call gave it (hier4x3's three levels, hier16x3's
     two, hier4x8's full level with diagonals; ``VERTICAL_RECORDS``): its plan
     (``banded_cuda.vertical_plan``), exact against its plain form on the
-    first frame, one device launch a call (torch.profiler), five timed runs
+    first frame, one device launch a call (graph_kernels), five timed runs
     of 5 calls (CUDA events) and the bound (the volume read, two written,
     the shift map read); then its grid, card against plain."""
     out = {}
@@ -1905,7 +1967,7 @@ def phase_banded_vertical(dev) -> dict:
                 raise AssertionError(f"banded_vertical ({path} {rec['level']}) differs from its plain form")
             del got, ref
             launches = device_launches(kern, VERTICAL_KERNEL_NAMES[plan["form"]])
-            if launches not in (1, "not measured") or plan["device_launches"] != 1:
+            if launches != 1 or plan["device_launches"] != 1:
                 raise AssertionError(f"banded_vertical ({path} {rec['level']}) made {launches} device launches")
             runs = [event_ms(kern, 5) for _ in range(5)]
             b_ms, b_by = bound_ms(3 * C.numel() * C.element_size() + s.numel() * 4,
@@ -1973,7 +2035,7 @@ def phase_wta_lr(dev) -> dict:
     call gave it (hier4x3's three levels, hier16x3's two, hier4x8's full
     level) and the packed LR check (#10) on hier4x3's and hier16x3's: exact
     against the plain form (run on the card) on the first frame, one device
-    launch a call (torch.profiler), five timed runs of 5 calls (CUDA events),
+    launch a call (graph_kernels), five timed runs of 5 calls (CUDA events),
     the bound (every input read once, every output written once) and the
     time of torch's copy of as many bytes; then each kernel's grid, card
     against plain, exact."""
@@ -1993,7 +2055,7 @@ def phase_wta_lr(dev) -> dict:
             if len(gots) != len(refs) or any(not torch.equal(a[:1], r) for a, r in zip(gots, refs)):
                 raise AssertionError(f"{name} ({key}) differs from its plain form")
             launches = device_launches(kern, kern_name)
-            if launches not in (1, "not measured"):
+            if launches != 1:
                 raise AssertionError(f"{name} ({key}) made {launches} device launches")
             runs = [event_ms(kern, 5) for _ in range(5)]
             nbytes = _nbytes(args) + _nbytes(gots)
@@ -2044,6 +2106,120 @@ def phase_wta_lr(dev) -> dict:
                         cases += 1
     out["lr_fail_packed"]["grid_cases"] = cases
     print(f"kernel lr_fail_packed grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+# Phase 30: the grids of the fused R->L WTA (#5) and the fused banded WTA
+# (#19). #5: the register forms' edges (VPL 1, 2, 4, 8, 32 and the direct
+# form at 129), both storage types, widths from one column to exact8's,
+# 5 and 9 rows (no multiple of a block's rows). #19: 2-4 volumes, both
+# storage types, pixel counts about a warp's and a block's run, shift maps
+# at 0, at ndisp - 16 and random, adversarial lanes.
+RL_GRID = dict(D=(3, 4, 31, 32, 128, 129, 1024), W=(1, 2, 31, 1152), uniq=(0, 10))
+FUSED19_GRID = dict(pixels=(1, 31, 255, 257, 1007), ndisp=2047)
+
+
+def phase_fused_kernels(dev) -> dict:
+    """#5 on the recorded exact8 fused call's arguments and #19 on the
+    recorded hier16x3 fused call's: exact against the plain form (run on the
+    card) on the first frame, one device launch a call and no other
+    (graph_kernels), five timed runs of 5 calls (CUDA events), the bound,
+    torch's copy of as many bytes, and what each replaces on the unfused path
+    timed on the same arguments (#5: #3's R->L launch then #4, whose maps
+    must equal #5's; #19: #20 on the same volumes); then both grids, card
+    against plain, exact."""
+    out = {}
+    for name in ("horizontal_rl_wta", "banded_wta_fused"):
+        rec = FUSED_RECORDS.get(name)
+        if rec is None:
+            raise AssertionError(f"no recorded call of {name}")
+        args, kwargs = rec["args"], rec["kwargs"]
+        fn, plain = KERNELS[name][0], PLAIN[name]
+        kern = lambda: fn(*args, **kwargs)
+        got = kern()
+        ref = plain(*_head(args, 1), **_head(kwargs, 1))
+        torch.cuda.synchronize()
+        if len(got) != len(ref) or any(not torch.equal(a[:1], r.to(a.dtype)) for a, r in zip(got, ref)):
+            raise AssertionError(f"{name} ({rec['path']}) differs from its plain form")
+        launched = graph_kernels(kern)  # the call launches this one kernel and nothing else
+        launches = sum(name in k for k in launched)
+        if launches != 1 or len(launched) != 1:
+            raise AssertionError(f"{name} ({rec['path']}) launched {launched} on the device")
+        runs = [event_ms(kern, 5) for _ in range(5)]
+        if name == "horizontal_rl_wta":
+            C, s_dn, s_up, s_lr, P1, P2, uniq = args
+            other = "unfused pair (#3 R->L + #4)"
+            unfused = lambda: sgm_cuda.wta4([s_dn, s_up, s_lr, sgm_cuda.horizontal(C, P1, P2, True, PARAMS.cost_bound)],
+                                            uniq)
+            if not all(torch.equal(a, b) for a, b in zip(unfused(), got)):
+                raise AssertionError("the unfused pair's maps differ from the fused R->L kernel's")
+            shape, plan = list(C.shape), sgm_cuda.horizontal_rl_wta.plan
+        else:
+            vols, uniq = args[0], args[2]
+            other = "#20 (6-stat) on the same volumes"
+            unfused = lambda: banded_cuda.banded_wta(vols, uniq, False)
+            shape, plan = list(vols[0].shape), None
+        other_runs = [event_ms(unfused, 5) for _ in range(5)]
+        nbytes = _nbytes(args) + _nbytes(got)
+        b_ms, b_by = bound_ms(nbytes, _ops(name, args, kwargs, got[0].numel()))
+        c_ms = copy_ms(nbytes)
+        out[name] = dict(path=rec["path"], shape=shape, plan=plan, device_launches=launches, runs_ms=runs,
+                         ms=min(runs), bound_ms=b_ms, bound_by=b_by, copy_ms=c_ms, bytes=nbytes, replaced=other,
+                         replaced_runs_ms=other_runs, replaced_ms=min(other_runs))
+        print(f"kernel {name} ({rec['path']}, {tuple(shape)}, plan {plan}): exact, {launches} device launch(es), runs "
+              f"{[round(r, 4) for r in runs]} ms, bound {b_ms:.4f} ms by {b_by}, copy {c_ms:.4f} ms, {other} "
+              f"{[round(r, 4) for r in other_runs]} ms", flush=True)
+        del got, ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cases, forms = 0, {}
+    for D in RL_GRID["D"]:
+        for dtype in (torch.int16, torch.int32):
+            B_, H_ = (1, 5) if dtype == torch.int16 else (3, 3)
+            bound = PARAMS.cost_bound if dtype == torch.int16 else 40000
+            modes = WTA_MODES if dtype == torch.int32 else WTA_MODES[:-1]
+            for W_ in RL_GRID["W"]:
+                rng = np.random.default_rng(D * 10 + W_)
+                for i, uniq in enumerate(RL_GRID["uniq"]):
+                    mode = modes[(W_ + i) % len(modes)]
+                    C = rng.integers(0, bound + 1, (B_, H_, W_, D))
+                    C[:, 1::2] = 0  # every other row: an L flat over d, so the volumes' ties survive in S
+                    vols = wta_volumes(rng, (B_, H_, W_, D), mode, 3, np.int32 if dtype == torch.int32 else np.int16)
+                    Cd = torch.from_numpy(C).to(dtype).to(dev)
+                    vd = [torch.from_numpy(v).to(dtype).to(dev) for v in vols]
+                    got = sgm_cuda.horizontal_rl_wta(Cd, *vd, 200, 800, uniq)
+                    ref = sgm_cuda.horizontal_rl_wta_plain(Cd, *vd, 200, 800, uniq)
+                    if not all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, ref)):
+                        raise AssertionError(f"horizontal_rl_wta grid D={D} {dtype} W={W_} uniq={uniq} {mode} "
+                                             f"({sgm_cuda.horizontal_rl_wta.plan}) differs from its plain form")
+                    form = sgm_cuda.horizontal_rl_wta.plan["form"]
+                    forms[form] = forms.get(form, 0) + 1
+                    cases += 1
+    out["horizontal_rl_wta"].update(grid_cases=cases, grid_forms=forms)
+    print(f"kernel horizontal_rl_wta grid: {cases} cases exact, forms {forms} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    cases, K, nd = 0, banded_cuda.FUSED_BAND, FUSED19_GRID["ndisp"]
+    for dtype in (torch.int16, torch.int32):
+        for nvol in (2, 3, 4):
+            rng = np.random.default_rng(nvol)
+            for n in FUSED19_GRID["pixels"]:
+                for mode in WTA_MODES[:-1]:  # the pack holds minS < 2^20: no sums near 2^31
+                    vols = [torch.from_numpy(v).to(dtype).to(dev) for v in wta_volumes(rng, (1, 1, n, K), mode, nvol)]
+                    for kind in ("zero", "top", "random"):
+                        s = (np.zeros((1, 1, n)) if kind == "zero" else np.full((1, 1, n), nd - K) if kind == "top"
+                             else rng.integers(0, nd - K + 1, (1, 1, n)))
+                        sd = torch.from_numpy(s.astype(np.int32)).to(dev)
+                        kw = dict(ndisp=nd, volume_bound=None if dtype == torch.int16 else 6000)
+                        got = banded_cuda.banded_wta_fused(vols, sd, 10, **kw)
+                        ref = banded_cuda.banded_wta_fused_plain(vols, sd, 10)
+                        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                            raise AssertionError(f"banded_wta_fused grid {dtype} {nvol} volumes n={n} {mode} "
+                                                 f"shift {kind} differs from its plain form")
+                        cases += 1
+    out["banded_wta_fused"]["grid_cases"] = cases
+    print(f"kernel banded_wta_fused grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
     return out
 
 
@@ -2155,10 +2331,16 @@ def main() -> int:
     for r in WTA_LR_RECORDS.values():
         r.clear()
     torch.cuda.empty_cache()
-    for r in rows:  # the copy time of the same bytes beside each #20 / #10 row of a main path
+    fused_kernels = phase_fused_kernels(dev)
+    FUSED_RECORDS.clear()
+    torch.cuda.empty_cache()
+    for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
             r["copy_ms"] = sum(v["copy_ms"] for v in levels.values())
+        if r["name"] in fused_kernels:
+            f = fused_kernels[r["name"]]
+            r.update(copy_ms=f["copy_ms"], replaced=f["replaced"], replaced_ms=f["replaced_ms"])
 
     names = [r["name"] for r in rows]
     for r in rows:  # a kernel that runs on several paths: one row each
@@ -2172,7 +2354,8 @@ def main() -> int:
                       "settings": settings, "banded_cost_levels": banded_cost_levels,
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
-                      "banded_vertical": banded_vertical, "wta_lr": wta_lr, "build_s": build_s}), flush=True)
+                      "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
+                      "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

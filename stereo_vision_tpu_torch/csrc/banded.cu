@@ -7,7 +7,7 @@
 //   _vert_kernel (with diagonals, 8 paths)    -> banded_diag.cuh
 //   _horiz_kernel                             -> banded_line_kernel (banded_group.cuh)
 //   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel (banded_wta.cu)
-//   _wta_fused_kernel (band 16)               -> banded_wta_fused_kernel
+//   _wta_fused_kernel (band 16)               -> banded_wta_fused_kernel (banded_wta.cu)
 // and the image pyramid's box mean:
 //   _downsample_kernel (downsample_box_pack)  -> downsample_box_kernel
 //
@@ -43,23 +43,14 @@
 // 3.35 TB/s); vertical reads one and writes two (~222 us with the shift
 // map); each horizontal reads one and writes one (~127 us); the WTA
 // (banded_wta.cu) reads three and writes three int32 maps and a bool map
-// (~293 us). The scans are also dependent chains of H (or Wv) steps. The
-// fused WTA (hier16x3 full level: 8 frames, K=16,
-// three 212 MB volumes and a 26.5 MB shift map in, two 26.5 MB int32 maps
-// out) is bytes-bound at ~0.21 ms; its operations take under 0.02 ms at
-// 67 T/s.
+// (~293 us). The scans are also dependent chains of H (or Wv) steps.
 //
 // Design (right and simple first, then the cost kernel for Hopper):
 //   cost: see banded_cost_kernel (banded_cost.cu).
 //   vertical: see banded_vertical_kernel (redesigned for Hopper: a ring of
 //     rows in shared memory a thread, fed by cp.async S rows ahead).
 //   horizontal: see banded_line_kernel.
-//   wta: see banded_wta.cu. The fused form (band 16): one thread per pixel
-//     sums the 2-4 volumes in int32, reduces over the K lanes, takes the
-//     subpixel step, reads the pixel's shift and writes the LR check's pack
-//     (minS * 2048 + best + s) and d16 + 32768 * unique_ok; the TPU kernel's
-//     8-rows-a-step (W, 128) lane layout and its group-sum matmuls have no
-//     counterpart here.
+//   wta: see banded_wta.cu (both forms, the fused one too).
 //   downsample: one thread per output pixel; the TPU kernel's 0/1 pooling
 //     matmul becomes an integer sum, the float32 division and the
 //     half-to-even round stay.
@@ -69,10 +60,7 @@
 namespace {
 
 using svt::kBig;
-using svt::subpixel16;
-using svt::WtaStats;
 
-constexpr int kScanThreads = 128;
 constexpr int kDownsampleThreads = 256;
 
 // ------------------------------------------------------------- vertical
@@ -250,70 +238,6 @@ __global__ void __launch_bounds__(kRingMaxThreads) banded_vertical_kernel(RingAr
 // banded_line_kernel (banded_group.cuh) over the (frame, row) lines, a group
 // of min(KP, 32) threads a row.
 
-// ------------------------------------------------------------------- WTA
-
-// S = the int32 sum of the nvol (2-4) volumes' K lanes at pixel p; the
-// lanes k >= K hold kBig.
-template <typename T, int KP>
-__device__ __forceinline__ void sum_volumes(const T* const (&vols)[4], int nvol, int p, int K, int (&S)[KP]) {
-  int t[KP];
-  svt::load_lanes<T, KP>(vols[0] + (size_t)p * K, K, S, 0);
-  for (int j = 1; j < nvol; ++j) {
-    svt::load_lanes<T, KP>(vols[j] + (size_t)p * K, K, t, 0);
-#pragma unroll
-    for (int k = 0; k < KP; ++k) S[k] += t[k];
-  }
-#pragma unroll
-  for (int k = 0; k < KP; ++k)
-    if (k >= K) S[k] = kBig;
-}
-
-template <int KP>
-__device__ __forceinline__ WtaStats wta_reduce(const int (&S)[KP], int K, int uniq) {
-  WtaStats w{S[0], 0, 0, 0, 0, true};
-#pragma unroll
-  for (int k = 1; k < KP; ++k)
-    if (S[k] < w.mn) {  // the lanes k >= K hold kBig and never win
-      w.mn = S[k];
-      w.bst = k;
-    }
-  if (uniq > 0) {
-#pragma unroll
-    for (int k = 0; k < KP; ++k) w.ok &= !(k < K && abs(k - w.bst) > 1 && w.mn * (100 + uniq) > S[k] * 100);
-  }
-  const int d0 = min(max(w.bst, 1), K - 2);
-#pragma unroll
-  for (int k = 0; k < KP; ++k) {
-    w.a = k == d0 - 1 ? S[k] : w.a;
-    w.z = k == d0 ? S[k] : w.z;
-    w.c = k == d0 + 1 ? S[k] : w.c;
-  }
-  return w;
-}
-
-// The fused form: one thread per pixel writes the LR check's
-// pack = minS * 2048 + (best + s) and du = (sub16 + 16 * s) + 32768 * unique_ok,
-// s the pixel's shift, in [0, ndisp - K] with 16 * ndisp < 32768 (the
-// wrapper checks ndisp), so that best + s fits the pack's 11 bits and d16
-// stays below the uniqueness bit; minS < 2^20 (the wrapper checks the
-// volumes' bound) keeps the pack in int32.
-template <typename T>
-__global__ void __launch_bounds__(kScanThreads)
-banded_wta_fused_kernel(const T* __restrict__ v0, const T* __restrict__ v1, const T* __restrict__ v2,
-                        const T* __restrict__ v3, int nvol, int npix, int uniq, const int* __restrict__ shift,
-                        int* __restrict__ pack, int* __restrict__ du) {
-  constexpr int K = 16;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  const T* const vols[4] = {v0, v1, v2, v3};
-  int S[K];
-  sum_volumes<T, K>(vols, nvol, p, K, S);
-  const WtaStats w = wta_reduce<K>(S, K, uniq);
-  const int s = shift[p];
-  pack[p] = w.mn * 2048 + w.bst + s;
-  du[p] = subpixel16(w, K) + 16 * s + (w.ok ? 32768 : 0);
-}
-
 // ------------------------------------------------------------- dispatch
 
 // Fn<T, KP>::run(args...) for the storage type of `bytes` (2: int16, 4:
@@ -431,31 +355,6 @@ SVT_EXPORT int svt_banded_horizontal(const void* C, const void* shift, void* out
   if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
   return dispatch<HorizontalFn>(bytes, K, C, static_cast<const int*>(shift), out, P * H, Wv, K, G, P1, P2, reverse,
                                 static_cast<cudaStream_t>(stream));
-}
-
-// nvol (2-4) (npix, 16) volumes of one type + the int32 (npix) shift map ->
-// the int32 pack and du maps of the fused WTA; band 16 only, as the TPU kernel.
-SVT_EXPORT int svt_banded_wta_fused(const void* v0, const void* v1, const void* v2, const void* v3, int nvol,
-                                    const void* shift, void* pack, void* du, int npix, int K, int uniq, int bytes,
-                                    void* stream) {
-  if (nvol < 2 || nvol > 4 || K != 16 || (bytes != 2 && bytes != 4)) return cudaErrorInvalidValue;
-  if (npix == 0) return cudaSuccess;
-  const int blocks = (npix + kScanThreads - 1) / kScanThreads;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto s = static_cast<const int*>(shift);
-  const auto pk = static_cast<int*>(pack), d = static_cast<int*>(du);
-  if (bytes == 2) {
-    using T = int16_t;
-    banded_wta_fused_kernel<T><<<blocks, kScanThreads, 0, st>>>(
-        static_cast<const T*>(v0), static_cast<const T*>(v1), static_cast<const T*>(v2), static_cast<const T*>(v3),
-        nvol, npix, uniq, s, pk, d);
-  } else {
-    using T = int;
-    banded_wta_fused_kernel<T><<<blocks, kScanThreads, 0, st>>>(
-        static_cast<const T*>(v0), static_cast<const T*>(v1), static_cast<const T*>(v2), static_cast<const T*>(v3),
-        nvol, npix, uniq, s, pk, d);
-  }
-  return cudaGetLastError();
 }
 
 // (P, H, W) int32 image -> (P, H / fy, W / fx) int32 box mean (trailing rows and

@@ -30,6 +30,31 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// A thread's own asynchronous copies of global rows (or columns) into a ring
+// of shared memory (cp.async: the data goes to shared memory without passing through
+// registers, and the thread waits only when it reads the slot). Each copy
+// group is one row (column); cp_async_wait_ring(S) waits until at most S - 1 groups
+// are pending, i.e. until the oldest of S in flight has landed.
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_ring(int S) {
+  switch (S) {
+    case 2: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 8: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+    case 16: asm volatile("cp.async.wait_group 15;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+  }
+}
+
 // Birchfield-Tomasi pieces shared by the exact and the banded cost kernels.
 
 // SGBM's clipped x-Sobel of image row y at column x; columns 0 and W-1 are

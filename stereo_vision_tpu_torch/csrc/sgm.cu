@@ -47,12 +47,14 @@
 // and walks the W columns, prefetching the next column's costs.
 //
 // WTA design: one warp per pixel sums the volumes in registers; ties in the
-// argmin go to the smallest d. The fused R->L kernel is the horizontal scan
-// with that reduction at every column: the fourth direction volume stays in
-// registers, and the reduction's shuffles lengthen the scan's serial chain
-// (the trade the reference measured; sgm_cuda._FUSED_RL_WTA picks the form).
+// argmin go to the smallest d. The fused R->L kernel (redesigned for
+// Hopper, see horizontal_rl_wta) is the R->L scan with that reduction at
+// every column, the fourth direction volume never stored: a ring of columns
+// in shared memory ahead of the scan, the reduction beside the next step
+// (sgm_cuda._FUSED_RL_WTA picks the form).
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -516,41 +518,284 @@ wta_stats_kernel(const int* __restrict__ S, int* __restrict__ minS, int* __restr
   wta_store<VPL>(v, D, lane, uniq, p, minS, best, sm, s0, sp, uok);
 }
 
-// One warp per (frame, row): the R->L scan over W columns; at each column
-// its L plus the three stored direction volumes is the aggregated vector,
-// reduced in place by wta_store (the R->L volume is never stored).
+// ------------------------------------------------ the fused R->L scan + WTA
+
+// horizontal_rl_wta (#5): the R->L scan of one (frame, row) fused with the
+// WTA over four directions. At each column x the scan's own L plus the three
+// stored direction volumes is the aggregated vector S; its min, argmin, the
+// uniqueness verdict and the three samples are the six maps of wta_kernel,
+// and the R->L volume is never stored.
+//
+// What bounds it on an H100 (exact8: 4 frames, 720 rows of 1152 columns,
+// D=128, int16): bytes, the cost and three volumes read once (3.4 GB,
+// ~1.0 ms at 3.35 TB/s), over 2,880 serial chains of 1,152 column steps,
+// about 22 warps an SM. The first design (a warp a row, only the next
+// column's cost loaded ahead, the three volume loads of a column waited for
+// inside its step, the WTA's ~26 dependent shuffles between two steps) took
+// 2.4 us a column step, 2.7x the bound.
+//
+// Design (redesigned for Hopper), the ring form. The chain stays a warp a
+// row, so at exact8 each scheduler holds ~6 warps and the kernel is bound
+// by the instructions it issues a column step (~290 in the first ring
+// form; cuobjdump of the int16, D=128 form), then by the bytes:
+//  - each column's cost and three volumes are copied into a ring of
+//    rl_ring columns in shared memory (cp.async, a copy group a column,
+//    rl_ring - 1 ahead of the scan), so that a step never waits for device
+//    memory; where a lane's words are under 16 bytes and a column's a
+//    multiple of 16, the warp copies the column in 16-byte chunks
+//    (cp.async.cg, at most two a lane) and reads it after a __syncwarp;
+//  - the WTA of column x + 1 is issued beside the scan step of column x (the
+//    carry is L and the step's minimum; nothing on it reads S); every
+//    reduction over the warp is one redux.sync or vote in place of a 5-step
+//    shuffle tree;
+//  - lane j keeps the maps of the columns x with x % 32 == j, and the warp
+//    writes 32 consecutive pixels of each map at once; a lane past D reads
+//    zeros from its never-copied words (no predicate on the reads).
+// At exact8 the ring is 2 columns and a block 8 rows. Measured with
+// tools/kernel_variants/sgm_rl_wta.py and dropped: rings of 4 and 8 columns
+// (6% and 12% slower), 2 and 4 rows a block (1-2%), each lane copying its
+// own 8 bytes (cp.async.ca, 2%), the WTA after the next step in program
+// order (1%), and, in the first ring form, the inactive lanes' predicated
+// reads and a branching uniqueness test (~90 instructions a step
+// together). Min and argmin as one packed key at int16 gained about 1%,
+// inside the spread between runs, and went too. A ring slot holds 4 x 32 x VPL
+// values of T (a column); the ring is sized from VPL and T (rl_ring: about
+// kRlRingBytes a row, 2 to 8 columns) and a block holds at most
+// kRlBlockBytes of rings (rl_rows), so that one rule covers every register
+// form, VPL 1-32, int16 and int32.
+// The direct form takes what the ring cannot copy whole (D % VPL != 0, or
+// two bytes a lane): its lanes load device memory themselves, the cost one
+// column ahead; it shares the step and the WTA. Every tensor lies on 16
+// bytes (the entry refuses others).
+constexpr int kRlRingBytes = 2048;       // ring bytes a row, about
+constexpr int kRlBlockBytes = 64 << 10;  // ring bytes a block, at most
+constexpr int kRlRows = 8;               // rows (warps) a block of the ring form, at most
+
 template <typename T, int VPL>
-__global__ void __launch_bounds__(kWarps * 32)
-horizontal_rl_wta(const T* __restrict__ C, const T* __restrict__ v0, const T* __restrict__ v1,
-                  const T* __restrict__ v2, int rows, int W, int D, int P1, int P2, int uniq,
-                  int* __restrict__ minS, int* __restrict__ best, int* __restrict__ sm, int* __restrict__ s0,
-                  int* __restrict__ sp, uint8_t* __restrict__ uok) {
-  const int lane = threadIdx.x & 31;
-  const int rid = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (rid >= rows) return;  // whole warp
-  const T* crow = C + (size_t)rid * W * D;
-  int L[VPL], c[VPL], cn[VPL], S[VPL], t[VPL];
+__host__ __device__ constexpr int rl_slot_bytes() {
+  return 4 * 32 * VPL * (int)sizeof(T);
+}
+template <typename T, int VPL>
+__host__ __device__ constexpr int rl_ring() {
+  const int r = kRlRingBytes / rl_slot_bytes<T, VPL>();
+  return r > 8 ? 8 : r < 2 ? 2 : r;
+}
+template <typename T, int VPL>
+__host__ __device__ constexpr int rl_rows() {
+  const int n = kRlBlockBytes / (rl_ring<T, VPL>() * rl_slot_bytes<T, VPL>());
+  return n > kRlRows ? kRlRows : n;
+}
+
+struct RlArgs {
+  const void* C;
+  const void* v[3];
+  int rows, W, D, P1, P2, uniq;
+  int* maps[5];  // minS, best, sm, s0, sp
+  uint8_t* uok;
+};
+
+// The lane's VPL values of T at p (shared memory, whole words).
+template <typename T, int VPL>
+__device__ __forceinline__ void read_words(const T* p, int (&v)[VPL]) {
+  using Wd = Words<T, VPL>;
+  typename Wd::Word w[Wd::kN];
+#pragma unroll
+  for (int i = 0; i < Wd::kN; ++i) w[i] = reinterpret_cast<const typename Wd::Word*>(p)[i];
+  const T* s = reinterpret_cast<const T*>(w);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = s[k];
+}
+
+// sgm_step with the minimum over the warp as one redux.sync; L becomes L'.
+template <int VPL>
+__device__ __forceinline__ int rl_step(const int (&c)[VPL], int (&L)[VPL], int minL, int P1, int P2, int D,
+                                       int lane) {
+  int below = __shfl_up_sync(kFullMask, L[VPL - 1], 1);  // L at d = lane*VPL - 1
+  int above = __shfl_down_sync(kFullMask, L[0], 1);      // L at d = lane*VPL + VPL
+  if (lane == 0) below = kBig;
+  if (lane == 31) above = kBig;
+  int Ln[VPL], m = kBig;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int Lm = k == 0 ? below : L[k - 1];
+    const int Lp = k == VPL - 1 ? above : L[k + 1];
+    const int cand = min(min(L[k], minL + P2), min(Lm, Lp) + P1);
+    Ln[k] = lane * VPL + k < D ? c[k] + cand - minL : kBig;
+    m = min(m, Ln[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) L[k] = Ln[k];
+  return __reduce_min_sync(kFullMask, m);
+}
+
+// The six maps of one column (warp-uniform) from its S, whose entries d >= D
+// hold INT_MAX: no minimum takes them from a real entry (ties go to the
+// smaller d) and no uniqueness test reads them.
+struct RlStats {
+  int mn, best, a, z, c;
+  bool ok;
+};
+
+// The uniqueness test is the reference's, lane by lane, its products
+// wrapping as the reference's int32 ones do.
+template <int VPL>
+__device__ __forceinline__ RlStats rl_reduce(const int (&S)[VPL], int D, int lane, int uniq) {
+  int lm = S[0];
+#pragma unroll
+  for (int k = 1; k < VPL; ++k) lm = min(lm, S[k]);
+  const int mn = __reduce_min_sync(kFullMask, lm);
+  int bl = INT_MAX;
+#pragma unroll
+  for (int k = VPL - 1; k >= 0; --k)
+    if (S[k] == mn) bl = lane * VPL + k;
+  const int bst = __reduce_min_sync(kFullMask, bl);
+  bool ok = true;
+  if (uniq > 0) {
+    const int lim = (int)((unsigned)mn * (unsigned)(100 + uniq));
+    bool offend = false;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int d = lane * VPL + k;
+      offend |= (d < D) & (abs(d - bst) > 1) & (lim > (int)((unsigned)S[k] * 100u));
+    }
+    ok = !__any_sync(kFullMask, offend);
+  }
+  const int d0 = min(max(bst, 1), D - 2);
+  int a = 0, z = 0, c = 0;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int d = lane * VPL + k;
+    a = d == d0 - 1 ? S[k] : a;
+    z = d == d0 ? S[k] : z;
+    c = d == d0 + 1 ? S[k] : c;
+  }
+  return {mn, bst, __reduce_add_sync(kFullMask, a), __reduce_add_sync(kFullMask, z),
+          __reduce_add_sync(kFullMask, c), ok};
+}
+
+template <typename T, int VPL, bool kRing>
+__global__ void __launch_bounds__(kWarps * 32) horizontal_rl_wta(const RlArgs a) {
+  extern __shared__ __align__(16) unsigned char rl_smem[];
+  constexpr int R = rl_ring<T, VPL>(), kLane = VPL * (int)sizeof(T), kSlot = rl_slot_bytes<T, VPL>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rid = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (rid >= a.rows) return;  // whole warp
+  const int W = a.W, D = a.D;
+  const size_t row = (size_t)rid * W * D, col = (size_t)D * sizeof(T);
+  const T* src[4] = {static_cast<const T*>(a.C) + row, static_cast<const T*>(a.v[0]) + row,
+                     static_cast<const T*>(a.v[1]) + row, static_cast<const T*>(a.v[2]) + row};
+  // The ring form's slots: [warp][slot][input][lane][VPL] of T; D % VPL == 0
+  // there, so a lane holds VPL disparities or none. Where a lane's words are
+  // under 16 bytes and a column's are a multiple of 16, the warp copies the
+  // column's 4 x D values in 16-byte chunks (at most two a lane, cp.async.cg)
+  // and reads them after a __syncwarp; else each lane copies its own words.
+  unsigned char* ring = rl_smem + (size_t)warp * R * kSlot;
+  const bool active = lane * VPL < D;
+  if (kRing && !active) {  // a lane past D reads zeros (its words are never copied)
+#pragma unroll 1
+    for (int o = 0; o < R * 4; ++o)
+#pragma unroll
+      for (int b = 0; b < kLane; b += 4) *reinterpret_cast<int*>(ring + o * 32 * kLane + lane * kLane + b) = 0;
+  }
+  const bool coop = kLane < 16 && col % 16 == 0;
+  const unsigned char* chunk_src[2] = {nullptr, nullptr};
+  int chunk_dst[2] = {-1, -1};
+  if (coop) {
+    const int nc = (int)(col / 16);  // chunks an input
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int f = lane + 32 * i, j = f / nc;
+      if (j < 4) {
+        chunk_src[i] = reinterpret_cast<const unsigned char*>(src[j]) + (f - j * nc) * 16;
+        chunk_dst[i] = j * 32 * kLane + (f - j * nc) * 16;
+      }
+    }
+  }
+  // Column x's bytes as one copy group (an empty one past the row's start
+  // keeps the count).
+  auto fetch = [&](int x) {
+    if (x >= 0) {
+      unsigned char* s = ring + (x & (R - 1)) * kSlot;
+      const size_t gx = (size_t)x * col;
+      if (coop) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (chunk_dst[i] >= 0) svt::cp_async(s + chunk_dst[i], chunk_src[i] + gx, 16);
+      } else if (active) {
+        constexpr int kUnit = kLane < 16 ? kLane : 16;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          auto g = reinterpret_cast<const unsigned char*>(src[j]) + gx + lane * kLane;
+#pragma unroll
+          for (int o = 0; o < kLane; o += kUnit) svt::cp_async(s + j * 32 * kLane + lane * kLane + o, g + o, kUnit);
+        }
+      }
+    }
+    svt::cp_async_commit();
+  };
+
+  int L[VPL], cn[VPL];
   zero_carry<VPL>(D, lane, L);
   int m = 0;
-  load_vec<T, VPL>(crow + (size_t)(W - 1) * D, D, lane, cn, 0);
-  for (int x = W - 1; x >= 0; --x) {
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) c[k] = cn[k];
-    if (x > 0) load_vec<T, VPL>(crow + (size_t)(x - 1) * D, D, lane, cn, 0);
-    m = sgm_step<VPL>(c, L, m, P1, P2, D, lane, S);  // padding entries keep kBig
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) L[k] = S[k];
-    const long long p = (long long)rid * W + x;
-    const size_t base = (size_t)p * D;
-    const T* vols[3] = {v0, v1, v2};
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      load_vec<T, VPL>(vols[j] + base, D, lane, t, 0);
-#pragma unroll
-      for (int k = 0; k < VPL; ++k) S[k] += t[k];
-    }
-    wta_store<VPL>(S, D, lane, uniq, p, minS, best, sm, s0, sp, uok);
+  if constexpr (kRing) {
+#pragma unroll 1
+    for (int i = 1; i < R; ++i) fetch(W - i);
+  } else {
+    load_vec<T, VPL>(src[0] + (size_t)(W - 1) * D, D, lane, cn, 0);
   }
+  // Column x: the scan step, then S = L + the three volumes (INT_MAX past D).
+  auto advance = [&](int x, int (&S)[VPL]) {
+    int c[VPL], v[3][VPL];
+    if constexpr (kRing) {
+      fetch(x - (R - 1));
+      svt::cp_async_wait_ring(R);  // column x has landed
+      if (coop) __syncwarp();      // ... every lane's part of it
+      const unsigned char* s = ring + (x & (R - 1)) * kSlot + lane * kLane;
+      read_words<T, VPL>(reinterpret_cast<const T*>(s), c);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) read_words<T, VPL>(reinterpret_cast<const T*>(s + (j + 1) * 32 * kLane), v[j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) c[k] = cn[k];
+      if (x > 0) load_vec<T, VPL>(src[0] + (size_t)(x - 1) * D, D, lane, cn, 0);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) load_vec<T, VPL>(src[j + 1] + (size_t)x * D, D, lane, v[j], 0);
+    }
+    m = rl_step<VPL>(c, L, m, a.P1, a.P2, D, lane);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) S[k] = lane * VPL + k < D ? L[k] + v[0][k] + v[1][k] + v[2][k] : INT_MAX;
+  };
+  // Column x's maps, kept by lane x % 32; the warp writes 32 columns at once.
+  int r0 = 0, r1 = 0, r2 = 0, r3 = 0, r4 = 0;
+  uint8_t r5 = 0;
+  auto reduce = [&](const int (&S)[VPL], int x) {
+    const RlStats s = rl_reduce<VPL>(S, D, lane, a.uniq);
+    if (lane == (x & 31)) r0 = s.mn, r1 = s.best, r2 = s.a, r3 = s.z, r4 = s.c, r5 = s.ok ? 1 : 0;
+    if ((x & 31) == 0 && x + lane < W) {
+      const size_t p = (size_t)rid * W + x + lane;
+      a.maps[0][p] = r0;
+      a.maps[1][p] = r1;
+      a.maps[2][p] = r2;
+      a.maps[3][p] = r3;
+      a.maps[4][p] = r4;
+      a.uok[p] = r5;
+    }
+  };
+
+  // The WTA of column x + 1 is issued before the scan step of column x: the
+  // two are independent (the carry is L and m), and the step's loads and
+  // shuffles then wait behind the WTA's reductions rather than ahead of them.
+  int S[VPL];
+  advance(W - 1, S);
+#pragma unroll 1
+  for (int x = W - 2; x >= 0; --x) {
+    int Sn[VPL];
+    reduce(S, x + 1);
+    advance(x, Sn);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) S[k] = Sn[k];
+  }
+  reduce(S, 0);
 }
 
 // ------------------------------------------------ ranges above 1024
@@ -767,14 +1012,6 @@ cudaError_t wta_stats(const int* S, int* const* maps, uint8_t* uok, long long np
   return cudaGetLastError();
 }
 
-template <typename T, int VPL>
-cudaError_t rl_wta(const T* C, const T* const* v, int rows, int W, int D, int P1, int P2, int uniq,
-                   int* const* maps, uint8_t* uok, cudaStream_t stream) {
-  horizontal_rl_wta<T, VPL><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
-      C, v[0], v[1], v[2], rows, W, D, P1, P2, uniq, maps[0], maps[1], maps[2], maps[3], maps[4], uok);
-  return cudaGetLastError();
-}
-
 // Values per lane for D disparities: 1, 2, 4, 8, 16 or 32 (D <= 1024).
 int vpl_for(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : D <= 256 ? 8 : D <= 512 ? 16 : 32; }
 
@@ -920,12 +1157,34 @@ struct WtaFn {
   }
 };
 
+// The fused R->L WTA's launch (#5): the ring form where the lanes' words copy
+// whole (D % VPL == 0, at least 4 bytes a lane), else the direct form. RlPlan's fields: the form (0 direct, 1 ring, 2 the
+// form above 1024), rows (warps) a block, ring columns a row, shared-memory
+// bytes a block.
+struct RlPlan {
+  long long form, rows, ring, smem;
+};
+
 template <typename T, int VPL>
 struct RlWtaFn {
-  static cudaError_t run(const void* C, const void* const* vp, int rows, int W, int D, int P1, int P2, int uniq,
-                         int* const* maps, uint8_t* uok, cudaStream_t st) {
-    const T* v[3] = {static_cast<const T*>(vp[0]), static_cast<const T*>(vp[1]), static_cast<const T*>(vp[2])};
-    return rl_wta<T, VPL>(static_cast<const T*>(C), v, rows, W, D, P1, P2, uniq, maps, uok, st);
+  static cudaError_t run(const RlArgs& a, RlPlan* plan, cudaStream_t st) {
+    const bool ring = VPL * sizeof(T) >= 4 && a.D % VPL == 0;
+    constexpr int R = rl_ring<T, VPL>(), NR = rl_rows<T, VPL>();
+    const RlPlan p = ring ? RlPlan{1, NR, R, (long long)NR * R * rl_slot_bytes<T, VPL>()} : RlPlan{0, kWarps, 0, 0};
+    if (plan) {  // a query: no launch
+      *plan = p;
+      return cudaSuccess;
+    }
+    const int blocks = (a.rows + (int)p.rows - 1) / (int)p.rows;
+    if (ring) {
+      const auto kern = horizontal_rl_wta<T, VPL, true>;
+      const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+      if (e != cudaSuccess) return e;
+      kern<<<blocks, (int)p.rows * 32, (size_t)p.smem, st>>>(a);
+    } else {
+      horizontal_rl_wta<T, VPL, false><<<blocks, kWarps * 32, 0, st>>>(a);
+    }
+    return cudaGetLastError();
   }
 };
 
@@ -1047,25 +1306,45 @@ SVT_EXPORT long long svt_sgm_rl_wta_scratch_bytes(int B, int H, int D, int bytes
   return D > kRegisterRange ? 2LL * B * H * D * bytes : 0;
 }
 
+namespace {
+bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+}  // namespace
+
+// How svt_sgm_horizontal_rl_wta launches for D disparities stored in `bytes`
+// a value: 4 long longs (RlPlan: form, rows a block, ring columns,
+// shared-memory bytes a block).
+SVT_EXPORT int svt_sgm_rl_wta_plan(int D, int bytes, long long* out) {
+  if (D < 3 || (bytes != 2 && bytes != 4)) return cudaErrorInvalidValue;
+  RlPlan* p = reinterpret_cast<RlPlan*>(out);
+  if (D > kRegisterRange) {
+    *p = {2, kWarps, 0, 0};
+    return cudaSuccess;
+  }
+  RlArgs a{};
+  a.D = D;
+  return dispatch<RlWtaFn>(bytes, D, a, p, static_cast<cudaStream_t>(nullptr));
+}
+
 // (B, H, W, D) cost + three direction volumes, all of one type -> six
 // per-pixel maps of the four-direction sum, the R->L direction scanned in
-// place. Lbuf: svt_sgm_rl_wta_scratch_bytes of it (null where that is 0).
+// place: one device launch, by svt_sgm_rl_wta_plan's form; every tensor on
+// 16 bytes. Lbuf: svt_sgm_rl_wta_scratch_bytes of it (null where that is 0).
 SVT_EXPORT int svt_sgm_horizontal_rl_wta(const void* C, const void* v0, const void* v1, const void* v2, void* minS,
                                          void* best, void* sm, void* s0, void* sp, void* uok, int B, int H, int W,
                                          int D, int P1, int P2, int uniq, int bytes, void* Lbuf, void* stream) {
-  if (D < 3) return cudaErrorInvalidValue;
+  if (D < 3 || !on16(C) || !on16(v0) || !on16(v1) || !on16(v2)) return cudaErrorInvalidValue;
+  if (B * H == 0 || W == 0) return cudaSuccess;
   const void* v[3] = {v0, v1, v2};
   int* maps[5] = {static_cast<int*>(minS), static_cast<int*>(best), static_cast<int*>(sm),
                   static_cast<int*>(s0), static_cast<int*>(sp)};
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto u = static_cast<uint8_t*>(uok);
   if (D > kRegisterRange) {
     if (!Lbuf) return cudaErrorInvalidValue;
-    const auto st = static_cast<cudaStream_t>(stream);
-    const auto u = static_cast<uint8_t*>(uok);
     if (bytes == 2) return Wide<int16_t>::rl_wta(C, v, Lbuf, B * H, W, D, P1, P2, uniq, maps, u, st);
     if (bytes == 4) return Wide<int>::rl_wta(C, v, Lbuf, B * H, W, D, P1, P2, uniq, maps, u, st);
     return cudaErrorInvalidValue;
   }
-  return dispatch<RlWtaFn>(bytes, D, C, static_cast<const void* const*>(v), B * H, W, D, P1, P2, uniq,
-                           static_cast<int* const*>(maps), static_cast<uint8_t*>(uok),
-                           static_cast<cudaStream_t>(stream));
+  const RlArgs a{C, {v0, v1, v2}, B * H, W, D, P1, P2, uniq, {maps[0], maps[1], maps[2], maps[3], maps[4]}, u};
+  return dispatch<RlWtaFn>(bytes, D, a, static_cast<RlPlan*>(nullptr), st);
 }

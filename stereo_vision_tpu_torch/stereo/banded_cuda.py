@@ -19,8 +19,8 @@ is the port's own: banded volumes are (P, H, Wv, K) with the frames on the
 CUDA grid, a pixel's K lanes in K rounded up to 4 (:func:`lane_stride`).
 The kernels take every band K >= 1 (:func:`check_band`). The sources:
 ``csrc/banded_cost.cu`` (the cost kernel at every band), ``csrc/banded.cu``
-(the scans up to K = 64, the fused WTA and the downsample),
-``csrc/banded_wta.cu`` (the WTA up to K = 64), ``csrc/banded_diag.cu``
+(the scans up to K = 64 and the downsample), ``csrc/banded_wta.cu`` (the
+WTA up to K = 64 and the fused WTA), ``csrc/banded_diag.cu``
 (int16) and ``csrc/banded_diag32.cu`` (int32) for the 8-path vertical up to
 K = 64, and ``csrc/banded_wide.cu`` (int16) and ``csrc/banded_wide32.cu``
 (int32) for the scans and the WTA above K = 64, where a pixel's lanes
@@ -89,14 +89,14 @@ _SIGNATURES = {
         "svt_banded_smem_optin": ([_I], _I),
         # C, s, out, P, H, Wv, K, G, P1, P2, reverse, bytes, stream
         "svt_banded_horizontal": ([_P] * 3 + [_I] * 9 + [_P], _I),
-        # v0..v3, nvol, s, pack, du, npix, K, uniq, bytes, stream
-        "svt_banded_wta_fused": ([_P] * 4 + [_I] + [_P] * 3 + [_I] * 4 + [_P], _I),
         # in, out, P, H, W, fy, fx, stream
         "svt_downsample_box": ([_P] * 2 + [_I] * 5 + [_P], _I),
     },
     "banded_wta": {
         # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, bytes, stream
         "svt_banded_wta": ([_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P], _I),
+        # v0..v3, nvol, s, pack, du, npix, K, uniq, bytes, stream
+        "svt_banded_wta_fused": ([_P] * 4 + [_I] + [_P] * 3 + [_I] * 4 + [_P], _I),
     },
     "banded_diag": _DIAG_SIGNATURES,
     "banded_diag32": _DIAG_SIGNATURES,
@@ -625,7 +625,7 @@ def banded_wta_fused(volumes, s, uniqueness_ratio: int, *, ndisp: int, volume_bo
     s = s.contiguous()
     pack, du = (torch.empty((P, H, Wv), dtype=torch.int32, device=v0.device) for _ in range(2))
     ptrs = [v.data_ptr() for v in volumes] + [None] * (4 - len(volumes))
-    lib = _lib()
+    lib = _lib("banded_wta")
     err = lib.svt_banded_wta_fused(*ptrs, len(volumes), s.data_ptr(), pack.data_ptr(), du.data_ptr(), P * H * Wv,
                                    K, uniqueness_ratio, v0.element_size(), _stream(v0))
     _build.check(lib, err, "svt_banded_wta_fused")

@@ -9,8 +9,8 @@ their kernel bodies:
 - ``_wta4_kernel``      -> :func:`wta4`       (``csrc/sgm.cu`` wta_kernel)
 - ``_wta_kernel``       -> :func:`wta_stats`  (``csrc/sgm.cu`` wta_stats_kernel)
 - ``_horizontal_rl_wta_kernel`` -> :func:`horizontal_rl_wta`
-  (``csrc/sgm.cu`` horizontal_rl_wta), taken by :func:`sgm_reduce` when
-  ``_FUSED_RL_WTA`` is set
+  (``csrc/sgm.cu`` horizontal_rl_wta, launched as :func:`rl_wta_plan`
+  says), taken by :func:`sgm_reduce` when ``_FUSED_RL_WTA`` is set
 - ``aggregate_8_pallas`` -> :func:`aggregate_8` (the vertical and horizontal
   kernels, their int16 volumes summed into one int32 volume)
 
@@ -51,6 +51,8 @@ _SIGNATURES = {
     "svt_sgm_wta_stats": [_P] * 7 + [ctypes.c_longlong] + [_I] * 2 + [_P],
     # C, v0, v1, v2, minS, best, sm, s0, sp, uok, B, H, W, D, P1, P2, uniq, bytes, Lbuf, stream
     "svt_sgm_horizontal_rl_wta": [_P] * 10 + [_I] * 8 + [_P, _P],
+    # D, bytes, plan out (4 long longs)
+    "svt_sgm_rl_wta_plan": [_I] * 2 + [_P],
 }
 _QUERIES = {
     # B, H, D, bytes -> bytes of the fused R->L WTA's carry rows (0: in registers)
@@ -58,8 +60,8 @@ _QUERIES = {
 }
 # Fuse the R->L scan with the WTA in sgm_reduce (horizontal_rl_wta), as
 # sgm_pallas._FUSED_RL_WTA does in the JAX package, and off by default as
-# there: the fused form saves the fourth direction volume's write and read
-# but puts the WTA's reductions inside the scan's serial column chain.
+# there: the fused form saves the fourth direction volume's write and read,
+# and runs the WTA's reductions beside the scan's serial column chain.
 _FUSED_RL_WTA = False
 
 
@@ -70,6 +72,12 @@ _FUSED_RL_WTA = False
 _PLAN_FIELDS = ("cluster", "columns", "warps", "carries_in_smem", "active_clusters", "smem_bytes", "scratch_bytes",
                 "device_launches")
 _plans: dict[tuple, tuple] = {}
+# The fields of svt_sgm_rl_wta_plan (the fused R->L WTA's launch): its form
+# (_RL_FORMS), rows (warps) a block, ring columns a row, shared-memory bytes
+# a block.
+_RL_PLAN_FIELDS = ("form", "rows_per_block", "ring", "smem_bytes")
+_RL_FORMS = ("direct", "ring", "wide")
+_rl_plans: dict[tuple, dict] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -396,10 +404,31 @@ def aggregate_8(C, P1: int, P2: int, num_paths: int = 8, *, cost_bound: int):
     return S
 
 
+def rl_wta_plan(D: int, dtype: torch.dtype) -> dict:
+    """How :func:`horizontal_rl_wta` launches at D disparities stored in
+    ``dtype`` (int16 or int32): the fields of ``_RL_PLAN_FIELDS``, the form by
+    name ("ring": the lanes' words copied into a ring of columns in shared
+    memory; "direct": D % VPL != 0 or 2 bytes a lane, VPL = D / 32 rounded
+    up to a power of two; "wide": above 1024)."""
+    nbytes = dtype.itemsize
+    key = (D, nbytes)
+    plan = _rl_plans.get(key)
+    if plan is None:
+        lib = _lib()
+        out = (ctypes.c_longlong * len(_RL_PLAN_FIELDS))()
+        _build.check(lib, lib.svt_sgm_rl_wta_plan(D, nbytes, out), "svt_sgm_rl_wta_plan")
+        plan = dict(zip(_RL_PLAN_FIELDS, out))
+        plan["form"] = _RL_FORMS[plan["form"]]
+        _rl_plans[key] = plan
+    return plan
+
+
 def horizontal_rl_wta(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: int):
     """The R->L scan of the (B, H, W, D) cost fused with the WTA over the
     four directions (``s_dn``, ``s_up``, ``s_lr`` and the scan's own): the
-    six maps :func:`wta4` returns, the R->L volume never stored."""
+    six maps :func:`wta4` returns, the R->L volume never stored. On CUDA one
+    device launch by :func:`rl_wta_plan` (``horizontal_rl_wta.plan``: the
+    last call's)."""
     vols = (s_dn, s_up, s_lr)
     if C.dim() != 4 or C.shape[-1] < 3 or any(v.shape != C.shape or v.device != C.device for v in vols):
         raise ValueError(f"expected a (B, H, W, D>=3) cost and three volumes of its shape on its device, got "
@@ -413,6 +442,8 @@ def horizontal_rl_wta(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: i
     if C.dtype not in (torch.int16, torch.int32) or any(t.dtype != C.dtype or not t.is_contiguous()
                                                          for t in (C, *vols)):
         raise TypeError("the fused R->L WTA kernel takes contiguous tensors of one type, int16 or int32")
+    if any(t.data_ptr() % 16 for t in (C, *vols)):
+        raise TypeError("the fused R->L WTA kernel takes tensors that start on 16 bytes")
     B, H, W, D = C.shape
     maps, uok = _maps(C)
     lib = _lib()
@@ -425,6 +456,7 @@ def horizontal_rl_wta(C, s_dn, s_up, s_lr, P1: int, P2: int, uniqueness_ratio: i
                                         None if Lbuf is None else Lbuf.data_ptr(), _stream(C))
     _build.check(lib, err, "svt_sgm_horizontal_rl_wta")
     horizontal_rl_wta.launches += 1
+    horizontal_rl_wta.plan = rl_wta_plan(D, C.dtype)
     return (*maps, uok)
 
 
@@ -455,3 +487,4 @@ wta4.launches = 0
 wta_stats.launches = 0
 aggregate_8.launches = 0
 horizontal_rl_wta.launches = 0
+horizontal_rl_wta.plan = None

@@ -1270,3 +1270,108 @@ def test_per_frame_hier_refuses_kc_5_and_6_on_the_card(dev, D, stride):
         hier.stereo_sgbm_hier(L, L, StereoSGBMParams(num_disparities=D, block_size=3),
                               hier.HierParams(band=16, granularity=8, coarse_stride=stride))
     assert banded_cuda.downsample_box.launches == n
+
+
+# The fused R->L scan + WTA (#5) and the fused banded WTA (#19) redesigned:
+# #5 a ring of columns in shared memory ahead of the scan (or, where a
+# lane's words cannot be copied whole, the direct form), #19 in
+# banded_wta.cu beside #20.
+@pytest.mark.parametrize("D", [3, 4, 31, 32, 33, 128, 129, 1024])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_fused_rl_wta_forms_match_plain(dev, D, dtype):
+    """#5 at the register forms' edges in both storage types, at 1, 2, 31
+    and 300 columns and 5 and 9 rows (no multiple of a block's rows), uniq
+    0 and 10, every other row's costs zero so that the planted ties,
+    minima at either end and uniqueness boundaries of wta_volumes survive
+    in the sum; the plan's form is the ring wherever a lane's words copy
+    whole."""
+    vpl = next(v for v in (1, 2, 4, 8, 16, 32) if 32 * v >= D)
+    plan = sgm_cuda.rl_wta_plan(D, dtype)
+    ring = D % vpl == 0 and vpl * (2 if dtype == torch.int16 else 4) >= 4
+    assert plan["form"] == ("ring" if ring else "direct")
+    bound = 2325 if dtype == torch.int16 else 40000
+    modes = scenes.WTA_MODES if dtype == torch.int32 else scenes.WTA_MODES[:-1]
+    for i, (W, rows) in enumerate(((1, (1, 5)), (2, (3, 3)), (31, (1, 5)), (300, (3, 3)))):
+        rng = np.random.default_rng(D * 100 + W)
+        C = rng.integers(0, bound + 1, (*rows, W, D))
+        C[:, 1::2] = 0
+        vols = scenes.wta_volumes(rng, (*rows, W, D), modes[i % len(modes)], 3,
+                                  np.int32 if dtype == torch.int32 else np.int16)
+        Cc, vc = torch.from_numpy(C).to(dtype), [torch.from_numpy(v).to(dtype) for v in vols]
+        for uniq in (0, 10):
+            ref = sgm_cuda.horizontal_rl_wta_plain(Cc, *vc, 200, 800, uniq)
+            n = sgm_cuda.horizontal_rl_wta.launches
+            out = sgm_cuda.horizontal_rl_wta(Cc.to(dev), *(v.to(dev) for v in vc), 200, 800, uniq)
+            assert sgm_cuda.horizontal_rl_wta.launches == n + 1 and sgm_cuda.horizontal_rl_wta.plan == plan
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(out, ref)), (W, rows, uniq)
+
+
+def test_fused_rl_wta_plan_fits_every_register_form(dev):
+    """The ring's plan over every range the register forms take: 2-8
+    columns (a power of two) a row, at most 8 rows and 64 KB a block, the
+    slot's bytes (4 x 32 x VPL values) times the ring and rows; the direct
+    form where D % VPL != 0 or a lane holds 2 bytes; the wide form above
+    1024."""
+    for dtype, nbytes in ((torch.int16, 2), (torch.int32, 4)):
+        for D in range(3, 1025):
+            vpl = next(v for v in (1, 2, 4, 8, 16, 32) if 32 * v >= D)
+            p = sgm_cuda.rl_wta_plan(D, dtype)
+            if D % vpl or vpl * nbytes < 4:
+                assert p["form"] == "direct" and p["smem_bytes"] == 0, (D, dtype, p)
+                continue
+            assert p["form"] == "ring" and p["ring"] in (2, 4, 8) and 1 <= p["rows_per_block"] <= 8, (D, dtype, p)
+            assert p["smem_bytes"] == p["rows_per_block"] * p["ring"] * 4 * 32 * vpl * nbytes <= 64 << 10
+        assert sgm_cuda.rl_wta_plan(1040, dtype)["form"] == "wide"
+    assert sgm_cuda.rl_wta_plan(128, torch.int16) == dict(form="ring", rows_per_block=8, ring=2, smem_bytes=16384)
+
+
+def test_fused_rl_wta_refuses_what_it_does_not_take(dev):
+    """A tensor that does not start on 16 bytes, mixed types, D < 3: the
+    wrapper raises before any launch (no plain form on the card)."""
+    rng = np.random.default_rng(0)
+    C = torch.from_numpy(rng.integers(0, 2326, (1, 3, 9, 64)).astype(np.int16)).to(dev)
+    vols = [torch.from_numpy(rng.integers(0, 3000, (1, 3, 9, 64)).astype(np.int16)).to(dev) for _ in range(3)]
+    flat = torch.zeros(C.numel() + 1, dtype=torch.int16, device=dev)
+    flat[1:] = C.flatten()
+    n = sgm_cuda.horizontal_rl_wta.launches
+    with pytest.raises(TypeError, match="16 bytes"):
+        sgm_cuda.horizontal_rl_wta(flat[1:].view(C.shape), *vols, 200, 800, 10)
+    with pytest.raises(TypeError, match="one type"):
+        sgm_cuda.horizontal_rl_wta(C, vols[0], vols[1], vols[2].to(torch.int32), 200, 800, 10)
+    with pytest.raises(ValueError, match="D>=3"):
+        sgm_cuda.horizontal_rl_wta(C[..., :2], *(v[..., :2] for v in vols), 200, 800, 10)
+    assert sgm_cuda.horizontal_rl_wta.launches == n
+
+
+@pytest.mark.parametrize("nvol", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_fused_wta_grid_matches_plain(dev, nvol, dtype):
+    """#19 in banded_wta.cu: adversarial lanes (ties, minima at either end,
+    the uniqueness boundary) at 1-1007 pixels, shift maps at 0, at ndisp -
+    16 and random, the widest range the pack takes (2047)."""
+    rng = np.random.default_rng(nvol * 10 + (dtype == torch.int32))
+    K, nd = banded_cuda.FUSED_BAND, 2047
+    for n in (1, 31, 255, 257, 1007):
+        for mode in scenes.WTA_MODES[:-1]:
+            vols = [torch.from_numpy(v).to(dtype) for v in scenes.wta_volumes(rng, (1, 1, n, K), mode, nvol)]
+            for s in (np.zeros((1, 1, n)), np.full((1, 1, n), nd - K), rng.integers(0, nd - K + 1, (1, 1, n))):
+                s = torch.from_numpy(s.astype(np.int32))
+                ref = banded_cuda.banded_wta_fused_plain(vols, s, 10)
+                got = banded_cuda.banded_wta_fused([v.to(dev) for v in vols], s.to(dev), 10, ndisp=nd,
+                                                   volume_bound=None if dtype == torch.int16 else 6000)
+                assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)), (n, mode)
+
+
+def test_fused_wta_refuses_what_it_does_not_take(dev):
+    """Band 16 only, 16 * ndisp < 32768, minS < 2^20: the wrapper raises
+    before any launch."""
+    vols = [torch.zeros((1, 2, 5, 16), dtype=torch.int16, device=dev) for _ in range(3)]
+    s = torch.zeros((1, 2, 5), dtype=torch.int32, device=dev)
+    n = banded_cuda.banded_wta_fused.launches
+    with pytest.raises(ValueError, match="band 16"):
+        banded_cuda.banded_wta_fused([v[..., :8].contiguous() for v in vols], s, 10, ndisp=128)
+    with pytest.raises(ValueError, match="collide"):
+        banded_cuda.banded_wta_fused(vols, s, 10, ndisp=2048)
+    with pytest.raises(ValueError, match="int32 pack"):
+        banded_cuda.banded_wta_fused([v.to(torch.int32) for v in vols], s, 10, ndisp=128, volume_bound=1 << 19)
+    assert banded_cuda.banded_wta_fused.launches == n

@@ -117,3 +117,20 @@ def test_horizontal_rl_wta_checks_its_arguments():
         sgm_cuda.horizontal_rl_wta(C, vols[0], vols[1], vols[2][:, :4], 7, 86, 10)
     with pytest.raises(ValueError, match="P1"):
         sgm_cuda.horizontal_rl_wta(C, *vols, -1, 86, 10)
+
+
+@pytest.mark.parametrize("D,W,uniq", [(3, 1, 10), (4, 2, 0), (33, 5, 10)])
+def test_fused_rl_wta_edges_match_jax(D, W, uniq, monkeypatch):
+    """The fused R->L WTA's plain form, which the card's grid holds the
+    kernel to, at the register forms' edges (D = 3 and 4: one value a lane,
+    the smallest ranges the WTA takes; D = 33: two values a lane, a ragged
+    last lane) and at one and two columns, against JAX's sgm_reduce_pallas
+    with its own fused kernel in interpret mode."""
+    C = np.random.default_rng(D * 10 + W).integers(0, 3000, (1, 5, W, D)).astype(np.int16)
+    monkeypatch.setattr(sgm_cuda, "_FUSED_RL_WTA", True)
+    monkeypatch.setattr(jsp, "_FUSED_RL_WTA", True)
+    n = sgm_cuda.horizontal_rl_wta.launches
+    mine = sgm_cuda.sgm_reduce(torch.from_numpy(C), 7, 86, uniq, cost_bound=3000, num_paths=8)
+    assert sgm_cuda.horizontal_rl_wta.launches == n
+    ref = jsp.sgm_reduce_pallas.__wrapped__(jnp.asarray(C[0]), 7, 86, uniq, num_paths=8, interpret=True)
+    _assert_maps(mine, [ref], as_float=True)

@@ -3,7 +3,7 @@ forms of them, on one GPU.
 
 Run from the repository root:
 
-    python3 tools/kernel_variants/banded_wta.py [--old DIR] [--knobs] [--variants] [--draft FILE ...]
+    python3 tools/kernel_variants/banded_wta.py [--old DIR] [--knobs] [--variants] [--fused] [--draft FILE ...]
 
 At each main-path level of #20 (hier4x3's coarse, mid and full levels at 32
 frames, hier16x3's coarse and full levels at 8 frames, hier4x8's full
@@ -30,7 +30,14 @@ count): ``no_store`` (the maps are computed but not written),
 of the reduction, the maps written), ``loads_only`` (both). ``--variants``
 adds copies of the current sources with one choice changed
 (``CURRENT_VARIANTS``), ``--draft FILE`` another source with the current
-entry points, built against the current headers. Results go to
+entry points, built against the current headers. ``--fused`` adds the
+fused WTA (#19) at its one main-path level, hier16x3's full level under
+``hier._FUSED_STATS`` (8 frames, K=16, three volumes and a shift map in
+[0, ndisp - 16]): the current kernel (the wrapper and its C entry; its
+device launches a call, torch.profiler), #20 on
+the same volumes, ``torch``'s copy of the fused form's bytes and, with
+``--old`` (or ``--draft``), that source's ``svt_banded_wta_fused``, its
+output held to the current kernel's. Results go to
 ``tools/kernel_variants/_build/banded_wta.json``.
 """
 
@@ -44,6 +51,7 @@ import sys
 from pathlib import Path
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
@@ -62,6 +70,9 @@ HBM = 3.35e12
 _P, _I = ctypes.c_void_p, ctypes.c_int
 WTA_ARGS = [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_P]
 LR_ARGS = [_P] * 3 + [_I] * 5 + [_P]
+FUSED_ARGS = [_P] * 4 + [_I] + [_P] * 3 + [_I] * 4 + [_P]
+# The fused WTA's level: frames, rows, valid columns, volumes, ndisp.
+FUSED_SHAPE = (8, 720, 1152, 3, 128)
 
 # Knob copies of banded.cu's WTA: (text, replacement) pairs.
 _REDUCE = "  const WtaStats w = wta_reduce<KP>(S, K, uniq);\n  minS[p] = w.mn;"
@@ -73,6 +84,20 @@ KNOBS = {
     "no_reduce": [(_REDUCE, _SUMS + "  minS[p] = w.mn;")],
     "loads_only": [(_REDUCE, _SUMS + _GUARD + "  minS[p] = w.mn;")],
 }
+
+
+def device_launches(fn, match: str, calls: int = 3) -> float | str:
+    """Device launches a call of kernels whose name holds ``match``, from
+    torch.profiler over ``calls`` calls ("not measured" where it records no
+    device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return sum(e.count for e in events if match in e.key) / calls if events else "not measured"
 
 
 def event_runs(fn, runs: int = 5, reps: int = 5) -> list[float]:
@@ -176,12 +201,56 @@ def knob_sources(src: Path) -> dict[str, Path]:
     return out
 
 
+def fused_level(libs: dict[str, ctypes.CDLL], gen: torch.Generator, st) -> dict:
+    """#19 at hier16x3's full level beside #20 on the same volumes, torch's
+    copy of its bytes and the other sources' svt_banded_wta_fused."""
+    P, H, Wv, nvol, ndisp = FUSED_SHAPE
+    K, dev = banded_cuda.FUSED_BAND, torch.device("cuda")
+    gen.manual_seed(K * nvol)
+    vols = [torch.randint(0, BOUND + 1, (P, H, Wv, K), dtype=torch.int16, device=dev, generator=gen)
+            for _ in range(nvol)]
+    s = torch.randint(0, ndisp - K + 1, (P, H, Wv), dtype=torch.int32, device=dev, generator=gen)
+    kern = lambda: banded_cuda.banded_wta_fused(vols, s, 10, ndisp=ndisp)
+    ref = kern()
+    nbytes = sum(v.numel() * 2 for v in vols) + s.numel() * 4 + sum(m.numel() * 4 for m in ref)
+    row = {"shape": [P, H, Wv, K], "volumes": nvol, "bytes": nbytes, "bound_ms": nbytes / HBM * 1e3,
+           "current_ms": event_runs(kern), "wta20_ms": event_runs(lambda: banded_cuda.banded_wta(vols, 10, False)),
+           "variants": {}}
+    row["device_launches"] = device_launches(kern, "banded_wta_fused")
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    row["copy_ms"] = event_runs(lambda: dst.copy_(src))
+    del src, dst
+    out = [torch.empty_like(m) for m in ref]
+    ptrs = [v.data_ptr() for v in vols] + [None] * (4 - nvol)
+    call = lambda lib: lib.svt_banded_wta_fused(*ptrs, nvol, s.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                                                P * H * Wv, K, 10, 2, st())
+    cur = banded_cuda._lib("banded_wta")
+    row["variants"]["current (C entry)"] = event_runs(lambda: call(cur))
+    for name, lib in libs.items():
+        if not hasattr(lib, "svt_banded_wta_fused"):
+            continue
+        if call(lib) != 0:
+            raise SystemExit(f"fused: {name} refused the call")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise SystemExit(f"fused: {name} differs from the current kernel")
+        row["variants"][name] = event_runs(lambda: call(lib))
+    print(f"fused hier16x3 full {row['shape']} x{nvol}: bound {row['bound_ms']:.4f} ms, device launches a call "
+          f"{row['device_launches']}, current "
+          f"{[round(x, 4) for x in row['current_ms']]}, #20 {[round(x, 4) for x in row['wta20_ms']]}, copy "
+          f"{[round(x, 4) for x in row['copy_ms']]}, " + ", ".join(f"{k} {[round(x, 4) for x in v]}"
+                                                               for k, v in row["variants"].items()), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", type=Path, help="an earlier csrc directory")
     ap.add_argument("--knobs", action="store_true", help="time copies of the WTA with one part taken out")
     ap.add_argument("--variants", action="store_true", help="time copies of the current sources with one choice "
                     "changed (CURRENT_VARIANTS)")
+    ap.add_argument("--fused", action="store_true", help="time the fused WTA (#19) at hier16x3's full level")
     ap.add_argument("--draft", type=Path, action="append", default=[],
                     help="another source of svt_banded_wta or svt_lr_fail_packed (the current entry points' "
                          "arguments), built against the current csrc headers")
@@ -203,6 +272,8 @@ def main() -> int:
             lib.svt_lr_fail_packed.argtypes = LR_ARGS
         if hasattr(lib, "svt_banded_wta"):
             lib.svt_banded_wta.argtypes = WTA_ARGS
+        if hasattr(lib, "svt_banded_wta_fused"):
+            lib.svt_banded_wta_fused.argtypes = FUSED_ARGS
     dev = torch.device("cuda")
     st = lambda: torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev)
@@ -277,6 +348,8 @@ def main() -> int:
               f"{[round(x, 4) for x in row['current_ms']]}, copy {[round(x, 4) for x in row['copy_ms']]}, "
               + ", ".join(f"{k} {[round(x, 4) for x in v]}" for k, v in row["variants"].items()), flush=True)
         results["lr"][label] = row
+    if args.fused:
+        results["fused"] = fused_level(libs, gen, st)
     OUT.mkdir(exist_ok=True)
     (OUT / "banded_wta.json").write_text(json.dumps(results, indent=1))
     return 0
