@@ -26,7 +26,7 @@ Phases, in order (any failure raises and the script exits nonzero):
      the path's own functions, swapped for recording wrappers): the first
      gives the per-stage breakdown, the second keeps the arguments each
      kernel wrapper was given;
-  8. per hier kernel (downsample, banded cost, vertical, horizontal, wta,
+  8. per hier kernel (the pyramid, banded cost, vertical, horizontal, wta,
      LR check, speckle cap 4) on those arguments, at the three levels of
      the path (coarse 180x320 K=32, mid 360x640 K=8, full 720x1280 K=4):
      the kernel on all 32 frames against its plain form on the first 4,
@@ -105,8 +105,9 @@ After 18:
  23. the union-find speckle kernel (#12): on the arguments each SGBM main
      path's recorded call gave it (exact8 R = 99, hier4x3 and hier4x8 cap 4,
      hier16x3 cap 8; held to the plain form there in 5, 8, 9 and 17) its
-     device launches a call (the same whatever R is), CUDA-event ms, bound
-     and device ms by launch (torch.profiler); then on adversarial 720p
+     device launches a call (graph_kernels; 5 whatever R is, else it
+     fails), CUDA-event ms, bound and device ms by launch (torch.profiler,
+     "not measured" where it records no device time); then on adversarial 720p
      maps (snakes, a U, a spiral, blobs whose least-index pixel is not their
      top-left corner, combs over many tiles, a constant frame, a
      checkerboard, random blobs), capped and uncapped, against its plain
@@ -175,6 +176,23 @@ After 18:
      in the sum) and #19's (2-4 volumes, int16 and int32, 1-1007 pixels,
      shifts at 0, at ndisp - 16 and random, adversarial lanes), card
      against plain.
+ 31. (run after 30) the box-downsample pyramid (#14) on the arguments each
+     hier main path's recorded call gave it (hier4x3's and hier4x8's levels
+     (4, 4) and (2, 2), hier16x3's (4, 4)) and the unpacked LR check (#9) on
+     the exact8 call's: exact against the plain form (run on the card) on
+     the first frame, one device launch a call (graph_kernels), five timed
+     runs of 5 calls of the wrapper and of its C entry alone, the bound of
+     the work (every input read once, every output written once), torch's
+     copy of the same bytes; beside #14 the parent's form (downsample_box
+     once a level and image, as hier called it before) and avg_pool2d, and
+     the bound of the parent's work (each launch reading a whole image set);
+     on the kernels line's rows as "copy_ms", "entry_ms", "parent_form_ms"
+     and "parent_work_bound_ms"; then #14's grid (nesting and other factor
+     sets, odd and unaligned widths, one frame, pixels at 0 and 255, frames
+     off 16 bytes) and #9's (widths 17-20000, ndisp 8-2031, min_disparity 0
+     and 16, valid regions off 16 bytes, 1 to 2,881 rows, maps from
+     synth.scenes.lr_maps with winners outside the range), card against
+     plain.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -185,8 +203,8 @@ at 5 and 6, before any launch).
 The exact8 main path (5) and the two-stage call (13) assert one device launch
 of the vertical scan and print its cluster size; the bm phases (14, 15)
 assert the packed row form.
-The downsample kernel's rows carry a library time: torch's avg_pool2d,
-rounded half to even, on the same arguments (equal to the kernel's output).
+The pyramid's rows carry a library time: torch's avg_pool2d, rounded half to
+even, a level and image, on the same arguments (equal to the kernel's output).
 Every row of the kernels line names the storage type its volumes ran in
 ("storage"; null for a kernel without a volume) and its ms per level of the
 path ("ms_by_level"); every main path stores int16.
@@ -232,7 +250,7 @@ VALID_FLOOR, WITHIN1_FLOOR = 0.90, 0.98
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 SOURCES = {name: f"stereo_vision_tpu_torch/csrc/{name}.cu"
-           for name in ("cost", "sgm", "banded", "banded_cost", "banded_wta", "lr", "speckle", "bm")}
+           for name in ("cost", "sgm", "banded", "banded_cost", "banded_wta", "downsample", "lr", "speckle", "bm")}
 # The hier main path: bench.py's hier4x3 mode (HIER4_FAST with p3, 32 frames
 # per call, bench.py:162-188).
 HIER_P, HP = 32, hier.HIER4_FAST
@@ -266,8 +284,9 @@ GEOMETRY_MATCHES = 100_000  # synthetic matches triangulated on the card and on 
 # TPU kernel it replaces. banded_vertical_diag is banded_vertical called with
 # with_diagonals=True.
 KERNELS = {
-    "downsample_box": (banded_cuda.downsample_box, SOURCES["banded"],
-                       "stereo_vision_tpu/stereo/banded_pallas.py:395 _downsample_kernel"),
+    "downsample_pyramid": (banded_cuda.downsample_pyramid, SOURCES["downsample"],
+                           "stereo_vision_tpu/stereo/banded_pallas.py:395 _downsample_kernel (downsample_box_pack:416, "
+                           "pallas_call :435)"),
     "banded_cost": (banded_cuda.banded_cost, SOURCES["banded_cost"],
                     "stereo_vision_tpu/stereo/banded_pallas.py:152 _pix_kernel + :512 _aligned_box_kernel_srows"),
     "banded_vertical": (banded_cuda.banded_vertical, SOURCES["banded"],
@@ -290,20 +309,21 @@ KERNELS = {
     "banded_wta_fused": (banded_cuda.banded_wta_fused, SOURCES["banded_wta"],
                          "stereo_vision_tpu/stereo/banded_pallas.py:1204 _wta_fused_kernel:888"),
 }
-HIER_KERNEL_NAMES = ("downsample_box", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
+HIER_KERNEL_NAMES = ("downsample_pyramid", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
                      "lr_fail_packed", "speckle_filter")
 RECORDED_HIER_KERNELS = HIER_KERNEL_NAMES + ("banded_wta_fused",)
 # One PyTorch call computing a kernel's function, timed beside it on its
-# recorded arguments (the port never calls it): the box mean of
-# downsample_box is avg_pool2d's, rounded half to even; its factors are
+# recorded arguments (the port never calls it): the pyramid's box means are
+# avg_pool2d's a level and image, rounded half to even; its factors are
 # powers of two, so the float32 mean is exact as the reference's division.
 LIBRARY = {
-    "downsample_box": lambda img, f, fx=None: torch.round(
-        torch.nn.functional.avg_pool2d(img.float()[:, None], (f, fx or f)))[:, 0].to(torch.int32),
+    "downsample_pyramid": lambda left, right, factors: tuple(
+        tuple(torch.round(torch.nn.functional.avg_pool2d(img.float()[:, None], f))[:, 0].to(torch.int32)
+              for img in (left, right)) for f in factors),
 }
 # Each kernel's plain form, called with the wrapper's arguments.
 PLAIN = {
-    "downsample_box": banded_cuda.downsample_box_plain,
+    "downsample_pyramid": banded_cuda.downsample_pyramid_plain,
     "banded_cost": banded_cuda.banded_cost_plain,
     "banded_vertical": lambda C, s, G, P1, P2, *, cost_bound, with_diagonals=False:
         banded_cuda.vertical_plain(C, s, G, P1, P2, with_diagonals),
@@ -640,7 +660,7 @@ class Recorder:
     """Swaps functions of the port's modules for wrappers that record each
     call's arguments, result and CUDA events around it, for one real call
     of the path; restores the functions on exit. ``targets`` maps a stage
-    name to (module, attribute). The first downsample or banded core call
+    name to (module, attribute). The first pyramid or banded core call
     after a level's core (``core``) starts the next level, so every record
     carries the level it ran in. With ``keep`` False a record holds no
     tensor, so that the caching allocator reuses memory as in an
@@ -652,7 +672,7 @@ class Recorder:
 
     def _wrap(self, name, fn):
         def wrapper(*args, **kwargs):
-            if name in ("downsample_box", "core") and self.core_done:
+            if name in ("downsample_pyramid", "core") and self.core_done:
                 self.level, self.core_done = self.level + 1, False
             level = self.levels[self.level]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -695,7 +715,7 @@ def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool, params: S
     maps, Q = maps_q or rig(H, W)
     targets = {
         "matcher": (streaming, "stereo_sgbm_hier_batch"), "reproject": (streaming, "reproject_disparity_to_3d"),
-        "downsample_box": (hier, "downsample_box"), "core": (hier, "banded_stats_pack"),
+        "downsample_pyramid": (hier, "downsample_pyramid"), "core": (hier, "banded_stats_pack"),
         "shift maps (plain)": (hier, "shift_map"), "splice (plain)": (hier, "_splice_coarse"),
         "assemble (plain, with the LR kernel)": (hier, "_assemble_disparity"),
         "assemble fused (plain, with the LR kernel)": (hier, "_assemble_fused"),
@@ -732,6 +752,13 @@ def _head(x, n: int):
     return x
 
 
+def _flat(x) -> tuple:
+    """The tensors of x (a tensor, or tuples and lists of them), in order."""
+    if isinstance(x, torch.Tensor):
+        return (x,)
+    return tuple(t for e in x for t in _flat(e))
+
+
 def _nbytes(x) -> int:
     if isinstance(x, torch.Tensor):
         return x.numel() * x.element_size()
@@ -749,7 +776,7 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
     scan + WTA ~21 per (pixel, disparity), banded cost ~20 + 4 bs per lane,
     a scan step ~10 per lane and carry (two directions; three carries each
     with diagonals), WTA ~10
-    per lane, LR ~20 per pixel, downsample one add per input pixel, speckle
+    per lane, LR ~20 per pixel, the pyramid one add per input pixel, speckle
     ~30 per pixel (a union-find labelling's O(1) work a pixel; the capped
     form's walks over the few small components are held to the same count,
     which can only lower its bound)."""
@@ -763,8 +790,8 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
         return elems * 30
     if name in ("banded_wta", "banded_wta_fused"):
         return args[0][0].numel() * 10
-    if name == "downsample_box":
-        return args[0].numel()
+    if name == "downsample_pyramid":
+        return 2 * args[0].numel()
     if name == "horizontal_rl_wta":  # per (pixel, d): scan step ~8, three adds, WTA ~10
         return args[0].numel() * 21
     if name == "bm_disparity":  # per (valid pixel, d), with running sums both ways
@@ -804,19 +831,19 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
         plain = PLAIN[name]
         out, ref = fn(*args, **kwargs), plain(*_head(args, n), **_head(kwargs, n))
         torch.cuda.synchronize()
-        outs, refs = (out if isinstance(out, tuple) else (out,)), (ref if isinstance(ref, tuple) else (ref,))
+        outs, refs = _flat(out), _flat(ref)
         head = _head(outs, n)
         err = max_abs_err(head, refs)
         if err != 0 or len(head) != len(refs) or any(a.shape != b.shape for a, b in zip(head, refs)):
             raise AssertionError(f"{name} ({c['level']}): kernel differs from its plain form (max abs err {err})")
-        if not all(torch.equal(a, b) for a, b in zip(outs, c["out"] if isinstance(c["out"], tuple) else (c["out"],))):
+        if not all(torch.equal(a, b) for a, b in zip(outs, _flat(c["out"]))):
             raise AssertionError(f"{name} ({c['level']}): a second launch differs from the main path's")
         ms = event_ms(lambda: fn(*args, **kwargs), 5)
         plain_ms = event_ms(lambda: plain(*_head(args, n), **_head(kwargs, n)), 1)
         lib_ms = None
         if name in LIBRARY:
             lib = LIBRARY[name]
-            if not torch.equal(lib(*args, **kwargs), outs[0]):
+            if not all(torch.equal(a, b) for a, b in zip(_flat(lib(*args, **kwargs)), outs)):
                 raise AssertionError(f"{name} ({c['level']}): the library call differs from the kernel")
             lib_ms = event_ms(lambda: lib(*args, **kwargs), 5)
         nbytes = _nbytes(args) + _nbytes(kwargs) + _nbytes(outs)
@@ -844,6 +871,8 @@ def phase_recorded_kernels(records: list[dict], counts: dict, n: int, path: str)
             WTA_LR_RECORDS[name].setdefault(f"{path} {c['level']}", dict(args=args, kwargs=kwargs))
         if name in ("horizontal_rl_wta", "banded_wta_fused"):
             FUSED_RECORDS.setdefault(name, dict(args=args, kwargs=kwargs, path=path))
+        if name in ("downsample_pyramid", "lr_fail"):
+            PYRAMID_LR_RECORDS.setdefault(f"{name} ({path})", dict(name=name, path=path, args=args, kwargs=kwargs))
 
     rows = []
     for name, a in acc.items():
@@ -875,6 +904,10 @@ WTA_LR_RECORDS: dict[str, dict[str, dict]] = {"banded_wta": {}, "lr_fail_packed"
 # banded WTA's (#19) on the hier16x3 fused call, kept by
 # phase_recorded_kernels for phase 30.
 FUSED_RECORDS: dict[str, dict] = {}
+# The pyramid's (#14) arguments on the hier main paths' recorded calls and
+# the unpacked LR check's (#9) on the exact8 call's, by "name (path)", kept by
+# phase_recorded_kernels for phase 31.
+PYRAMID_LR_RECORDS: dict[str, dict] = {}
 
 
 def check_wta16(records: list[dict]) -> None:
@@ -954,6 +987,8 @@ def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str, maps
     print(f"{label} main path launches:", json.dumps(counts), flush=True)
     if min(counts.values()) == 0:
         raise AssertionError(f"a kernel of the {label} main path never launched: {counts}")
+    if counts["downsample_pyramid"] != 1:
+        raise AssertionError(f"the {label} pyramid took {counts['downsample_pyramid']} launches, not 1")
 
     d = disp.cpu().numpy()
     if d.shape != (P, H, W) or pts.shape != (P, H, W, 3) or not np.isfinite(d).all():
@@ -1499,12 +1534,12 @@ def settings_repaired(dev) -> dict:
         if banded_cuda.banded_wta.launches != n + 2 or not torch.equal(got.cpu(), hier.stereo_sgbm_hier(l, r, p, hp)):
             raise AssertionError(f"per-frame stereo_sgbm_hier at D={d}, coarse_stride {stride}: card != CPU")
     for d, stride in ((64, 3), (192, 8)):
-        n = banded_cuda.downsample_box.launches
+        n = banded_cuda.downsample_pyramid.launches
         try:
             hier.stereo_sgbm_hier(l.to(dev), r.to(dev), StereoSGBMParams(num_disparities=d, block_size=3),
                                   hier.HierParams(band=16, granularity=8, coarse_stride=stride))
         except ValueError as e:
-            if "lanes at granularity 8" not in str(e) or banded_cuda.downsample_box.launches != n:
+            if "lanes at granularity 8" not in str(e) or banded_cuda.downsample_pyramid.launches != n:
                 raise
         else:
             raise AssertionError(f"per-frame stereo_sgbm_hier at D={d}, coarse_stride {stride} did not refuse")
@@ -1648,8 +1683,9 @@ def launch_ms(fn, calls: int = 3) -> dict | str:
 def phase_speckle(dev) -> dict:
     """The union-find speckle kernel (#12). On each main path's recorded
     arguments (``SPECKLE_RECORDS``; exact there against the plain form):
-    device launches a call, CUDA-event ms over 10 calls and the bound (one
-    float32 map read, one written). Then 8 adversarial 720p frames (the 7
+    device launches a call (the speckle kernels' nodes of a CUDA graph
+    captured from the call, graph_kernels: 5, whatever R is), CUDA-event ms
+    over 10 calls and the bound (one float32 map read, one written). Then 8 adversarial 720p frames (the 7
     maps of ``synth.scenes.speckle_patterns`` tiled over the frame, and random
     quantised blobs) at S = 100 uncapped and capped at 4 and 8, and S = 20
     capped at 2, against the plain form, exact, with ms."""
@@ -1657,10 +1693,9 @@ def phase_speckle(dev) -> dict:
     for path, rec in SPECKLE_RECORDS.items():
         disp, kw = rec["args"][0], dict(zip(("max_diff", "max_speckle_size", "invalid_value"), rec["args"][1:]))
         kw.update(rec["kwargs"])
-        n = speckle_cuda.speckle_filter.device_launches
-        speckle_cuda.speckle_filter(disp, **kw)
-        torch.cuda.synchronize()
-        launches = speckle_cuda.speckle_filter.device_launches - n
+        launches = device_launches(lambda: speckle_cuda.speckle_filter(disp, **kw), "speckle_")
+        if launches != 5:
+            raise AssertionError(f"the speckle kernel made {launches} device launches on {path}'s arguments, not 5")
         ms = event_ms(lambda: speckle_cuda.speckle_filter(disp, **kw), 10)
         b_ms, b_by = bound_ms(2 * disp.numel() * 4, disp.numel() * 30)
         R = postprocess.speckle_rounds(kw.get("max_speckle_size", 100), kw.get("max_diameter"))
@@ -1669,8 +1704,6 @@ def phase_speckle(dev) -> dict:
         print(f"kernel speckle_filter ({path}, {tuple(disp.shape)}, R={R}): {launches} device launches a call, "
               f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}); by launch {json.dumps(out[path]['ms_by_launch'])}",
               flush=True)
-    if len({v["device_launches"] for v in out.values()}) != 1:
-        raise AssertionError(f"the speckle kernel's device launches depend on the path: {out}")
     reps = np.tile(speckle_patterns(), (1, H // 72 + 1, W // 100 + 1))[:, :H, :W]
     rng = np.random.default_rng(12)
     blobs = rng.integers(0, 4, (1, H, W)).astype(np.float32) * 3
@@ -2223,6 +2256,161 @@ def phase_fused_kernels(dev) -> dict:
     return out
 
 
+# Phase 31: the pyramid's (#14) settings: nesting factor sets (one launch)
+# and others (a launch a level), odd and unaligned widths, one frame; and the
+# unpacked LR check's (#9): widths and ranges up to the pack's field, valid
+# regions off 16 bytes, rows from one to more than exact8's 2,880 (where the
+# plain form stays under a second: 4 M pixels at most, ranges to 128;
+# max_diff 0-2 at ranges to 128, 1 above).
+PYRAMID_GRID = dict(factors=(((4, 4), (2, 2)), ((4, 4),), ((8, 8), (4, 4), (2, 2)), ((4, 8), (2, 2)),
+                             ((16, 16), (2, 4)), ((3, 3),), ((4, 4), (3, 3)), ((2, 8), (4, 2))),
+                    shapes=((1, 720, 1280), (2, 45, 101), (3, 17, 26), (1, 33, 130)))
+LR9_GRID = dict(W_ndisp_mindisp=((17, 8, 0), (96, 16, 16), (1280, 128, 0), (1283, 128, 16), (4096, 1024, 0),
+                                 (20000, 2031, 16)), past_min_x=(0, 3), rows=(1, 7, 33, 2881))
+PYRAMID_LR_KEYS = ("downsample_pyramid (hier4x3)", "downsample_pyramid (hier4x8)", "downsample_pyramid (hier16x3)",
+                   "lr_fail (exact8)")
+
+
+def pyramid_entry(left, right, factors):
+    """The pyramid's C entry alone on these arguments (the main paths'
+    factors nest: one launch): a function that launches it, and its outputs."""
+    P, H, W_ = left.shape
+    n = len(factors)
+    order = sorted(range(n), key=lambda i: factors[i])
+    outs = [torch.empty((2, P, H // fy, W_ // fx), dtype=torch.int32, device=left.device) for fy, fx in factors]
+    fy, fx = ((ctypes.c_int * n)(*(factors[i][k] for i in order)) for k in (0, 1))
+    ptrs = (ctypes.c_void_p * n)(*(outs[i].data_ptr() for i in order))
+    lib, st = banded_cuda._lib("downsample"), torch.cuda.current_stream().cuda_stream
+    return (lambda: lib.svt_downsample_pyramid(left.data_ptr(), right.data_ptr(), P, H, W_, n, fy, fx, ptrs, st),
+            [o.unbind(0) for o in outs])
+
+
+def lr_entry(minS, best, disp, *, W, min_x, ndisp, mindisp, max_diff):
+    """The unpacked LR check's C entry alone on these arguments: a function
+    that launches it, and its mask."""
+    maps = [m.contiguous() for m in (minS, best, disp)]
+    if any(m.data_ptr() % 16 for m in maps):
+        raise AssertionError("the recorded LR maps do not start on 16 bytes")
+    fail = torch.empty(minS.shape, dtype=torch.bool, device=minS.device)
+    B_, H_, Wv = minS.shape
+    lib, st = lr_cuda._lib(), torch.cuda.current_stream().cuda_stream
+    return lambda: lib.svt_lr_fail(*(m.data_ptr() for m in maps), fail.data_ptr(), B_ * H_, W, Wv, min_x, ndisp,
+                                   mindisp, max_diff, st), fail
+
+
+def phase_pyramid_lr(dev) -> dict:
+    """The pyramid (#14) on the arguments each hier main path's recorded call
+    gave it and the unpacked LR check (#9) on the exact8 call's
+    (``PYRAMID_LR_RECORDS``): exact against the plain form (run on the card)
+    on the first frame, one device launch a call and no other
+    (graph_kernels), five timed runs of 5 calls of the wrapper and of its C
+    entry alone (CUDA events), the bound (every input read once, every
+    output written once), torch's copy of as many bytes; beside #14 the
+    parent's form (downsample_box once a level and image, its device
+    launches and the bound of its work: each launch reads a whole image set)
+    and avg_pool2d. Then both grids, card against plain, exact."""
+    out = {}
+    for key in PYRAMID_LR_KEYS:
+        rec = PYRAMID_LR_RECORDS.get(key)
+        if rec is None:
+            raise AssertionError(f"no recorded call of {key}")
+        name, args, kwargs = rec["name"], rec["args"], rec["kwargs"]
+        fn, plain = KERNELS[name][0], PLAIN[name]
+        kern = lambda: fn(*args, **kwargs)
+        got, ref = _flat(kern()), _flat(plain(*_head(args, 1), **_head(kwargs, 1)))
+        torch.cuda.synchronize()
+        if len(got) != len(ref) or any(not torch.equal(a[:1], r) for a, r in zip(got, ref)):
+            raise AssertionError(f"{key} differs from its plain form")
+        kernel = "downsample_pyramid_kernel" if name == "downsample_pyramid" else "lr_fail_unpacked_kernel"
+        launched = graph_kernels(kern)
+        launches = sum(kernel in k for k in launched)
+        if launches != 1 or len(launched) != 1:
+            raise AssertionError(f"{key} launched {launched} on the device")
+        entry, entry_out = pyramid_entry(*args) if name == "downsample_pyramid" else lr_entry(*args, **kwargs)
+        if entry() != 0 or not all(torch.equal(a, b) for a, b in zip(_flat(entry_out), got)):
+            raise AssertionError(f"{key}: the C entry's output differs from the wrapper's")
+        runs = [event_ms(kern, 5) for _ in range(5)]
+        entry_runs = [event_ms(entry, 5) for _ in range(5)]
+        nbytes = _nbytes(args) + _nbytes(got)
+        b_ms, b_by = bound_ms(nbytes, _ops(name, args, kwargs, got[0].numel()))
+        row = dict(path=rec["path"], shape=list(args[0].shape), device_launches=launches, runs_ms=runs, ms=min(runs),
+                   entry_runs_ms=entry_runs, entry_ms=min(entry_runs), bound_ms=b_ms, bound_by=b_by,
+                   copy_ms=copy_ms(nbytes), bytes=nbytes)
+        note = ""
+        if name == "downsample_pyramid":
+            left, right, factors = args
+            parent = lambda: [banded_cuda.downsample_box(img, fy, fx) for fy, fx in factors for img in (left, right)]
+            if not all(torch.equal(a, b) for a, b in zip(parent(), got)):
+                raise AssertionError(f"{key}: the parent's form differs from the pyramid")
+            parent_launches = device_launches(parent, "downsample_box_kernel")
+            parent_runs = [event_ms(parent, 5) for _ in range(5)]
+            lib = LIBRARY[name]
+            lib_runs = [event_ms(lambda: lib(*args), 5) for _ in range(5)]
+            parent_bytes = len(factors) * _nbytes((left, right)) + _nbytes(got)
+            row.update(factors=[list(f) for f in factors], parent_form="downsample_box a level and image",
+                       parent_device_launches=parent_launches, parent_runs_ms=parent_runs,
+                       parent_form_ms=min(parent_runs), parent_work_bound_ms=bound_ms(parent_bytes, 0)[0],
+                       library_runs_ms=lib_runs, library_ms=min(lib_runs))
+            note = (f"; parent's form ({parent_launches} launches) {[round(r, 4) for r in parent_runs]} ms, bound of "
+                    f"its work {row['parent_work_bound_ms']:.4f} ms, avg_pool2d {[round(r, 4) for r in lib_runs]} ms")
+        out[key] = row
+        print(f"kernel {key} {tuple(row['shape'])}: exact, {launches} device launch(es), runs "
+              f"{[round(r, 4) for r in runs]} ms, C entry {[round(r, 4) for r in entry_runs]} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}, copy {row['copy_ms']:.4f} ms{note}", flush=True)
+        del got, ref, entry_out
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cases = 0
+    for factors in PYRAMID_GRID["factors"]:
+        for P, H_, W_ in PYRAMID_GRID["shapes"]:
+            rng = np.random.default_rng(P * H_ * W_)
+            for fill in ("random", 0, 255):
+                img = rng.integers(0, 256, (2, P, H_, W_)) if fill == "random" else np.full((2, P, H_, W_), fill)
+                left, right = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in img)
+                got = _flat(banded_cuda.downsample_pyramid(left, right, factors))
+                if not all(torch.equal(a, b) for a, b in
+                           zip(got, _flat(banded_cuda.downsample_pyramid_plain(left, right, factors)))):
+                    raise AssertionError(f"downsample_pyramid grid {factors} {(P, H_, W_)} {fill} differs from its "
+                                         "plain form")
+                cases += 1
+    buf = [torch.arange(2 * 40 * 96 + 1, dtype=torch.int32, device=dev) % 251 for _ in range(2)]
+    left, right = (b[1:].view(2, 40, 96) for b in buf)  # frames 4 bytes past a 16-byte boundary
+    for factors in PYRAMID_GRID["factors"][:3]:
+        if not all(torch.equal(a, b) for a, b in zip(_flat(banded_cuda.downsample_pyramid(left, right, factors)),
+                                                    _flat(banded_cuda.downsample_pyramid_plain(left, right, factors)))):
+            raise AssertionError(f"downsample_pyramid on frames off 16 bytes {factors} differs from its plain form")
+        cases += 1
+    out["downsample_pyramid grid_cases"] = cases
+    print(f"kernel downsample_pyramid grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    cases = 0
+    for W_, nd, md in LR9_GRID["W_ndisp_mindisp"]:
+        rng = np.random.default_rng(W_ + nd + md)
+        for extra in LR9_GRID["past_min_x"]:
+            min_x = nd + md + extra
+            Wv = W_ - min_x
+            for rows in LR9_GRID["rows"]:
+                if rows > 33 and (rows * W_ > 4_000_000 or nd > 128):
+                    continue
+                for mode in LR_MODES:
+                    pack, d16 = lr_maps(rng, (1, rows, Wv), nd, mode)
+                    best = pack & 2047
+                    best[rng.random(best.shape) < 0.02] = rng.choice([-1, nd, 2047])
+                    minS, best, disp = (torch.from_numpy(m.astype(t)).to(dev) for m, t in
+                                        zip((pack >> 11, best, d16 / 16.0 + md), (np.int32, np.int32, np.float32)))
+                    for max_diff in ((0, 1, 2) if nd <= 128 else (1,)):
+                        kw = dict(W=W_, min_x=min_x, ndisp=nd, mindisp=md, max_diff=max_diff)
+                        got = lr_cuda.lr_fail(minS, best, disp, **kw)
+                        if not torch.equal(got, sgbm.lr_fail(minS, best, disp, **kw)):
+                            raise AssertionError(f"lr_fail grid W={W_} ndisp={nd} mindisp={md} min_x={min_x} "
+                                                 f"rows={rows} {mode} max_diff={max_diff} differs from its plain form")
+                        cases += 1
+    out["lr_fail grid_cases"] = cases
+    print(f"kernel lr_fail grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2334,6 +2522,9 @@ def main() -> int:
     fused_kernels = phase_fused_kernels(dev)
     FUSED_RECORDS.clear()
     torch.cuda.empty_cache()
+    pyramid_lr = phase_pyramid_lr(dev)
+    PYRAMID_LR_RECORDS.clear()
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -2341,6 +2532,9 @@ def main() -> int:
         if r["name"] in fused_kernels:
             f = fused_kernels[r["name"]]
             r.update(copy_ms=f["copy_ms"], replaced=f["replaced"], replaced_ms=f["replaced_ms"])
+        p = pyramid_lr.get(f"{r['name']} ({r['path']})")
+        if p is not None:  # #14 and #9: the copy, the C entry alone and (#14) the parent's form and work
+            r.update({k: p[k] for k in ("copy_ms", "entry_ms", "parent_form_ms", "parent_work_bound_ms") if k in p})
 
     names = [r["name"] for r in rows]
     for r in rows:  # a kernel that runs on several paths: one row each
@@ -2355,6 +2549,7 @@ def main() -> int:
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
+                      "pyramid_lr": pyramid_lr,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,7 @@
 //   _horiz_kernel                             -> banded_line_kernel (banded_group.cuh)
 //   _wta_kernel (4-stat sub form and 6-stat)  -> banded_wta_kernel (banded_wta.cu)
 //   _wta_fused_kernel (band 16)               -> banded_wta_fused_kernel (banded_wta.cu)
-// and the image pyramid's box mean:
-//   _downsample_kernel (downsample_box_pack)  -> downsample_box_kernel
+// The image pyramid's box mean (_downsample_kernel) is downsample.cu's.
 //
 // Lane k at pixel p is the absolute disparity s(p) + k (s(p) + stride * k
 // in the cost kernel's strided search, which only the coarse level runs,
@@ -51,17 +50,12 @@
 //     rows in shared memory a thread, fed by cp.async S rows ahead).
 //   horizontal: see banded_line_kernel.
 //   wta: see banded_wta.cu (both forms, the fused one too).
-//   downsample: one thread per output pixel; the TPU kernel's 0/1 pooling
-//     matmul becomes an integer sum, the float32 division and the
-//     half-to-even round stay.
 
 #include "banded_group.cuh"
 
 namespace {
 
 using svt::kBig;
-
-constexpr int kDownsampleThreads = 256;
 
 // ------------------------------------------------------------- vertical
 
@@ -309,25 +303,6 @@ struct HorizontalFn {
   }
 };
 
-// ------------------------------------------------------------- downsample
-
-// One thread per output pixel of (P, H / fy, W / fx): the integer sum of its
-// fy x fx block, then round(sum / (fy * fx)) in float32, half to even (the
-// reference's float32 division and round; the sum is exact).
-__global__ void __launch_bounds__(kDownsampleThreads)
-downsample_box_kernel(const int* __restrict__ in, int* __restrict__ out, int H, int W, int Hc, int Wc, int fy, int fx,
-                      int npix) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  const int b = p / (Hc * Wc), rem = p - b * Hc * Wc;
-  const int y = rem / Wc, x = rem - y * Wc;
-  const int* src = in + ((size_t)b * H + (size_t)y * fy) * W + (size_t)x * fx;
-  int sum = 0;
-  for (int i = 0; i < fy; ++i)
-    for (int j = 0; j < fx; ++j) sum += src[(size_t)i * W + j];
-  out[p] = static_cast<int>(rintf(__fdiv_rn(static_cast<float>(sum), static_cast<float>(fy * fx))));
-}
-
 }  // namespace
 
 // The shared memory a block of `device` may opt in to, in bytes (-1: the
@@ -355,16 +330,4 @@ SVT_EXPORT int svt_banded_horizontal(const void* C, const void* shift, void* out
   if (P == 0 || H == 0 || Wv == 0) return cudaSuccess;
   return dispatch<HorizontalFn>(bytes, K, C, static_cast<const int*>(shift), out, P * H, Wv, K, G, P1, P2, reverse,
                                 static_cast<cudaStream_t>(stream));
-}
-
-// (P, H, W) int32 image -> (P, H / fy, W / fx) int32 box mean (trailing rows and
-// columns that fill no block are dropped).
-SVT_EXPORT int svt_downsample_box(const void* in, void* out, int P, int H, int W, int fy, int fx, void* stream) {
-  if (fy < 1 || fx < 1 || fy * fx > (1 << 16)) return cudaErrorInvalidValue;
-  const int Hc = H / fy, Wc = W / fx, npix = P * Hc * Wc;
-  if (npix == 0) return cudaSuccess;
-  downsample_box_kernel<<<(npix + kDownsampleThreads - 1) / kDownsampleThreads, kDownsampleThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(static_cast<const int*>(in), static_cast<int*>(out),
-                                                               H, W, Hc, Wc, fy, fx, npix);
-  return cudaGetLastError();
 }

@@ -24,9 +24,10 @@
 // in shared memory with atomicMin (a min, so the order of the threads does
 // not matter) and every pixel then reads its two lookups by a direct index:
 // the packed form a warp a row (lr_fail_kernel), the unpacked form a block a
-// row. Bounds on an H100 (bytes: each map read once, the mask written
-// once): hier4x3 full res, 32 frames of 720 rows, 1152 valid columns: 233
-// MB, ~70 us at 3.35 TB/s; exact8, 4 frames, three maps in: 43 MB, ~13 us.
+// row (lr_fail_unpacked_kernel), both from 16-byte words. Bounds on an H100
+// (bytes: each map read once, the mask written once): hier4x3 full res, 32
+// frames of 720 rows, 1152 valid columns: 233 MB, ~70 us at 3.35 TB/s;
+// exact8, 4 frames, three maps in: 43 MB, ~13 us.
 
 #include "common.cuh"
 
@@ -34,7 +35,6 @@ namespace {
 
 constexpr int kSentinel = 1 << 30;
 constexpr int kOob = -(1 << 10);
-constexpr int kThreads = 256;
 
 // The packed form (#10), a warp a (frame, row). Replaces
 // lr_pallas.py:261 lr_fail_pallas_packed -> _lr_kernel:30.
@@ -62,6 +62,11 @@ constexpr int kLrAhead = 2;  // words a lane of each map loaded ahead, and a bat
 // Blocks an SM holds at least: registers held to 64 a thread, as many warps
 // (rows) at once as 5 KB rows of shared memory leave room for.
 constexpr int kLrBlocks = 4;
+
+// The unpacked form (#9): words a thread of each map in a batch, and the
+// most threads a row.
+constexpr int kLrRowWords = 2;
+constexpr int kLrRowThreads = 256;
 
 
 
@@ -203,45 +208,125 @@ lr_fail_kernel(const int* __restrict__ pack, const int* __restrict__ d16, uint8_
   }
 }
 
-// One block per (frame, row) of the unpacked maps; x = xv + min_x.
-__global__ void __launch_bounds__(kThreads)
-lr_fail_unpacked_kernel(const int* __restrict__ minS, const int* __restrict__ best, const float* __restrict__ disp,
-                        uint8_t* __restrict__ fail, int W, int Wv, int min_x, int ndisp, int mindisp, int max_diff) {
-  extern __shared__ int disp2[];  // [W]
-  const size_t row = blockIdx.x;
-  const int* ms = minS + row * Wv;
-  const int* bs = best + row * Wv;
-  const float* dv = disp + row * Wv;
-  uint8_t* out = fail + row * Wv;
+// The unpacked form (#9), a block a (frame, row). Replaces
+// lr_pallas.py:195 lr_fail_pallas:137 -> _lr_kernel:30.
+//
+// What bounds it on an H100: bytes. It reads the minS, best and disparity
+// maps once and writes the mask once, 13 bytes a pixel: at exact8 (4 frames
+// of 720 rows, 1152 valid columns) 43 MB, 0.013 ms at 3.35 TB/s. The first
+// design (256 threads a row, a value a thread at a time) made two global
+// round trips a row one after the other, split by block barriers (minS and
+// best for the scatter, then the disparity for the lookups), and reached
+// 0.39 of that.
+//
+// Design: every load of a row is issued before its first dependent step.
+// Each of the row's NT threads reads kLrRowWords 16-byte words of 4 pixels
+// of each of the three maps (NT the least multiple of 32 with NT *
+// kLrRowWords words covering the row, at most kLrRowThreads: exact8's 288
+// words a row take 160 threads and one batch), as #10 does (LrRow /
+// load_word: rows off 16 bytes take their edge words' neighbouring pixels,
+// which they skip); the scatter runs from registers, and after the barrier
+// the lookups read only registers and shared memory and write 4 results a
+// thread as one 32-bit store. Wider rows take further batches, each one's
+// loads issued before its work.
+template <bool kAligned>
+__global__ void __launch_bounds__(kLrRowThreads)
+lr_fail_unpacked_kernel(const int* __restrict__ minS, const int* __restrict__ best, const int* __restrict__ disp,
+                        uint8_t* __restrict__ fail, int rows, int W, int Wv, int min_x, int ndisp, int mindisp,
+                        int max_diff) {
+  extern __shared__ __align__(16) int disp2s[];  // [WS >= W], WS % 4 == 0
+  const int NT = blockDim.x, tid = threadIdx.x;
+  const LrRow g(blockIdx.x, rows, Wv, kAligned);
+  const int off = g.off, nw = g.nw, WS = (W + 3) & ~3;
+  const int* ms = minS + g.first;
+  const int* bs = best + g.first;
+  const int* dv = disp + g.first;
   const int maxD = mindisp + ndisp;
-  for (int x2 = threadIdx.x; x2 < W; x2 += blockDim.x) disp2[x2] = kSentinel;
+
+  int4 mw[kLrRowWords], bw[kLrRowWords], dw[kLrRowWords];
+#pragma unroll
+  for (int u = 0; u < kLrRowWords; ++u) {
+    const int i = tid + NT * u;
+    if (i < nw) {
+      mw[u] = load_word(ms, i, g.tail);
+      bw[u] = load_word(bs, i, g.tail);
+      dw[u] = load_word(dv, i, g.tail);
+    }
+  }
+  for (int i = tid; i < WS / 4; i += NT)
+    reinterpret_cast<int4*>(disp2s)[i] = make_int4(kSentinel, kSentinel, kSentinel, kSentinel);
   __syncthreads();
-  for (int xv = threadIdx.x; xv < Wv; xv += blockDim.x) {
-    const int b = bs[xv];
-    if (b < 0 || b >= ndisp) continue;
-    const int x2 = xv + min_x - (b + mindisp);
-    // cost * 2048 + disparity in wrapping int32 arithmetic, as the plain form.
-    const int p = static_cast<int>(static_cast<unsigned>(ms[xv]) * 2048u + static_cast<unsigned>(b + mindisp));
-    if (x2 >= 0 && x2 < W) atomicMin(&disp2[x2], p);
+
+  auto scatter = [&](int i, int4 m4, int4 b4) {
+    const int mv[4] = {m4.x, m4.y, m4.z, m4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int xv = 4 * i + e - off;  // the pixel's column in the valid region
+      if (!kAligned && (xv < 0 || xv >= Wv)) continue;  // a neighbouring row's pixel
+      const int b = bv[e], x2 = xv + min_x - (b + mindisp);
+      // cost * 2048 + disparity in wrapping int32 arithmetic, as the plain form.
+      const int p = static_cast<int>(static_cast<unsigned>(mv[e]) * 2048u + static_cast<unsigned>(b + mindisp));
+      if (b >= 0 && b < ndisp && x2 >= 0 && x2 < W) atomicMin(&disp2s[x2], p);
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < kLrRowWords; ++u)
+    if (tid + NT * u < nw) scatter(tid + NT * u, mw[u], bw[u]);
+  for (int base = NT * kLrRowWords; base < nw; base += NT * kLrRowWords) {
+#pragma unroll
+    for (int u = 0; u < kLrRowWords; ++u) {
+      const int i = base + tid + NT * u;
+      if (i < nw) {
+        mw[u] = load_word(ms, i, g.tail);
+        bw[u] = load_word(bs, i, g.tail);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLrRowWords; ++u)
+      if (base + tid + NT * u < nw) scatter(base + tid + NT * u, mw[u], bw[u]);
   }
   __syncthreads();
-  for (int xv = threadIdx.x; xv < Wv; xv += blockDim.x) {
-    const float d = dv[xv];
-    const int df = static_cast<int>(floorf(d)), dc = static_cast<int>(ceilf(d));
-    const int x = xv + min_x;
-    bool both = true;
+
+  auto lookups = [&](int i, int4 d4) {
+    const int vv[4] = {d4.x, d4.y, d4.z, d4.w};
+    unsigned r = 0;  // byte e: element e's verdict
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int sh = i ? dc : df;
-      const int c = x - sh;
-      int v = kOob;
-      if (sh >= mindisp - 1 && sh <= maxD && c >= 0 && c < W) {
-        const int q = disp2[c];
-        v = q >= kSentinel ? kOob : (q & 2047);
+    for (int e = 0; e < 4; ++e) {
+      const float d = __int_as_float(vv[e]);
+      const int df = static_cast<int>(floorf(d)), dc = static_cast<int>(ceilf(d));
+      const int x = 4 * i + e - off + min_x;
+      bool both = true;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int sh = k ? dc : df;
+        const int c = x - sh;
+        int v = kOob;
+        if (sh >= mindisp - 1 && sh <= maxD && c >= 0 && c < W) {
+          const int q = disp2s[c];
+          v = q >= kSentinel ? kOob : (q & 2047);
+        }
+        both &= v >= mindisp && abs(v - sh) > max_diff;
       }
-      both &= v >= mindisp && abs(v - sh) > max_diff;
+      r |= (both ? 1u : 0u) << (8 * e);
     }
-    out[xv] = both ? 1 : 0;
+    uint8_t* out = fail + g.first + 4 * i;
+    if (kAligned || (4 * i - off >= 0 && 4 * i + 4 - off <= Wv)) {
+      *reinterpret_cast<unsigned*>(out) = r;
+    } else {
+      for (int j = 0; j < 4; ++j)
+        if (4 * i + j - off >= 0 && 4 * i + j - off < Wv) out[j] = (r >> (8 * j)) & 1;
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < kLrRowWords; ++u)
+    if (tid + NT * u < nw) lookups(tid + NT * u, dw[u]);
+  for (int base = NT * kLrRowWords; base < nw; base += NT * kLrRowWords) {
+#pragma unroll
+    for (int u = 0; u < kLrRowWords; ++u)
+      if (base + tid + NT * u < nw) dw[u] = load_word(dv, base + tid + NT * u, g.tail);
+#pragma unroll
+    for (int u = 0; u < kLrRowWords; ++u)
+      if (base + tid + NT * u < nw) lookups(base + tid + NT * u, dw[u]);
   }
 }
 
@@ -287,12 +372,18 @@ SVT_EXPORT int svt_lr_fail(const void* minS, const void* best, const void* disp,
   if (ndisp < 1 || mindisp < 0 || ndisp + mindisp >= 2048 || min_x < 0 || min_x + Wv > W)
     return cudaErrorInvalidValue;
   if (rows == 0 || Wv <= 0) return cudaSuccess;
-  const size_t smem = (size_t)W * sizeof(int);
-  cudaError_t e =
-      cudaFuncSetAttribute(lr_fail_unpacked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  lr_fail_unpacked_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(minS), static_cast<const int*>(best), static_cast<const float*>(disp),
-      static_cast<uint8_t*>(fail), W, Wv, min_x, ndisp, mindisp, max_diff);
+  const bool aligned = Wv % 4 == 0;
+  const int nw = aligned ? Wv / 4 : (Wv + 6) / 4;  // the words a row spans, at most
+  const int per = (nw + kLrRowWords - 1) / kLrRowWords;
+  const int NT = min(kLrRowThreads, (per + 31) / 32 * 32);
+  const size_t smem = (size_t)((W + 3) & ~3) * sizeof(int);
+  const auto kern = aligned ? lr_fail_unpacked_kernel<true> : lr_fail_unpacked_kernel<false>;
+  if (smem > 48 * 1024) {  // a block takes more than 48 KB only by opting in (a host call each launch)
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<rows, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(minS), static_cast<const int*>(best), static_cast<const int*>(disp),
+      static_cast<uint8_t*>(fail), rows, W, Wv, min_x, ndisp, mindisp, max_diff);
   return cudaGetLastError();
 }

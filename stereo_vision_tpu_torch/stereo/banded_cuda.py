@@ -10,7 +10,8 @@ and the kernel bodies it chains:
 - ``_wta_fused_kernel`` (band 16)                   -> :func:`banded_wta_fused`
 
 and the hier image pyramid's ``downsample_box_pack`` (``_downsample_kernel``)
--> :func:`downsample_box`.
+-> :func:`downsample_pyramid` (both images, every level, one launch) and
+:func:`downsample_box` (one level).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain form
 (built from :mod:`.banded`, the port of the JAX scan reference) for CPU
@@ -19,7 +20,7 @@ is the port's own: banded volumes are (P, H, Wv, K) with the frames on the
 CUDA grid, a pixel's K lanes in K rounded up to 4 (:func:`lane_stride`).
 The kernels take every band K >= 1 (:func:`check_band`). The sources:
 ``csrc/banded_cost.cu`` (the cost kernel at every band), ``csrc/banded.cu``
-(the scans up to K = 64 and the downsample), ``csrc/banded_wta.cu`` (the
+(the scans up to K = 64), ``csrc/downsample.cu`` (the pyramid), ``csrc/banded_wta.cu`` (the
 WTA up to K = 64 and the fused WTA), ``csrc/banded_diag.cu``
 (int16) and ``csrc/banded_diag32.cu`` (int32) for the 8-path vertical up to
 K = 64, and ``csrc/banded_wide.cu`` (int16) and ``csrc/banded_wide32.cu``
@@ -43,7 +44,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
-from stereo_vision_tpu_torch.device import device_index
+from stereo_vision_tpu_torch.device import device_index, stream_handle
 from stereo_vision_tpu_torch.stereo.banded import banded_cost_volume, horizontal_plain, vertical_plain
 from stereo_vision_tpu_torch.stereo.cost_cuda import cost_dtype
 from stereo_vision_tpu_torch.stereo.sgbm import subpixel_disp16
@@ -89,8 +90,12 @@ _SIGNATURES = {
         "svt_banded_smem_optin": ([_I], _I),
         # C, s, out, P, H, Wv, K, G, P1, P2, reverse, bytes, stream
         "svt_banded_horizontal": ([_P] * 3 + [_I] * 9 + [_P], _I),
-        # in, out, P, H, W, fy, fx, stream
-        "svt_downsample_box": ([_P] * 2 + [_I] * 5 + [_P], _I),
+    },
+    "downsample": {
+        # a, b (or null), out, P, H, W, fy, fx, stream
+        "svt_downsample_box": ([_P] * 3 + [_I] * 5 + [_P], _I),
+        # left, right, P, H, W, nlev, fy[], fx[], outs[], stream
+        "svt_downsample_pyramid": ([_P] * 2 + [_I] * 4 + [_P] * 4, _I),
     },
     "banded_wta": {
         # v0..v3, nvol, minS, best, m2, m3, m4, uok, npix, K, uniq, sub, bytes, stream
@@ -125,7 +130,7 @@ def _wide_lib(t: torch.Tensor) -> ctypes.CDLL:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return stream_handle(t)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -695,11 +700,92 @@ def downsample_box(img: torch.Tensor, f: int, fx: int | None = None) -> torch.Te
     P, H, W = img.shape
     img = img.contiguous()
     out = torch.empty((P, H // fy, W // fx), dtype=torch.int32, device=img.device)
-    lib = _lib()
-    err = lib.svt_downsample_box(img.data_ptr(), out.data_ptr(), P, H, W, fy, fx, _stream(img))
+    lib = _lib("downsample")
+    err = lib.svt_downsample_box(img.data_ptr(), None, out.data_ptr(), P, H, W, fy, fx, _stream(img))
     _build.check(lib, err, "svt_downsample_box")
     downsample_box.launches += 1
     return out
+
+
+PYRAMID_MAX_LEVELS = 8  # levels one launch of the pyramid kernel takes
+
+
+def pyramid_nests(factors) -> bool:
+    """Whether one launch of the pyramid kernel computes every level of
+    ``factors`` from one read of the frames: every factor a power of two,
+    fy <= 16 and fx <= 128, at most 8 levels, and the levels ordered by fy
+    also ordered by fx (so that each level's blocks are unions of the
+    next finer level's). Every main path's ((4, 4), (2, 2)) nests."""
+    if not 0 < len(factors) <= PYRAMID_MAX_LEVELS:
+        return False
+    if any(f & (f - 1) for pair in factors for f in pair) or any(fy > 16 or fx > 128 for fy, fx in factors):
+        return False
+    ordered = sorted(factors)
+    return all(a[1] <= b[1] for a, b in zip(ordered, ordered[1:]))
+
+
+def downsample_pyramid_plain(left: torch.Tensor, right: torch.Tensor, factors) -> tuple:
+    """Plain form of :func:`downsample_pyramid`: :func:`downsample_box_plain`
+    per image and per level."""
+    return tuple((downsample_box_plain(left, fy, fx), downsample_box_plain(right, fy, fx)) for fy, fx in factors)
+
+
+_PYRAMID_ORDERS: dict[tuple, tuple | None] = {}  # factors -> the kernel's level order (finest first), or None
+
+
+def _pyramid_order(factors: tuple) -> tuple | None:
+    """The order in which one launch takes the levels of ``factors`` (None:
+    they do not nest), with its factor arrays, cached: the wrapper's host
+    time shows beside a small call's ~25 us of device time."""
+    if factors not in _PYRAMID_ORDERS:
+        if any(fy < 1 or fx < 1 for fy, fx in factors):
+            raise ValueError(f"bad level factors {factors}")
+        order = None
+        if pyramid_nests(factors):
+            idx = sorted(range(len(factors)), key=lambda i: factors[i])
+            n = len(idx)
+            order = (idx, (ctypes.c_int * n)(*(factors[i][0] for i in idx)),
+                     (ctypes.c_int * n)(*(factors[i][1] for i in idx)))
+        _PYRAMID_ORDERS[factors] = order
+    return _PYRAMID_ORDERS[factors]
+
+
+def downsample_pyramid(left: torch.Tensor, right: torch.Tensor, factors) -> tuple:
+    """(P, H, W) int32 left and right frames and a tuple of (fy, fx) level
+    factors -> each level's (lc, rc), the box means of :func:`downsample_box`
+    (each level's (P, H // fy, W // fx) pair). On the card both images and
+    every level take one launch where the factors nest
+    (:func:`pyramid_nests`), else one launch a level, both images a launch;
+    a coarse level's mean comes from the integer block sums, never from a
+    finer level's rounded values."""
+    factors = tuple(tuple(f) for f in factors)
+    if left.dim() != 3 or left.dtype != torch.int32 or right.dtype != torch.int32 or right.shape != left.shape:
+        raise ValueError(f"expected two (P, H, W) int32 frame sets of one shape, got {tuple(left.shape)} "
+                         f"{left.dtype} and {tuple(right.shape)} {right.dtype}")
+    if left.device != right.device:
+        raise ValueError("the pyramid's frames lie on different devices")
+    if not factors:
+        raise ValueError("no level factors")
+    order = _pyramid_order(factors)
+    if not _on_cuda(left):
+        return downsample_pyramid_plain(left, right, factors)
+    P, H, W = left.shape
+    left, right = left.contiguous(), right.contiguous()
+    outs = [torch.empty((2, P, H // fy, W // fx), dtype=torch.int32, device=left.device) for fy, fx in factors]
+    lib, stream = _lib("downsample"), _stream(left)
+    if P * H * W and order is not None:
+        idx, fys, fxs = order
+        ptrs = (ctypes.c_void_p * len(idx))(*(outs[i].data_ptr() for i in idx))
+        err = lib.svt_downsample_pyramid(left.data_ptr(), right.data_ptr(), P, H, W, len(idx), fys, fxs, ptrs, stream)
+        _build.check(lib, err, "svt_downsample_pyramid")
+        downsample_pyramid.launches += any(o.numel() for o in outs)
+    elif P * H * W:
+        for (fy, fx), o in zip(factors, outs):
+            if o.numel():
+                err = lib.svt_downsample_box(left.data_ptr(), right.data_ptr(), o.data_ptr(), P, H, W, fy, fx, stream)
+                _build.check(lib, err, "svt_downsample_box")
+                downsample_pyramid.launches += 1
+    return tuple(o.unbind(0) for o in outs)
 
 
 banded_cost.launches = 0
@@ -710,3 +796,4 @@ banded_horizontal.launches = 0
 banded_wta.launches = 0
 banded_wta_fused.launches = 0
 downsample_box.launches = 0
+downsample_pyramid.launches = 0

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
-from stereo_vision_tpu_torch.device import device_index
+from stereo_vision_tpu_torch.device import device_index, stream_handle
 from stereo_vision_tpu_torch.stereo.bm import valid_disparity_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -90,7 +90,7 @@ def bm_disparity(lp, rp, *, ndisp: int, mindisp: int, block_size: int, cap: int,
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=lp.device) if nbytes else None
     err = lib.svt_bm_disparity(lp.data_ptr(), rp.data_ptr(), out.data_ptr(), B, H, W, ndisp, mindisp, block_size,
                                cap, uniq, tex_thr, None if scratch is None else scratch.data_ptr(),
-                               torch.cuda.current_stream(lp.device).cuda_stream)
+                               stream_handle(lp))
     _build.check(lib, err, "svt_bm_disparity")
     bm_disparity.launches += 1
     bm_disparity.launches_by_form[form] += 1

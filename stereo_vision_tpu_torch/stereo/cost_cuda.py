@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
-from stereo_vision_tpu_torch.device import device_index
+from stereo_vision_tpu_torch.device import device_index, stream_handle
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -201,7 +201,7 @@ def cost_volume(
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=left.device) if tile == 0 else None
     left, right = left.contiguous(), right.contiguous()
     out = torch.empty((B, H, W - x_offset, ndisp), dtype=dtype, device=left.device)
-    stream = torch.cuda.current_stream(left.device).cuda_stream
+    stream = stream_handle(left)
     err = lib.svt_cost_volume(left.data_ptr(), right.data_ptr(), out.data_ptr(), B, H, W, ndisp, mindisp,
                               block_size, ftzero, x_offset, out.element_size(), tile,
                               None if scratch is None else scratch.data_ptr(), stream)

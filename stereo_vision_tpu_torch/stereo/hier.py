@@ -10,7 +10,8 @@ prior with their own band, shift maps s(y, x) built from the prior, a
 full-resolution search over ``band`` lanes around s (:mod:`.banded_cuda`,
 whose kernels run for CUDA tensors), then assembly with the full-range
 LR check (:mod:`.lr_cuda`) and the speckle filter (:mod:`.speckle_cuda`).
-The image pyramid is :func:`.banded_cuda.downsample_box`.
+The image pyramid is :func:`.banded_cuda.downsample_pyramid` (both images,
+the coarse level and every mid level in one launch).
 
 The TPU path's kernels all have CUDA counterparts here: the banded core
 (with the diagonal carries at 8 paths), the box downsample (the JAX
@@ -28,7 +29,7 @@ stacking are layout devices that are bit-identical to per-frame runs
 grid. It keeps the JAX parameter checks (pack size, shift-map tile side)
 so that the same configurations are accepted.
 
-Exactness of the plain glue against the JAX package: ``downsample_box``
+Exactness of the plain glue against the JAX package: the pyramid's box means
 and ``_upsample_repeat`` are integer sums and ``repeat_interleave`` (the
 JAX 0/1 matmuls are exact; no float32 matmul here, so no TF32 setting
 touches them), and ``shift_map`` keeps the JAX float32 arithmetic.
@@ -41,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from stereo_vision_tpu_torch.stereo.banded import _clamped
-from stereo_vision_tpu_torch.stereo.banded_cuda import FUSED_BAND, banded_stats_pack, downsample_box
+from stereo_vision_tpu_torch.stereo.banded_cuda import FUSED_BAND, banded_stats_pack, downsample_pyramid
 from stereo_vision_tpu_torch.stereo.lr_cuda import lr_fail_packed
 from stereo_vision_tpu_torch.stereo.postprocess import _nb
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
@@ -323,19 +324,21 @@ def _prior(left, right, params: StereoSGBMParams, hp: HierParams, exact_coarse: 
     f = hp.coarse_factor
     fx = hp.coarse_fx or f
 
+    levels = _prior_levels(hp)
+    level_hps = [_level_shift_params(hp, lv, prev) for lv, prev in zip(levels, (f, *(lv.factor for lv in levels)))]
+    # The pyramid: the coarse pair and every mid level's, one call.
+    (lc, rc), *mids = downsample_pyramid(left, right, ((f, fx), *((lv.factor, lv.factor) for lv in levels)))
+
     # 1. Coarse prior on the downsampled pair.
-    lc, rc = downsample_box(left, f, fx), downsample_box(right, f, fx)
     disp_c = _coarse_pass(lc, rc, params, hp, exact_coarse)
 
     # 1b. Mid levels: each refines the previous prior with its own band.
     prior, prev_f, prior_hp = disp_c, f, hp
-    levels = _prior_levels(hp)
-    for lv in levels:
+    for lv, lv_hp, (lm, rm) in zip(levels, level_hps, mids):
         m = lv.factor
         Dm, Bm, Gm = D // m, lv.band, lv.granularity
-        lm, rm = downsample_box(left, m), downsample_box(right, m)
         Hm, Wm = lm.shape[-2:]
-        s_m = _edge_pad(shift_map(prior, Dm, _level_shift_params(hp, lv, prev_f)), Hm, Wm).contiguous()
+        s_m = _edge_pad(shift_map(prior, Dm, lv_hp), Hm, Wm).contiguous()
         pm = _coarse_params(params, D, m, hp)._replace(num_paths=lv.paths)
         stats_m = banded_stats_pack(lm, rm, s_m, pm, Bm, Gm, min_x=Dm, sub=_wta_sub(Bm))
         disp_m = _assemble_disparity(stats_m, s_m[..., Dm:], Wm, Dm, Dm, Bm, pm)

@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.device import stream_handle
 from stereo_vision_tpu_torch.stereo.sgbm import lr_fail as lr_fail_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -75,7 +76,7 @@ def lr_fail_packed(pack, d16, *, W: int, ndisp: int, max_diff: int) -> torch.Ten
     fail = torch.empty((P, H, Wv), dtype=torch.bool, device=pack.device)
     lib = _lib()
     err = lib.svt_lr_fail_packed(pack.data_ptr(), d16.data_ptr(), fail.data_ptr(), P * H, W, Wv, ndisp, max_diff,
-                                 torch.cuda.current_stream(pack.device).cuda_stream)
+                                 stream_handle(pack))
     _build.check(lib, err, "svt_lr_fail_packed")
     lr_fail_packed.launches += 1
     return fail
@@ -111,11 +112,13 @@ def lr_fail(minS, best, disp, *, W: int, min_x: int, ndisp: int, mindisp: int, m
         raise ValueError(f"unsupported device {minS.device}")
     if minS.dtype != torch.int32 or best.dtype != torch.int32 or disp.dtype != torch.float32:
         raise TypeError("the CUDA LR check takes int32 minS and best and a float32 disparity")
-    minS, best, disp = minS.contiguous(), best.contiguous(), disp.contiguous()
+    # The kernel reads 16-byte words: contiguous maps on 16-byte addresses.
+    minS, best, disp = (m.contiguous() for m in (minS, best, disp))
+    minS, best, disp = (m if m.data_ptr() % 16 == 0 else m.clone() for m in (minS, best, disp))
     fail = torch.empty((B, H, Wv), dtype=torch.bool, device=minS.device)
     lib = _lib()
     err = lib.svt_lr_fail(minS.data_ptr(), best.data_ptr(), disp.data_ptr(), fail.data_ptr(), B * H, W, Wv, min_x,
-                          ndisp, mindisp, max_diff, torch.cuda.current_stream(minS.device).cuda_stream)
+                          ndisp, mindisp, max_diff, stream_handle(minS))
     _build.check(lib, err, "svt_lr_fail")
     lr_fail.launches += 1
     return fail

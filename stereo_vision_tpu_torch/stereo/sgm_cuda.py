@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.device import stream_handle
 
 _BIG = 1 << 29  # out-of-range d±1 neighbour: far above any reachable L
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -257,7 +258,7 @@ def _check_volume(C: torch.Tensor, P1: int, P2: int, cost_bound: int, ndir: int)
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return stream_handle(t)
 
 
 def _maps(like: torch.Tensor):

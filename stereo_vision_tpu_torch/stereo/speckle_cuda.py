@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
+from stereo_vision_tpu_torch.device import stream_handle
 from stereo_vision_tpu_torch.stereo.postprocess import speckle_filter as speckle_filter_plain, speckle_rounds
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -72,7 +73,7 @@ def speckle_filter(
     ws32 = torch.empty(lib.svt_speckle_workspace(P, H, W), dtype=torch.int32, device=disp.device)
     err = lib.svt_speckle_filter(frames.data_ptr(), out.data_ptr(), ws32.data_ptr(), P, H, W, S,
                                  speckle_rounds(S, max_diameter), float(max_diff), float(invalid_value),
-                                 torch.cuda.current_stream(disp.device).cuda_stream)
+                                 stream_handle(disp))
     _build.check(lib, err, "svt_speckle_filter")
     speckle_filter.launches += 1
     speckle_filter.device_launches += lib.svt_speckle_launches()

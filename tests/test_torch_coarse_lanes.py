@@ -100,7 +100,7 @@ def test_per_frame_hier_refuses_where_jax_raises(monkeypatch):
     jhp = jh.HierParams(band=16, granularity=8, coarse_stride=3)
     with pytest.raises(ValueError):
         jh.stereo_sgbm_hier(left, right, jp, jhp)
-    monkeypatch.setattr(th, "downsample_box", lambda *a, **k: pytest.fail("a kernel ran before the refusal"))
+    monkeypatch.setattr(th, "downsample_pyramid", lambda *a, **k: pytest.fail("a kernel ran before the refusal"))
     with pytest.raises(ValueError, match="5 lanes at granularity 8"):
         th.stereo_sgbm_hier(_t(left), _t(right), convert.sgbm_params_from_reference(jp),
                             convert.hier_params_from_reference(jhp))

@@ -201,9 +201,9 @@ def test_hier_pipeline_cuda_matches_cpu(dev):
     Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
     p = StereoSGBMParams(num_disparities=128, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=20,
                          speckle_range=2, num_paths=4)
-    n_ds, n_lr = banded_cuda.downsample_box.launches, lr_cuda.lr_fail_packed.launches
+    n_ds, n_lr = banded_cuda.downsample_pyramid.launches, lr_cuda.lr_fail_packed.launches
     d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, hier_params=HIER_FAST)
-    assert banded_cuda.downsample_box.launches == n_ds + 2 and lr_cuda.lr_fail_packed.launches == n_lr + 1
+    assert banded_cuda.downsample_pyramid.launches == n_ds + 1 and lr_cuda.lr_fail_packed.launches == n_lr + 1
     d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, hier_params=HIER_FAST,
                                            device="cpu")
     assert d_gpu.device.type == "cuda" and (d_cpu > -1).float().mean() > 0.2
@@ -1265,11 +1265,11 @@ def test_per_frame_hier_refuses_kc_5_and_6_on_the_card(dev, D, stride):
     """Where the reference raises (Kc = 5 and 6 at G = 8), the card raises
     before any launch."""
     L = torch.zeros((16, 256), dtype=torch.int32, device=dev)
-    n = banded_cuda.downsample_box.launches
+    n = banded_cuda.downsample_pyramid.launches
     with pytest.raises(ValueError, match="lanes at granularity 8"):
         hier.stereo_sgbm_hier(L, L, StereoSGBMParams(num_disparities=D, block_size=3),
                               hier.HierParams(band=16, granularity=8, coarse_stride=stride))
-    assert banded_cuda.downsample_box.launches == n
+    assert banded_cuda.downsample_pyramid.launches == n
 
 
 # The fused R->L scan + WTA (#5) and the fused banded WTA (#19) redesigned:
@@ -1375,3 +1375,77 @@ def test_fused_wta_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="int32 pack"):
         banded_cuda.banded_wta_fused([v.to(torch.int32) for v in vols], s, 10, ndisp=128, volume_bound=1 << 19)
     assert banded_cuda.banded_wta_fused.launches == n
+
+
+# The box-downsample pyramid (#14) and the unpacked LR check (#9)
+# redesigned: #14 both images and every level in one launch where the
+# factors nest (one launch a level, both images, where they do not); #9 a
+# block a row, every load of the row issued before its scatter.
+PYRAMID_SETS = [((4, 4), (2, 2)), ((4, 4),), ((8, 8), (4, 4), (2, 2)), ((4, 8), (2, 2)), ((2, 2),),
+                ((1, 1), (16, 128)), ((16, 16), (2, 4)), ((3, 3),), ((4, 4), (3, 3)), ((2, 8), (4, 2))]
+
+
+@pytest.mark.parametrize("factors", PYRAMID_SETS, ids=lambda f: "_".join(f"{a}x{b}" for a, b in f))
+@pytest.mark.parametrize("P,H,W", [(1, 720, 1280), (2, 45, 101), (3, 17, 26), (1, 33, 130), (2, 16, 3)])
+def test_pyramid_kernel_matches_plain(dev, factors, P, H, W):
+    """Odd and unaligned widths (rows off 16 bytes: scalar loads), one
+    frame, levels with no output, pixels at 0 and 255."""
+    rng = np.random.default_rng(P * H * W)
+    levels = sum(H // fy > 0 and W // fx > 0 for fy, fx in factors)
+    want = min(levels, 1) if banded_cuda.pyramid_nests(factors) else levels
+    for fill in ("random", 0, 255):
+        img = rng.integers(0, 256, (2, P, H, W)) if fill == "random" else np.full((2, P, H, W), fill)
+        left, right = (torch.from_numpy(a.astype(np.int32)) for a in img)
+        ref = banded_cuda.downsample_pyramid_plain(left, right, factors)
+        n = banded_cuda.downsample_pyramid.launches
+        got = banded_cuda.downsample_pyramid(left.to(dev), right.to(dev), factors)
+        torch.cuda.synchronize()
+        assert banded_cuda.downsample_pyramid.launches == n + want
+        for (lc, rc), (lr, rr) in zip(got, ref):
+            assert torch.equal(lc.cpu(), lr) and torch.equal(rc.cpu(), rr), fill
+
+
+@pytest.mark.parametrize("factors", [((4, 4), (2, 2)), ((8, 8), (4, 4), (2, 2))])
+def test_pyramid_kernel_on_frames_off_16_bytes(dev, factors):
+    """Frames that start 4 bytes past a 16-byte boundary (W % 4 == 0): the
+    kernel reads them a value at a time."""
+    P, H, W = 2, 40, 96
+    rng = np.random.default_rng(3)
+    buf = [torch.from_numpy(rng.integers(0, 256, P * H * W + 1).astype(np.int32)).to(dev) for _ in range(2)]
+    left, right = (b[1:].view(P, H, W) for b in buf)
+    assert left.data_ptr() % 16 == 4
+    got = banded_cuda.downsample_pyramid(left, right, factors)
+    ref = banded_cuda.downsample_pyramid_plain(left.cpu(), right.cpu(), factors)
+    for (lc, rc), (lr, rr) in zip(got, ref):
+        assert torch.equal(lc.cpu(), lr) and torch.equal(rc.cpu(), rr)
+
+
+@pytest.mark.parametrize("W,ndisp,mindisp", [(17, 8, 0), (96, 16, 16), (1280, 128, 0), (1283, 128, 16), (1157, 64, 0),
+                                             (4096, 1024, 0), (20000, 2031, 16)])
+def test_lr_unpacked_grid_matches_plain(dev, W, ndisp, mindisp):
+    """The unpacked LR check (#9), a block a row, against its plain form
+    (run on the card): valid regions aligned to 16 bytes and not (Wv % 4 !=
+    0), min_x at and past ndisp + min_disparity, max_diff 0-2, 1 to 2,881
+    rows, maps made to break it (every scatter of a row colliding, winners
+    outside [0, ndisp), disparities below zero and lookups at and past the
+    shifts min_disparity - 1 and min_disparity + ndisp), one launch a call."""
+    rng = np.random.default_rng(W + ndisp + mindisp)
+    for extra in (0, 3):
+        min_x = ndisp + mindisp + extra
+        Wv = W - min_x
+        for rows in (1, 7, 33, 2881):
+            if rows > 33 and (rows * W > 4_000_000 or ndisp > 128):
+                continue
+            for mode in scenes.LR_MODES:
+                pack, d16 = scenes.lr_maps(rng, (1, rows, Wv), ndisp, mode)
+                best = pack & 2047
+                best[rng.random(best.shape) < 0.02] = rng.choice([-1, ndisp, 2047])
+                maps = (pack >> 11, best, d16 / 16.0 + mindisp)
+                minS, best, disp = (torch.from_numpy(m.astype(t)).to(dev)
+                                    for m, t in zip(maps, (np.int32, np.int32, np.float32)))
+                for max_diff in (0, 1, 2):
+                    kw = dict(W=W, min_x=min_x, ndisp=ndisp, mindisp=mindisp, max_diff=max_diff)
+                    n = lr_cuda.lr_fail.launches
+                    got = lr_cuda.lr_fail(minS, best, disp, **kw)
+                    assert lr_cuda.lr_fail.launches == n + 1
+                    assert torch.equal(got, lr_fail(minS, best, disp, **kw)), (extra, rows, mode, max_diff)

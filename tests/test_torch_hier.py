@@ -24,6 +24,7 @@ from stereo_vision_tpu.stereo import sgbm as jsgbm
 from stereo_vision_tpu_torch import convert
 from stereo_vision_tpu_torch.parallel import streaming as tstream
 from stereo_vision_tpu_torch.stereo import banded as tb
+from stereo_vision_tpu_torch.stereo import banded_cuda
 from stereo_vision_tpu_torch.stereo import hier as th
 from stereo_vision_tpu_torch.synth.scenes import scene
 
@@ -75,11 +76,15 @@ def reference():
 
 
 @pytest.mark.parametrize("name", list(PRESETS))
-def test_hier_batch_matches_jax_per_frame(reference, name):
+def test_hier_batch_matches_jax_per_frame(reference, name, monkeypatch):
     ref = reference[name]
     lr, rr = ref["ints"]
-    mine = th.stereo_sgbm_hier_batch(_t(lr), _t(rr), convert.sgbm_params_from_reference(ref["jp"]),
-                                     convert.hier_params_from_reference(ref["hp"]))
+    hp = convert.hier_params_from_reference(ref["hp"])
+    calls, pyramid = [], th.downsample_pyramid  # the pyramid: one call for the coarse and mid levels
+    monkeypatch.setattr(th, "downsample_pyramid", lambda l, r, f: calls.append(f) or pyramid(l, r, f))
+    mine = th.stereo_sgbm_hier_batch(_t(lr), _t(rr), convert.sgbm_params_from_reference(ref["jp"]), hp)
+    assert calls == [((hp.coarse_factor, hp.coarse_fx or hp.coarse_factor),
+                      *((lv.factor, lv.factor) for lv in th._prior_levels(hp)))]
     assert mine.shape == lr.shape and mine.dtype == torch.float32
     assert (ref["disp"] > -1).mean() > 0.2
     np.testing.assert_array_equal(mine[ref["pick"]].numpy(), ref["disp"])
@@ -139,9 +144,9 @@ def test_downsample_and_upsample_match_jax():
     img[0, :2, :4] = [[0, 1, 1, 2], [1, 0, 1, 2]]
     for f, fx in ((2, None), (4, None), (4, 8), (3, 2)):
         ref = jax.vmap(lambda a: jh._downsample_box(a, f, fx))(jnp.asarray(img))
-        mine = th.downsample_box(_t(img), f, fx)
+        mine = banded_cuda.downsample_box(_t(img), f, fx)
         np.testing.assert_array_equal(mine.numpy(), np.asarray(ref))
-    assert th.downsample_box(_t(img), 2)[0, 0, :2].tolist() == [0, 2]
+    assert banded_cuda.downsample_box(_t(img), 2)[0, 0, :2].tolist() == [0, 2]
     s = rng.integers(0, 120, (2, 5, 7)).astype(np.int32)
     d = (rng.integers(-16, 1600, (2, 5, 7)) / 16.0).astype(np.float32)  # 1/16 fractions
     np.testing.assert_array_equal(th._upsample_repeat(_t(s), 4, 2).numpy(), np.asarray(jh._upsample_repeat(s, 4, 2)))
@@ -161,9 +166,9 @@ def test_downsample_matches_jax_pallas_pack(f):
     img[0, :f, :2 * f] = 1  # block sums of f*f (mean 1) and ties at .5 below
     img[1, :2, :4] = [[0, 1, 1, 2], [1, 0, 1, 2]]
     ref = np.asarray(downsample_box_pack(jnp.asarray(img), f, interpret=True))
-    n = th.downsample_box.launches
-    mine = th.downsample_box(_t(img), f)
-    assert th.downsample_box.launches == n  # CPU tensors take the plain form
+    n = banded_cuda.downsample_box.launches
+    mine = banded_cuda.downsample_box(_t(img), f)
+    assert banded_cuda.downsample_box.launches == n  # CPU tensors take the plain form
     np.testing.assert_array_equal(mine.numpy(), ref)
 
 
