@@ -193,6 +193,24 @@ After 18:
      and 16, valid regions off 16 bytes, 1 to 2,881 rows, maps from
      synth.scenes.lr_maps with winners outside the range), card against
      plain.
+ 32. (run last) the CLI's chain intrinsic -> extrinsic -> rectify -> sync ->
+     stream on the card: both cameras of parallel_rig's 1280x720 rig
+     calibrated from 20 views of a 9x6, 100 mm board (synth.boards,
+     0.1 px noise) and the rig by calibrate_stereo, on the card and on the
+     CPU (equal within tests/test_torch_calib.py's tolerances; the card
+     also against the truth: fx, fy within 0.5%, cx, cy within 8 px, rms
+     < 0.3 px, baseline within 1%; seconds a call); stereo_rectify and
+     the maps on the card; two 67-frame streams 3 frames apart with a
+     flash (synth.scenes.flash_streams): synchronize_streams and
+     find_best_offset_by_content on 32 frames, card against CPU (offset 3
+     both ways, PSNR within 0.05 dB); then StereoStreamProcessor windows
+     of pairs (left i, right i + 3) with the calibrated maps and Q: two
+     hier4x3 (32 pairs, p3), one exact8 (4) and one BM (8), each drained
+     window bit-equal to batched_stereo_pipeline's with the path's launch
+     counts equal (set to 0 before, read after; none 0), the caller's
+     arrays rewritten right after submit; ms per window of the closure
+     (make_sharded_pipeline, maps on the card), batched_stereo_pipeline
+     (host maps) and submit + drain; valid and within-1px shares printed.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -215,6 +233,7 @@ Imports torch, numpy and the port only.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -224,17 +243,20 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from stereo_vision_tpu_torch import _build, ops
+from stereo_vision_tpu_torch import _build, calib, ops, sync
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
-from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
+from stereo_vision_tpu_torch.parallel.mesh import create_mesh
+from stereo_vision_tpu_torch.parallel.streaming import (StereoStreamProcessor, batched_stereo_pipeline,
+                                                         make_sharded_pipeline)
 from stereo_vision_tpu_torch.stereo import (banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, postprocess, sgbm,
                                             sgm_cuda, speckle_cuda)
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
-from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, lr_maps, scene, scene_occ,
-                                                  scene_truth, speckle_patterns, wta_volumes)
+from stereo_vision_tpu_torch.synth.boards import board_views
+from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, flash_streams, lr_maps, scene,
+                                                  scene_occ, scene_truth, speckle_patterns, wta_volumes)
 
 H, W, D, B = 720, 1280, 128, 4
 # bench.py's exact8 mode (BASELINE config #2).
@@ -2411,6 +2433,184 @@ def phase_pyramid_lr(dev) -> dict:
     return out
 
 
+# Phase 32: the CLI's chain intrinsic -> extrinsic -> rectify -> sync ->
+# stream (stereo_vision_tpu/pipeline/cli.py:74-181, 235-397) on the card. The
+# true rig is parallel_rig's at 1280x720 (f = 1000 px, no distortion, R = I)
+# with its 0.1 m baseline in the board's millimetres; a 9x6, 100 mm board.
+CAL_K = np.array([[1000.0, 0, (W - 1) / 2], [0, 1000.0, (H - 1) / 2], [0, 0, 1]])
+CAL_T = np.array([-100.0, 0.0, 0.0])
+CAL_FRAMES = 20
+# Card against CPU: tests/test_torch_calib.py's tolerances of the port
+# against JAX (float64 on both, products summed in another order).
+CAL_RTOL = {"K": 1e-5, "dist": 1e-5, "tvecs": 1e-5, "T": 1e-5, "E": 1e-5, "F": 1e-5}
+CAL_ATOL = {"rvecs": 1e-6, "R": 1e-6, "per_frame_errors": 1e-6, "rms": 1e-6}
+# The streams: the right camera 3 frames late, a flash at left frame 20; two
+# hier4x3 windows of 32 pairs (the CLI's default window for sgbm_hier).
+STREAM_LAG, STREAM_FLASH = 3, 20
+STREAM_FRAMES = 2 * HIER_P + STREAM_LAG
+CONTENT_SEARCH = 10  # offsets searched by content (tests/test_sync.py's window): at least 22 pairs overlap
+EXACT_KERNELS = {"cost": cost_cuda.cost_volume, "vertical": sgm_cuda.vertical, "horizontal": sgm_cuda.horizontal,
+                 "wta4": sgm_cuda.wta4, "lr_fail": lr_cuda.lr_fail, "speckle_filter": speckle_cuda.speckle_filter}
+STREAM_KERNELS = {"sgbm_hier": {k: KERNELS[k][0] for k in HIER_KERNEL_NAMES}, "sgbm": EXACT_KERNELS,
+                  "bm": {"bm_disparity": bm_cuda.bm_disparity}}
+
+
+def same_calibration(name: str, card, cpu) -> dict:
+    """The card's calibration result against the CPU's, field by field,
+    within CAL_RTOL / CAL_ATOL; returns the largest differences."""
+    out = {}
+    for field in (f.name for f in dataclasses.fields(card)):
+        a, b = getattr(card, field), getattr(cpu, field)
+        if field == "kept_frames":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: the card kept frames {a}, the CPU {b}")
+            continue
+        if field not in CAL_RTOL and field not in CAL_ATOL:
+            continue
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = float(np.abs(a - b).max())
+        rel = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max())
+        ok = (np.abs(a - b) <= CAL_RTOL[field] * np.abs(b)).all() if field in CAL_RTOL else err <= CAL_ATOL[field]
+        if not ok:
+            raise AssertionError(f"{name}: {field} differs between the card and the CPU (abs {err}, rel {rel})")
+        out[field] = rel if field in CAL_RTOL else err
+    return out
+
+
+def stream_window(proc, run, wl, wr, maps, Q, matcher: str, params, dev) -> dict:
+    """One window through the processor (the caller's arrays rewritten right
+    after ``submit``) with the path's kernel counts set to 0 before it and
+    read after it, held bit for bit to batched_stereo_pipeline on the same
+    frames with host maps (its counts read the same way; they must be equal
+    and none 0); then host-clock ms of the closure ``run`` (maps on the
+    card), of batched_stereo_pipeline (host maps) and of submit + drain."""
+    kernels = STREAM_KERNELS[matcher]
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: k.launches for name, k in kernels.items()}
+
+    ref, ref_counts = counted(lambda: batched_stereo_pipeline(wl, wr, maps, Q, matcher, params, device=dev))
+    ref = tuple(t.cpu().numpy() for t in ref)
+
+    def submit_drain():
+        lc, rc = wl.copy(), wr.copy()
+        proc.submit(lc, rc)
+        lc[:] = 0  # the caller reuses its buffers at once
+        rc[:] = 255
+        return proc.drain()
+
+    out, counts = counted(submit_drain)
+    if counts != ref_counts or min(counts.values()) == 0:
+        raise AssertionError(f"{matcher} window launches {counts}, batched_stereo_pipeline's {ref_counts}")
+    for a, b, what in zip(out, ref, ("disparity", "points")):
+        if a.shape != b.shape or not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"the processor's {matcher} {what} differs from batched_stereo_pipeline's")
+    truth = scene_truth(H, W)
+    min_x = {"sgbm_hier": D, "sgbm": PARAMS.min_disparity + D, "bm": BM_PARAMS.num_disparities}[matcher]
+    valid_share, within1 = quality(out[0], truth, min_x)
+    ms = {"closure (maps on the card)": host_ms(lambda: run(wl, wr)),
+          "batched_stereo_pipeline (host maps)": host_ms(
+              lambda: batched_stereo_pipeline(wl, wr, maps, Q, matcher, params, device=dev)),
+          "processor submit + drain": host_ms(lambda: (proc.submit(wl, wr), proc.drain()))}
+    return dict(frames=len(wl), launches=counts, valid_share=valid_share, within1_share=within1,
+                ms={k: round(v, 3) for k, v in ms.items()})
+
+
+def phase_calibrate_stream(dev) -> dict:
+    """Phase 32: calibrate both cameras and the rig from board corners
+    (card against CPU, card against the truth), rectify on the card, find
+    the streams' offset by their flash and by content (card against CPU),
+    then stream windows of synchronised pairs through StereoStreamProcessor
+    with the calibrated maps and Q, each held bit for bit to
+    batched_stereo_pipeline."""
+    out = {}
+    zero = np.zeros(5)
+    obj, c1, c2 = board_views(CAL_FRAMES, 0, CAL_K, zero, (W, H), CAL_K, zero, np.eye(3), CAL_T)
+    seconds, cal = {}, {}
+    for name, fn in (("camera 1", lambda d: calib.calibrate_camera(obj, c1, (W, H), device=d)),
+                     ("camera 2", lambda d: calib.calibrate_camera(obj, c2, (W, H), device=d)),
+                     ("stereo", lambda d: calib.calibrate_stereo(obj, c1, c2, cal["camera 1"][0].K,
+                                                                 cal["camera 1"][0].dist, cal["camera 2"][0].K,
+                                                                 cal["camera 2"][0].dist, (W, H), device=d))):
+        results = []
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            results.append(fn(d))
+            seconds[f"{name} {torch.device(d).type}"] = time.perf_counter() - t0
+        cal[name] = results
+        out[f"{name} card vs cpu"] = same_calibration(name, *results)
+    for name in ("camera 1", "camera 2"):
+        K, rms = cal[name][0].K, cal[name][0].rms
+        if (abs(K[0, 0] / CAL_K[0, 0] - 1) > 0.005 or abs(K[1, 1] / CAL_K[1, 1] - 1) > 0.005
+                or abs(K[0, 2] - CAL_K[0, 2]) > 8 or abs(K[1, 2] - CAL_K[1, 2]) > 8 or not rms < 0.3):
+            raise AssertionError(f"{name}'s calibration is off the truth: K {K.tolist()}, rms {rms}")
+    st = cal["stereo"][0]
+    if abs(st.baseline / np.linalg.norm(CAL_T) - 1) > 0.01:
+        raise AssertionError(f"the calibrated baseline {st.baseline} mm is off the true {np.linalg.norm(CAL_T)}")
+    out["calibration"] = dict(fx=[cal[n][0].K[0, 0] for n in ("camera 1", "camera 2")],
+                              rms=[cal[n][0].rms for n in ("camera 1", "camera 2", "stereo")],
+                              baseline_mm=st.baseline, seconds=seconds)
+    print(f"calibration ({CAL_FRAMES} views of 9x6 at {W}x{H}): card == CPU; fx {out['calibration']['fx']}, "
+          f"rms {out['calibration']['rms']}, baseline {st.baseline:.4f} mm; seconds {json.dumps(seconds)}",
+          flush=True)
+
+    cam1, cam2 = cal["camera 1"][0], cal["camera 2"][0]
+    res = ops.stereo_rectify(cam1.K, cam1.dist, cam2.K, cam2.dist, (W, H), st.R, st.T, device=dev)
+    maps = (*ops.init_undistort_rectify_map(cam1.K, cam1.dist, res.R1, res.P1, (W, H), device=dev),
+            *ops.init_undistort_rectify_map(cam2.K, cam2.dist, res.R2, res.P2, (W, H), device=dev))
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev), indexing="ij")
+    out["maps max px from identity"] = max(float((m - g).abs().max()) for m, g in zip(maps, (xx, yy, xx, yy)))
+    if any(m.device != res.Q.device or m.device.type != torch.device(dev).type for m in maps):
+        raise AssertionError("the rectification maps left the card")
+    maps = tuple(m.cpu().numpy() for m in maps)
+    Q = res.Q.cpu().numpy()
+    print(f"rectified on the card: maps up to {out['maps max px from identity']:.3f} px from the identity, "
+          f"Q[2, 3] {Q[2, 3]:.3f}, 1/Q[3, 2] {1 / Q[3, 2]:.4f} mm", flush=True)
+
+    left, right = flash_streams(STREAM_FRAMES, STREAM_LAG, STREAM_FLASH, H, W)
+    t0 = time.perf_counter()
+    flash = sync.synchronize_streams(left, right, device=dev)
+    t_flash = time.perf_counter() - t0
+    flash_cpu = sync.synchronize_streams(left, right, device="cpu")
+    if flash[:3] != flash_cpu[:3] or flash.offset != STREAM_LAG:
+        raise AssertionError(f"flash sync: card {flash}, CPU {flash_cpu}, the streams' lag {STREAM_LAG}")
+    t0 = time.perf_counter()
+    content = sync.find_best_offset_by_content(left[:HIER_P], right[:HIER_P], CONTENT_SEARCH, device=dev)
+    t_content = time.perf_counter() - t0
+    content_cpu = sync.find_best_offset_by_content(left[:HIER_P], right[:HIER_P], CONTENT_SEARCH, device="cpu")
+    if content[0] != content_cpu[0] or content[0] != flash.offset or abs(content[1] - content_cpu[1]) > 0.05:
+        raise AssertionError(f"content offset: card {content}, CPU {content_cpu}, by the flash {flash.offset}")
+    offset = flash.offset
+    out["sync"] = dict(flash=flash._asdict(), flash_s=t_flash, content_offset=content[0], content_psnr=content[1],
+                       content_psnr_cpu=content_cpu[1], content_s=t_content)
+    print(f"sync of {STREAM_FRAMES} frames a stream: flash at left {flash.left_flash}, right {flash.right_flash} "
+          f"(offset {offset}, {t_flash:.3f} s); by content over {HIER_P} frames offset {content[0]}, "
+          f"{content[1]:.4f} dB (CPU {content_cpu[1]:.4f}; {t_content:.3f} s); card == CPU", flush=True)
+
+    mesh = create_mesh()
+    windows = {"sgbm_hier": [(left[i * HIER_P:(i + 1) * HIER_P], right[i * HIER_P + offset:(i + 1) * HIER_P + offset])
+                             for i in range(2)],
+               "sgbm": [(left[:B], right[offset:B + offset])],
+               "bm": [(left[:BM_B], right[offset:BM_B + offset])]}
+    params = {"sgbm_hier": P3, "sgbm": PARAMS, "bm": BM_PARAMS}
+    for matcher, wins in windows.items():
+        proc = StereoStreamProcessor(mesh, maps, Q, matcher, params[matcher])
+        run = make_sharded_pipeline(mesh, maps, Q, matcher, params[matcher])
+        for i, (wl, wr) in enumerate(wins):
+            r = stream_window(proc, run, wl, wr, maps, Q, matcher, params[matcher], dev)
+            out[f"{matcher} window {i}"] = r
+            print(f"stream {matcher} window {i} ({r['frames']} pairs): equal to batched_stereo_pipeline, launches "
+                  f"{json.dumps(r['launches'])}, valid share {r['valid_share']:.4f}, within 1 px "
+                  f"{r['within1_share']:.4f}; ms {json.dumps(r['ms'])}", flush=True)
+        del proc, run
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2525,6 +2725,11 @@ def main() -> int:
     pyramid_lr = phase_pyramid_lr(dev)
     PYRAMID_LR_RECORDS.clear()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    calibrate_stream = phase_calibrate_stream(dev)
+    calibrate_stream["phase_s"] = time.perf_counter() - t0
+    print(f"phase 32: {calibrate_stream['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -2549,7 +2754,7 @@ def main() -> int:
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
-                      "pyramid_lr": pyramid_lr,
+                      "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 The port's own copies of ``bench.py``'s ``_scene``, ``_scene_occ`` and
 ``_agreement``, with the frame size as a parameter (the bench fixes
-1280x720), plus the ramp+box scene's true disparity, and disparity maps
-made to break a speckle filter (:func:`speckle_patterns`).
+1280x720), plus the ramp+box scene's true disparity, disparity maps
+made to break a speckle filter (:func:`speckle_patterns`), and two
+unsynchronised streams of scenes with a flash (:func:`flash_streams`).
 """
 
 from __future__ import annotations
@@ -176,3 +177,25 @@ def lr_maps(rng, shape, ndisp: int, mode: str) -> tuple[np.ndarray, np.ndarray]:
     elif mode != "random":
         raise ValueError(f"unknown mode {mode}")
     return (cost * 2048 + best).astype(np.int32), d16.astype(np.int32)
+
+
+def flash_streams(n_frames: int, lag: int, flash_at: int, H: int = 720, W: int = 1280, distinct: int = 8,
+                  boost: float = 80.0, swing: float = 15.0, period: float = 50.0) -> tuple[np.ndarray, np.ndarray]:
+    """Two (n_frames, H, W) uint8 streams of a stereo rig whose right camera
+    started ``lag`` frames late: right frame j + lag shows the instant of
+    left frame j. Instant t is :func:`scene` ``t mod distinct`` (its left
+    and right views) under a light level ``swing * sin(2 pi t / period)``
+    shared by both cameras; at instant ``flash_at`` (left frame ``flash_at``,
+    right frame ``flash_at + lag``) a flash adds ``boost``, clipped at 255.
+    The light swings slowly enough that no other frame jumps 20 above the
+    mean of the 5 before it; the light level and the flash mark the
+    instants, so that content matching finds the lag too."""
+    views = [scene(seed=s, H=H, W=W) for s in range(distinct)]
+
+    def frame(t: int, side: int) -> np.ndarray:
+        level = swing * np.sin(2 * np.pi * t / period) + (boost if t == flash_at else 0.0)
+        return np.clip(views[t % distinct][side] + level, 0, 255).astype(np.uint8)
+
+    left = np.stack([frame(t, 0) for t in range(n_frames)])
+    right = np.stack([frame(j - lag, 1) for j in range(n_frames)])
+    return left, right

@@ -14,13 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_vision_tpu_torch import ops
-from stereo_vision_tpu_torch.parallel.streaming import batched_stereo_pipeline
+from stereo_vision_tpu_torch import calib, ops, sync
+from stereo_vision_tpu_torch.parallel.mesh import create_mesh
+from stereo_vision_tpu_torch.parallel.streaming import StereoStreamProcessor, batched_stereo_pipeline
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
 from stereo_vision_tpu_torch.synth import scenes
-from stereo_vision_tpu_torch.synth.scenes import scene, speckle_patterns
+from stereo_vision_tpu_torch.synth.boards import board_views
+from stereo_vision_tpu_torch.synth.scenes import flash_streams, scene, speckle_patterns
 
 pytestmark = pytest.mark.cuda
 
@@ -1449,3 +1451,86 @@ def test_lr_unpacked_grid_matches_plain(dev, W, ndisp, mindisp):
                     got = lr_cuda.lr_fail(minS, best, disp, **kw)
                     assert lr_cuda.lr_fail.launches == n + 1
                     assert torch.equal(got, lr_fail(minS, best, disp, **kw)), (extra, rows, mode, max_diff)
+
+
+# The distorted camera pair of tests/test_torch_calib.py (K, distortion and a
+# converged rig), seen by the card and the CPU.
+CAL_K = np.array([[1450.0, 0, 955.0], [0, 1455.0, 545.0], [0, 0, 1.0]])
+CAL_DIST = np.array([-0.15, 0.04, 8e-4, -6e-4, -0.006])
+CAL_R = ops.rodrigues(torch.tensor([0.01, -0.05, 0.004], dtype=torch.float64), device="cpu").numpy()
+CAL_T = np.array([-500.0, 6.0, 20.0])
+
+
+def _same_fields(a, b, rtol_fields, atol_fields):
+    """Card and CPU results within tests/test_torch_calib.py's tolerances of the port against JAX."""
+    for name in rtol_fields:
+        np.testing.assert_allclose(getattr(a, name), getattr(b, name), rtol=1e-5, err_msg=name)
+    for name in atol_fields:
+        np.testing.assert_allclose(getattr(a, name), getattr(b, name), rtol=0, atol=1e-6, err_msg=name)
+
+
+def test_calibration_cuda_matches_cpu(dev):
+    """calibrate_camera (the outlier rounds on, one frame corrupted) and
+    calibrate_stereo: LM in float64 on the card against the CPU."""
+    obj, c1, c2 = board_views(14, 4, CAL_K, CAL_DIST, (1920, 1080), CAL_K, CAL_DIST, CAL_R, CAL_T,
+                              depth=(1800.0, 3200.0))
+    c1[5] += np.random.default_rng(1).normal(0, 3.0, c1[5].shape)
+    gpu = calib.calibrate_camera(obj, c1, (1920, 1080))
+    cpu = calib.calibrate_camera(obj, c1, (1920, 1080), device="cpu")
+    np.testing.assert_array_equal(gpu.kept_frames, cpu.kept_frames)
+    assert 5 not in gpu.kept_frames
+    _same_fields(gpu, cpu, ("K", "dist", "tvecs"), ("rvecs", "per_frame_errors", "rms"))
+    args = (obj, c1[gpu.kept_frames], c2[gpu.kept_frames], gpu.K, gpu.dist, CAL_K, CAL_DIST, (1920, 1080))
+    sg, sc = calib.calibrate_stereo(*args), calib.calibrate_stereo(*args, device="cpu")
+    _same_fields(sg, sc, ("T", "E", "F"), ("R", "per_frame_errors", "rms"))
+    assert abs(sg.baseline / np.linalg.norm(CAL_T) - 1) < 0.01
+
+
+def test_sync_cuda_matches_cpu(dev):
+    """synchronize_streams and similarity_matrix on the card against the CPU."""
+    left, right = flash_streams(40, 3, 12, H=96, W=200)
+    g, c = sync.synchronize_streams(left, right), sync.synchronize_streams(left, right, device="cpu")
+    assert g[:3] == c[:3] == (12, 15, 3)
+    np.testing.assert_allclose(g[3:], c[3:], rtol=1e-5)
+    sg = sync.similarity_matrix(left[:16], right[:20])
+    assert sg.device.type == "cuda"
+    sc = sync.similarity_matrix(left[:16], right[:20], device="cpu")
+    torch.testing.assert_close(sg.cpu(), sc, rtol=0, atol=1e-3)
+    gc = sync.find_best_offset_by_content(left, right, 10)
+    cc = sync.find_best_offset_by_content(left, right, 10, device="cpu")
+    assert gc[0] == cc[0] == 3 and abs(gc[1] - cc[1]) <= 0.05
+
+
+def test_stream_processor_cuda_matches_batched_pipeline(dev):
+    """The processor under a non-default compute stream, three windows
+    through both pinned slots (slot 0 again on the third), the caller's
+    arrays rewritten after each submit: every drained window equals
+    batched_stereo_pipeline's bit for bit; then two submits and one drain
+    return the second window."""
+    H, W = 64, 256
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    maps = (xx + 0.3 * np.sin(yy / 11.0), yy + 0.2 * np.cos(xx / 13.0), xx - 0.1 + 0.3 * np.sin(yy / 11.0),
+            yy + 0.2 * np.cos(xx / 13.0))
+    Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
+    params = StereoSGBMParams(num_disparities=128, block_size=5, uniqueness_ratio=10, disp12_max_diff=1,
+                              speckle_window_size=30, speckle_range=2, num_paths=3)
+    frames = [scene(seed=s, H=H, W=W) for s in range(24)]
+    windows = [tuple(np.stack([f[i] for f in frames[8 * w:8 * w + 8]]).astype(np.uint8) for i in (0, 1))
+               for w in range(3)]
+    refs = [batched_stereo_pipeline(l, r, maps, Q, "sgbm_hier", params) for l, r in windows]
+    proc = StereoStreamProcessor(create_mesh(), maps, Q, "sgbm_hier", params)
+    compute = torch.cuda.Stream()
+    with torch.cuda.stream(compute):
+        for (l, r), ref in zip(windows, refs):
+            lc, rc = l.copy(), r.copy()
+            proc.submit(lc, rc)
+            lc[:] = 0
+            rc[:] = 255
+            disp, pts = proc.drain()
+            np.testing.assert_array_equal(disp, ref[0].cpu().numpy())
+            np.testing.assert_array_equal(pts, ref[1].cpu().numpy())
+        proc.submit(*windows[0])
+        proc.submit(*windows[1])
+        disp, _ = proc.drain()
+    np.testing.assert_array_equal(disp, refs[1][0].cpu().numpy())
+    assert proc.drain() is None
