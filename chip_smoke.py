@@ -211,6 +211,30 @@ After 18:
      arrays rewritten right after submit; ms per window of the closure
      (make_sharded_pipeline, maps on the card), batched_stereo_pipeline
      (host maps) and submit + drain; valid and within-1px shares printed.
+ 33. (run after 32) detection at the CLI's frame sizes: the CLI's default
+     board (7x4 inner corners, 100 mm squares) rendered without OpenCV
+     (synth.boards.render_board_view, 4x4 samples a pixel, on the card) in
+     20 views for each camera of a 1920x1080 rig (f = 1500 px, 100 mm
+     baseline); find_chessboard_corners on the card and on the CPU (ok
+     flags equal, corners within 5e-3 px, every view within 0.5 px of the
+     render's truth), then calibrate_camera and calibrate_stereo on the card
+     from the detected corners, held to phase 32's truth limits; 4 views
+     each under noise, glare, low contrast and motion blur, the success
+     share and mean error against the truth, card and CPU (ok flags
+     equal); validate-distance on the card (a board 2500 mm away seen by
+     both cameras: detect -> undistort_points with R1/P1, R2/P2 from
+     stereo_rectify of the calibrated rig -> triangulate_points ->
+     track.validate_distance, passing at 10% and within 1% of the truth;
+     the geometry on the CPU from the same corners within rtol 1e-6);
+     rgb_to_gray (256 levels, 10^5 triples) and Otsu (50 images) card ==
+     CPU bit for bit; a 1280x720 frame with a drawn ball
+     (synth.scenes.ball_frame): hough_circles on the card at full frame and
+     on a 240x240 crop on the card and the CPU (equal; the accumulator card
+     == CPU), rescore_detections and HostedDetectorClient with a stub
+     transport (card against CPU, centres within 1 px of the truth),
+     largest_component_mask at 1920x1080 card == CPU; seconds per call of
+     find_chessboard_corners (1920x1080) and hough_circles (1280x720), card
+     and CPU, with the card's name and power limit.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -243,7 +267,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from stereo_vision_tpu_torch import _build, calib, ops, sync
+from stereo_vision_tpu_torch import _build, calib, detect, ops, sync, track
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.mesh import create_mesh
@@ -254,9 +278,11 @@ from stereo_vision_tpu_torch.stereo import (banded_cuda, bm, bm_cuda, cost_cuda,
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
-from stereo_vision_tpu_torch.synth.boards import board_views
-from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, flash_streams, lr_maps, scene,
-                                                  scene_occ, scene_truth, speckle_patterns, wta_volumes)
+from stereo_vision_tpu_torch.synth.boards import (add_glare, add_noise, board_views, low_contrast, motion_blur,
+                                                  render_board_view)
+from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, ball_frame, draw_ball, flash_streams,
+                                                  lr_maps, scene, scene_occ, scene_truth, speckle_patterns,
+                                                  wta_volumes)
 
 H, W, D, B = 720, 1280, 128, 4
 # bench.py's exact8 mode (BASELINE config #2).
@@ -2611,6 +2637,258 @@ def phase_calibrate_stream(dev) -> dict:
     return out
 
 
+# Phase 33: detection on the card at the CLI's frame sizes. The CLI's default
+# board (stereo_vision_tpu/pipeline/cli.py:699: 7x4 inner corners, 100 mm
+# squares) seen by a 1920x1080 rig of f = 1500 px, 100 mm apart, 20 views.
+DET_W, DET_H = 1920, 1080
+DET_BOARD, DET_SQUARE, DET_VIEWS = (7, 4), 100.0, 20
+DET_K = np.array([[1500.0, 0, (DET_W - 1) / 2], [0, 1500.0, (DET_H - 1) / 2], [0, 0, 1]])
+DET_T = np.array([-100.0, 0.0, 0.0])
+# Corners card against CPU: the same candidates (the response is elementwise
+# float32 in one order on both), refined by sums over the window reduced in
+# other orders; tests/test_torch_checkerboard.py holds the port to JAX within
+# 1e-2 px, the card to the CPU is held tighter.
+DET_CARD_CPU_PX = 5e-3
+DET_TRUTH_PX = 0.5  # every clean view's corners against the render's truth
+DEGRADED = ("noise", "glare", "low_contrast", "blur")
+DEGRADED_VIEWS = 4  # views of camera 1 under each degradation
+VALIDATE_MM, VALIDATE_TOL = 2500.0, 10.0  # validate-distance's truth and the CLI's --tolerance default
+# The ball: a 1280x720 frame, radius 32 px at the centre (synth.scenes.ball_frame).
+BALL_W, BALL_H, BALL_R = 1280, 720, 32.0
+BALL_C = (640.0, 360.0)
+BALL_CROP = 120  # half-size of the crop the CPU's Hough runs on (holds every ring up to r = 101)
+HOUGH_KW = dict(min_radius=20, max_radius=100)  # the highlight (r = 8) is no ball
+
+
+def degrade(kind: str, img: np.ndarray, rng) -> np.ndarray:
+    """One of phase 33's degradations (the cv2-free forms of synth.boards)."""
+    if kind == "noise":
+        return add_noise(img, 12.0, rng)
+    if kind == "glare":
+        return add_glare(img, rng)
+    if kind == "low_contrast":
+        return add_noise(low_contrast(img), 6.0, rng)
+    return motion_blur(img, 9, rng.uniform(0, 180))
+
+
+def detect_both(img: np.ndarray, dev) -> tuple:
+    """find_chessboard_corners on the card and on the CPU; equal ok flags,
+    corners within DET_CARD_CPU_PX. Returns (ok, card corners, CPU corners, px apart)."""
+    ok, c = detect.find_chessboard_corners(img, DET_BOARD, device=dev)
+    ok_cpu, c_cpu = detect.find_chessboard_corners(img, DET_BOARD, device="cpu")
+    if ok != ok_cpu:
+        raise AssertionError(f"the card's detection says {ok}, the CPU's {ok_cpu}")
+    apart = float(np.abs(c - c_cpu).max()) if ok else 0.0
+    if apart > DET_CARD_CPU_PX:
+        raise AssertionError(f"corners card against CPU {apart} px apart (limit {DET_CARD_CPU_PX})")
+    return ok, c, c_cpu, apart
+
+
+def check_truth_limits(name: str, K, rms) -> None:
+    """Phase 32's limits of a calibration against the truth."""
+    if (abs(K[0, 0] / DET_K[0, 0] - 1) > 0.005 or abs(K[1, 1] / DET_K[1, 1] - 1) > 0.005
+            or abs(K[0, 2] - DET_K[0, 2]) > 8 or abs(K[1, 2] - DET_K[1, 2]) > 8 or not rms < 0.3):
+        raise AssertionError(f"{name}'s calibration from detected corners is off the truth: K {K.tolist()}, rms {rms}")
+
+
+def phase_detect(dev, card: str) -> dict:
+    """Phase 33: calibrate from corners detected on the card at 1920x1080,
+    degraded views, the validate-distance chain, circles and balls, times."""
+    out = {}
+    obj, c1, c2, pose1, pose2 = board_views(DET_VIEWS, 3, DET_K, np.zeros(5), (DET_W, DET_H), DET_K, np.zeros(5),
+                                            np.eye(3), DET_T, cols=DET_BOARD[0], rows=DET_BOARD[1],
+                                            square=DET_SQUARE, noise=0.0, margin=150.0, depth=(1800.0, 3500.0),
+                                            return_poses=True)
+    views = [[render_board_view(DET_K, rv, tv, (DET_W, DET_H), *DET_BOARD, DET_SQUARE, device=dev)
+              for rv, tv in zip(*pose)] for pose in (pose1, pose2)]
+    detected, apart, truth_px = [], 0.0, 0.0
+    for cam, (vs, truth) in enumerate(zip(views, (c1, c2))):
+        found = []
+        for i, (img, t) in enumerate(vs):
+            if np.abs(t - truth[i]).max() > 1e-6:
+                raise AssertionError("the render's truth is not board_views' corners")
+            ok, c, _, d = detect_both(img, dev)
+            if not ok:
+                raise AssertionError(f"camera {cam + 1} view {i}: no board found in a clean view")
+            err = float(np.abs(c - t).max())
+            if err > DET_TRUTH_PX:
+                raise AssertionError(f"camera {cam + 1} view {i}: corners {err} px off the truth")
+            apart, truth_px = max(apart, d), max(truth_px, err)
+            found.append(c.astype(np.float64))
+        detected.append(np.stack(found))
+    cams = [calib.calibrate_camera(obj, d, (DET_W, DET_H), device=dev) for d in detected]
+    for name, cam in zip(("camera 1", "camera 2"), cams):
+        check_truth_limits(name, cam.K, cam.rms)
+    st = calib.calibrate_stereo(obj, detected[0], detected[1], cams[0].K, cams[0].dist, cams[1].K, cams[1].dist,
+                                (DET_W, DET_H), device=dev)
+    if abs(st.baseline / np.linalg.norm(DET_T) - 1) > 0.01:
+        raise AssertionError(f"the baseline from detected corners {st.baseline} mm is off the true 100")
+    out["clean"] = dict(views=2 * DET_VIEWS, card_cpu_px=apart, truth_px=truth_px,
+                        fx=[c.K[0, 0] for c in cams], cx=[c.K[0, 2] for c in cams], cy=[c.K[1, 2] for c in cams],
+                        rms=[c.rms for c in cams] + [st.rms], baseline_mm=st.baseline)
+    print(f"detection ({2 * DET_VIEWS} clean {DET_W}x{DET_H} views of {DET_BOARD[0]}x{DET_BOARD[1]}): all found on "
+          f"the card and the CPU, corners card vs CPU <= {apart:.2e} px, vs truth <= {truth_px:.4f} px; calibrated "
+          f"from them on the card: fx {out['clean']['fx']}, rms {out['clean']['rms']}, baseline "
+          f"{st.baseline:.4f} mm", flush=True)
+
+    rng = np.random.default_rng(33)
+    degraded = {}
+    for kind in DEGRADED:
+        found = {"card": [], "cpu": []}
+        for i in range(DEGRADED_VIEWS):
+            img, truth = views[0][i]
+            ok, c, c_cpu, _ = detect_both(degrade(kind, img, rng), dev)
+            if ok:
+                found["card"].append(float(np.linalg.norm(c - truth, axis=1).mean()))
+                found["cpu"].append(float(np.linalg.norm(c_cpu - truth, axis=1).mean()))
+        degraded[kind] = {side: dict(success=len(e) / DEGRADED_VIEWS, mean_err_px=float(np.mean(e)) if e else None)
+                          for side, e in found.items()}
+    out["degraded"] = degraded
+    print(f"degraded {DET_W}x{DET_H} views ({DEGRADED_VIEWS} each; success share, mean px from the truth), card | "
+          f"CPU: " + "; ".join(f"{k} {v['card']['success']:.2f} {v['card']['mean_err_px']} | {v['cpu']['success']:.2f} "
+                              f"{v['cpu']['mean_err_px']}" for k, v in degraded.items()), flush=True)
+
+    out["validate_distance"] = validate_distance_chain(dev, cams, st)
+    out["balls"] = phase_balls(dev)
+    out["times"] = detect_times(dev, views[0][0][0], card)
+    return out
+
+
+def validate_distance_chain(dev, cams, st) -> dict:
+    """The CLI's validate-distance on the card: a board VALIDATE_MM from
+    camera 1 rendered for both cameras of the true rig, corners detected on
+    the card, undistorted with R1/P1 and R2/P2 from stereo_rectify of the rig
+    calibrated above, triangulated, measured; the geometry again on the CPU
+    from the same corners (rtol 1e-6), and the whole chain from the CPU's
+    corners."""
+    centre = np.array([(DET_BOARD[0] - 1) * DET_SQUARE / 2, (DET_BOARD[1] - 1) * DET_SQUARE / 2, 0.0])
+    rvec = np.array([0.06, -0.1, 0.03])
+    target = np.array([-60.0, 40.0, 0.0])
+    target[2] = np.sqrt(VALIDATE_MM**2 - target[0] ** 2 - target[1] ** 2)
+    tvec = target - ops.rodrigues(torch.from_numpy(rvec)).numpy() @ centre
+    imgs = [render_board_view(DET_K, rvec, tv, (DET_W, DET_H), *DET_BOARD, DET_SQUARE, device=dev)[0]
+            for tv in (tvec, tvec + DET_T)]
+    corners = [detect_both(img, dev) for img in imgs]
+
+    def chain(c1, c2, d):
+        rect = ops.stereo_rectify(cams[0].K, cams[0].dist, cams[1].K, cams[1].dist, (DET_W, DET_H), st.R, st.T,
+                                  device=d)
+        ul = ops.undistort_points(c1.astype(np.float64), cams[0].K, cams[0].dist, R=rect.R1, P=rect.P1, device=d)
+        ur = ops.undistort_points(c2.astype(np.float64), cams[1].K, cams[1].dist, R=rect.R2, P=rect.P2, device=d)
+        pts = ops.triangulate_points(rect.P1[:3, :4], rect.P2[:3, :4], ul, ur)
+        if pts.device.type != torch.device(d).type:
+            raise AssertionError("the validate-distance chain left its device")
+        return pts.cpu().numpy(), track.validate_distance(pts, VALIDATE_MM, VALIDATE_TOL)
+
+    pts, res = chain(corners[0][1], corners[1][1], dev)
+    pts_cpu, res_cpu = chain(corners[0][1], corners[1][1], "cpu")
+    _, res_cpu_corners = chain(corners[0][2], corners[1][2], "cpu")
+    rel = float(np.abs(pts - pts_cpu).max() / np.abs(pts_cpu).max())
+    if not res.passed or abs(res.measured / VALIDATE_MM - 1) > 0.01 or rel > 1e-6:
+        raise AssertionError(f"validate-distance: {res} (CPU {res_cpu}), points card vs CPU rel {rel}")
+    out = dict(measured_mm=res.measured, error_percent=res.error_percent, passed=res.passed,
+               cpu_measured_mm=res_cpu.measured, points_card_cpu_rel=rel,
+               cpu_corners_measured_mm=res_cpu_corners.measured)
+    print(f"validate-distance on the card: {res.measured:.4f} mm against {VALIDATE_MM} ({res.error_percent:.4f}%, "
+          f"passed at {VALIDATE_TOL}%); the geometry on the CPU from the same corners {res_cpu.measured:.4f} mm "
+          f"(points rel {rel:.2e}); from the CPU's corners {res_cpu_corners.measured:.4f} mm", flush=True)
+    return out
+
+
+def _pred(cx, cy, half_w, half_h, conf):
+    return {"x": cx, "y": cy, "width": 2 * half_w, "height": 2 * half_h, "confidence": conf}
+
+
+def phase_balls(dev) -> dict:
+    """rgb_to_gray and Otsu card against CPU, Hough at 1280x720 on the card
+    (against the CPU on a crop that holds every ring around the ball),
+    rescore_detections and the hosted client with a stub transport, and
+    largest_component_mask at 1920x1080, card against CPU bit for bit."""
+    rng = np.random.default_rng(34)
+    levels = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)[None]
+    triples = rng.integers(0, 256, (1, 100_000, 3), dtype=np.uint8)
+    for img in (levels, triples):
+        a = detect.rgb_to_gray(torch.from_numpy(img).to(dev)).cpu()
+        if not torch.equal(a.view(torch.int32), detect.rgb_to_gray(torch.from_numpy(img)).view(torch.int32)):
+            raise AssertionError("rgb_to_gray differs between the card and the CPU")
+    for i in range(50):
+        g = np.clip(np.where(rng.random((90, 120)) < 0.5, rng.normal(70, 25, (90, 120)),
+                             rng.normal(170, 30, (90, 120))), 0, 255).astype(np.float32)
+        if float(detect.otsu_threshold(torch.from_numpy(g).to(dev))) != float(detect.otsu_threshold(torch.from_numpy(g))):
+            raise AssertionError(f"Otsu's threshold differs between the card and the CPU on image {i}")
+
+    frame = ball_frame(0, BALL_H, BALL_W, *BALL_C, BALL_R)
+    gray = detect.rgb_to_gray(torch.from_numpy(frame).to(dev))
+    found = detect.hough_circles(gray, **HOUGH_KW)
+    x0, y0 = int(BALL_C[0]) - BALL_CROP, int(BALL_C[1]) - BALL_CROP
+    crop = gray[y0:y0 + 2 * BALL_CROP, x0:x0 + 2 * BALL_CROP]
+    found_crop = detect.hough_circles(crop, **HOUGH_KW)
+    found_cpu = detect.hough_circles(crop.cpu(), **HOUGH_KW)
+    mag = detect.sobel_magnitude(crop)[0] > 100.0
+    radii = tuple(range(20, 101, 2))
+    if not torch.equal(detect.hough_accumulator(mag.float(), radii).cpu(),
+                       detect.hough_accumulator(mag.cpu().float(), radii)):
+        raise AssertionError("the Hough accumulator differs between the card and the CPU")
+    c = found[0]
+    if (found_crop != found_cpu or (c.cx - x0, c.cy - y0, c.radius, c.score) != found_cpu[0]
+            or np.hypot(c.cx - BALL_C[0], c.cy - BALL_C[1]) > 1.0):
+        raise AssertionError(f"Hough: card {found[:1]}, card crop {found_crop[:1]}, CPU crop {found_cpu[:1]}")
+
+    boxes = [(BALL_C[0] - 34, BALL_C[1] - 33, BALL_C[0] + 35, BALL_C[1] + 33, 0.8),
+             (200.0, 150.0, 280.0, 230.0, 0.9), (1000.0, 500.0, 1060.0, 560.0, 0.3)]
+    rescored = [detect.rescore_detections(frame, boxes, color_range=detect.BLUE_HSV_RANGE, device=d)
+                for d in (dev, "cpu")]
+    stub = [_pred(BALL_C[0] + 2.0, BALL_C[1] - 1.5, 35.0, 33.0, 0.9), _pred(240.0, 190.0, 40.0, 40.0, 0.95)]
+    hosted = [detect.HostedDetectorClient(lambda im: stub, device=d).detect(frame) for d in (dev, "cpu")]
+    h = hosted[0]
+    if (rescored[0][:3] != rescored[1][:3] or abs(rescored[0].confidence / rescored[1].confidence - 1) > 1e-6
+            or np.hypot(rescored[0].cx - BALL_C[0], rescored[0].cy - BALL_C[1]) > 1.0):
+        raise AssertionError(f"rescore_detections: card {rescored[0]}, CPU {rescored[1]}")
+    if (h is None or hosted[1] is None or np.abs(np.subtract(h, hosted[1])).max() > 1e-4
+            or np.hypot(h.cx - BALL_C[0], h.cy - BALL_C[1]) > 1.0):
+        raise AssertionError(f"the hosted client: card {h}, CPU {hosted[1]}, truth {BALL_C}")
+
+    big = ball_frame(1, 1080, 1920, 900.0, 500.0, 60.0)
+    draw_ball(big, 1500.0, 300.0, 40.0, (40, 60, 220))
+    hsv = detect.rgb_to_hsv(torch.from_numpy(big))
+    mask = detect.in_range(hsv, *detect.BLUE_HSV_RANGE) | torch.from_numpy(rng.random((1080, 1920)) < 0.3)
+    lcm = detect.largest_component_mask(mask.to(dev)).cpu()
+    lcm_cpu = detect.largest_component_mask(mask)
+    if not torch.equal(lcm, lcm_cpu):
+        raise AssertionError("largest_component_mask differs between the card and the CPU at 1920x1080")
+    out = dict(hough=c._asdict(), hough_cpu_crop=found_cpu[0]._asdict(), rescored=rescored[0]._asdict(),
+               hosted=h._asdict(), hosted_cpu=hosted[1]._asdict(), lcm_pixels=int(lcm.sum()))
+    print(f"balls: Hough at {BALL_W}x{BALL_H} on the card {c} (CPU on the crop: equal), centre "
+          f"{np.hypot(c.cx - BALL_C[0], c.cy - BALL_C[1]):.3f} px from the truth; rescored {rescored[0]} (CPU equal); "
+          f"hosted client {h} ({np.hypot(h.cx - BALL_C[0], h.cy - BALL_C[1]):.3f} px from the truth; CPU "
+          f"{hosted[1]}); largest_component_mask at 1920x1080 card == CPU ({int(lcm.sum())} px); rgb_to_gray "
+          f"(256 levels, 10^5 triples) and Otsu (50 images) card == CPU", flush=True)
+    return out
+
+
+def detect_times(dev, board_img: np.ndarray, card: str) -> dict:
+    """Seconds per call, card and CPU, each the mean of a few calls after a
+    warm-up: find_chessboard_corners at 1920x1080, hough_circles at 1280x720."""
+    frame = ball_frame(0, BALL_H, BALL_W, *BALL_C, BALL_R)
+    gray = detect.rgb_to_gray(torch.from_numpy(frame)).numpy()
+    calls = {"find_chessboard_corners 1920x1080": lambda d: detect.find_chessboard_corners(board_img, DET_BOARD,
+                                                                                            device=d),
+             "hough_circles 1280x720": lambda d: detect.hough_circles(gray, **HOUGH_KW, device=d)}
+    out = {}
+    for name, fn in calls.items():
+        for d, reps in ((dev, 5), ("cpu", 2)):
+            fn(d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(d)
+            torch.cuda.synchronize()
+            out[f"{name} {torch.device(d).type}"] = (time.perf_counter() - t0) / reps
+    print(f"detect times, s per call on {card} (host {torch.get_num_threads()} threads): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2730,6 +3008,11 @@ def main() -> int:
     calibrate_stream["phase_s"] = time.perf_counter() - t0
     print(f"phase 32: {calibrate_stream['phase_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    detection = phase_detect(dev, card)
+    detection["phase_s"] = time.perf_counter() - t0
+    print(f"phase 33: {detection['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -2754,7 +3037,7 @@ def main() -> int:
                       "wide_bands": wide_bands, "wide_range": wide_range, "speckle": speckle,
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
-                      "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream,
+                      "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream, "detection": detection,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,9 @@ Port of ``stereo_vision_tpu/stereo/postprocess.py``:
 - :func:`left_right_check`, cv2 validateDisparity against a precomputed
   right disparity (the LR filter for block matching, which has none of its
   own); plain torch, as in JAX (no Pallas kernel);
+- :func:`connected_component_labels`, min-propagation + pointer jumping
+  over a fixed number of rounds, as in JAX (the labels of the ball mask's
+  largest blob, ``detect.circles.largest_component_mask``);
 - :func:`speckle_filter`, exact cv2.filterSpeckles: the same gather-free
   five-phase algorithm, written as shifted elementwise torch ops (the proof
   of exactness is in the JAX docstring). It is the plain form of the CUDA
@@ -13,6 +16,8 @@ Port of ``stereo_vision_tpu/stereo/postprocess.py``:
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -53,6 +58,40 @@ def left_right_check(
         d2 = torch.gather(disp_right, -1, xr.clamp(0, W - 1).to(torch.int64))
     ok = in_range & ((d2 - disp_left).abs() <= max_diff) & (disp_left >= 0)
     return torch.where(ok, disp_left, torch.as_tensor(invalid_value, dtype=disp_left.dtype, device=disp_left.device))
+
+
+def connected_component_labels(
+    same_blob_adjacency: list[torch.Tensor],
+    valid: torch.Tensor,
+    rounds: int | None = None,
+) -> torch.Tensor:
+    """4-neighbour component labels by min-propagation + two pointer hops a
+    round (Shiloach-Vishkin style).
+
+    Args:
+      same_blob_adjacency: 4 boolean (H, W) masks for the neighbours at
+        (+y, -y, +x, -x), True where the neighbour is in the same blob.
+      valid: (H, W) bool; invalid pixels are singleton components.
+      rounds: propagation rounds; default ceil(log2(H*W)) + 2.
+
+    Returns:
+      (H, W) int32 labels. The rounds are fixed, not run to convergence: a
+      long thin component (a serpentine) can keep several labels, and these
+      equal the JAX function's bit for bit; with enough rounds each label is
+      the least flat index of its component.
+    """
+    H, W = valid.shape
+    if rounds is None:
+        rounds = int(math.ceil(math.log2(max(H * W, 2)))) + 2
+    lab = torch.arange(H * W, dtype=torch.int32, device=valid.device).reshape(H, W)
+    for _ in range(rounds):
+        out = lab
+        for i, m in enumerate(same_blob_adjacency):  # neighbours read from the round's start
+            out = torch.where(m, torch.minimum(out, _nb(lab, i, H * W)), out)
+        flat = out.reshape(-1)
+        flat = flat[flat.long()]
+        lab = flat[flat.long()].reshape(H, W)
+    return lab
 
 
 def _nb(a: torch.Tensor, i: int, fill) -> torch.Tensor:

@@ -4,7 +4,8 @@ The port's own copies of ``bench.py``'s ``_scene``, ``_scene_occ`` and
 ``_agreement``, with the frame size as a parameter (the bench fixes
 1280x720), plus the ramp+box scene's true disparity, disparity maps
 made to break a speckle filter (:func:`speckle_patterns`), and two
-unsynchronised streams of scenes with a flash (:func:`flash_streams`).
+unsynchronised streams of scenes with a flash (:func:`flash_streams`),
+and a shaded ball drawn without OpenCV (:func:`draw_ball`, :func:`ball_frame`).
 """
 
 from __future__ import annotations
@@ -199,3 +200,55 @@ def flash_streams(n_frames: int, lag: int, flash_at: int, H: int = 720, W: int =
     left = np.stack([frame(t, 0) for t in range(n_frames)])
     right = np.stack([frame(j - lag, 1) for j in range(n_frames)])
     return left, right
+
+
+def _disk_cover(h: int, w: int, cx: float, cy: float, r: float, inner: float = -1.0, ss: int = 4) -> np.ndarray:
+    """(h, w) float32 share of each pixel inside the ring inner < d <= r
+    around (cx, cy) (a disk for inner < 0), from ss x ss samples a pixel,
+    pixel centres at integer coordinates."""
+    sub = (np.arange(ss) + 0.5) / ss - 0.5
+    ys = (np.arange(h)[:, None] + sub[None, :]).reshape(-1)
+    xs = (np.arange(w)[:, None] + sub[None, :]).reshape(-1)
+    d2 = (ys[:, None] - cy) ** 2 + (xs[None, :] - cx) ** 2
+    inside = (d2 <= r * r) & (d2 > inner * inner if inner >= 0 else True)
+    return inside.reshape(h, ss, w, ss).mean(axis=(1, 3)).astype(np.float32)
+
+
+def _paint(img: np.ndarray, cover: np.ndarray, y0: int, x0: int, color) -> None:
+    """Blend ``color`` into ``img`` by the coverage of its (y0, x0) window."""
+    h, w = cover.shape
+    win = img[y0 : y0 + h, x0 : x0 + w].astype(np.float32)
+    a = cover[..., None]
+    img[y0 : y0 + h, x0 : x0 + w] = np.rint(win * (1 - a) + np.asarray(color, np.float32) * a).astype(img.dtype)
+
+
+def draw_ball(img: np.ndarray, cx: float, cy: float, r: float, color=(255, 120, 30)) -> None:
+    """Shaded ball, anti-aliased, in place on an (H, W, 3) uint8 image: a
+    disk of radius round(r) at (round(cx), round(cy)), a rim darker by 0.55
+    and max(ri // 6, 1) wide on its edge, and a (250, 250, 250) highlight of
+    radius max(ri // 4, 1) up and left of the centre (the JAX package's
+    OpenCV drawing's layout; not its pixels)."""
+    H, W = img.shape[:2]
+    c = (int(round(cx)), int(round(cy)))
+    ri = max(int(round(r)), 2)
+    rim_w = max(ri // 6, 1)
+    hi_c, hi_r = (int(c[0] - ri * 0.3), int(c[1] - ri * 0.3)), max(ri // 4, 1)
+    rim = tuple(max(int(v * 0.55), 0) for v in color)
+    for (px, py), rad, inner, col in ((c, ri + rim_w / 2, -1.0, color), (c, ri + rim_w / 2, ri - rim_w / 2, rim),
+                                      (hi_c, hi_r, -1.0, (250, 250, 250))):
+        y0, x0 = max(int(np.floor(py - rad - 1)), 0), max(int(np.floor(px - rad - 1)), 0)
+        y1, x1 = min(int(np.ceil(py + rad + 2)), H), min(int(np.ceil(px + rad + 2)), W)
+        if y1 > y0 and x1 > x0:
+            _paint(img, _disk_cover(y1 - y0, x1 - x0, px - x0, py - y0, rad, inner), y0, x0, col)
+
+
+def ball_frame(seed: int, H: int = 720, W: int = 1280, cx: float = 640.0, cy: float = 360.0, r: float = 40.0,
+               color=(30, 90, 230)) -> np.ndarray:
+    """(H, W, 3) uint8 RGB frame: a smooth gray-green texture (values 60-160)
+    with a ball drawn at (cx, cy), radius r (blue by default: inside the
+    hosted detector's colour range)."""
+    rng = np.random.default_rng(seed)
+    t = 60.0 + _smooth_texture(rng, (H, W)) * (100.0 / 255.0)
+    img = np.stack([t * 0.9, t, t * 0.8], axis=-1).astype(np.uint8)
+    draw_ball(img, cx, cy, r, color)
+    return img

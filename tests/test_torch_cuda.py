@@ -7,22 +7,24 @@ them it runs as
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Exact equality throughout: every value is an integer (disparities are
-k/16); the geometry ops, float64 on both sides, are held within 1e-9.
+k/16); the geometry ops, float64 on both sides, are held within 1e-9;
+detected checkerboard corners (window sums reduced in other orders) within
+5e-3 px.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from stereo_vision_tpu_torch import calib, ops, sync
+from stereo_vision_tpu_torch import calib, detect, ops, sync
 from stereo_vision_tpu_torch.parallel.mesh import create_mesh
 from stereo_vision_tpu_torch.parallel.streaming import StereoStreamProcessor, batched_stereo_pipeline
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
 from stereo_vision_tpu_torch.synth import scenes
-from stereo_vision_tpu_torch.synth.boards import board_views
-from stereo_vision_tpu_torch.synth.scenes import flash_streams, scene, speckle_patterns
+from stereo_vision_tpu_torch.synth.boards import add_glare, add_noise, board_views, motion_blur, render_board_view
+from stereo_vision_tpu_torch.synth.scenes import ball_frame, flash_streams, scene, speckle_patterns
 
 pytestmark = pytest.mark.cuda
 
@@ -1534,3 +1536,101 @@ def test_stream_processor_cuda_matches_batched_pipeline(dev):
         disp, _ = proc.drain()
     np.testing.assert_array_equal(disp, refs[1][0].cpu().numpy())
     assert proc.drain() is None
+
+
+def _serpentine(n):
+    m = np.zeros((n, n), bool)
+    m[::2] = True
+    for i in range(1, n, 2):
+        m[i, n - 1 if (i // 2) % 2 == 0 else 0] = True
+    return m
+
+
+def test_gray_and_otsu_cuda_match_cpu(dev):
+    """rgb_to_gray (the 256 gray levels, 10^5 random triples) bit for bit and
+    Otsu's threshold on 100 random bimodal images, card against CPU."""
+    rng = np.random.default_rng(16)
+    levels = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)[None]
+    for img in (levels, rng.integers(0, 256, (1, 100_000, 3), dtype=np.uint8)):
+        g = detect.rgb_to_gray(torch.from_numpy(img).to(dev)).cpu()
+        assert torch.equal(g.view(torch.int32), detect.rgb_to_gray(torch.from_numpy(img)).view(torch.int32))
+    for _ in range(100):
+        H, W = rng.integers(8, 120, 2)
+        img = np.clip(np.where(rng.random((H, W)) < rng.uniform(0.2, 0.8), rng.normal(rng.uniform(20, 120), 20, (H, W)),
+                               rng.normal(rng.uniform(120, 230), 30, (H, W))), 0, 255).astype(np.float32)
+        t = torch.from_numpy(img)
+        assert float(detect.otsu_threshold(t.to(dev))) == float(detect.otsu_threshold(t))
+
+
+@pytest.mark.parametrize("shape,p", [((37, 53), 0.6), ((256, 320), 0.55), ((1, 900), 0.8), ((720, 1280), 0.5)])
+def test_connected_component_labels_cuda_match_cpu(dev, shape, p):
+    """The labels and largest_component_mask, bit for bit; the serpentine
+    whose fixed rounds stop short of convergence too."""
+    from stereo_vision_tpu_torch.stereo.postprocess import connected_component_labels
+
+    masks = [np.random.default_rng(sum(shape)).random(shape) < p, _serpentine(64)]
+    for mask in masks:
+        m = torch.from_numpy(mask)
+        H, W = mask.shape
+        pad = torch.nn.functional.pad(m, (1, 1, 1, 1))
+        adj = [m & pad[1 + dy:H + 1 + dy, 1 + dx:W + 1 + dx] for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1))]
+        cpu = connected_component_labels(adj, m)
+        card = connected_component_labels([a.to(dev) for a in adj], m.to(dev))
+        assert torch.equal(card.cpu(), cpu)
+        assert torch.equal(detect.largest_component_mask(m.to(dev)).cpu(), detect.largest_component_mask(m))
+
+
+def test_hough_accumulator_cuda_matches_cpu(dev):
+    """Exact integer counts over the ring size on both, at the ball frame's
+    edges and on random edge maps."""
+    frame = ball_frame(2, 240, 320, 160.0, 120.0, 40.0)
+    mag = detect.sobel_magnitude(detect.rgb_to_gray(torch.from_numpy(frame)))[0]
+    edges = [(mag > 100.0).float(), torch.from_numpy((np.random.default_rng(3).random((200, 260)) < 0.2)
+                                                     .astype(np.float32))]
+    for e in edges:
+        radii = tuple(range(10, 101, 2))
+        assert torch.equal(detect.hough_accumulator(e.to(dev), radii).cpu(), detect.hough_accumulator(e, radii))
+    gray = detect.rgb_to_gray(torch.from_numpy(frame))
+    assert detect.hough_circles(gray.to(dev), 20, 60) == detect.hough_circles(gray, 20, 60)
+
+
+def test_hough_accumulator_edge_strength_cuda_matches_cpu(dev):
+    """A float edge-strength map keeps its unrounded sums on both: within
+    rtol 1e-6 (float64 FFTs in other orders, rounded to float32)."""
+    frame = ball_frame(2, 240, 320, 160.0, 120.0, 40.0)
+    mag = detect.sobel_magnitude(detect.rgb_to_gray(torch.from_numpy(frame)))[0]
+    radii = tuple(range(10, 101, 6))
+    cpu = detect.hough_accumulator(mag, radii)
+    torch.testing.assert_close(detect.hough_accumulator(mag.to(dev), radii).cpu(), cpu, rtol=1e-6,
+                               atol=1e-6 * float(cpu.abs().max()))
+
+
+def test_edge_width_means_cuda_match_cpu(dev):
+    """find_chessboard_corners' blur measure (float64 sums of the same
+    float32 terms) within 1 float32 ulp, card against CPU."""
+    from stereo_vision_tpu_torch.detect.checkerboard import _edge_width_means
+
+    img = np.random.default_rng(4).integers(0, 256, (1080, 1920), dtype=np.uint8)
+    t = torch.from_numpy(img)
+    torch.testing.assert_close(_edge_width_means(t.to(dev)).cpu(), _edge_width_means(t), rtol=1.2e-7, atol=0)
+
+
+def test_find_chessboard_corners_cuda_matches_cpu(dev):
+    """Rendered 1920x1080 views of the CLI's 7x4 board, clean and degraded:
+    the same ok flags, corners within 5e-3 px; every clean view found,
+    within 0.5 px of the truth."""
+    K = np.array([[1500.0, 0, 959.5], [0, 1500.0, 539.5], [0, 0, 1]])
+    _, corners, (rvecs, tvecs) = board_views(3, 5, K, np.zeros(5), (1920, 1080), cols=7, rows=4, noise=0.0,
+                                            margin=150.0, depth=(1800.0, 3500.0), return_poses=True)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        img, truth = render_board_view(K, rvecs[i], tvecs[i], (1920, 1080), 7, 4, device=dev)
+        np.testing.assert_allclose(truth, corners[i], atol=1e-6)
+        for j, view in enumerate((img, add_noise(img, 12.0, rng), motion_blur(img, 9, 40.0 * i), add_glare(img, rng))):
+            ok, c = detect.find_chessboard_corners(view, (7, 4))
+            ok_cpu, c_cpu = detect.find_chessboard_corners(view, (7, 4), device="cpu")
+            assert ok == ok_cpu and (ok or j > 0)
+            if ok:
+                assert np.abs(c - c_cpu).max() <= 5e-3
+            if j == 0:
+                assert np.abs(c - truth).max() <= 0.5
