@@ -235,6 +235,28 @@ After 18:
      largest_component_mask at 1920x1080 card == CPU; seconds per call of
      find_chessboard_corners (1920x1080) and hough_circles (1280x720), card
      and CPU, with the card's name and power limit.
+ 34. (run after 33) the CLI's ball-drop and pose chains at 1920x1080 on the
+     rig of tests/test_e2e_detectors.py with its field of view scaled to
+     1920 px (f = 2100 px, 500 mm baseline): both in-repo networks loaded
+     from the JAX package's npz files (297 and 156 leaves); a ball drop
+     (synth.scenes.render_ball_drop_stereo without OpenCV, 120 frames a
+     camera at 240 fps, 80 mm ball held 25 frames) through
+     detect_balls_in_frames on the card, analyze_ball_drop and drop_report
+     (found in > 90% of frames, gravity within 5% of 9800 mm/s^2), 8 frames
+     a camera card against CPU (the same frames found, centres and radii
+     within 1e-2 px, confidences 1e-4, the same kept detections); a stick
+     figure (render_pose_stereo, 60 frames a camera) through
+     pose_landmarks_in_frames on the card and run_pose_workflow into a
+     temporary directory (> 90% of joints fused, median 3D error < 30 mm,
+     > 90% of angles finite, median angle error < 4 degrees, the six
+     artifacts), 8 frames a camera card against CPU (landmarks within
+     2e-2 px, z and visibility 1e-4), fuse_pose_sequence card against CPU
+     on the whole sequence (the same joints, within 1e-3 mm); the hosted
+     client over local_transport on one frame, card against CPU; seconds
+     per call on the card of detect_balls_in_frames (240 frames),
+     pose_landmarks_in_frames (120), fuse_pose_sequence (60) and
+     smooth_pose_sequence, and the two detectors split into their stages
+     with CUDA events, with the card's name and power limit.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -259,8 +281,10 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -268,6 +292,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from stereo_vision_tpu_torch import _build, calib, detect, ops, sync, track
+from stereo_vision_tpu_torch.models import convert, pretrained, yolov8
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.mesh import create_mesh
@@ -281,8 +306,9 @@ from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, s
 from stereo_vision_tpu_torch.synth.boards import (add_glare, add_noise, board_views, low_contrast, motion_blur,
                                                   render_board_view)
 from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, ball_frame, draw_ball, flash_streams,
-                                                  lr_maps, scene, scene_occ, scene_truth, speckle_patterns,
-                                                  wta_volumes)
+                                                  lr_maps, render_ball_drop_stereo, render_pose_stereo, scene,
+                                                  scene_occ, scene_truth, speckle_patterns, wta_volumes)
+from stereo_vision_tpu_torch.track.pose_pipeline import run_pose_workflow
 
 H, W, D, B = 720, 1280, 128, 4
 # bench.py's exact8 mode (BASELINE config #2).
@@ -2889,6 +2915,190 @@ def detect_times(dev, board_img: np.ndarray, card: str) -> dict:
     return out
 
 
+# Phase 34: the CLI's ball-drop and pose chains at its frame size, on the rig
+# of tests/test_e2e_detectors.py (f = 350 px at 320 px, 500 mm baseline) with
+# its field of view scaled to 1920 px: a ball of 80 mm held 25 frames then
+# dropped is ~4.5 px in radius after the letterbox, as in that test.
+E2E_W, E2E_H, E2E_F, E2E_BASELINE = 1920, 1080, 2100.0, 500.0
+E2E_LEAVES = {"ball": 297, "pose": 156}
+# Card against CPU: float32 networks with TF32 off, summed in other orders;
+# the letterbox maps 1 px of the letterbox to 15 (ball) or 7.5 (pose) px of
+# the frame. The fusion takes the same (the card's) landmarks on both sides.
+E2E_BALL_PX, E2E_BALL_CONF = 1e-2, 1e-4
+E2E_POSE_PX, E2E_POSE_ZV = 2e-2, 1e-4
+E2E_FUSE_MM = 1e-3
+
+
+def e2e_rig() -> track.StereoRig:
+    K = np.array([[E2E_F, 0, E2E_W / 2], [0, E2E_F, E2E_H / 2], [0, 0, 1.0]])
+    return track.StereoRig(K1=K, d1=np.zeros(8), K2=K, d2=np.zeros(8), R=np.eye(3),
+                           T=np.array([-E2E_BASELINE, 0, 0]))
+
+
+def same_balls(a, b, what: str) -> float:
+    """The largest centre / radius difference of two detection lists (frame
+    px), which must find the ball in the same frames."""
+    if [d is None for d in a] != [d is None for d in b]:
+        raise AssertionError(f"{what}: card and CPU find the ball in different frames")
+    px = conf = 0.0
+    for d, e in zip(a, b):
+        if d is not None:
+            px = max(px, abs(d.cx - e.cx), abs(d.cy - e.cy), abs(d.radius - e.radius))
+            conf = max(conf, abs(d.confidence - e.confidence))
+    if px > E2E_BALL_PX or conf > E2E_BALL_CONF:
+        raise AssertionError(f"{what}: card against CPU {px} px, confidence {conf}")
+    return px
+
+
+def split_ms(stages, reps: int = 3) -> dict:
+    """CUDA-event ms per stage of a chain of stages (each takes the output of
+    the one before), the mean of ``reps`` runs after a warm-up."""
+    out = {name: 0.0 for name, _ in stages}
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        x = None
+        ev[0].record()
+        for i, (_, fn) in enumerate(stages):
+            x = fn(x)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, (name, _) in enumerate(stages):
+                out[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return out
+
+
+def phase_ball_pose(dev, card: str) -> dict:
+    """Phase 34: the ball-drop chain (render, detect_balls_in_frames,
+    analyze_ball_drop, drop_report) and the pose chain (render,
+    pose_landmarks_in_frames, run_pose_workflow) at 1920x1080 on the card,
+    card against CPU, the hosted client's local transport, times."""
+    out = {}
+    rig = e2e_rig()
+    models = {"ball": pretrained.load_ball_detector(dev), "pose": pretrained.load_pose_net(dev)}
+    for name, m in models.items():
+        n = len(convert.reference_leaves(m))
+        if n != E2E_LEAVES[name]:
+            raise AssertionError(f"{name}: {n} weight leaves loaded, not {E2E_LEAVES[name]}")
+    out["leaves"] = E2E_LEAVES
+
+    t0 = time.perf_counter()
+    lf, rf, uv_l, _, _ = render_ball_drop_stereo(rig, T=120, fps=240.0, H=E2E_H, W=E2E_W, hold_frames=25,
+                                                        ball_radius_mm=80.0, seed=3)
+    render_s = time.perf_counter() - t0
+    dl = pretrained.detect_balls_in_frames(lf, device=dev)
+    dr = pretrained.detect_balls_in_frames(rf, device=dev)
+    found = float(np.mean([d is not None for d in dl + dr]))
+    traj = track.analyze_ball_drop(rig, dl, dr, fps=240.0, device=dev)
+    report = track.drop_report(traj, drop_height_mm=0.5 * 9800.0 * (95 / 240.0) ** 2)
+    if found <= 0.9:
+        raise AssertionError(f"the detector found the ball in only {found:.1%} of the frames")
+    if traj.gravity_mm_s2 is None or abs(traj.gravity_mm_s2 - 9800.0) / 9800.0 >= 0.05:
+        raise AssertionError(f"gravity {traj.gravity_mm_s2} mm/s^2 is not within 5% of 9800")
+    px_err = [np.hypot(d.cx - u, d.cy - v) for d, (u, v) in zip(dl, uv_l) if d is not None]
+    idx = np.linspace(0, 119, 8).astype(int)
+    ball_apart = max(same_balls(pretrained.detect_balls_in_frames(f[idx], device=dev),
+                                pretrained.detect_balls_in_frames(f[idx], device="cpu"), f"camera {c}")
+                     for c, f in ((1, lf), (2, rf)))
+    small, _ = pretrained.letterbox(lf[idx], pretrained.BALL_IMG_HW, dev)
+    kept = [yolov8.detect(pretrained.load_ball_detector(d), small.to(d), score_threshold=0.3, max_det=8).valid.cpu()
+            for d in (dev, "cpu")]
+    if not torch.equal(*kept):
+        raise AssertionError("the card and the CPU keep different detections")
+    out["ball_drop"] = dict(frames=2 * len(lf), found=found, gravity_mm_s2=traj.gravity_mm_s2,
+                            gravity_error_pct=traj.gravity_error_pct, drop_start=traj.drop_start,
+                            median_centre_err_px=float(np.median(px_err)), card_cpu_px=ball_apart,
+                            report=report, render_s=render_s)
+    print(f"ball drop {E2E_W}x{E2E_H} (120 frames a camera, 240 fps): found in {found:.1%}, gravity "
+          f"{traj.gravity_mm_s2:.1f} mm/s^2 ({traj.gravity_error_pct:.2f}% off), median centre "
+          f"{np.median(px_err):.2f} px off the truth; card vs CPU <= {ball_apart:.2e} px on 8 frames a camera, "
+          f"the same kept detections", flush=True)
+
+    t0 = time.perf_counter()
+    plf, prf, gt33 = render_pose_stereo(rig, T=60, H=E2E_H, W=E2E_W, seed=2)
+    render_s = time.perf_counter() - t0
+    lml = pretrained.pose_landmarks_in_frames(plf, device=dev)
+    lmr = pretrained.pose_landmarks_in_frames(prf, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_pose_workflow(rig, lml, lmr, conf_threshold=0.5, out_dir=tmp, fps=30.0,
+                                                    device=dev)
+        files = sorted(os.listdir(tmp))
+    gt13 = gt33[:, track.joints.MEDIAPIPE_INDICES]
+    finite = np.isfinite(res.poses_raw).all(-1)
+    err = np.linalg.norm(res.poses_raw - gt13, axis=-1)[finite]
+    ang_gt = track.pose_angles(gt13, dev).cpu().numpy()
+    ok = np.isfinite(res.angles_raw) & np.isfinite(ang_gt)
+    ang_err = float(np.median(np.abs(res.angles_raw - ang_gt)[ok]))
+    if finite.mean() <= 0.9 or np.median(err) >= 30.0 or ok.mean() <= 0.9 or ang_err >= 4.0:
+        raise AssertionError(f"pose: {finite.mean():.1%} fused, median {np.median(err):.1f} mm, {ok.mean():.1%} "
+                             f"angles, median angle error {ang_err:.2f} deg")
+    lm_apart = zv_apart = 0.0
+    pidx = np.linspace(0, 59, 8).astype(int)
+    for f in (plf, prf):
+        a, b = (pretrained.pose_landmarks_in_frames(f[pidx], device=d) for d in (dev, "cpu"))
+        lm_apart = max(lm_apart, float(np.abs(a[..., :2] - b[..., :2]).max()))
+        zv_apart = max(zv_apart, float(np.abs(a[..., 2:] - b[..., 2:]).max()))
+    if lm_apart > E2E_POSE_PX or zv_apart > E2E_POSE_ZV:
+        raise AssertionError(f"pose landmarks card against CPU: {lm_apart} px, z / visibility {zv_apart}")
+    fused = [track.fusion.fuse_pose_sequence(lml, lmr, rig.as_arrays(d), conf_threshold=0.5, device=d).cpu()
+             for d in (dev, "cpu")]
+    if not torch.equal(fused[0].isnan(), fused[1].isnan()):
+        raise AssertionError("fuse_pose_sequence: card and CPU fuse different joints")
+    fuse_apart = float((fused[0] - fused[1]).nan_to_num().abs().max())
+    if fuse_apart > E2E_FUSE_MM:
+        raise AssertionError(f"fuse_pose_sequence card against CPU: {fuse_apart} mm")
+    out["pose"] = dict(frames=2 * len(plf), fused=float(finite.mean()), median_joint_err_mm=float(np.median(err)),
+                       angles_finite=float(ok.mean()), median_angle_err_deg=ang_err,
+                       smoothing_stats={k: v for k, v in res.smoothing_stats.items() if k != "processing_time"},
+                       files=files, card_cpu_px=lm_apart, card_cpu_zv=zv_apart, fuse_card_cpu_mm=fuse_apart,
+                       render_s=render_s)
+    print(f"pose {E2E_W}x{E2E_H} (60 frames a camera): {finite.mean():.1%} of joints fused, median 3D error "
+          f"{np.median(err):.2f} mm, {ok.mean():.1%} angles, median angle error {ang_err:.2f} deg; landmarks card vs "
+          f"CPU <= {lm_apart:.2e} px (z, visibility {zv_apart:.2e}), fusion card vs CPU <= {fuse_apart:.2e} mm; "
+          f"artifacts {files}", flush=True)
+
+    hosted = [detect.HostedDetectorClient(detect.local_transport(device=d), hsv_range=None, device=d).detect(lf[60])
+              for d in (dev, "cpu")]
+    out["hosted_card_cpu_px"] = same_balls(hosted[:1], hosted[1:], "the hosted client")
+    if hosted[0] is None:
+        raise AssertionError("the hosted client over local_transport found no ball")
+    out["times"] = ball_pose_times(dev, card, np.concatenate([lf, rf]), np.concatenate([plf, prf]), lml, lmr,
+                                   res.poses_raw)
+    return out
+
+
+def ball_pose_times(dev, card: str, balls: np.ndarray, bodies: np.ndarray, lml, lmr, poses) -> dict:
+    """Seconds per call of the slice's entry points on the card (host clock,
+    3 calls after a warm-up), and the two detectors' calls split into their
+    stages with CUDA events."""
+    rig = e2e_rig()
+    calib_arrays = rig.as_arrays(dev)
+    smoother = track.MotionSmoother("smalliphone", device=dev)
+    calls = {f"detect_balls_in_frames {len(balls)}": lambda: pretrained.detect_balls_in_frames(balls, device=dev),
+             f"pose_landmarks_in_frames {len(bodies)}": lambda: pretrained.pose_landmarks_in_frames(bodies,
+                                                                                                  device=dev),
+             f"fuse_pose_sequence {len(lml)}": lambda: track.fusion.fuse_pose_sequence(
+                 lml, lmr, calib_arrays, conf_threshold=0.5, device=dev),
+             f"smooth_pose_sequence {len(poses)}": lambda: smoother.smooth_pose_sequence(poses)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        out[name] = host_ms(fn, 3) / 1e3
+    ball, pose = pretrained.load_ball_detector(dev), pretrained.load_pose_net(dev)
+    with torch.no_grad():
+        out["detect_balls stages ms"] = split_ms([
+            ("letterbox + upload", lambda _: pretrained.letterbox(balls, pretrained.BALL_IMG_HW, dev)[0]),
+            ("forward", ball),
+            ("decode + NMS", lambda raw: yolov8.detections_from_maps(raw, pretrained.BALL_IMG_HW, 1,
+                                                                      score_threshold=0.3, max_det=8))])
+        out["pose_landmarks stages ms"] = split_ms([
+            ("letterbox + upload", lambda _: pretrained.letterbox(bodies, pretrained.POSE_IMG_HW, dev)[0]),
+            ("forward + soft-argmax", pose),
+            ("to host", lambda lm: lm.cpu())])
+    print(f"ball / pose times on {card}: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3013,6 +3223,11 @@ def main() -> int:
     detection["phase_s"] = time.perf_counter() - t0
     print(f"phase 33: {detection['phase_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ball_pose = phase_ball_pose(dev, card)
+    ball_pose["phase_s"] = time.perf_counter() - t0
+    print(f"phase 34: {ball_pose['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -3038,6 +3253,7 @@ def main() -> int:
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
                       "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream, "detection": detection,
+                      "ball_pose": ball_pose,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,8 @@
 """Image-space detectors: checkerboard corners, circles, ball scoring, the
 hosted-detector client, and the cv2-replacement image primitives.
 
-Port of ``stereo_vision_tpu/detect``; the hosted client's in-repo
-transport (``local_transport``, backed by the JAX package's detector
-network) is not ported yet.
+Port of ``stereo_vision_tpu/detect``, the hosted client's in-repo
+transport (``local_transport``, backed by the port's YOLOv8) included.
 """
 
 from stereo_vision_tpu_torch.detect.ball import (
@@ -32,7 +31,7 @@ from stereo_vision_tpu_torch.detect.circles import (
     otsu_foreground,
     region_circularity,
 )
-from stereo_vision_tpu_torch.detect.hosted import ROBOFLOW_BLUE_HSV_RANGE, HostedDetectorClient
+from stereo_vision_tpu_torch.detect.hosted import ROBOFLOW_BLUE_HSV_RANGE, HostedDetectorClient, local_transport
 from stereo_vision_tpu_torch.detect.image_ops import (
     binary_dilate,
     binary_erode,
@@ -80,4 +79,5 @@ __all__ = [
     "image_hash",
     "HostedDetectorClient",
     "ROBOFLOW_BLUE_HSV_RANGE",
+    "local_transport",
 ]

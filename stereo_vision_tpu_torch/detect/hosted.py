@@ -4,9 +4,9 @@ Port of ``stereo_vision_tpu/detect/hosted.py``: hosted-model prediction ->
 image-hash result cache -> ball-colour HSV gate -> circularity-gated
 min-enclosing-circle refinement -> size gate. The transport is any
 callable returning predictions in the hosted API's schema ({"x", "y",
-"width", "height", "confidence"} in pixels, centres and sizes). The image
-math runs on the client's ``device`` (None: the CUDA card); the in-repo
-detector's transport (``local_transport``) is not ported yet.
+"width", "height", "confidence"} in pixels, centres and sizes);
+:func:`local_transport` is the in-repo detector's. The image math runs on
+the client's ``device`` (None: the CUDA card).
 """
 
 from __future__ import annotations
@@ -34,6 +34,23 @@ ROBOFLOW_BLUE_HSV_RANGE = ((100, 50, 50), (130, 255, 255))
 
 Prediction = dict
 Transport = Callable[[np.ndarray], Sequence[Prediction]]
+
+
+def local_transport(score_threshold: float = 0.3, device=None) -> Transport:
+    """A hosted-API stand-in backed by the in-repo YOLOv8 weights
+    (``models.pretrained.detect_balls_in_frames`` on ``device``, None: the
+    CUDA card), answering in the hosted schema so the client's code path
+    is a real endpoint's."""
+    from stereo_vision_tpu_torch.models.pretrained import detect_balls_in_frames
+
+    def call(image: np.ndarray) -> list[Prediction]:
+        det = detect_balls_in_frames(image[None], score_threshold=score_threshold, device=device)[0]
+        if det is None:
+            return []
+        return [{"x": det.cx, "y": det.cy, "width": det.radius * 2, "height": det.radius * 2,
+                 "confidence": det.confidence}]
+
+    return call
 
 
 def _refine_circle(region_rgb, hsv_range=None, device=None) -> tuple[float, float, float] | None:

@@ -1,5 +1,5 @@
 """Image primitives: colour conversion, blur, thresholding, morphology,
-resize, Sobel.
+resize (a float one and cv2's fixed-point 8-bit one), Sobel.
 
 Port of ``stereo_vision_tpu/detect/image_ops.py`` (the cv2 cvtColor,
 GaussianBlur, Otsu threshold, inRange and resize replacements). Every
@@ -184,6 +184,53 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     if img.ndim == 3:  # remap_bilinear takes (..., H, W): channels to the front and back
         return remap_bilinear(img.movedim(-1, 0), map_x, map_y).movedim(0, -1)
     return remap_bilinear(img, map_x, map_y)
+
+
+def _linear_taps(src: int, dst: int, clamp_weights: bool):
+    """cv2's INTER_LINEAR taps for one axis: the first source index, the
+    second (clamped to the edge) and the two 11-bit fixed-point weights,
+    from the float32 offset ((d + 0.5) * src / dst - 0.5) as cv2 computes
+    it; with ``clamp_weights`` (the horizontal axis) an index off either
+    edge takes the edge sample at full weight."""
+    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp_weights:
+        off = (s < 0) | (s >= src - 1)
+        f[off] = 0.0
+        s = np.where(s < 0, 0, np.minimum(s, src - 1))
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(2048.0)).astype(np.int32)
+    w1 = np.rint(f * np.float32(2048.0)).astype(np.int32)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
+
+
+def linear_source_rows(H: int, out_h: int) -> np.ndarray:
+    """The 2 out_h rows of an H-row image that :func:`resize_bilinear_u8`
+    reads: each output row's first source row, then each one's second."""
+    y0, y1, _, _ = _linear_taps(H, out_h, False)
+    return np.concatenate([y0, y1])
+
+
+def resize_bilinear_u8(img: torch.Tensor, out_h: int, out_w: int, src_h: int | None = None) -> torch.Tensor:
+    """``cv2.resize(img, (out_w, out_h))`` (INTER_LINEAR) of a (..., H, W, C)
+    uint8 tensor, bit for bit: cv2 resizes 8-bit images in fixed point, a
+    horizontal pass of 11-bit weights into integer sums, then a vertical
+    pass that shifts each sum right by 4, multiplies it by its 11-bit
+    weight keeping the high 16 bits, adds the two rows and rounds off 2
+    more bits. Integer tensor math on ``img``'s device. With ``src_h``,
+    ``img`` holds only the rows ``linear_source_rows(src_h, out_h)`` of an
+    image of ``src_h`` rows (a caller then moves 2 out_h rows, not all)."""
+    W = img.shape[-2]
+    dev = img.device
+    if src_h is None:
+        src_h = img.shape[-3]
+        img = img[..., torch.as_tensor(linear_source_rows(src_h, out_h), device=dev), :, :]
+    _, _, b0, b1 = (torch.as_tensor(a, device=dev) for a in _linear_taps(src_h, out_h, False))
+    x0, x1, a0, a1 = (torch.as_tensor(a, device=dev) for a in _linear_taps(W, out_w, True))
+    h = img[..., x0, :].to(torch.int32) * a0[:, None] + img[..., x1, :].to(torch.int32) * a1[:, None]
+    h0, h1 = h[..., :out_h, :, :], h[..., out_h:, :, :]
+    v = (((h0 >> 4) * b0[:, None, None]) >> 16) + (((h1 >> 4) * b1[:, None, None]) >> 16)
+    return ((v + 2) >> 2).clamp(0, 255).to(torch.uint8)
 
 
 def sobel_magnitude(img: torch.Tensor):

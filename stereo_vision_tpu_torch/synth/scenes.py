@@ -5,12 +5,17 @@ The port's own copies of ``bench.py``'s ``_scene``, ``_scene_occ`` and
 1280x720), plus the ramp+box scene's true disparity, disparity maps
 made to break a speckle filter (:func:`speckle_patterns`), and two
 unsynchronised streams of scenes with a flash (:func:`flash_streams`),
-and a shaded ball drawn without OpenCV (:func:`draw_ball`, :func:`ball_frame`).
+a shaded ball drawn without OpenCV (:func:`draw_ball`, :func:`ball_frame`),
+and the JAX package's ball-drop and stick-figure stereo renders without
+OpenCV (:func:`render_ball_drop_stereo`, :func:`render_pose_stereo`), whose
+truth arrays equal the reference's.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from stereo_vision_tpu_torch.track.joints import JOINT_INDEX, KEY_JOINTS
 
 
 def _smooth_texture(rng, shape):
@@ -222,13 +227,22 @@ def _paint(img: np.ndarray, cover: np.ndarray, y0: int, x0: int, color) -> None:
     img[y0 : y0 + h, x0 : x0 + w] = np.rint(win * (1 - a) + np.asarray(color, np.float32) * a).astype(img.dtype)
 
 
+def _paint_disk(img: np.ndarray, cx: float, cy: float, r: float, color, inner: float = -1.0) -> None:
+    """An anti-aliased disk (the ring inner < d <= r for inner >= 0) of
+    4x4 samples a pixel, in place."""
+    H, W = img.shape[:2]
+    y0, x0 = max(int(np.floor(cy - r - 1)), 0), max(int(np.floor(cx - r - 1)), 0)
+    y1, x1 = min(int(np.ceil(cy + r + 2)), H), min(int(np.ceil(cx + r + 2)), W)
+    if y1 > y0 and x1 > x0:
+        _paint(img, _disk_cover(y1 - y0, x1 - x0, cx - x0, cy - y0, r, inner), y0, x0, color)
+
+
 def draw_ball(img: np.ndarray, cx: float, cy: float, r: float, color=(255, 120, 30)) -> None:
     """Shaded ball, anti-aliased, in place on an (H, W, 3) uint8 image: a
     disk of radius round(r) at (round(cx), round(cy)), a rim darker by 0.55
     and max(ri // 6, 1) wide on its edge, and a (250, 250, 250) highlight of
     radius max(ri // 4, 1) up and left of the centre (the JAX package's
     OpenCV drawing's layout; not its pixels)."""
-    H, W = img.shape[:2]
     c = (int(round(cx)), int(round(cy)))
     ri = max(int(round(r)), 2)
     rim_w = max(ri // 6, 1)
@@ -236,10 +250,7 @@ def draw_ball(img: np.ndarray, cx: float, cy: float, r: float, color=(255, 120, 
     rim = tuple(max(int(v * 0.55), 0) for v in color)
     for (px, py), rad, inner, col in ((c, ri + rim_w / 2, -1.0, color), (c, ri + rim_w / 2, ri - rim_w / 2, rim),
                                       (hi_c, hi_r, -1.0, (250, 250, 250))):
-        y0, x0 = max(int(np.floor(py - rad - 1)), 0), max(int(np.floor(px - rad - 1)), 0)
-        y1, x1 = min(int(np.ceil(py + rad + 2)), H), min(int(np.ceil(px + rad + 2)), W)
-        if y1 > y0 and x1 > x0:
-            _paint(img, _disk_cover(y1 - y0, x1 - x0, px - x0, py - y0, rad, inner), y0, x0, col)
+        _paint_disk(img, px, py, rad, col, inner)
 
 
 def ball_frame(seed: int, H: int = 720, W: int = 1280, cx: float = 640.0, cy: float = 360.0, r: float = 40.0,
@@ -252,3 +263,249 @@ def ball_frame(seed: int, H: int = 720, W: int = 1280, cx: float = 640.0, cy: fl
     img = np.stack([t * 0.9, t, t * 0.8], axis=-1).astype(np.uint8)
     draw_ball(img, cx, cy, r, color)
     return img
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's ball-drop and stick-figure renders without OpenCV: the
+# same numpy random calls in the same order (so the truth arrays equal the
+# reference's bit for bit), anti-aliased drawing of the same shapes (so the
+# pixels are close to, not equal to, the reference's OpenCV drawing).
+# ---------------------------------------------------------------------------
+
+
+def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable float32 Gaussian blur of an (H, W[, C]) image with
+    OpenCV's kernel size for float images (round(8 sigma + 1), odd) and its
+    default border (reflect-101)."""
+    k = int(round(sigma * 8 + 1)) | 1
+    half = k // 2
+    x = np.arange(k, dtype=np.float64) - half
+    taps = np.exp(-(x * x) / (2 * sigma * sigma))
+    taps = (taps / taps.sum()).astype(np.float32)
+    out = img.astype(np.float32)
+    for axis in (1, 0):
+        n = out.shape[axis]
+        idx = np.abs(np.arange(-half, n + half))
+        idx = np.where(idx >= n, 2 * (n - 1) - idx, idx)  # reflect-101
+        pad = np.moveaxis(np.take(out, idx, axis=axis), axis, 0)
+        acc = taps[0] * pad[:n]
+        for i in range(1, k):
+            acc += taps[i] * pad[i : i + n]
+        out = np.moveaxis(acc, 0, axis)
+    return out
+
+
+def textured_background(rng: np.random.Generator, H: int, W: int, sigma: float = 3.0) -> np.ndarray:
+    """Blurred-noise RGB background: uniform noise, blurred, stretched to a
+    random [lo, hi] range (min-max over the whole image), truncated to
+    uint8 (the reference's random draws, in its order)."""
+    img = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    img = gaussian_blur(img, sigma)
+    lo, hi = rng.uniform(20, 60), rng.uniform(150, 235)
+    mn, mx = float(img.min()), float(img.max())
+    scale = (hi - lo) / (mx - mn) if mx - mn > np.finfo(np.float64).eps else 0.0
+    return (img.astype(np.float64) * scale + (lo - mn * scale)).astype(np.float32).astype(np.uint8)
+
+
+def _project(P: np.ndarray, pts3d: np.ndarray) -> np.ndarray:
+    """(N, 3) mm -> (N, 2) px through a 3x4 projection matrix."""
+    ph = np.concatenate([pts3d, np.ones((len(pts3d), 1))], axis=1)
+    uv = (P @ ph.T).T
+    return uv[:, :2] / uv[:, 2:3]
+
+
+# OpenCV's anti-aliased shapes cover every pixel centre within the nominal
+# size fully and blend a rim beyond it: on OpenCV 5.0 a line of width 4
+# covers 5.4 px across (width 18: 19.4), a disk of radius 4 covers 65 px^2
+# (radius 4.55; radius 18: 18.6). The stick figure's shapes grow by as much.
+_AA_LINE_GROW = 0.7
+_AA_DISK_GROW = 0.6
+
+
+def _paint_segment(img: np.ndarray, a, b, r: float, color, ss: int = 4) -> None:
+    """An anti-aliased segment from a to b with round caps, half-width r
+    (the share of ss x ss samples a pixel within r of the segment), in
+    place. Only pixels whose centre lies within 0.54 px of the edge are
+    sampled: the distance to a segment changes by at most the samples'
+    offset from the centre (3/8 sqrt 2 < 0.54) across a pixel."""
+    H, W = img.shape[:2]
+    (ax, ay), (bx, by) = a, b
+    y0, x0 = max(int(np.floor(min(ay, by) - r - 1)), 0), max(int(np.floor(min(ax, bx) - r - 1)), 0)
+    y1, x1 = min(int(np.ceil(max(ay, by) + r + 2)), H), min(int(np.ceil(max(ax, bx) + r + 2)), W)
+    if y1 <= y0 or x1 <= x0:
+        return
+    dx, dy = bx - ax, by - ay
+    L2 = dx * dx + dy * dy
+
+    def dist(xs, ys):
+        t = np.clip(((xs - ax) * dx + (ys - ay) * dy) / L2, 0.0, 1.0) if L2 > 0 else 0.0
+        return np.sqrt((xs - ax - t * dx) ** 2 + (ys - ay - t * dy) ** 2)
+
+    yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float64)
+    d = dist(xx, yy)
+    cover = (d <= r - 0.54).astype(np.float32)
+    edge = np.abs(d - r) < 0.54
+    if edge.any():
+        sub = (np.arange(ss) + 0.5) / ss - 0.5
+        sy, sx = (np.repeat(sub, ss)[None, :], np.tile(sub, ss)[None, :])
+        cover[edge] = (dist(xx[edge][:, None] + sx, yy[edge][:, None] + sy) <= r).mean(axis=1)
+    _paint(img, cover, y0, x0, color)
+
+
+def render_ball_drop_stereo(
+    rig,
+    T: int = 120,
+    fps: float = 240.0,
+    H: int = 240,
+    W: int = 320,
+    g_mm_s2: float = 9800.0,
+    hold_frames: int = 20,
+    start_mm=(0.0, -300.0, 2500.0),
+    ball_radius_mm: float = 40.0,
+    seed: int = 0,
+):
+    """Calibrated stereo ball-drop sequence with ground truth: the ball
+    holds still for ``hold_frames`` then free-falls (y grows downward).
+    ``rig`` has P1, P2, K1 and K2 (``track.StereoRig``). Returns
+    (left_frames, right_frames, gt_left_px, gt_right_px, traj3d) with
+    frames (T, H, W, 3) uint8."""
+    rng = np.random.default_rng(seed)
+    t = np.maximum(np.arange(T) - hold_frames, 0) / fps
+    traj = np.tile(np.asarray(start_mm, np.float64), (T, 1))
+    traj[:, 1] = start_mm[1] + 0.5 * g_mm_s2 * t**2
+
+    uv_l = _project(rig.P1, traj)
+    uv_r = _project(rig.P2, traj)
+    r_px_l = rig.K1[0, 0] * ball_radius_mm / traj[:, 2]
+    r_px_r = rig.K2[0, 0] * ball_radius_mm / traj[:, 2]
+
+    bg_l = textured_background(rng, H, W)
+    bg_r = textured_background(rng, H, W)
+    lf = np.zeros((T, H, W, 3), np.uint8)
+    rf = np.zeros((T, H, W, 3), np.uint8)
+    for i in range(T):
+        lf[i], rf[i] = bg_l, bg_r
+        draw_ball(lf[i], uv_l[i, 0], uv_l[i, 1], r_px_l[i])
+        draw_ball(rf[i], uv_r[i, 0], uv_r[i, 1], r_px_r[i])
+    return lf, rf, uv_l, uv_r, traj
+
+
+# MediaPipe landmark groups the 13 key joints don't cover, derived from the
+# key joints with fixed offsets (fractions of the shoulder width).
+_FACE = {1: (-0.10, -0.12), 2: (-0.16, -0.12), 3: (-0.22, -0.12),
+         4: (0.10, -0.12), 5: (0.16, -0.12), 6: (0.22, -0.12),
+         7: (-0.35, 0.0), 8: (0.35, 0.0), 9: (-0.12, 0.18), 10: (0.12, 0.18)}
+_HAND_L = {17: (-0.12, 0.10), 19: (-0.06, 0.16), 21: (-0.14, 0.0)}
+_HAND_R = {18: (0.12, 0.10), 20: (0.06, 0.16), 22: (0.14, 0.0)}
+_FOOT_L = {29: (-0.10, 0.10), 31: (0.12, 0.14)}
+_FOOT_R = {30: (0.10, 0.10), 32: (-0.12, 0.14)}
+
+
+def body33_from_key13(key13: np.ndarray) -> np.ndarray:
+    """(13, 3) key joints (track order) -> (33, 3) MediaPipe-layout body."""
+    out = np.zeros((33, 3), key13.dtype)
+    shoulder_w = np.linalg.norm(key13[JOINT_INDEX["left_shoulder"]] - key13[JOINT_INDEX["right_shoulder"]])
+    s = shoulder_w if shoulder_w > 1e-6 else 1.0
+    for name, mp_idx in KEY_JOINTS.items():
+        out[mp_idx] = key13[JOINT_INDEX[name]]
+    for anchor, group in (("nose", _FACE), ("left_wrist", _HAND_L), ("right_wrist", _HAND_R),
+                          ("left_ankle", _FOOT_L), ("right_ankle", _FOOT_R)):
+        base = key13[JOINT_INDEX[anchor]]
+        for idx, (dx, dy) in group.items():
+            out[idx] = base + np.array([dx * s, dy * s, 0.0])
+    return out
+
+
+_BASE13 = np.array(
+    [
+        [0, -650, 0],      # nose
+        [-175, -450, 0],   # left_shoulder
+        [175, -450, 0],    # right_shoulder
+        [-320, -200, 0],   # left_elbow
+        [320, -200, 0],    # right_elbow
+        [-380, 30, 0],     # left_wrist
+        [380, 30, 0],      # right_wrist
+        [-125, 0, 0],      # left_hip
+        [125, 0, 0],       # right_hip
+        [-140, 400, 0],    # left_knee
+        [140, 400, 0],     # right_knee
+        [-150, 780, 0],    # left_ankle
+        [150, 780, 0],     # right_ankle
+    ],
+    np.float64,
+)
+
+_LIMBS_MP = (
+    (11, 13), (13, 15), (12, 14), (14, 16), (11, 12),
+    (23, 24), (11, 23), (12, 24), (23, 25), (25, 27),
+    (24, 26), (26, 28), (0, 11), (0, 12),
+)
+
+
+def random_pose13(rng: np.random.Generator) -> np.ndarray:
+    """Randomised articulated 13-joint body in mm (y grows downward)."""
+    body = _BASE13.copy()
+    for name in ("left_elbow", "right_elbow", "left_wrist", "right_wrist",
+                 "left_knee", "right_knee", "left_ankle", "right_ankle"):
+        body[JOINT_INDEX[name], :2] += rng.normal(0, 90, 2)
+    body[:, :2] += rng.normal(0, 15, (13, 2))  # overall jitter
+    scale = rng.uniform(0.8, 1.2)
+    ang = rng.uniform(-0.35, 0.35)
+    ca, sa = np.cos(ang), np.sin(ang)
+    R = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1.0]])
+    body = (body * scale) @ R.T
+    body[:, 2] += rng.uniform(2200, 4200)       # depth
+    body[:, 0] += rng.uniform(-350, 350)
+    body[:, 1] += rng.uniform(-250, 150)
+    return body
+
+
+def stick_figure_frame(H: int, W: int, lm_px: np.ndarray, background: np.ndarray | None = None,
+                       rng: np.random.Generator | None = None) -> np.ndarray:
+    """A stick figure from (33, 2) pixel landmarks: limbs of width
+    max(round(H / 60), 2) between rounded end points, a head disk of radius
+    max(int(0.35 shoulder width), 3) at the nose, joint disks of radius
+    max(width, 2), all anti-aliased."""
+    rng = rng or np.random.default_rng(0)
+    img = (background if background is not None else textured_background(rng, H, W)).copy()
+    thick = max(int(round(H / 60)), 2)
+    for a, b in _LIMBS_MP:
+        pa, pb = lm_px[a], lm_px[b]
+        if np.isfinite(pa).all() and np.isfinite(pb).all():
+            _paint_segment(img, np.round(pa), np.round(pb), thick / 2 + _AA_LINE_GROW, (40, 40, 45))
+    nose = lm_px[0]
+    sw = np.linalg.norm(lm_px[11] - lm_px[12])
+    if np.isfinite(nose).all() and sw > 1:
+        cx, cy = np.round(nose)
+        _paint_disk(img, cx, cy, max(int(sw * 0.35), 3) + _AA_DISK_GROW, (200, 170, 140))
+    for j in KEY_JOINTS.values():
+        p = lm_px[j]
+        if np.isfinite(p).all():
+            cx, cy = np.round(p)
+            _paint_disk(img, cx, cy, max(thick, 2) + _AA_DISK_GROW, (210, 60, 50))
+    return img
+
+
+def render_pose_stereo(rig, T: int = 60, H: int = 240, W: int = 320, seed: int = 0):
+    """Calibrated stereo stick-figure sequence with 3D ground truth: a
+    smoothly drifting articulated body with a gentle arm swing. Returns
+    (left_frames, right_frames, gt_body33_3d (T, 33, 3) mm)."""
+    rng = np.random.default_rng(seed)
+    base = random_pose13(rng)
+    drift = np.array([rng.uniform(-200, 200), rng.uniform(-100, 100), 0.0])
+    bgl = textured_background(rng, H, W)
+    bgr = textured_background(rng, H, W)
+    lf = np.zeros((T, H, W, 3), np.uint8)
+    rf = np.zeros((T, H, W, 3), np.uint8)
+    gt = np.zeros((T, 33, 3))
+    tt = np.linspace(0, 1, T)
+    for i in range(T):
+        body13 = (base + drift * tt[i]).copy()
+        swing = 60.0 * np.sin(2 * np.pi * tt[i])
+        body13[JOINT_INDEX["left_wrist"], 1] += swing
+        body13[JOINT_INDEX["right_wrist"], 1] -= swing
+        body33 = body33_from_key13(body13)
+        gt[i] = body33
+        lf[i] = stick_figure_frame(H, W, _project(rig.P1, body33), background=bgl, rng=rng)
+        rf[i] = stick_figure_frame(H, W, _project(rig.P2, body33), background=bgr, rng=rng)
+    return lf, rf, gt

@@ -9,14 +9,18 @@ them it runs as
 Exact equality throughout: every value is an integer (disparities are
 k/16); the geometry ops, float64 on both sides, are held within 1e-9;
 detected checkerboard corners (window sums reduced in other orders) within
-5e-3 px.
+5e-3 px; the two in-repo networks in IEEE float32 (TF32 off) within 1e-4
+of their raw outputs' values (cuDNN and the CPU sum in other orders), the
+letterbox resize bit for bit, the pose fusion and smoothing (float64)
+within 1e-9.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from stereo_vision_tpu_torch import calib, detect, ops, sync
+from stereo_vision_tpu_torch import calib, detect, ops, sync, track
+from stereo_vision_tpu_torch.models import pretrained
 from stereo_vision_tpu_torch.parallel.mesh import create_mesh
 from stereo_vision_tpu_torch.parallel.streaming import StereoStreamProcessor, batched_stereo_pipeline
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
@@ -1634,3 +1638,62 @@ def test_find_chessboard_corners_cuda_matches_cpu(dev):
                 assert np.abs(c - c_cpu).max() <= 5e-3
             if j == 0:
                 assert np.abs(c - truth).max() <= 0.5
+
+
+@pytest.mark.parametrize("name", ["ball", "pose"])
+def test_networks_cuda_match_cpu_in_float32(dev, name):
+    load = pretrained.load_ball_detector if name == "ball" else pretrained.load_pose_net
+    hw = pretrained.BALL_IMG_HW if name == "ball" else pretrained.POSE_IMG_HW
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (4, *hw, 3)).astype(np.float32))
+    allow = torch.backends.cudnn.allow_tf32
+    with torch.no_grad():
+        out, ref = load(dev)(x.to(dev)), load("cpu")(x)
+    assert torch.backends.cudnn.allow_tf32 == allow  # the forward restores the caller's setting
+    for a, b in zip(out if name == "ball" else [out], ref if name == "ball" else [ref]):
+        assert torch.allclose(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,out", [((1080, 1920), (72, 128)), ((1080, 1920), (144, 256)), ((77, 53), (31, 40))])
+def test_letterbox_resize_cuda_equals_cpu(dev, shape, out):
+    img = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (3, *shape, 3), dtype=np.uint8))
+    assert torch.equal(detect.image_ops.resize_bilinear_u8(img.to(dev), *out).cpu(),
+                       detect.image_ops.resize_bilinear_u8(img, *out))
+
+
+def test_pose_fusion_and_smoothing_cuda_match_cpu(dev):
+    rng = np.random.default_rng(3)
+    T = 40
+    lm = np.zeros((2, T, 33, 4))
+    base = np.cumsum(rng.normal(0, 2.0, (T, 33, 2)), axis=0) + [640, 360]
+    lm[0, :, :, :2], lm[1, :, :, :2] = base, base - [40.0, 0.0]
+    lm[..., 3] = np.where(rng.random((2, T, 33)) < 0.15, 0.1, 0.99)
+    K = np.array([[1000.0, 0, 640], [0, 1000.0, 360], [0, 0, 1]])
+    rig = track.StereoRig(K1=K, d1=np.zeros(8), K2=K, d2=np.zeros(8), R=np.eye(3), T=np.array([-500.0, 0, 0]))
+    for dtype in (np.float64, np.float32):
+        a = track.fusion.fuse_pose_sequence(lm[0].astype(dtype), lm[1].astype(dtype), rig.as_arrays(dev), device=dev)
+        b = track.fusion.fuse_pose_sequence(lm[0].astype(dtype), lm[1].astype(dtype), rig.as_arrays("cpu"),
+                                            device="cpu")
+        assert torch.equal(a.isnan().cpu(), b.isnan())
+        assert torch.allclose(a.cpu(), b, rtol=1e-9, atol=1e-8, equal_nan=True)
+    poses = b.numpy()
+    for method in ("savgol", "moving_average", "one_euro"):
+        sa = track.MotionSmoother("smalliphone", device=dev, smoothing_method=method).smooth_pose_sequence(poses)
+        sb = track.MotionSmoother("smalliphone", device="cpu", smoothing_method=method).smooth_pose_sequence(poses)
+        np.testing.assert_allclose(sa, sb, rtol=1e-9, atol=1e-8)
+
+
+def test_ball_detector_and_local_transport_cuda_match_cpu(dev):
+    rig = track.StereoRig(K1=np.array([[350.0, 0, 160], [0, 350.0, 120], [0, 0, 1]]), d1=np.zeros(8),
+                          K2=np.array([[350.0, 0, 160], [0, 350.0, 120], [0, 0, 1]]), d2=np.zeros(8), R=np.eye(3),
+                          T=np.array([-500.0, 0, 0]))
+    lf, *_ = scenes.render_ball_drop_stereo(rig, T=60, hold_frames=25, ball_radius_mm=80.0, seed=3)
+    a = pretrained.detect_balls_in_frames(lf[::10], device=dev)
+    b = pretrained.detect_balls_in_frames(lf[::10], device="cpu")
+    assert [d is None for d in a] == [d is None for d in b]
+    for d, e in zip(a, b):
+        if d is not None:
+            np.testing.assert_allclose(d, e, rtol=1e-4, atol=1e-3)
+    hosted = [detect.HostedDetectorClient(detect.local_transport(device=d), hsv_range=None, radius_range=(2.0, 300.0),
+                                          device=d).detect(lf[30]) for d in (dev, "cpu")]
+    assert hosted[0] is not None and hosted[1] is not None
+    np.testing.assert_allclose(hosted[0], hosted[1], rtol=1e-4, atol=1e-3)

@@ -76,7 +76,7 @@ def _ball_scene(seed, cx=100.0, cy=80.0, r=30.0, color=(30, 80, 230), H=160, W=2
 def test_detect_exports_match_jax():
     from stereo_vision_tpu import detect as jdetect
 
-    assert sorted(detect.__all__) == sorted(set(jdetect.__all__) - {"local_transport"})
+    assert sorted(detect.__all__) == sorted(jdetect.__all__)
     for name in detect.__all__:
         assert hasattr(detect, name), name
 

@@ -150,15 +150,16 @@ def test_params_from_reference():
 
 
 def test_port_imports_no_jax():
-    """Importing every port module (and chip_smoke.py) leaves jax, cv2 and
-    stereo_vision_tpu out of sys.modules."""
+    """Importing every port module (and chip_smoke.py) leaves jax, flax,
+    orbax, cv2 and stereo_vision_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, runpy, sys\n"
         "import stereo_vision_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'stereo_vision_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax', 'cv2', 'stereo_vision_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('stereo_vision_tpu_torch')]))\n"
     )
