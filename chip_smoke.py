@@ -257,6 +257,28 @@ After 18:
      pose_landmarks_in_frames (120), fuse_pose_sequence (60) and
      smooth_pose_sequence, and the two detectors split into their stages
      with CUDA events, with the card's name and power limit.
+ 35. (run after 34) training both detectors on the card at the trainers'
+     defaults (batch 16; YOLOv8n at 128x128, PoseNet w32 at 256x256;
+     AdamW under the warmup-cosine schedule): one batch of each rendered by
+     the port (synth.scenes.ball_training_batch / pose_training_batch, seed
+     35); parity: each trainer's step (models.pretrained._make_bn_train_step)
+     twice from the in-repo weights on the card and on the CPU (the loss
+     within rtol 1e-4, every gradient within TRAIN_GRAD_NET of the
+     network's largest and each leaf within TRAIN_GRAD_LEAF of its own
+     largest (TRAIN_GRAD_FLOOR of the network's where that is more), the
+     running statistics within 1e-4 of each leaf's largest, the parameters
+     unmoved by step 1 (lr 0) and within
+     TRAIN_PARAM_LRS x lr of each other after step 2); then
+     train_ball_detector (TRAIN_BALL_STEPS steps) and train_pose_net
+     (TRAIN_POSE_STEPS, scan_chunk 25) from flax's initialisation on the
+     card into a temporary directory, the batches' pixels rendered on a
+     pool of processes (synth.scenes.render_pool): the mean loss of the last tenth of
+     the steps below that of the first tenth, the saved npz read back by
+     convert.load_tree giving the trained model's forward bit for bit, its
+     arrays as many and shaped as the in-repo npz's; CUDA-event ms of a
+     step split into forward + loss, backward and the optimizer, host ms to
+     render a batch, steps/s and images/s of each trainer, with the card's
+     name and power limit.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -292,7 +314,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from stereo_vision_tpu_torch import _build, calib, detect, ops, sync, track
-from stereo_vision_tpu_torch.models import convert, pretrained, yolov8
+from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained, yolov8
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.mesh import create_mesh
@@ -305,9 +327,10 @@ from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
 from stereo_vision_tpu_torch.synth.boards import (add_glare, add_noise, board_views, low_contrast, motion_blur,
                                                   render_board_view)
-from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, ball_frame, draw_ball, flash_streams,
-                                                  lr_maps, render_ball_drop_stereo, render_pose_stereo, scene,
-                                                  scene_occ, scene_truth, speckle_patterns, wta_volumes)
+from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, ball_frame, ball_training_batch,
+                                                  draw_ball, flash_streams, lr_maps, pose_training_batch,
+                                                  render_ball_drop_stereo, render_pose_stereo, scene, scene_occ,
+                                                  scene_truth, speckle_patterns, wta_volumes)
 from stereo_vision_tpu_torch.track.pose_pipeline import run_pose_workflow
 
 H, W, D, B = 720, 1280, 128, 4
@@ -3099,6 +3122,171 @@ def ball_pose_times(dev, card: str, balls: np.ndarray, bodies: np.ndarray, lml, 
     return out
 
 
+# Phase 35: the trainers' defaults (models/pretrained.py) and the checks' limits.
+TRAIN_BATCH = 16
+TRAIN_BALL_STEPS, TRAIN_POSE_STEPS, TRAIN_CHUNK = 200, 100, 25
+TRAIN_DEFAULT_STEPS = {"ball": 800, "pose": 3000}  # the schedules' lengths in the parity steps
+TRAIN_LOSS_RTOL, TRAIN_STAT_REL = 1e-4, 1e-4
+# Card against CPU: cuDNN's and the CPU's float32 sums in other orders (and
+# algorithms), some of cuDNN's weight-gradient sums not deterministic. Every
+# gradient within TRAIN_GRAD_NET of the network's largest; each leaf within
+# TRAIN_GRAD_LEAF of its own largest, or of TRAIN_GRAD_FLOOR x the network's
+# largest where that is more (a leaf 0 in exact arithmetic, the heatmap's
+# bias, is rounding on both sides). Measured on an H100 80GB HBM3 at 700 W:
+# up to 5.4e-5 and 1.3e-2 on the pose net, 1.2e-6 and 9.5e-6 on the ball
+# detector.
+TRAIN_GRAD_NET, TRAIN_GRAD_LEAF, TRAIN_GRAD_FLOOR = 2e-4, 5e-2, 1e-3
+# Adam divides each gradient by its own root mean square, so an element whose
+# gradient is near 0 may step the other way on the other device.
+TRAIN_PARAM_LRS = 4.0
+
+
+def _train_objectives():
+    """(name, model factory, in-repo weights, objective, forward kwargs) of
+    the two trainers (pretrained.train_ball_detector / train_pose_net)."""
+    H, W = pretrained.BALL_IMG_HW
+    return [("ball", pretrained._ball_model, pretrained.BALL_WEIGHTS,
+             lambda raw, b, c, v: yolov8.detection_loss(raw, b, c, v, (H, W), 1), {}),
+            ("pose", pretrained._pose_model, pretrained.POSE_WEIGHTS,
+             lambda out, gt: pose.pose_loss_full(out[0], out[1], gt), {"return_heatmap": True})]
+
+
+def train_parity(dev, name, make, weights, objective, kw, batch) -> dict:
+    """Two steps of a trainer's step function from the in-repo weights on
+    the card and on the CPU, the same batch; the loss, every gradient leaf,
+    the running statistics and the parameters held card against CPU."""
+    nets = {d: convert.load_tree(weights, make()).to(d) for d in (dev, "cpu")}
+    steps = {d: pretrained._make_bn_train_step(m, objective, pretrained.adamw_warmup_cosine(
+        m.parameters(), TRAIN_DEFAULT_STEPS[name]), kw) for d, m in nets.items()}
+    start = {k: v.clone() for k, v in nets["cpu"].state_dict().items()}
+    out = {"loss_rel": [], "grad_net": [], "grad_leaf": [], "stat_frac": []}
+    for i in range(2):
+        loss = {d: float(steps[d](*(a.to(d) for a in batch))) for d in nets}
+        rel = abs(loss[dev] - loss["cpu"]) / abs(loss["cpu"])
+        grads = {d: {k: p.grad for k, p in m.named_parameters()} for d, m in nets.items()}
+        top = max(float(g.abs().max()) for g in grads["cpu"].values())
+        net = leaf = 0.0
+        for k, g in grads["cpu"].items():
+            err = float((grads[dev][k].cpu() - g).abs().max())
+            net = max(net, err / top)
+            leaf = max(leaf, err / max(float(g.abs().max()), TRAIN_GRAD_FLOOR * top))
+        stats = {d: dict(m.named_buffers()) for d, m in nets.items()}
+        stat = max(float((stats[dev][k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                   for k, v in stats["cpu"].items())
+        out["loss_rel"].append(rel)
+        out["grad_net"].append(net)
+        out["grad_leaf"].append(leaf)
+        out["stat_frac"].append(stat)
+        if rel > TRAIN_LOSS_RTOL or net > TRAIN_GRAD_NET or leaf > TRAIN_GRAD_LEAF or stat > TRAIN_STAT_REL:
+            raise AssertionError(f"{name} step {i + 1} card against CPU: loss {rel:.2e}, gradients {net:.2e} of the "
+                                 f"largest, {leaf:.2e} of their leaf's, running statistics {stat:.2e}")
+        if i == 0:
+            for d, m in nets.items():
+                for k, p in m.named_parameters():
+                    if not torch.equal(p.detach().cpu(), start[k]):
+                        raise AssertionError(f"{name}: step 1 (lr 0) moved {k} on {d}")
+    lr = pretrained.warmup_cosine_lr(1, min(50, max(TRAIN_DEFAULT_STEPS[name] // 10, 1)),
+                                     TRAIN_DEFAULT_STEPS[name], 2e-3)
+    params = {d: dict(m.named_parameters()) for d, m in nets.items()}
+    apart = max(float((params[dev][k].detach().cpu() - p.detach()).abs().max()) for k, p in params["cpu"].items())
+    moved = max(float((p.detach() - start[k]).abs().max()) for k, p in params["cpu"].items())
+    if apart > TRAIN_PARAM_LRS * lr or moved == 0.0:
+        raise AssertionError(f"{name}: parameters after step 2 {apart:.2e} apart (lr {lr:.1e}), moved {moved:.2e}")
+    out.update(step2_lr=lr, params_apart=apart, params_moved=moved)
+    return out
+
+
+def train_stage_ms(dev, make, weights, objective, kw, batch, reps: int = 5) -> dict:
+    """CUDA-event ms of one training step split into forward + loss,
+    backward and the optimizer (AdamW + the schedule), the mean of ``reps``
+    steps after a warm-up, on the in-repo weights."""
+    model = convert.load_tree(weights, make()).to(dev).train()
+    opt, sched = pretrained.adamw_warmup_cosine(model.parameters(), 800)
+    x, *targets = (a.to(dev) for a in batch)
+    names = ("forward + loss", "backward", "optimizer")
+    out = dict.fromkeys(names, 0.0)
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        with layers.fp32_forward():
+            loss = objective(model(x, **kw), *targets)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+        opt.step()
+        sched.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, n in enumerate(names):
+                out[n] += ev[i].elapsed_time(ev[i + 1]) / reps
+    out["step"] = sum(out[n] for n in names)
+    return out
+
+
+def phase_train(dev, card: str) -> dict:
+    """Phase 35: both trainers on the card: parity with the CPU on two steps
+    from the in-repo weights, training from flax's initialisation, the saved
+    weights read back, times."""
+    out = {}
+    rng = np.random.default_rng(35)
+    t0 = time.perf_counter()
+    ball = ball_training_batch(rng, TRAIN_BATCH, *pretrained.BALL_IMG_HW)
+    ball_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    im, gt = pose_training_batch(rng, TRAIN_BATCH, *pretrained.POSE_IMG_HW)
+    pose_ms = (time.perf_counter() - t0) * 1e3
+    u8 = torch.from_numpy(np.round(im * 255.0).astype(np.uint8))  # as train_pose_net uploads it
+    batches = {"ball": [torch.from_numpy(a) for a in ball],
+               "pose": [u8.to(torch.float32) / torch.tensor(255.0), torch.from_numpy(gt)]}
+    render_ms = {"ball": ball_ms, "pose": pose_ms}
+    trainers = {"ball": (pretrained.train_ball_detector, TRAIN_BALL_STEPS, {}),
+                "pose": (pretrained.train_pose_net, TRAIN_POSE_STEPS, {"scan_chunk": TRAIN_CHUNK})}
+    for name, make, weights, objective, kw in _train_objectives():
+        parity = train_parity(dev, name, make, weights, objective, kw, batches[name])
+        stages = train_stage_ms(dev, make, weights, objective, kw, batches[name])
+        train, steps, extra = trainers[name]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{name}.npz")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = train(steps=steps, batch=TRAIN_BATCH, seed=0, out_path=path, log_every=steps, device=dev, **extra)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            model = res["model"]
+            losses = np.asarray(res["losses"])
+            tenth = max(steps // 10, 1)
+            first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+            if not np.isfinite(losses).all() or not last < first:
+                raise AssertionError(f"{name}: the loss did not fall ({first:.4f} in the first tenth, {last:.4f} "
+                                     f"in the last)")
+            back = convert.load_tree(path, make()).to(dev).eval()
+            with np.load(path) as z, np.load(weights) as ref:
+                shapes = [z[f"arr_{i}"].shape for i in range(len(z.files))]
+                if shapes != [ref[f"arr_{i}"].shape for i in range(len(ref.files))]:
+                    raise AssertionError(f"{name}: the saved npz's arrays differ from the in-repo npz's")
+        x = batches[name][0][:4].to(dev)
+        with torch.no_grad():
+            a, b = model(x, **kw), back(x, **kw)
+        a, b = (list(t) if isinstance(t, (list, tuple)) else [t] for t in (a, b))
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"{name}: the weights read back do not give the trained model's forward")
+        out[name] = dict(parity=parity, stages_ms=stages, render_ms=render_ms[name], steps=steps,
+                         train_s=train_s, steps_per_s=steps / train_s, images_per_s=steps * TRAIN_BATCH / train_s,
+                         loss_first_tenth=first, loss_last_tenth=last, final_loss=res["final_loss"],
+                         leaves=len(shapes))
+        print(f"train {name} on {card}: parity loss {max(parity['loss_rel']):.1e}, gradients "
+              f"{max(parity['grad_net']):.1e} of the largest ({max(parity['grad_leaf']):.1e} of their leaf's), "
+              f"statistics {max(parity['stat_frac']):.1e}, "
+              f"parameters after step 2 {parity['params_apart']:.1e} apart (lr {parity['step2_lr']:.0e}); "
+              f"{steps} steps from flax's init in {train_s:.2f} s ({steps / train_s:.2f} steps/s, "
+              f"{steps * TRAIN_BATCH / train_s:.1f} images/s), loss {first:.4f} -> {last:.4f}; step ms "
+              f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; render {render_ms[name]:.1f} ms a batch",
+              flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3228,6 +3416,11 @@ def main() -> int:
     ball_pose["phase_s"] = time.perf_counter() - t0
     print(f"phase 34: {ball_pose['phase_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    training = phase_train(dev, card)
+    training["phase_s"] = time.perf_counter() - t0
+    print(f"phase 35: {training['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -3253,7 +3446,7 @@ def main() -> int:
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
                       "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream, "detection": detection,
-                      "ball_pose": ball_pose,
+                      "ball_pose": ball_pose, "training": training,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,9 @@ checkpoints into the port's models.
   the port's model whose module names are the flax names. Conv kernels go
   HWIO -> OIHW, Dense kernels are transposed, BatchNorm's scale / bias /
   mean / var become weight / bias / running_mean / running_var.
+- :func:`variables_to_reference`: the way back, a port model -> the
+  reference's variable tree in flax's layouts (OIHW -> HWIO, Linear
+  weights transposed, running statistics under ``batch_stats``).
 - :func:`load_tree`: an npz written by the JAX package's
   ``pretrained.save_tree`` (arrays ``arr_0..`` in ``jax.tree_util``'s
   flatten order) into a port model, without JAX: the leaves are the
@@ -58,6 +61,33 @@ def _to_port(leaf: str, a) -> torch.Tensor:
     if leaf == "kernel":
         t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.T  # HWIO -> OIHW; (in, out) -> (out, in)
     return t.contiguous()
+
+
+def _to_reference(leaf: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu()
+    if leaf == "kernel":
+        a = a.permute(2, 3, 1, 0) if a.ndim == 4 else a.T  # OIHW -> HWIO; (out, in) -> (in, out)
+    return np.ascontiguousarray(a.numpy())
+
+
+def reference_arrays(model: nn.Module) -> list[tuple[tuple[str, ...], np.ndarray]]:
+    """The model's (flax path, numpy array in flax's layout) pairs in
+    ``jax.tree_util``'s flatten order of the reference's variable tree."""
+    state = model.state_dict()
+    return [(path, _to_reference(path[-1], state[key])) for path, key in reference_leaves(model)]
+
+
+def variables_to_reference(model: nn.Module) -> dict[str, Any]:
+    """The reference's variable tree of ``model`` (``{"batch_stats": ...,
+    "params": ...}``, nested dicts of numpy arrays in flax's layouts), the
+    inverse of :func:`variables_from_reference`."""
+    tree: dict[str, Any] = {}
+    for path, a in reference_arrays(model):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    return tree
 
 
 def variables_from_reference(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:

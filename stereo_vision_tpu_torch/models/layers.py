@@ -12,8 +12,11 @@ Each submodule's attribute name is the flax auto-name of the module it
 ports (``ConvBnSiLU_0``, ``Conv_0``, ``BatchNorm_0``, ...), and each leaf
 module's parameters map one to one onto flax's leaves, so the reference's
 variable trees load by name (:mod:`stereo_vision_tpu_torch.models.convert`).
-The batch norm is the inference form with flax's epsilon, 1e-3 (torch's
-default is 1e-5); training waits for the port's training slice.
+The batch norm is flax's, epsilon 1e-3 (torch's default is 1e-5) and
+momentum 0.97: in ``eval()`` mode it normalises with the running statistics,
+in ``train()`` mode with the batch's own, as flax's ``train=True``.
+:func:`init_flax_style` initialises a fresh model as flax's ``init`` does
+(its draws from a ``torch.Generator``, not JAX's PRNG).
 """
 
 from __future__ import annotations
@@ -27,8 +30,16 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over channel axis 1: (x - mean) / sqrt(var +
-    eps) * weight + bias, with the running statistics as buffers."""
+    """flax's ``nn.BatchNorm`` over channel axis 1, the running statistics
+    as buffers. ``eval()``: (x - running_mean) / sqrt(running_var + eps) *
+    weight + bias. ``train()``: the batch's mean and biased variance over
+    (N, H, W) in flax's fast form, E[x^2] - E[x]^2 clamped at 0, with the
+    gradient through both, and the buffers moved to ``momentum * r + (1 -
+    momentum) * stat`` without a gradient. (``F.batch_norm(training=True)``
+    weighs the buffers the other way round and stores the unbiased
+    variance.)"""
+
+    momentum = 0.97
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
@@ -39,8 +50,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, eps=self.eps)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.maximum((x * x).mean(dim=(0, 2, 3)) - mean * mean, x.new_zeros(()))
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight  # flax's order: (x - mean) * (rsqrt * scale) + bias
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class ConvBnSiLU(nn.Module):
@@ -124,11 +143,38 @@ def scaled_widths(widths: Sequence[int], width_mult: float) -> list[int]:
     return [make_divisible(w * width_mult) for w in widths]
 
 
+@torch.no_grad()
+def init_flax_style(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``model`` (in place, returned) as flax's ``init`` does,
+    drawing from ``generator`` in the order of ``model.modules()``:
+    ``lecun_normal`` for every convolution and linear weight (a normal
+    truncated at 2 standard deviations, scaled to variance 1 / fan_in; fan_in
+    = kernel height x width x input channels, the same in flax's HWIO and
+    torch's OIHW), zero biases, BatchNorm's weight and running variance 1,
+    its bias and running mean 0. JAX's PRNG cannot be reproduced, so the
+    draws differ from the reference's."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            fan_in = mod.weight[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # the std of a unit normal cut at +-2
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+    return model
+
+
 @contextlib.contextmanager
 def fp32_forward():
     """Context in which cuDNN convolutions and cuBLAS matrix products run
     in IEEE float32, not TF32 (cuDNN's default allows TF32); the caller's
-    settings come back on exit, and no global flag changes on import."""
+    settings come back on exit, and no global flag changes on import. A
+    training step runs its ``backward()`` inside it too: the flags are read
+    when each convolution launches."""
     cudnn = torch.backends.cudnn
     matmul = torch.backends.cuda.matmul.allow_tf32
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,

@@ -1,13 +1,17 @@
-"""33-landmark pose network (MediaPipe Pose interface), inference.
+"""33-landmark pose network (MediaPipe Pose interface) and its losses.
 
-Port of ``stereo_vision_tpu/models/pose.py``'s serving path: a CSP
+Port of ``stereo_vision_tpu/models/pose.py``: a CSP
 backbone to /16 into a /4 heatmap head through two upsample + skip stages,
 decoded by a spatial soft-argmax (optionally restricted to a window around
 each landmark's argmax cell), plus z and visibility regressed from the
 pooled features. Images (B, H, W, 3) -> landmarks (B, 33, 4) with (x, y)
 normalised to [0, 1], z and visibility. The forward pass runs in IEEE
 float32 (no TF32) on the images' device; the soft-argmax expectations are
-products and sums. The losses wait for the port's training slice.
+products and sums. Training supervises the coordinates and visibility
+(:func:`pose_loss`) and the heatmap's distribution (:func:`heatmap_loss`,
+a spatial cross-entropy against a Gaussian target): coordinate L1 alone
+leaves the softmax diffuse, and a diffuse global soft-argmax drifts toward
+the image centre (:func:`pose_loss_full` is the two together).
 """
 
 from __future__ import annotations
@@ -86,3 +90,41 @@ def landmarks_to_pixels(landmarks: torch.Tensor, width: int, height: int) -> tor
     """Normalised (B, 33, 4) -> pixel coordinates."""
     scale = torch.tensor([width, height, 1.0, 1.0], dtype=landmarks.dtype, device=landmarks.device)
     return landmarks * scale
+
+
+def pose_loss(pred: torch.Tensor, gt: torch.Tensor, vis_weight: float = 1.0) -> torch.Tensor:
+    """L1 on (x, y, z) weighted by the GT visibility + BCE on visibility, of
+    (B, 33, 4) landmark tensors with gt[..., 3] in {0, 1}."""
+    v = gt[..., 3]
+    l1 = (pred[..., :3] - gt[..., :3]).abs().sum(-1)
+    one = pred.new_ones(())
+    coord = (l1 * v).sum() / torch.maximum(v.sum(), one)
+    # jnp.clip's tie rule: the gradient splits where the value equals a bound
+    p = torch.minimum(torch.maximum(pred[..., 3], pred.new_tensor(1e-6)), pred.new_tensor(1 - 1e-6))
+    bce = -(v * torch.log(p) + (1 - v) * torch.log(1 - p)).mean()
+    return coord + vis_weight * bce
+
+
+def heatmap_loss(heat: torch.Tensor, gt: torch.Tensor, sigma_px: float = 1.25) -> torch.Tensor:
+    """Spatial cross-entropy between each landmark's softmax over the
+    (B, Hh, Wh, L) heatmap (``forward(..., return_heatmap=True)``'s second
+    output) and a unit-mass Gaussian centred on its GT (heatmap pixels);
+    landmarks of GT visibility 0 are left out."""
+    B, Hh, Wh, L = heat.shape
+    gx = gt[..., 0] * Wh - 0.5  # (B, L) in heatmap pixel-centre coordinates
+    gy = gt[..., 1] * Hh - 0.5
+    ys = torch.arange(Hh, dtype=heat.dtype, device=heat.device)
+    xs = torch.arange(Wh, dtype=heat.dtype, device=heat.device)
+    d2 = (ys[None, :, None, None] - gy[:, None, None, :]) ** 2 + (xs[None, None, :, None] - gx[:, None, None, :]) ** 2
+    tgt = torch.exp(-d2 / (2.0 * sigma_px * sigma_px))
+    tgt = tgt / torch.maximum(tgt.sum(dim=(1, 2), keepdim=True), heat.new_tensor(1e-9))
+    logp = torch.log_softmax(heat.reshape(B, Hh * Wh, L), dim=1).reshape(heat.shape)
+    ce = -(tgt * logp).sum(dim=(1, 2))  # (B, L)
+    v = gt[..., 3]
+    return (ce * v).sum() / torch.maximum(v.sum(), heat.new_ones(()))
+
+
+def pose_loss_full(pred: torch.Tensor, heat: torch.Tensor, gt: torch.Tensor, hm_weight: float = 0.1) -> torch.Tensor:
+    """Coordinate / visibility loss + the heatmap's distribution loss (the
+    training objective of ``models.pretrained.train_pose_net``)."""
+    return pose_loss(pred, gt) + hm_weight * heatmap_loss(heat, gt)

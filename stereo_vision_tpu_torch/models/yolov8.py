@@ -1,20 +1,22 @@
-"""YOLOv8-class anchor-free detector (inference).
+"""YOLOv8-class anchor-free detector and its training loss.
 
-Port of ``stereo_vision_tpu/models/yolov8.py``'s serving path: the CSP
+Port of ``stereo_vision_tpu/models/yolov8.py``: the CSP
 backbone with C2f blocks and SPPF, the PAN neck, the decoupled head with
 DFL box regression (reg_max 16) over strides 8 / 16 / 32, the decode
 (DFL expectation, ltrb -> xyxy) and the class-aware greedy NMS with static
-shapes. Images are (B, H, W, 3) in [0, 1] and the raw maps (B, Hs, Ws,
-4 * REG_MAX + C), as in the reference; the forward pass runs in IEEE
-float32 (no TF32) on the images' device. The training loss waits for the
-port's training slice.
+shapes, and the training loss (:func:`detection_loss`: center-inside
+assignment, BCE + 7.5 CIoU + 1.5 DFL). Images are (B, H, W, 3) in [0, 1]
+and the raw maps (B, Hs, Ws, 4 * REG_MAX + C), as in the reference; the
+forward pass runs in IEEE float32 (no TF32) on the images' device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from stereo_vision_tpu_torch.models.layers import C2f, SPPF, ConvBnSiLU, fp32_forward, make_divisible, upsample2x
@@ -197,3 +199,105 @@ def detect(model: YOLOv8, images: torch.Tensor, iou_threshold: float = 0.45, sco
         raw = model(images)
     return detections_from_maps(raw, tuple(images.shape[1:3]), model.num_classes, iou_threshold,
                                 score_threshold, max_det)
+
+
+# ---------------------------------------------------------------------------
+# Training loss (simplified TAL: center-prior assignment + CIoU + BCE + DFL).
+# Maxima, minima and clips are torch.maximum / minimum of tensors and max
+# reductions amax, so that the gradient splits at ties as JAX's does.
+# ---------------------------------------------------------------------------
+
+
+def _max(a, b) -> torch.Tensor:
+    return torch.maximum(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def _min(a, b) -> torch.Tensor:
+    return torch.minimum(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def _ciou(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Complete IoU between (..., 4) xyxy boxes (broadcast)."""
+    px1, py1, px2, py2 = pred.unbind(-1)
+    gx1, gy1, gx2, gy2 = gt.unbind(-1)
+    zero = pred.new_zeros(())
+    tiny = pred.new_tensor(1e-9)
+    iw = _max(_min(px2, gx2) - _max(px1, gx1), zero)
+    ih = _max(_min(py2, gy2) - _max(py1, gy1), zero)
+    inter = iw * ih
+    pa = _max(px2 - px1, zero) * _max(py2 - py1, zero)
+    ga = _max(gx2 - gx1, zero) * _max(gy2 - gy1, zero)
+    iou = inter / _max(pa + ga - inter, tiny)
+    # center distance / enclosing diagonal
+    rho2 = ((px1 + px2) / 2 - (gx1 + gx2) / 2) ** 2 + ((py1 + py2) / 2 - (gy1 + gy2) / 2) ** 2
+    c2 = (_max(px2, gx2) - _min(px1, gx1)) ** 2 + (_max(py2, gy2) - _min(py1, gy1)) ** 2
+    # aspect term
+    pw, ph = _max(px2 - px1, tiny), _max(py2 - py1, tiny)
+    gw, gh = _max(gx2 - gx1, tiny), _max(gy2 - gy1, tiny)
+    v = (4 / math.pi**2) * (torch.arctan(gw / gh) - torch.arctan(pw / ph)) ** 2
+    alpha = v / _max(1 - iou + v, tiny)
+    return iou - rho2 / _max(c2, tiny) - alpha * v
+
+
+def detection_loss(raw_maps, gt_boxes: torch.Tensor, gt_classes: torch.Tensor, gt_valid: torch.Tensor,
+                   img_hw: tuple[int, int], num_classes: int) -> torch.Tensor:
+    """YOLOv8-style loss with center-inside assignment, the mean over the
+    batch of each image's cls BCE + 7.5 CIoU + 1.5 DFL (YOLOv8's gains).
+
+    Args:
+      raw_maps: the model's outputs.
+      gt_boxes: (B, M, 4) xyxy pixels; gt_classes: (B, M) int; gt_valid:
+        (B, M) bool.
+
+    Each anchor whose cell centre lies inside a valid GT box takes the one
+    of highest CIoU with its prediction (the first on ties); its class
+    target is that CIoU, through which the gradient flows, as in the
+    reference (no stop-gradient)."""
+    B = raw_maps[0].shape[0]
+    x = torch.cat([m.reshape(B, -1, m.shape[-1]) for m in raw_maps], dim=1)
+    box_logits = x[..., : 4 * REG_MAX].reshape(B, -1, 4, REG_MAX)
+    cls_logits = x[..., 4 * REG_MAX :]
+    ltrb = dfl_expectation(box_logits)
+    pts, strides = anchor_points(img_hw, device=x.device)
+    pred_boxes = torch.cat([(pts[None] - ltrb[..., :2]) * strides[None, :, None],
+                            (pts[None] + ltrb[..., 2:]) * strides[None, :, None]], dim=-1)  # (B, N, 4)
+    px = pts[:, 0] * strides
+    py = pts[:, 1] * strides
+    gtb = gt_boxes.to(x.dtype)
+    zero = x.new_zeros(())
+
+    # (B, N, M) anchor-centre-inside-gt mask and CIoU of each anchor's box with each gt
+    inside = ((px[None, :, None] >= gtb[:, None, :, 0]) & (px[None, :, None] <= gtb[:, None, :, 2])
+              & (py[None, :, None] >= gtb[:, None, :, 1]) & (py[None, :, None] <= gtb[:, None, :, 3])
+              & gt_valid[:, None, :])
+    iou = _ciou(pred_boxes[:, :, None, :], gtb[:, None, :, :])
+    score = torch.where(inside, iou, x.new_tensor(-1.0))
+    best_gt = torch.argmax(score, dim=2)  # (B, N), the first maximum
+    best = score.amax(dim=2)
+    pos = best > 0.0
+    tgt_box = torch.gather(gtb, 1, best_gt[..., None].expand(-1, -1, 4))
+    tgt_cls = torch.gather(gt_classes.long(), 1, best_gt)
+
+    # classification BCE with soft IoU targets
+    cls_t = F.one_hot(tgt_cls, num_classes).to(x.dtype) * _max(best, zero)[..., None]
+    cls_t = torch.where(pos[..., None], cls_t, zero)
+    bce = (_max(cls_logits, zero) - cls_logits * cls_t + torch.log1p(torch.exp(-cls_logits.abs()))).sum(-1).mean(-1)
+
+    npos = _max(pos.sum(-1), torch.ones((), dtype=torch.int64, device=x.device))
+    ciou_loss = torch.where(pos, 1.0 - _ciou(pred_boxes, tgt_box), zero).sum(-1) / npos
+
+    # DFL: distances of the target box in stride units
+    t_ltrb = torch.stack([px - tgt_box[..., 0], py - tgt_box[..., 1], tgt_box[..., 2] - px, tgt_box[..., 3] - py],
+                         dim=-1) / strides[:, None]
+    t_ltrb = t_ltrb.clamp(0, REG_MAX - 1 - 1e-3)
+    tl = torch.floor(t_ltrb)
+    wr = t_ltrb - tl
+    tl_i = tl.to(torch.int64)
+    logp = torch.log_softmax(box_logits, dim=-1)
+
+    def gather(i):
+        return torch.gather(logp, -1, i[..., None])[..., 0]
+
+    dfl = -(gather(tl_i) * (1 - wr) + gather(torch.clamp(tl_i + 1, max=REG_MAX - 1)) * wr)
+    dfl_loss = torch.where(pos[..., None], dfl, zero).sum((-2, -1)) / (npos * 4)
+    return (bce + 7.5 * ciou_loss + 1.5 * dfl_loss).mean()

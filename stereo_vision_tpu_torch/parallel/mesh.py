@@ -4,7 +4,8 @@ Port of ``stereo_vision_tpu/parallel/mesh.py``'s ``DATA_AXIS``,
 ``SPACE_AXIS`` and ``create_mesh``: a grid of devices named by two axes,
 streams and frames on ``data``, image rows on ``space``. Here it is a plain
 object holding a numpy grid of ``torch.device``; the pipelines in
-:mod:`.streaming` run on a 1x1 mesh. Several cards (a process group, the
+:mod:`.streaming` and the training step of ``models.train`` run on a 1x1
+mesh (:func:`single_device`). Several cards (a process group, the
 row-band SGM) are not ported yet (ROADMAP A.8).
 """
 
@@ -57,3 +58,13 @@ def create_mesh(n_data: int | None = None, n_space: int = 1, devices: list | Non
     arr = np.empty(need, dtype=object)
     arr[:] = devs[:need]
     return Mesh(arr.reshape(n_data, n_space), (DATA_AXIS, SPACE_AXIS))
+
+
+def single_device(mesh: Mesh, what: str) -> torch.device:
+    """The one device of a 1x1 mesh; a larger mesh raises
+    NotImplementedError (``what`` names the refused work)."""
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"a mesh of {mesh.size} devices {mesh.shape}: {what} is not ported yet (ROADMAP A.8)"
+        )
+    return resolve_device(mesh.devices.flat[0])

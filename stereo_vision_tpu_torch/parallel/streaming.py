@@ -22,7 +22,7 @@ import torch
 
 from stereo_vision_tpu_torch.device import resolve_device
 from stereo_vision_tpu_torch.ops.remap import make_remap
-from stereo_vision_tpu_torch.parallel.mesh import Mesh
+from stereo_vision_tpu_torch.parallel.mesh import Mesh, single_device
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams, stereo_bm
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER8_FAST, HIER_FAST, HierParams, stereo_sgbm_hier_batch
@@ -120,11 +120,7 @@ def batched_stereo_pipeline(
 
 def _mesh_device(mesh: Mesh) -> torch.device:
     """The one device of a 1x1 mesh; a larger mesh is refused."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"a mesh of {mesh.size} devices {mesh.shape}: the multi-device pipeline is not ported yet (ROADMAP A.8)"
-        )
-    return resolve_device(mesh.devices.flat[0])
+    return single_device(mesh, "the multi-device pipeline")
 
 
 def make_sharded_pipeline(

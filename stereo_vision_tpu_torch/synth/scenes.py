@@ -6,15 +6,22 @@ The port's own copies of ``bench.py``'s ``_scene``, ``_scene_occ`` and
 made to break a speckle filter (:func:`speckle_patterns`), and two
 unsynchronised streams of scenes with a flash (:func:`flash_streams`),
 a shaded ball drawn without OpenCV (:func:`draw_ball`, :func:`ball_frame`),
-and the JAX package's ball-drop and stick-figure stereo renders without
-OpenCV (:func:`render_ball_drop_stereo`, :func:`render_pose_stereo`), whose
-truth arrays equal the reference's.
+and the JAX package's ball-drop and stick-figure stereo renders and its
+detectors' training batches without OpenCV (:func:`render_ball_drop_stereo`,
+:func:`render_pose_stereo`, :func:`ball_training_batch`,
+:func:`pose_training_batch`), whose truth arrays equal the reference's.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import multiprocessing as mp
+import os
+from concurrent.futures import Executor, ProcessPoolExecutor
 
+import numpy as np
+import torch
+
+from stereo_vision_tpu_torch.detect.image_ops import resize_bilinear_u8
 from stereo_vision_tpu_torch.track.joints import JOINT_INDEX, KEY_JOINTS
 
 
@@ -247,8 +254,9 @@ def draw_ball(img: np.ndarray, cx: float, cy: float, r: float, color=(255, 120, 
     ri = max(int(round(r)), 2)
     rim_w = max(ri // 6, 1)
     hi_c, hi_r = (int(c[0] - ri * 0.3), int(c[1] - ri * 0.3)), max(ri // 4, 1)
+    base = tuple(int(v) for v in color)
     rim = tuple(max(int(v * 0.55), 0) for v in color)
-    for (px, py), rad, inner, col in ((c, ri + rim_w / 2, -1.0, color), (c, ri + rim_w / 2, ri - rim_w / 2, rim),
+    for (px, py), rad, inner, col in ((c, ri + rim_w / 2, -1.0, base), (c, ri + rim_w / 2, ri - rim_w / 2, rim),
                                       (hi_c, hi_r, -1.0, (250, 250, 250))):
         _paint_disk(img, px, py, rad, col, inner)
 
@@ -276,7 +284,9 @@ def ball_frame(seed: int, H: int = 720, W: int = 1280, cx: float = 640.0, cy: fl
 def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
     """Separable float32 Gaussian blur of an (H, W[, C]) image with
     OpenCV's kernel size for float images (round(8 sigma + 1), odd) and its
-    default border (reflect-101)."""
+    default border (reflect-101); numpy, so the result does not depend on
+    the thread count. The kernel is symmetric: each pair of taps is summed
+    before its multiply."""
     k = int(round(sigma * 8 + 1)) | 1
     half = k // 2
     x = np.arange(k, dtype=np.float64) - half
@@ -286,25 +296,134 @@ def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
     for axis in (1, 0):
         n = out.shape[axis]
         idx = np.abs(np.arange(-half, n + half))
-        idx = np.where(idx >= n, 2 * (n - 1) - idx, idx)  # reflect-101
-        pad = np.moveaxis(np.take(out, idx, axis=axis), axis, 0)
-        acc = taps[0] * pad[:n]
-        for i in range(1, k):
-            acc += taps[i] * pad[i : i + n]
-        out = np.moveaxis(acc, 0, axis)
+        pad = np.take(out, np.where(idx >= n, 2 * (n - 1) - idx, idx), axis=axis)  # reflect-101
+
+        def tap(i):
+            return pad[(slice(None),) * axis + (slice(i, i + n),)]
+
+        out = tap(half) * taps[half]
+        pair = np.empty_like(out)
+        for i in range(half):
+            np.add(tap(i), tap(k - 1 - i), out=pair)
+            pair *= taps[i]
+            out += pair
     return out
+
+
+def _background_draws(rng: np.random.Generator, H: int, W: int):
+    noise = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    return noise, rng.uniform(20, 60), rng.uniform(150, 235)
+
+
+def _background(noise: np.ndarray, lo: float, hi: float, sigma: float = 3.0) -> np.ndarray:
+    img = gaussian_blur(noise, sigma)
+    mn, mx = float(img.min()), float(img.max())
+    scale = (hi - lo) / (mx - mn) if mx - mn > np.finfo(np.float64).eps else 0.0
+    return (img.astype(np.float64) * scale + (lo - mn * scale)).astype(np.float32).astype(np.uint8)
 
 
 def textured_background(rng: np.random.Generator, H: int, W: int, sigma: float = 3.0) -> np.ndarray:
     """Blurred-noise RGB background: uniform noise, blurred, stretched to a
     random [lo, hi] range (min-max over the whole image), truncated to
     uint8 (the reference's random draws, in its order)."""
-    img = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
-    img = gaussian_blur(img, sigma)
-    lo, hi = rng.uniform(20, 60), rng.uniform(150, 235)
-    mn, mx = float(img.min()), float(img.max())
-    scale = (hi - lo) / (mx - mn) if mx - mn > np.finfo(np.float64).eps else 0.0
-    return (img.astype(np.float64) * scale + (lo - mn * scale)).astype(np.float32).astype(np.uint8)
+    return _background(*_background_draws(rng, H, W), sigma)
+
+
+# The training batches draw every random number of an image first, in the
+# reference's order (no draw depends on a pixel), then render its pixels, in
+# this process or, given a pool (:func:`render_pool`), in a worker process
+# while the next image's numbers are drawn.
+
+
+def render_pool(workers: int | None = None) -> ProcessPoolExecutor:
+    """A pool of ``workers`` (default: one for every two cores, the rest
+    left to the process that draws, ships the jobs and drives the card)
+    spawned processes, one torch thread each, to render the training
+    batches' pixels on; use it in a ``with`` block, which stops the
+    processes."""
+    workers = workers or max((os.cpu_count() or 2) // 2, 1)
+    return ProcessPoolExecutor(max_workers=workers, mp_context=mp.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(1,))
+
+
+def _render_all(render, jobs, pool: Executor | None) -> list:
+    """``render(*job)`` of each job: here, or on ``pool`` as each job comes
+    (``jobs`` may be a generator that draws the next job meanwhile)."""
+    if pool is None:
+        return [render(*job) for job in jobs]
+    return [f.result() for f in [pool.submit(render, *job) for job in jobs]]
+
+
+def _letterbox_scale(rng: np.random.Generator, p: float = 0.7) -> float | None:
+    """The random letterbox's draws: None with probability 1 - p, else the
+    scale s ~ U(0.55, 0.95)."""
+    return None if rng.uniform() > p else rng.uniform(0.55, 0.95)
+
+
+def _letterbox(img: np.ndarray, pts: np.ndarray, s: float | None):
+    if s is None:
+        return img, pts
+    H, W = img.shape[:2]
+    Hr, Wr = max(int(round(H * s)), 8), max(int(round(W * s)), 8)
+    out = np.full_like(img, 114)
+    out[:Hr, :Wr] = resize_bilinear_u8(torch.from_numpy(img), Hr, Wr).numpy()
+    return out, pts * np.array([Wr / W, Hr / H])
+
+
+def _letterbox_aug(rng: np.random.Generator, img: np.ndarray, pts: np.ndarray, p: float = 0.7):
+    """Random letterbox of an (H, W, 3) uint8 image, with probability p:
+    the content shrunk by s ~ U(0.55, 0.95) into the top-left corner
+    (cv2's INTER_LINEAR, bit for bit: ``detect.image_ops.resize_bilinear_u8``),
+    the rest the inference-time gray 114, so padded borders stay in the
+    training distribution. Returns (image, pts scaled alike); ``pts`` is any
+    (..., 2) pixel-coordinate array."""
+    return _letterbox(img, pts, _letterbox_scale(rng, p))
+
+
+def _degrade_draws(rng: np.random.Generator, shape):
+    """Deployed conditions (video encode / decode, resize): a blur of sigma
+    ~ U(0, 1.2) and Gaussian noise of a std ~ U(0, 6)."""
+    sigma = rng.uniform(0.0, 1.2)
+    return sigma, rng.normal(0, rng.uniform(0, 6), shape).astype(np.float32)
+
+
+def _degrade(img: np.ndarray, sigma: float, grain: np.ndarray) -> np.ndarray:
+    """The blur (none below sigma 0.05) and the noise; float32 in [0, 1]."""
+    fimg = img.astype(np.float32)
+    if sigma > 0.05:
+        fimg = gaussian_blur(fimg, sigma)
+    fimg += grain
+    return np.clip(fimg, 0, 255) / 255.0
+
+
+def _ball_image(bg, r, cx, cy, col, s, sigma, grain):
+    img = _background(*bg)
+    draw_ball(img, cx, cy, r, col)
+    img, corners = _letterbox(img, np.array([[cx - r, cy - r], [cx + r, cy + r]]), s)
+    return _degrade(img, sigma, grain), corners.reshape(4)
+
+
+def ball_training_batch(rng: np.random.Generator, B: int, H: int = 128, W: int = 128,
+                        pool: Executor | None = None):
+    """B rendered ball images + GT boxes for detection training: a textured
+    background, an orange-dominant ball (colour ~ (255, 120, 30) + N(0, 25)),
+    a random letterbox, blur and noise, in the reference's draws; the
+    pixels on ``pool`` if given (:func:`render_pool`).
+
+    Returns (images float32 (B, H, W, 3) in [0, 1], boxes (B, 1, 4) xyxy px,
+    classes (B, 1) int32 zeros, valid (B, 1) bool)."""
+    def jobs():
+        for _ in range(B):
+            bg = _background_draws(rng, H, W)
+            r = rng.uniform(2.5, min(H, W) / 5)
+            cx = rng.uniform(r + 1, W - r - 1)
+            cy = rng.uniform(r + 1, H - r - 1)
+            col = np.clip(np.array([255, 120, 30], np.float32) + rng.normal(0, 25, 3), 0, 255)
+            yield bg, r, cx, cy, col, _letterbox_scale(rng), *_degrade_draws(rng, (H, W, 3))
+
+    imgs, boxes = zip(*_render_all(_ball_image, jobs(), pool))
+    return (np.stack(imgs).astype(np.float32), np.stack(boxes).astype(np.float32)[:, None],
+            np.zeros((B, 1), np.int32), np.ones((B, 1), bool))
 
 
 def _project(P: np.ndarray, pts3d: np.ndarray) -> np.ndarray:
@@ -484,6 +603,38 @@ def stick_figure_frame(H: int, W: int, lm_px: np.ndarray, background: np.ndarray
             cx, cy = np.round(p)
             _paint_disk(img, cx, cy, max(thick, 2) + _AA_DISK_GROW, (210, 60, 50))
     return img
+
+
+def _pose_image(H, W, uv, bg, s, sigma, grain):
+    img, uv = _letterbox(stick_figure_frame(H, W, uv, background=_background(*bg)), uv, s)
+    return _degrade(img, sigma, grain), uv
+
+
+def pose_training_batch(rng: np.random.Generator, B: int, H: int = 128, W: int = 128,
+                        pool: Executor | None = None):
+    """B stick-figure images + normalised 33-landmark GT: a random body
+    seen by a pinhole of f = 1.1 max(H, W), a random letterbox, blur and
+    noise, in the reference's draws; the pixels on ``pool`` if given
+    (:func:`render_pool`).
+
+    Returns (images float32 (B, H, W, 3) in [0, 1], gt (B, 33, 4) with x, y
+    in [0, 1], z = 0, visibility 1 inside the frame and 0 outside)."""
+    f = 1.1 * max(H, W)
+    P = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]]) @ np.hstack([np.eye(3), np.zeros((3, 1))])
+    gt = np.zeros((B, 33, 4), np.float32)
+
+    def jobs():
+        for i in range(B):
+            uv = _project(P, body33_from_key13(random_pose13(rng)))
+            gt[i, :, 3] = (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) & (uv[:, 1] < H)
+            bg = _background_draws(rng, H, W)  # stick_figure_frame's background
+            yield H, W, uv, bg, _letterbox_scale(rng), *_degrade_draws(rng, (H, W, 3))
+
+    imgs, uvs = zip(*_render_all(_pose_image, jobs(), pool))
+    uv = np.stack(uvs)
+    gt[..., 0] = uv[..., 0] / W
+    gt[..., 1] = uv[..., 1] / H
+    return np.stack(imgs).astype(np.float32), gt
 
 
 def render_pose_stereo(rig, T: int = 60, H: int = 240, W: int = 320, seed: int = 0):

@@ -12,7 +12,12 @@ detected checkerboard corners (window sums reduced in other orders) within
 5e-3 px; the two in-repo networks in IEEE float32 (TF32 off) within 1e-4
 of their raw outputs' values (cuDNN and the CPU sum in other orders), the
 letterbox resize bit for bit, the pose fusion and smoothing (float64)
-within 1e-9.
+within 1e-9; training (IEEE float32, TF32 off in the backward pass too):
+BatchNorm's training form within 1e-5 of each output's largest value,
+the losses within rtol 1e-5 and their gradients within 1e-5 of the
+largest, one step of each trainer within rtol 1e-4 on the loss, the
+parameters unmoved (lr 0) and the running statistics within 1e-4 of each
+leaf's largest.
 """
 
 import numpy as np
@@ -20,7 +25,7 @@ import pytest
 import torch
 
 from stereo_vision_tpu_torch import calib, detect, ops, sync, track
-from stereo_vision_tpu_torch.models import pretrained
+from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained, yolov8
 from stereo_vision_tpu_torch.parallel.mesh import create_mesh
 from stereo_vision_tpu_torch.parallel.streaming import StereoStreamProcessor, batched_stereo_pipeline
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
@@ -1697,3 +1702,68 @@ def test_ball_detector_and_local_transport_cuda_match_cpu(dev):
                                           device=d).detect(lf[30]) for d in (dev, "cpu")]
     assert hosted[0] is not None and hosted[1] is not None
     np.testing.assert_allclose(hosted[0], hosted[1], rtol=1e-4, atol=1e-3)
+
+
+def test_batchnorm_training_form_cuda_matches_cpu(dev):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0.5, 2.0, (4, 16, 12, 10)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32))
+    outs = []
+    for d in (dev, "cpu"):
+        bn = layers.BatchNorm(16).to(d).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 16))
+        xd = x.to(d).requires_grad_(True)
+        y = bn(xd)
+        (y * cot.to(d)).sum().backward()
+        outs.append([t.detach().cpu() for t in (y, xd.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                                                bn.running_var)])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ["detection_loss", "pose_loss_full"])
+def test_losses_and_gradients_cuda_match_cpu(dev, name):
+    rng = np.random.default_rng(6)
+    if name == "detection_loss":
+        args = [rng.normal(0, 2, (2, h, h, 65)).astype(np.float32) for h in (16, 8, 4)]
+        fixed = [np.array([[[20, 30, 60, 70], [0, 0, 0, 0]], [[5, 8, 40, 33], [70, 70, 120, 110]]], np.float32),
+                 np.zeros((2, 2), np.int32), np.array([[True, False], [True, True]])]
+        fn = lambda *a: yolov8.detection_loss(list(a[:3]), *a[3:], (128, 128), 1)  # noqa: E731
+    else:
+        args = [rng.uniform(0, 1, (2, 33, 4)).astype(np.float32), rng.normal(0, 3, (2, 64, 64, 33)).astype(np.float32)]
+        gt = rng.uniform(0, 1, (2, 33, 4)).astype(np.float32)
+        gt[..., 3] = rng.random((2, 33)) < 0.7
+        fixed = [gt]
+        fn = pose.pose_loss_full
+    res = []
+    for d in (dev, "cpu"):
+        ts = [torch.from_numpy(a).to(d).requires_grad_(True) for a in args]
+        loss = fn(*ts, *(torch.from_numpy(a).to(d) for a in fixed))
+        loss.backward()
+        res.append((loss.item(), [t.grad.cpu() for t in ts]))
+    assert res[0][0] == pytest.approx(res[1][0], rel=1e-5)
+    for a, b in zip(res[0][1], res[1][1]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ["ball", "pose"])
+def test_one_training_step_cuda_matches_cpu(dev, name, tmp_path):
+    """One step of each trainer (batch 2, its input size) from one seed on
+    the card (renders on a pool) and on the CPU (in-process): the loss, the
+    weights saved (the parameters unmoved at lr 0, the running statistics
+    moved alike)."""
+    train = pretrained.train_ball_detector if name == "ball" else pretrained.train_pose_net
+    make = pretrained._ball_model if name == "ball" else pretrained._pose_model
+    res = {d: train(steps=1, batch=2, seed=4, out_path=tmp_path / f"{name}_{d}.npz", device=d) for d in (dev, "cpu")}
+    assert res[dev]["losses"][0] == pytest.approx(res["cpu"]["losses"][0], rel=1e-4)
+    start = layers.init_flax_style(make(), torch.Generator().manual_seed(4))
+    leaves = convert.reference_leaves(start)
+    with np.load(tmp_path / f"{name}_{dev}.npz") as a, np.load(tmp_path / f"{name}_cpu.npz") as b:
+        assert len(a.files) == len(b.files) == len(leaves)
+        for i, (path, key) in enumerate(leaves):
+            x, y = a[f"arr_{i}"], b[f"arr_{i}"]
+            if path[0] == "params":
+                assert np.array_equal(x, y), path
+            else:
+                assert np.abs(x - y).max() <= 1e-4 * np.abs(y).max(), path

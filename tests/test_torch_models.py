@@ -21,6 +21,12 @@ the JAX package's renders (its cv2 drawing) and seeded numpy. Tolerances:
   within 1e-3 px, z and visibility within 1e-5.
 """
 
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
 import cv2
 import jax
 import jax.numpy as jnp
@@ -42,6 +48,7 @@ from stereo_vision_tpu_torch.models import convert, pretrained, yolov8
 from stereo_vision_tpu_torch.models.pose import PoseNet
 
 CPU = "cpu"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -238,9 +245,17 @@ def test_ultralytics_conversion_matches_jax(ref, tmp_path):
 
 
 def test_models_exports_match_jax_less_training():
-    from stereo_vision_tpu import models as jmodels
-
+    """The port's ``models`` exports every name of the JAX package's, the
+    training names included (the six once left out: ``detection_loss``,
+    ``pose_loss``, ``TrainState``, ``make_train_step``, ``shard_variables``,
+    ``put_batch``); JAX's list is read in a subprocess."""
+    code = "import json, stereo_vision_tpu.models as m; print(json.dumps(m.__all__))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    jax_all = json.loads(out.stdout.strip().splitlines()[-1])
     training = {"detection_loss", "pose_loss", "TrainState", "make_train_step", "shard_variables", "put_batch"}
-    assert sorted(models.__all__) == sorted(set(jmodels.__all__) - training)
+    assert training <= set(models.__all__)
+    assert sorted(models.__all__) == sorted(jax_all)
     for name in models.__all__:
         assert hasattr(models, name), name

@@ -11,7 +11,21 @@ blur kernel against the port's rounded float64 one), the ball renders
 under 0.1 (0.025-0.033 measured), the stick figures under 0.25 at
 320x240 (0.10-0.11) and under 0.1 at 1920x1080 (0.020): anti-aliased
 edges drawn another way, the shapes grown by OpenCV's measured rim.
+
+The training batches (``ball_training_batch``, ``pose_training_batch``,
+``_letterbox_aug``) draw the same numbers in the same order, so their
+boxes and landmarks equal the reference's bit for bit and the generator
+ends in the same state; the letterbox resize equals ``cv2.resize`` bit for
+bit; the pixels (after the blur and noise, in levels of 255) are within
+0.75 for the balls at 128x128 (0.22-0.46 measured: small anti-aliased
+balls, shrunk by the letterbox) and 0.4 for the stick figures (0.14-0.23).
 """
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +35,7 @@ from stereo_vision_tpu.track.fusion import StereoRig
 from stereo_vision_tpu_torch.synth import scenes
 from stereo_vision_tpu_torch.track import fusion
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 # (f, W, H): tests/test_e2e_detectors.py's rig and its field of view at 1920 px.
 RIGS = [(350.0, 320, 240), (2100.0, 1920, 1080)]
 
@@ -68,3 +83,58 @@ def test_pose_render_matches_jax(f, W, H):
     body = jscenes.random_pose13(np.random.default_rng(9))
     np.testing.assert_array_equal(scenes.random_pose13(np.random.default_rng(9)), body)
     np.testing.assert_array_equal(scenes.body33_from_key13(body), jscenes.body33_from_key13(body))
+
+
+def test_letterbox_aug_matches_jax():
+    """Both outcomes of the coin (kept as is, or shrunk into the corner)
+    over ten seeds: the image bit for bit, the points, the next draw."""
+    img = scenes.textured_background(np.random.default_rng(1), 96, 128)
+    pts = np.array([[10.5, 20.25], [100.0, 90.0]])
+    shrunk = 0
+    for seed in range(10):
+        a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+        (x, p), (y, q) = scenes._letterbox_aug(a, img, pts), jscenes._letterbox_aug(b, img, pts)
+        np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(p, q)
+        assert a.random() == b.random()
+        shrunk += not np.array_equal(x, img)
+    assert 0 < shrunk < 10
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ball_training_batch_matches_jax(seed):
+    a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+    imgs, *truth = scenes.ball_training_batch(a, 6)
+    jimgs, *jtruth = jscenes.ball_training_batch(b, 6)
+    for x, y in zip(truth, jtruth):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    assert a.random() == b.random()
+    assert imgs.dtype == np.float32 and imgs.shape == jimgs.shape == (6, 128, 128, 3)
+    assert np.abs(imgs - jimgs).mean() * 255 < 0.75
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pose_training_batch_matches_jax(seed):
+    a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+    imgs, gt = scenes.pose_training_batch(a, 4)
+    jimgs, jgt = jscenes.pose_training_batch(b, 4)
+    assert gt.dtype == np.float32
+    np.testing.assert_array_equal(gt, jgt)
+    assert a.random() == b.random()
+    assert imgs.dtype == np.float32 and imgs.shape == jimgs.shape == (4, 128, 128, 3)
+    assert np.abs(imgs - jimgs).mean() * 255 < 0.4
+
+
+def test_synth_exports_match_jax():
+    """The port's ``synth`` exports the JAX package's names; JAX's list is
+    read in a subprocess."""
+    from stereo_vision_tpu_torch import synth
+
+    code = "import json, stereo_vision_tpu.synth as s; print(json.dumps(s.__all__))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    assert sorted(synth.__all__) == sorted(json.loads(out.stdout.strip().splitlines()[-1]))
+    for name in synth.__all__:
+        assert hasattr(synth, name), name
