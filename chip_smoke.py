@@ -279,6 +279,27 @@ After 18:
      step split into forward + loss, backward and the optimizer, host ms to
      render a batch, steps/s and images/s of each trainer, with the card's
      name and power limit.
+ 36. (run after 35) several devices, on meshes of logical shards of the card
+     (the same torch.device named at every position: every band boundary,
+     carry exchange, split and gather runs, but nothing runs in parallel)
+     and, where torch.cuda.device_count() >= 2, again on distinct cards; an
+     earlier line says which and the device count: sgm_aggregate_sharded on
+     4 bands of 2 frames of exact8's cost volume (cost_volume in int32,
+     720x1152, D=128) at 8 and 4 paths bit-equal to sgm_cuda.aggregate_8;
+     stereo_sgbm_sharded on 4 bands of 2 frames at 1280x720 with exact8's
+     parameters bit-equal to stereo_sgbm, the horizontal (#3), WTA (#8), LR
+     (#9) and speckle (#12) kernels' launches asserted (16, 4, 4, 1); each
+     beside the same call on a 1x1 mesh (host ms, band-ticks run);
+     make_sharded_pipeline on 2x1 and 4x1 for exact8 (4 frames a device),
+     hier16x3 (8) and bm1080 (8), every share bit-equal to
+     batched_stereo_pipeline on its frames (points within rtol 1e-6), host
+     ms beside the shares run one after another through a 1x1 closure;
+     StereoStreamProcessor on 2x1, three hier16x3 windows, the drained last
+     one equal to the batched pipeline's shares; make_train_step with
+     PoseNet w32 (in-repo weights, eval mode, Adam 1e-3, 256x256, batch 16)
+     on 2x2 against 1x1, two steps: losses within rtol 1e-5, parameters
+     within 1e-4 of the largest, the Dense kernel's shards its output rows
+     on the space devices; host ms a step.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -315,9 +336,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from stereo_vision_tpu_torch import _build, calib, detect, ops, sync, track
 from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained, yolov8
+from stereo_vision_tpu_torch.models import train as train_models
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
-from stereo_vision_tpu_torch.parallel import streaming
-from stereo_vision_tpu_torch.parallel.mesh import create_mesh
+from stereo_vision_tpu_torch.parallel import sgm_sharded, streaming
+from stereo_vision_tpu_torch.parallel.mesh import ShardedTensor, create_mesh
 from stereo_vision_tpu_torch.parallel.streaming import (StereoStreamProcessor, batched_stereo_pipeline,
                                                          make_sharded_pipeline)
 from stereo_vision_tpu_torch.stereo import (banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, postprocess, sgbm,
@@ -3287,6 +3309,228 @@ def phase_train(dev, card: str) -> dict:
     return out
 
 
+# Phase 36: several devices. The row-band SGM on MESH_S bands of MESH_F
+# frames of exact8's shape; the data-parallel pipeline at each main path's
+# frames a device (exact8 4, hier16x3 8, bm1080 8) on MESH_SHAPES; the
+# processor on 2x1; PoseNet w32's training step (256x256, batch 16) on 2x2.
+MESH_S, MESH_F = 4, 2
+MESH_SHAPES = ((2, 1), (4, 1))
+MESH_PIPELINES = {"exact8": ("sgbm", PARAMS, B, H, W), "hier16x3": ("sgbm_hier", P3, H16_P, H, W),
+                  "bm1080": ("bm", BM_PARAMS, BM_B, BM_H, BM_W)}
+MESH_WINDOWS = 3  # hier16x3 windows through the processor on 2x1
+MESH_TRAIN_MESH, MESH_TRAIN_BATCH, MESH_TRAIN_HW, MESH_TRAIN_STEPS = (2, 2), 16, (256, 256), 2
+# Two Adam steps on 2x2 against 1x1: the losses within rtol 1e-5 (cuDNN may
+# pick other algorithms at 8 images than at 16), the parameters within 1e-4
+# of the largest.
+MESH_LOSS_RTOL, MESH_PARAM_FRAC = 1e-5, 1e-4
+
+
+def mesh_frames(n: int, h: int, w: int, cache: dict) -> tuple[np.ndarray, np.ndarray]:
+    """n distinct uint8 (left, right) frames of the ramp+box scene: eight
+    seeds, each further group of eight rolled along the rows (both views
+    alike, so every share of a mesh sees other frames)."""
+    if (h, w) not in cache:
+        cache[(h, w)] = [scene(seed=s, H=h, W=w) for s in range(8)]
+    base = cache[(h, w)]
+    views = [[np.roll(base[i % 8][v], 7 * (i // 8), axis=0) for i in range(n)] for v in (0, 1)]
+    return tuple(np.stack(v).astype(np.uint8) for v in views)
+
+
+def mesh_sgm(dev, make_mesh) -> dict:
+    """sgm_aggregate_sharded (8 and 4 paths) against aggregate_8 and
+    stereo_sgbm_sharded against stereo_sgbm, bit for bit, with host-clock ms
+    beside the same call on a 1x1 mesh, band-ticks run and the kernels'
+    launches in the sharded SGBM."""
+    out = {}
+    bands, one = make_mesh(1, MESH_S), create_mesh(1, 1, devices=[dev])
+    frames = [scene(seed=s, H=H, W=W) for s in range(MESH_F)]
+    lt, rt = (torch.from_numpy(np.stack([f[i] for f in frames])).to(dev) for i in (0, 1))
+    C = cost_cuda.cost_volume(lt, rt, ndisp=D, block_size=PARAMS.block_size, ftzero=PARAMS.ftzero, x_offset=D,
+                              dtype=torch.int32)
+    for num_paths in (8, 4):
+        ref = sgm_cuda.aggregate_8(C, PARAMS.P1, PARAMS.P2, num_paths, cost_bound=PARAMS.cost_bound)
+        ms, ticks = {}, {}
+        for name, mesh in (("sharded", bands), ("1x1", one)):
+            t0, n = time.perf_counter(), sgm_sharded.aggregate_bands.band_ticks
+            got = sgm_sharded.sgm_aggregate_sharded(C, PARAMS.P1, PARAMS.P2, mesh, num_paths=num_paths)
+            torch.cuda.synchronize()
+            ms[name], ticks[name] = (time.perf_counter() - t0) * 1e3, sgm_sharded.aggregate_bands.band_ticks - n
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                raise AssertionError(f"sgm_aggregate_sharded ({name}, {num_paths} paths) differs from aggregate_8")
+            del got
+        ms["aggregate_8"] = host_ms(lambda: sgm_cuda.aggregate_8(C, PARAMS.P1, PARAMS.P2, num_paths,
+                                                                  cost_bound=PARAMS.cost_bound), reps=1)
+        out[f"sgm_aggregate_sharded {num_paths} paths"] = dict(ms=ms, band_ticks=ticks)
+        del ref
+        torch.cuda.empty_cache()
+    del C
+    kernels = {"horizontal": sgm_cuda.horizontal, "wta_stats": sgm_cuda.wta_stats, "lr_fail": lr_cuda.lr_fail,
+               "speckle_filter": speckle_cuda.speckle_filter}
+    ref = stereo_sgbm(lt, rt, PARAMS)
+    ms, ticks = {}, {}
+    for name, mesh in (("sharded", bands), ("1x1", one)):
+        for k in kernels.values():
+            k.launches = 0
+        t0, n = time.perf_counter(), sgm_sharded.aggregate_bands.band_ticks
+        got = sgm_sharded.stereo_sgbm_sharded(lt, rt, PARAMS, mesh)
+        torch.cuda.synchronize()
+        ms[name], ticks[name] = (time.perf_counter() - t0) * 1e3, sgm_sharded.aggregate_bands.band_ticks - n
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        if name == "sharded":
+            want = {"horizontal": 2 * MESH_F * MESH_S, "wta_stats": MESH_S, "lr_fail": MESH_S, "speckle_filter": 1}
+            if launches != want:
+                raise AssertionError(f"stereo_sgbm_sharded launched {launches}, expected {want}")
+            out["stereo_sgbm_sharded launches"] = launches
+        if not torch.equal(got, ref):
+            raise AssertionError(f"stereo_sgbm_sharded ({name}) differs from stereo_sgbm")
+    ms["stereo_sgbm"] = host_ms(lambda: stereo_sgbm(lt, rt, PARAMS), reps=1)
+    out["stereo_sgbm_sharded"] = dict(ms=ms, band_ticks=ticks, valid_share=float((ref > -1).float().mean()))
+    return out
+
+
+def mesh_pipelines(dev, make_mesh, cache: dict) -> dict:
+    """make_sharded_pipeline at each main path's frames a device on 2x1 and
+    4x1, each share against batched_stereo_pipeline on its frames; host
+    ms of the sharded call and of the same shares through a 1x1 mesh's
+    closure one after another."""
+    out = {}
+    one = create_mesh(1, 1, devices=[dev])
+    for path, (matcher, params, per, h, w) in MESH_PIPELINES.items():
+        maps, Q = rig(h, w)
+        run1 = make_sharded_pipeline(one, maps, Q, matcher, params)
+        for n_data, n_space in MESH_SHAPES:
+            n = per * n_data
+            left, right = mesh_frames(n, h, w, cache)
+            run = make_sharded_pipeline(make_mesh(n_data, n_space), maps, Q, matcher, params)
+            disp, pts = run(left, right)
+            for i in range(n_data):
+                s = slice(i * per, (i + 1) * per)
+                rd, rp = batched_stereo_pipeline(left[s], right[s], maps, Q, matcher, params, device=dev)
+                if not torch.equal(disp[s], rd) or not torch.allclose(pts[s], rp, rtol=1e-6, atol=0, equal_nan=True):
+                    raise AssertionError(f"{path} on {n_data}x{n_space}: share {i} differs from the batched pipeline")
+            del disp, pts, rd, rp
+            ms = {"sharded": host_ms(lambda: run(left, right)),
+                  "1x1, share by share": host_ms(lambda: [run1(left[i * per:(i + 1) * per],
+                                                               right[i * per:(i + 1) * per]) for i in range(n_data)])}
+            out[f"{path} {n_data}x{n_space}"] = dict(frames=n, ms=ms)
+            del run
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_processor(dev, make_mesh, cache: dict) -> dict:
+    """StereoStreamProcessor on 2x1: MESH_WINDOWS hier16x3 windows of 2 x 8
+    frames submitted, the drained last window against the batched pipeline
+    of each share."""
+    maps, Q = rig(H, W)
+    proc = StereoStreamProcessor(make_mesh(2, 1), maps, Q, "sgbm_hier", P3)
+    frames = mesh_frames(2 * H16_P * MESH_WINDOWS, H, W, cache)
+    windows = [tuple(v[k * 2 * H16_P:(k + 1) * 2 * H16_P] for v in frames) for k in range(MESH_WINDOWS)]
+    t0 = time.perf_counter()
+    for wl, wr in windows:
+        proc.submit(wl, wr)
+    disp, pts = proc.drain()
+    ms = (time.perf_counter() - t0) * 1e3
+    wl, wr = windows[-1]
+    for i in range(2):
+        s = slice(i * H16_P, (i + 1) * H16_P)
+        rd, rp = batched_stereo_pipeline(wl[s], wr[s], maps, Q, "sgbm_hier", P3, device=dev)
+        if not np.array_equal(disp[s], rd.cpu().numpy()) or not np.allclose(pts[s], rp.cpu().numpy(), rtol=1e-6,
+                                                                            atol=0, equal_nan=True):
+            raise AssertionError(f"the processor's last window, share {i}, differs from the batched pipeline")
+    return dict(windows=MESH_WINDOWS, frames_a_window=2 * H16_P, ms_submits_and_drain=ms)
+
+
+def mesh_train_steps(dev, m, x, gt) -> tuple[list, dict, list, dict]:
+    """MESH_TRAIN_STEPS steps of PoseNet w32 (in-repo weights, eval mode,
+    pose_loss, Adam 1e-3) on the mesh ``m``: the losses, the parameters whole
+    on ``dev``, host ms a step, and copies of the split parameters' shards
+    as the initial state holds them."""
+    net = convert.load_tree(pretrained.POSE_WEIGHTS, pretrained._pose_model()).to(dev).eval()
+    init, step = train_models.make_train_step(
+        m, lambda v, a: torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,)),
+        lambda out, g: pose.pose_loss(out, g), lambda p: torch.optim.Adam(p, lr=1e-3))
+    state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+    split = {k: {pos: t.detach().clone() for pos, t in v.shards.items()}
+             for k, v in state.params.items() if isinstance(v, ShardedTensor)}
+    losses, ms = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, gt)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    params = {k: (v.gather(dev) if isinstance(v, ShardedTensor) else v).detach() for k, v in state.params.items()}
+    return losses, params, ms, split
+
+
+def mesh_train(dev, make_mesh) -> dict:
+    """PoseNet w32's training step from the in-repo weights: MESH_TRAIN_STEPS
+    steps on 2x2 (the wide Dense kernel's storage split by output rows over
+    space) against the same on 1x1, cuDNN's deterministic algorithms on both
+    (its other weight-gradient sums vary run to run, and Adam's first steps
+    move a parameter whose gradient is near 0 by up to ~lr whatever the
+    gradient's size)."""
+    rng = np.random.default_rng(36)
+    x, gt = pose_training_batch(rng, MESH_TRAIN_BATCH, *MESH_TRAIN_HW)
+    mesh = make_mesh(*MESH_TRAIN_MESH)
+    w = convert.load_tree(pretrained.POSE_WEIGHTS, pretrained._pose_model()).get_parameter("Dense_1.weight").detach()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        (l1, p1, ms1, _), (l4, p4, ms4, split) = (mesh_train_steps(dev, m, x, gt)
+                                                  for m in (create_mesh(1, 1, devices=[dev]), mesh))
+    n = MESH_TRAIN_MESH[1]
+    rows = w.shape[0] // n
+    shards = split.get("Dense_1.weight", {})
+    if list(split) != ["Dense_1.weight"] or sorted(shards) != [(0, j) for j in range(n)] or any(
+            shards[(0, j)].device != mesh.devices[0, j]
+            or not torch.equal(shards[(0, j)].cpu(), w[j * rows:(j + 1) * rows]) for j in range(n)):
+        raise AssertionError("the split Dense kernel's shards are not its output rows on the space devices")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l4, l1))
+    top = max(float(v.abs().max()) for v in p1.values())
+    apart = max(float((p4[k] - v).abs().max()) for k, v in p1.items())
+    if rel > MESH_LOSS_RTOL or apart > MESH_PARAM_FRAC * top:
+        raise AssertionError(f"the 2x2 step against 1x1: losses {rel:.2e} apart, parameters {apart:.2e} "
+                             f"(largest {top:.3f})")
+    return dict(losses={"1x1": l1, "2x2": l4}, loss_rel=rel, params_apart=apart, params_largest=top,
+                step_ms={"1x1": ms1, "2x2": ms4})
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """Phase 36: several devices, on a mesh of logical shards of the card and,
+    where the machine has two cards or more, again on distinct cards."""
+    count = torch.cuda.device_count()
+    layouts = {"logical shards of one card": lambda n: [dev] * n}
+    if count >= 2:
+        layouts["distinct cards"] = lambda n: [torch.device("cuda", k % count) for k in range(n)]
+    print(f"phase 36 on {card}: {count} CUDA device(s); meshes of {' and of '.join(layouts)} (frame and row "
+          f"parallelism across distinct cards is {'timed too' if count >= 2 else 'not timed: one card'})", flush=True)
+    out, cache = {"device_count": count}, {}
+    for layout, devices in layouts.items():
+        make_mesh = lambda n_data, n_space, devices=devices: create_mesh(n_data, n_space,  # noqa: E731
+                                                                         devices=devices(n_data * n_space))
+        r = {"sgm": mesh_sgm(dev, make_mesh)}
+        torch.cuda.empty_cache()
+        for k, v in r["sgm"].items():
+            what = "launches" if "launches" in k else "bit-equal to the one-device call; host ms and band-ticks"
+            print(f"mesh ({layout}) {k}: {what} {json.dumps(v)}", flush=True)
+        r["pipelines"] = mesh_pipelines(dev, make_mesh, cache)
+        for k, v in r["pipelines"].items():
+            print(f"mesh ({layout}) make_sharded_pipeline {k}: every share equal to batched_stereo_pipeline; "
+                  f"host ms {json.dumps({a: round(b, 3) for a, b in v['ms'].items()})}", flush=True)
+        r["processor"] = mesh_processor(dev, make_mesh, cache)
+        print(f"mesh ({layout}) StereoStreamProcessor 2x1: the last of {MESH_WINDOWS} hier16x3 windows equal to the "
+              f"batched pipeline; {r['processor']['ms_submits_and_drain']:.1f} ms for the submits and the drain",
+              flush=True)
+        torch.cuda.empty_cache()
+        r["train"] = mesh_train(dev, make_mesh)
+        t = r["train"]
+        print(f"mesh ({layout}) make_train_step PoseNet w32 2x2 against 1x1 on {card}: losses {t['losses']} "
+              f"({t['loss_rel']:.1e} apart), parameters {t['params_apart']:.1e} apart (largest "
+              f"{t['params_largest']:.3f}); step host ms {json.dumps(t['step_ms'])}", flush=True)
+        out[layout] = r
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3421,6 +3665,11 @@ def main() -> int:
     training["phase_s"] = time.perf_counter() - t0
     print(f"phase 35: {training['phase_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    several = phase_mesh(dev, card)
+    several["phase_s"] = time.perf_counter() - t0
+    print(f"phase 36: {several['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -3446,7 +3695,7 @@ def main() -> int:
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
                       "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream, "detection": detection,
-                      "ball_pose": ball_pose, "training": training,
+                      "ball_pose": ball_pose, "training": training, "mesh": several,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

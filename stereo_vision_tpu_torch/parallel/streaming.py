@@ -6,11 +6,14 @@ exact SGBM (``"sgbm"``) and the hierarchical one (``"sgbm_hier"``). The
 batch of frames runs through one set of kernel launches (frames on the CUDA
 grid, not a Python loop).
 
-``make_sharded_pipeline`` and ``StereoStreamProcessor`` are the single-card
-forms of the reference's: the closure moves the maps and Q to the card once,
-and the processor double-buffers the host->device upload (pinned staging
-buffers and a copy stream) under the current window's compute. A mesh of
-more than one device is ROADMAP A.8; ``stream_video_pair`` is A.9.
+``make_sharded_pipeline`` and ``StereoStreamProcessor`` are the reference's
+on a mesh of N devices (``parallel.mesh``): frames split over ``data``, each
+data device holding its own copy of the maps and Q, moved there once, and
+running the batched pipeline on its frames; the processor double-buffers
+each device's host->device upload (pinned staging buffers and a copy
+stream) under the current window's compute. One host thread drives every
+device, as the JAX package's single program does. ``stream_video_pair`` is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from stereo_vision_tpu_torch.device import resolve_device
 from stereo_vision_tpu_torch.ops.remap import make_remap
-from stereo_vision_tpu_torch.parallel.mesh import Mesh, single_device
+from stereo_vision_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, concat_on, on_device, split_along
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams, stereo_bm
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER8_FAST, HIER_FAST, HierParams, stereo_sgbm_hier_batch
@@ -118,9 +121,19 @@ def batched_stereo_pipeline(
     return disp, pts
 
 
-def _mesh_device(mesh: Mesh) -> torch.device:
-    """The one device of a 1x1 mesh; a larger mesh is refused."""
-    return single_device(mesh, "the multi-device pipeline")
+def _device_part(dev: torch.device, maps, Q, matcher: str, params, hier_params, stats_only: bool) -> Callable:
+    """``run(left, right)``: :func:`batched_stereo_pipeline` on ``dev`` (made
+    the current device for its kernels) with ``maps`` and ``Q`` moved there
+    once, as float32, now."""
+    mx1, my1, mx2, my2 = (_to(m, dev, torch.float32) for m in maps)
+    Qd = _to(Q, dev, torch.float32)
+
+    def run(left, right):
+        with on_device(dev):
+            return batched_stereo_pipeline(left, right, (mx1, my1, mx2, my2), Qd, matcher, params, hier_params,
+                                           stats_only, device=dev)
+
+    return run
 
 
 def make_sharded_pipeline(
@@ -132,60 +145,57 @@ def make_sharded_pipeline(
     hier_params=None,
     stats_only: bool = False,
 ) -> Callable:
-    """``run(left, right)`` running :func:`batched_stereo_pipeline` on the
-    mesh's device with ``maps`` and ``Q`` moved there once, as float32, now.
+    """``run(left, right)`` running :func:`batched_stereo_pipeline` data
+    parallel over the mesh's ``data`` axis: each data device holds its own
+    float32 copy of ``maps`` and ``Q``, moved there once, now, and runs the
+    pipeline on its share of the frames on its own current stream. ``space``
+    is not used (the devices along it are not given the frames twice).
 
-    ``run`` takes (B, H, W) numpy arrays or tensors, uploads them and
-    returns the device tensors (disparity, points), or the (B, 2) stats
-    with ``stats_only``, without synchronising. ``sgbm_hier`` needs B ==
-    128 // band, as the batched pipeline does. Only a 1x1 mesh runs: a
-    larger one raises ``NotImplementedError`` before any work.
+    ``run`` takes (B, H, W) numpy arrays, tensors or :class:`.mesh.ShardedTensor`
+    (a batch split over ``data`` is taken shard by shard); B must divide by
+    the data axis's size (ValueError). It returns (disparity, points), or
+    the (B, 2) stats with ``stats_only``, gathered on the mesh's first
+    device, without synchronising. ``sgbm_hier`` needs 128 // band frames a
+    device, each device's pack run as the batched pipeline runs it (without
+    ``hier_params`` the preset follows the frames a device).
     """
-    dev = _mesh_device(mesh)
     _check_matcher(matcher, params)
-    mx1, my1, mx2, my2 = (_to(m, dev, torch.float32) for m in maps)
-    Qd = _to(Q, dev, torch.float32)
+    devices = mesh.axis_devices(DATA_AXIS)
+    parts = [_device_part(d, maps, Q, matcher, params, hier_params, stats_only) for d in devices]
+    if len(parts) == 1:
+        return parts[0]
+    first = mesh.first
 
     def run(left, right):
-        return batched_stereo_pipeline(left, right, (mx1, my1, mx2, my2), Qd, matcher, params, hier_params,
-                                       stats_only, device=dev)
+        pieces = zip(split_along(left, mesh, DATA_AXIS), split_along(right, mesh, DATA_AXIS))
+        return concat_on([part(lp, rp) for part, (lp, rp) in zip(parts, pieces)], first)
 
     return run
 
 
-class StereoStreamProcessor:
-    """Double-buffered host->device streaming around the pipeline of
-    :func:`make_sharded_pipeline`.
+def _host_pieces(a, n: int) -> list[torch.Tensor]:
+    """A host window (numpy array or tensor) in ``n`` equal pieces along the
+    batch, as host tensors sharing its memory."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    if t.shape[0] % n:
+        raise ValueError(f"a window of {t.shape[0]} frames must be divisible by the {n} devices of 'data'")
+    return list(t.chunk(n)) if n > 1 else [t]
 
-    ``submit`` enqueues a window and then waits for the one submitted
-    before it; ``drain`` waits for and returns the last submitted window
-    (an earlier one, waited on by ``submit``, is dropped), as the
-    reference's processor does. On the card each side's frames go through
-    two alternating pinned staging buffers, uploaded on a side copy stream
-    that the compute stream (the current stream at ``submit``) waits on, so
-    the next window's upload overlaps the current window's kernels. On the
-    CPU the window is copied and computed in ``submit``. Either way the
-    processor holds its own copy of the caller's arrays once ``submit``
-    returns.
-    """
 
-    def __init__(self, mesh: Mesh, maps, Q, matcher: str = "sgbm", params=None, hier_params=None):
-        self.mesh = mesh
-        self.device = _mesh_device(mesh)
-        self._fn = make_sharded_pipeline(mesh, maps, Q, matcher, params, hier_params)
-        self._pending = None  # (disparity, points, event or None)
-        self._cuda = self.device.type == "cuda"
-        if self._cuda:
-            self._copy_stream = torch.cuda.Stream(self.device)
-            self._staging: list[tuple | None] = [None, None]  # per slot: (left, right, upload event)
-            self._slot = 0
+class _Staging:
+    """One data device's upload path: two alternating pinned (left, right)
+    slots and a side copy stream."""
 
-    def _stage(self, left, right) -> tuple[torch.Tensor, torch.Tensor, torch.cuda.Event]:
-        """Copy the window into the next pinned slot and upload it on the
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.copy_stream = torch.cuda.Stream(device)
+        self.slots: list[tuple | None] = [None, None]  # per slot: (left, right, upload event)
+        self.slot = 0
+
+    def put(self, left: torch.Tensor, right: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.cuda.Event]:
+        """Copy the pieces into the next pinned slot and upload them on the
         copy stream; returns the device tensors and the upload's event."""
-        left, right = (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-                       for a in (left, right))
-        slot = self._staging[self._slot]
+        slot = self.slots[self.slot]
         if slot is not None:
             slot[2].synchronize()  # the slot's previous upload has read it
         if slot is None or any(b.shape != a.shape or b.dtype != a.dtype for b, a in zip(slot[:2], (left, right))):
@@ -195,43 +205,84 @@ class StereoStreamProcessor:
         pr.copy_(right)
         event = torch.cuda.Event()
         compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
+        with torch.cuda.stream(self.copy_stream):
             dl = pl.to(self.device, non_blocking=True)
             dr = pr.to(self.device, non_blocking=True)
-            event.record(self._copy_stream)
+            event.record(self.copy_stream)
         # The inputs were allocated on the copy stream: keep their memory
         # from reuse until the compute stream's work on them is done.
         dl.record_stream(compute)
         dr.record_stream(compute)
-        self._staging[self._slot] = (pl, pr, event)
-        self._slot ^= 1
+        self.slots[self.slot] = (pl, pr, event)
+        self.slot ^= 1
         return dl, dr, event
+
+
+class StereoStreamProcessor:
+    """Double-buffered host->device streaming around the pipeline of
+    :func:`make_sharded_pipeline`.
+
+    ``submit`` splits a window over the mesh's ``data`` devices, enqueues
+    each share and then waits for the window submitted before it; ``drain``
+    waits for and returns the last submitted window (an earlier one, waited
+    on by ``submit``, is dropped), as the reference's processor does. On the
+    card each data device's frames go through two alternating pinned staging
+    buffers, uploaded on its own side copy stream that its compute stream
+    (the current stream at ``submit``) waits on, so the next window's upload
+    overlaps the current window's kernels; ``drain`` copies each device's
+    share straight into the host arrays it returns. On the CPU the window
+    is copied and computed in ``submit``. Either way the processor holds its
+    own copy of the caller's arrays once ``submit`` returns.
+    """
+
+    def __init__(self, mesh: Mesh, maps, Q, matcher: str = "sgbm", params=None, hier_params=None):
+        _check_matcher(matcher, params)
+        self.mesh = mesh
+        self.devices = mesh.axis_devices(DATA_AXIS)
+        self.device = self.devices[0]
+        self._parts = [_device_part(d, maps, Q, matcher, params, hier_params, False) for d in self.devices]
+        self._pending = None  # per data device: (disparity, points, event or None)
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            self._staging = [_Staging(d) for d in self.devices]
 
     def submit(self, left, right) -> None:
         """Enqueue a (B, H, W) window, then wait for the previous one."""
-        if self._cuda:
-            dl, dr, uploaded = self._stage(left, right)
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(uploaded)
-            disp, pts = self._fn(dl, dr)
-            done = torch.cuda.Event()
-            done.record(compute)
-        else:
-            disp, pts = self._fn(*(a.clone() if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
-                                   for a in (left, right)))
-            done = None
-        prev, self._pending = self._pending, (disp, pts, done)
+        n = len(self.devices)
+        pieces = list(zip(_host_pieces(left, n), _host_pieces(right, n)))
+        pending = []
+        for i, (part, dev, (lp, rp)) in enumerate(zip(self._parts, self.devices, pieces)):
+            if self._cuda:
+                dl, dr, uploaded = self._staging[i].put(lp, rp)
+                compute = torch.cuda.current_stream(dev)
+                compute.wait_event(uploaded)
+                disp, pts = part(dl, dr)
+                done = torch.cuda.Event()
+                done.record(compute)
+            else:
+                disp, pts = part(lp.clone(), rp.clone())
+                done = None
+            pending.append((disp, pts, done))
+        prev, self._pending = self._pending, pending
         # Keep at most one window in flight beyond the current one.
-        if prev is not None and prev[2] is not None:
-            prev[2].synchronize()
+        for *_, done in prev or ():
+            if done is not None:
+                done.synchronize()
 
     def drain(self):
         """Wait for and return the last submitted window's (disparity,
         points) as numpy arrays, or None when nothing is pending."""
         if self._pending is None:
             return None
-        disp, pts, done = self._pending
-        if done is not None:
-            done.synchronize()
-        self._pending = None
-        return disp.cpu().numpy(), pts.cpu().numpy()
+        pending, self._pending = self._pending, None
+        outs = []
+        for k in (0, 1):
+            shards = [p[k] for p in pending]
+            b = shards[0].shape[0]
+            host = torch.empty((b * len(shards), *shards[0].shape[1:]), dtype=shards[0].dtype)
+            for i, (shard, (*_, done)) in enumerate(zip(shards, pending)):
+                if done is not None:
+                    done.synchronize()
+                host[i * b:(i + 1) * b].copy_(shard)
+            outs.append(host.numpy())
+        return tuple(outs)

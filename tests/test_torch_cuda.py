@@ -17,7 +17,9 @@ BatchNorm's training form within 1e-5 of each output's largest value,
 the losses within rtol 1e-5 and their gradients within 1e-5 of the
 largest, one step of each trainer within rtol 1e-4 on the loss, the
 parameters unmoved (lr 0) and the running statistics within 1e-4 of each
-leaf's largest.
+leaf's largest; the sharded SGM and the data-parallel pipeline on
+logical shards of the card against the same calls on the CPU, bit for bit
+(points within float32 rtol 1e-6).
 """
 
 import numpy as np
@@ -26,8 +28,10 @@ import torch
 
 from stereo_vision_tpu_torch import calib, detect, ops, sync, track
 from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained, yolov8
-from stereo_vision_tpu_torch.parallel.mesh import create_mesh
-from stereo_vision_tpu_torch.parallel.streaming import StereoStreamProcessor, batched_stereo_pipeline
+from stereo_vision_tpu_torch.parallel import sgm_sharded
+from stereo_vision_tpu_torch.parallel.mesh import create_mesh, host_cpu_mesh
+from stereo_vision_tpu_torch.parallel.streaming import (StereoStreamProcessor, batched_stereo_pipeline,
+                                                         make_sharded_pipeline)
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
@@ -1767,3 +1771,58 @@ def test_one_training_step_cuda_matches_cpu(dev, name, tmp_path):
                 assert np.array_equal(x, y), path
             else:
                 assert np.abs(x - y).max() <= 1e-4 * np.abs(y).max(), path
+
+
+def _logical(dev, n_data, n_space):
+    return create_mesh(n_data, n_space, devices=[dev] * (n_data * n_space))
+
+
+@pytest.mark.parametrize("num_paths", [8, 4, 3, 2])
+def test_sgm_aggregate_sharded_cuda_matches_cpu(dev, num_paths):
+    """Four bands, logical shards of the card: the carries cross every band
+    boundary; equal to the CPU's bands and to aggregate_8 on the card."""
+    rng = np.random.default_rng(num_paths)
+    C = torch.from_numpy(rng.integers(0, 3000, (3, 16, 40, 24)).astype(np.int32))
+    n = sgm_cuda.horizontal.launches
+    out = sgm_sharded.sgm_aggregate_sharded(C, 200, 800, _logical(dev, 1, 4), num_paths=num_paths)
+    torch.cuda.synchronize()
+    # One launch a horizontal direction, a frame and a band.
+    assert out.device.type == "cuda" and sgm_cuda.horizontal.launches - n == {8: 2, 4: 2, 3: 1, 2: 0}[num_paths] * 12
+    ref = sgm_sharded.sgm_aggregate_sharded(C, 200, 800, host_cpu_mesh(4, 4), num_paths=num_paths)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(out, sgm_cuda.aggregate_8(C.to(dev), 200, 800, num_paths, cost_bound=2999))
+
+
+@pytest.mark.parametrize("num_paths", [8, 3])
+def test_stereo_sgbm_sharded_cuda_matches_cpu(dev, num_paths):
+    frames = [scene(seed=s, H=64, W=192) for s in range(2)]
+    left, right = (np.stack([f[i] for f in frames]).astype(np.int32) for i in (0, 1))
+    params = StereoSGBMParams(num_disparities=64, block_size=5, uniqueness_ratio=10, disp12_max_diff=1,
+                              speckle_window_size=30, speckle_range=2, num_paths=num_paths)
+    counts = {k: k.launches for k in (sgm_cuda.wta_stats, lr_cuda.lr_fail, speckle_cuda.speckle_filter)}
+    out = sgm_sharded.stereo_sgbm_sharded(left, right, params, _logical(dev, 1, 4))
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in counts.items()] == [4, 4, 1]
+    ref = sgm_sharded.stereo_sgbm_sharded(left, right, params, host_cpu_mesh(4, 4))
+    assert torch.equal(out.cpu(), ref) and (ref > -1).float().mean() > 0.4  # x < 64 is invalid: at most 2/3
+    assert torch.equal(out, stereo_sgbm(torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev), params))
+
+
+@pytest.mark.parametrize("matcher", ["sgbm", "bm", "sgbm_hier"])
+def test_sharded_pipeline_on_two_data_shards_cuda_matches_cpu(dev, matcher):
+    H, W = 64, 256
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    maps = (xx + 0.3 * np.sin(yy / 11.0), yy + 0.2 * np.cos(xx / 13.0), xx - 0.1 + 0.3 * np.sin(yy / 11.0),
+            yy + 0.2 * np.cos(xx / 13.0))
+    Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
+    params = (bm.StereoBMParams(num_disparities=64, block_size=9) if matcher == "bm" else
+              StereoSGBMParams(num_disparities=128 if matcher == "sgbm_hier" else 64, block_size=5,
+                               uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=30, speckle_range=2,
+                               num_paths=3))
+    n = 16 if matcher == "sgbm_hier" else 4
+    frames = [scene(seed=s, H=H, W=W) for s in range(n)]
+    left, right = (np.stack([f[i] for f in frames]).astype(np.uint8) for i in (0, 1))
+    out = make_sharded_pipeline(_logical(dev, 2, 1), maps, Q, matcher, params)(left, right)
+    ref = make_sharded_pipeline(host_cpu_mesh(2), maps, Q, matcher, params)(left, right)
+    assert out[0].device.type == "cuda" and torch.equal(out[0].cpu(), ref[0])
+    np.testing.assert_allclose(out[1].cpu().numpy(), ref[1].numpy(), rtol=1e-6)

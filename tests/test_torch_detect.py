@@ -452,9 +452,9 @@ def test_ball_frame_ball_is_found():
 
 
 def test_parallel_exports_match_jax_less_sharding_helpers():
-    """ROADMAP C.8: the port's parallel package exports JAX's names less the
-    four sharding helpers of several cards (A.8); JAX's list is read in a
-    subprocess."""
+    """ROADMAP C.8: the port's parallel package exports every one of JAX's
+    names, the four sharding helpers of several devices (A.8) among them;
+    JAX's list is read in a subprocess."""
     from stereo_vision_tpu_torch import parallel
     from stereo_vision_tpu_torch.parallel import batched_stereo_pipeline  # noqa: F401
 
@@ -465,6 +465,6 @@ def test_parallel_exports_match_jax_less_sharding_helpers():
     jax_all = json.loads(out.stdout.strip().splitlines()[-1])
     helpers = {"host_cpu_mesh", "batch_sharding", "batch_rows_sharding", "replicated"}
     assert helpers <= set(jax_all)
-    assert sorted(parallel.__all__) == sorted(set(jax_all) - helpers)
+    assert parallel.__all__ == jax_all
     for name in parallel.__all__:
         assert hasattr(parallel, name), name

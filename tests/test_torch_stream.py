@@ -1,15 +1,16 @@
-"""The port's single-device ``make_sharded_pipeline`` and
-``StereoStreamProcessor`` (``stereo_vision_tpu_torch.parallel``), on the CPU.
+"""The port's ``make_sharded_pipeline`` and ``StereoStreamProcessor``
+(``stereo_vision_tpu_torch.parallel``) on 1x1 and larger meshes, on the CPU.
 
-The closure and the processor run ``batched_stereo_pipeline`` with the maps
-and Q moved to the mesh's device once, so their outputs must equal the
-batched pipeline's bit for bit, for every matcher. For ``sgbm`` and ``bm``
-the JAX package's ``make_sharded_pipeline`` on a one-device CPU mesh is the
-reference too: disparity exact, points within float32 rtol 1e-6 (as
-tests/test_torch_pipeline.py holds the batched pipeline). JAX's hier under
-``shard_map`` in interpret mode takes about a minute a call, so the hier
-closure is held to the port's batched pipeline only (which
-tests/test_torch_hier.py holds to JAX).
+The closure and the processor run ``batched_stereo_pipeline`` on each data
+device's frames with the maps and Q moved there once, so their outputs must
+equal the batched pipeline's bit for bit, for every matcher. For ``sgbm``
+and ``bm`` the JAX package's ``make_sharded_pipeline`` on a CPU mesh of the
+same shape (the virtual devices of tests/conftest.py; the port's on
+``host_cpu_mesh``) is the reference too: disparity exact, points within
+float32 rtol 1e-6 (as tests/test_torch_pipeline.py holds the batched
+pipeline). JAX's hier under ``shard_map`` in interpret mode takes about a
+minute a call, so the hier closure is held to the port's batched pipeline
+only (which tests/test_torch_hier.py holds to JAX), pack by pack.
 """
 
 import jax
@@ -183,16 +184,81 @@ def test_processor_hier_window_equals_batched_pipeline():
     np.testing.assert_array_equal(pts, ref[1].numpy())
 
 
-def test_larger_mesh_is_refused_before_any_work(monkeypatch):
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+@pytest.mark.parametrize("matcher", ["sgbm", "bm"])
+def test_sharded_pipeline_on_a_mesh_matches_jax(matcher, shape):
+    """Frames split over ``data`` (4 on a 4x1 mesh: one a device; 2x2: two
+    a data device, ``space`` unused), gathered on the first device."""
     maps, Q = _rig()
-    monkeypatch.setattr(streaming, "_to", lambda *a: pytest.fail("work started on a refused mesh"))
-    two = mesh.create_mesh(devices=["cpu", "cpu"])
-    assert two.shape == {"data": 2, "space": 1}
-    for make in (streaming.make_sharded_pipeline, streaming.StereoStreamProcessor):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            make(two, maps, Q, "sgbm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        streaming.make_sharded_pipeline(mesh.create_mesh(1, 2, devices=["cpu", "cpu"]), maps, Q)
+    left, right = _frames(4, seed0=3)
+    n_data, n_space = shape
+    jm = jmesh.create_mesh(n_data, n_space, devices=jax.devices("cpu")[:4])
+    jmaps = tuple(jnp.asarray(m) for m in maps)
+    jd, jp = jstream.make_sharded_pipeline(jm, jmaps, jnp.asarray(Q), matcher, _JP[matcher])(
+        jnp.asarray(left), jnp.asarray(right))
+    m = mesh.host_cpu_mesh(4, n_space)
+    td, tp = streaming.make_sharded_pipeline(m, maps, Q, matcher, _params(matcher))(left, right)
+    assert td.shape == (4, H, W) and tp.shape == (4, H, W, 3) and (np.asarray(jd) > -1).mean() > 0.1
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6)
+    if shape == (4, 1):
+        jstats = jstream.make_sharded_pipeline(jm, jmaps, jnp.asarray(Q), matcher, _JP[matcher], stats_only=True)(
+            jnp.asarray(left), jnp.asarray(right))
+        tstats = streaming.make_sharded_pipeline(m, maps, Q, matcher, _params(matcher), stats_only=True)(left, right)
+        assert tstats.shape == (4, 2)
+        np.testing.assert_allclose(tstats.numpy(), np.asarray(jstats), rtol=1e-6)
+
+
+def test_sharded_hier_pipeline_runs_a_pack_a_device():
+    """sgbm_hier on a 2x1 mesh, 16 frames given as ``put_batch`` shards:
+    each device runs one HIER_FAST pack of 8, equal to the batched pipeline
+    on those frames."""
+    from stereo_vision_tpu_torch.models import put_batch
+
+    maps, Q = _rig()
+    left, right = _frames(2 * HIER_FRAMES)
+    m = mesh.host_cpu_mesh(2)
+    lt, rt = put_batch(m, left), put_batch(m, right)
+    assert isinstance(lt, mesh.ShardedTensor)
+    disp, pts = streaming.make_sharded_pipeline(m, maps, Q, "sgbm_hier", HIER_PARAMS)(lt, rt)
+    assert disp.shape == (2 * HIER_FRAMES, H, W)
+    for i in range(2):
+        s = slice(i * HIER_FRAMES, (i + 1) * HIER_FRAMES)
+        ref = streaming.batched_stereo_pipeline(left[s], right[s], maps, Q, "sgbm_hier", HIER_PARAMS, device="cpu")
+        assert torch.equal(disp[s], ref[0]) and torch.equal(pts[s], ref[1]), f"pack {i}"
+
+
+def test_sharded_pipeline_refuses_frames_the_data_axis_does_not_divide(monkeypatch):
+    maps, Q = _rig()
+    left, right = _frames(3)
+    run = streaming.make_sharded_pipeline(mesh.host_cpu_mesh(2), maps, Q, "sgbm", _params("sgbm"))
+    monkeypatch.setattr(streaming, "batched_stereo_pipeline", lambda *a, **k: pytest.fail("work started"))
+    with pytest.raises(ValueError, match="divisible"):
+        run(left, right)
+    proc = streaming.StereoStreamProcessor(mesh.host_cpu_mesh(2), maps, Q, "sgbm", _params("sgbm"))
+    with pytest.raises(ValueError, match="divisible"):
+        proc.submit(left, right)
+
+
+def test_processor_contract_on_four_devices():
+    """The processor's contract on a 4x1 mesh: each window split a frame a
+    device, drained whole in frame order."""
+    maps, Q = _rig()
+    params = _params("sgbm")
+    proc = streaming.StereoStreamProcessor(mesh.host_cpu_mesh(4), maps, Q, "sgbm", params)
+    assert proc.drain() is None and proc.devices == [torch.device("cpu")] * 4
+    w1, w2 = _frames(4, seed0=0), _frames(4, seed0=5)
+    ref2 = streaming.batched_stereo_pipeline(*w2, maps, Q, "sgbm", params, device="cpu")
+    proc.submit(*w1)
+    left, right = w2[0].copy(), w2[1].copy()
+    proc.submit(left, right)
+    left[:] = 0
+    right[:] = 255
+    disp, pts = proc.drain()
+    assert isinstance(disp, np.ndarray) and disp.shape == (4, H, W) and pts.shape == (4, H, W, 3)
+    np.testing.assert_array_equal(disp, ref2[0].numpy())
+    np.testing.assert_array_equal(pts, ref2[1].numpy())
+    assert proc.drain() is None
 
 
 def test_matcher_and_params_are_checked_before_any_work(monkeypatch):

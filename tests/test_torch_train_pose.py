@@ -29,7 +29,17 @@ bottom rows gray 114). Tolerances:
 - ``make_train_step`` / ``shard_variables`` on a 1x1 mesh: the spec of
   every leaf equal to JAX's by path, each step's loss within rtol 1e-6 of
   the eval forward on the parameters it started from, the step counted
-  twice.
+  twice;
+- on a 2x2 mesh (PoseNet w32 at 64x64, batch 4, in eval mode, Adam 1e-3):
+  the specs equal JAX's by path, the split kernel's shards its output rows,
+  ``put_batch``'s shards JAX's indices; two steps' losses within rtol 1e-6
+  of the 1x1 step's (equal measured) and within rtol 1e-5 of JAX's
+  ``make_train_step`` on the 4x2 ``cpu_mesh`` (6e-8 measured); the
+  parameters within 1e-4 of the largest of the 1x1 step's (6.4e-5
+  measured: the split kernel's gradient is summed over the two data
+  devices in another order, and Adam's first steps move a parameter whose
+  gradient is near 0 by up to ~lr whatever its size) and within 4 lr of
+  JAX's (as the step test above).
 """
 
 import jax
@@ -48,7 +58,7 @@ from stereo_vision_tpu.models.pose import pose_loss_full as jpose_loss_full
 from stereo_vision_tpu.parallel.mesh import create_mesh as jcreate_mesh
 from stereo_vision_tpu_torch import models
 from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained
-from stereo_vision_tpu_torch.parallel.mesh import create_mesh
+from stereo_vision_tpu_torch.parallel.mesh import ShardedTensor, create_mesh, host_cpu_mesh
 from stereo_vision_tpu_torch.synth import scenes
 
 CPU = "cpu"
@@ -228,7 +238,7 @@ def test_make_train_step_and_shard_variables_on_one_device(posenet):
     by path equal to JAX's (the wide Dense kernels on ``space``); two steps
     of Adam with the network in eval mode, each loss that of the state it
     started from, the step counted, the batch statistics and the caller's
-    model unmoved; a larger mesh is refused."""
+    model unmoved; the same calls on a 1x2 mesh."""
     jm, tree = posenet["jm"], posenet["tree"]
     jmesh = jcreate_mesh(1, 1, devices=jax.devices("cpu")[:1])
     mesh = create_mesh(1, 1, devices=[CPU])
@@ -263,8 +273,73 @@ def test_make_train_step_and_shard_variables_on_one_device(posenet):
     for k, v in state.batch_stats.items():
         assert torch.equal(v, port.get_buffer(k)), k  # the step does not move batch_stats
     assert models.put_batch(mesh, posenet["x"]).device == torch.device(CPU)
-    two = create_mesh(1, 2, devices=[CPU, CPU])
-    for call in (lambda: models.put_batch(two, posenet["x"]), lambda: models.shard_variables(two, {}),
-                 lambda: models.make_train_step(two, None, None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            call()
+    two = create_mesh(1, 2, devices=[CPU, CPU])  # the same three calls run on two devices
+    put = models.put_batch(two, posenet["x"])
+    assert isinstance(put, ShardedTensor) and np.array_equal(put.numpy(), posenet["x"])
+    assert models.shard_variables(two, {}) == ({}, {})
+    assert all(callable(f) for f in models.make_train_step(two, None, None, None))
+
+
+def test_make_train_step_on_a_2x2_mesh_matches_one_device_and_jax(cpu_mesh):
+    """Data parallel over two data devices, the wide Dense kernel split over
+    two space devices, against the 1x1 step and JAX's global step."""
+    rng = np.random.default_rng(5)
+    ref = layers.init_flax_style(pose.PoseNet(width=32), torch.Generator().manual_seed(4))
+    tree = convert.variables_to_reference(ref)
+    x, gt = scenes.pose_training_batch(rng, 4, 64, 64)
+    m22 = host_cpu_mesh(4, n_space=2)
+    jm22 = jcreate_mesh(2, 2, devices=jax.devices("cpu")[:4])
+    paths = {key: path[1:] for path, key in convert.reference_leaves(ref) if path[0] == "params"}
+    _, jsh = jtrain.shard_variables(jm22, tree["params"])
+    jspecs = {tuple(k.key for k in p): tuple(s.spec) for p, s in jax.tree_util.tree_flatten_with_path(
+        jsh, is_leaf=lambda n: hasattr(n, "spec"))[0]}
+    placed, specs = models.shard_variables(m22, dict(ref.named_parameters()))
+    assert {paths[k]: v for k, v in specs.items()} == jspecs
+    split = [k for k, v in specs.items() if v == (None, "space")]
+    assert split == ["Dense_1.weight"]
+    w = ref.get_parameter("Dense_1.weight").detach()
+    shards = placed["Dense_1.weight"].shards
+    assert sorted(shards) == [(0, 0), (0, 1)] and all(t.requires_grad for t in shards.values())
+    assert torch.equal(shards[(0, 0)], w[:128]) and torch.equal(shards[(0, 1)], w[128:])
+    jput = jtrain.put_batch(jm22, x)
+    put = models.put_batch(m22, x)
+    for pos in np.ndindex(2, 2):
+        index = jput.sharding.devices_indices_map(x.shape)[jm22.devices[pos]]
+        assert put.sharding.devices_indices_map(x.shape)[pos] == index
+        assert np.array_equal(put.shards[pos].numpy(), x[index])
+
+    def port_steps(mesh):
+        net = pose.PoseNet(width=32)
+        net.load_state_dict(ref.state_dict())
+        net.eval()
+        init, step = models.make_train_step(
+            mesh, lambda v, a: torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,)),
+            lambda out, g: pose.pose_loss(out, g), lambda p: torch.optim.Adam(p, lr=1e-3))
+        state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+        losses = []
+        for inputs in (x, put):  # a host batch, then put_batch's shards (the same frames)
+            state, loss = step(state, inputs if mesh is m22 else x, gt)
+            losses.append(loss.item())
+        whole = {k: (v.gather("cpu") if isinstance(v, ShardedTensor) else v).detach() for k, v in state.params.items()}
+        return losses, whole, state
+
+    one_losses, one, _ = port_steps(create_mesh(1, 1, devices=[CPU]))
+    losses, params, state = port_steps(m22)
+    assert int(state.step) == 2 and isinstance(state.params["Dense_1.weight"], ShardedTensor)
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-6)
+    top = max(float(v.abs().max()) for v in one.values())
+    assert max(float((params[k] - v).abs().max()) for k, v in one.items()) <= 1e-4 * top
+
+    jmodel = JPoseNet(width=32)
+    jinit, jstep = jtrain.make_train_step(cpu_mesh, lambda v, a: jmodel.apply(v, a),
+                                          lambda out, g: jpose_loss(out, g), optax.adam(1e-3))
+    jstate = jinit(tree)
+    jlosses = []
+    for _ in range(2):
+        jstate, jloss = jstep(jstate, jnp.asarray(x), jnp.asarray(gt))
+        jlosses.append(float(jloss))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    for path, key in convert.reference_leaves(ref):
+        if path[0] == "params":
+            mine = _flax_layout(path, params[key])
+            assert np.abs(mine - _at(jstate.params, path[1:])).max() <= 4e-3, path
