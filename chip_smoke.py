@@ -4,7 +4,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order (any failure raises and the script exits nonzero):
   1. print the card's name and power limit (nvidia-smi);
-  2. build every csrc/*.cu with nvcc for sm_90a (one process per source);
+  2. build every csrc/*.cu with nvcc for sm_90a (one process per source) and,
+     beside them, the native host runtime (native/*.cpp) with g++;
   3. per exact-path kernel, at the main path's shapes (1280x720, D=128,
      4 frames): the CUDA wrapper against its plain PyTorch form on the
      card, exact equality; CUDA-event times of both and the kernel's
@@ -272,7 +273,8 @@ After 18:
      train_ball_detector (TRAIN_BALL_STEPS steps) and train_pose_net
      (TRAIN_POSE_STEPS, scan_chunk 25) from flax's initialisation on the
      card into a temporary directory, the batches' pixels rendered on a
-     pool of processes (synth.scenes.render_pool): the mean loss of the last tenth of
+     pool of processes (synth.scenes.render_pool; one pool for both,
+     spawned at the phase's start): the mean loss of the last tenth of
      the steps below that of the first tenth, the saved npz read back by
      convert.load_tree giving the trained model's forward bit for bit, its
      arrays as many and shaped as the in-repo npz's; CUDA-event ms of a
@@ -300,6 +302,24 @@ After 18:
      on 2x2 against 1x1, two steps: losses within rtol 1e-5, parameters
      within 1e-4 of the largest, the Dense kernel's shards its output rows
      on the space devices; host ms a step.
+ 37. (run after 36) two video files to disparity and 3D through
+     stream_video_pair on the card: the machine's decoders listed (ffmpeg,
+     ffprobe, the av / cv2 / torchvision modules, NVDEC's library), both
+     native modules built by g++ and the frame ring the native one (else it
+     fails); for the stream CLI's default matcher (sgbm_hier at window 32,
+     hier4x3 with p3, 1280x720, 67 RGBA frames a camera) and BASELINE config
+     #5's BM (window 8, 1920x1080, 19 Y800 frames), each pair written by the
+     port's raw-AVI writer to a temporary directory and read back equal to
+     the frames written; three streams of it (full output, stats_only, full
+     output kept), each with the path's kernel counts set to 0 before and
+     read after (a window's launches equal batched_stereo_pipeline's, none
+     0), every window's disparity and points bit-equal to
+     batched_stereo_pipeline on the same gray frames (the ring's 8.8 pack),
+     stats_only equal to _frame_stats, seqs and n_valid (the tail window
+     padded); frames/s end to end and steady (after the first window) of
+     both outputs, decode + pack alone (StereoPairLoader) and the pipeline
+     alone (make_sharded_pipeline on card-resident frames, ms a window),
+     with the card's name and power limit.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -321,10 +341,15 @@ Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import ctypes
+import ctypes.util
 import dataclasses
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -334,14 +359,16 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from stereo_vision_tpu_torch import _build, calib, detect, ops, sync, track
+from stereo_vision_tpu_torch import _build, calib, detect, native, ops, sync, track
+from stereo_vision_tpu_torch.io import video as io_video
+from stereo_vision_tpu_torch.io.loader import FrameRing, StereoPairLoader
 from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained, yolov8
 from stereo_vision_tpu_torch.models import train as train_models
 from stereo_vision_tpu_torch.ops.remap import remap_bilinear
 from stereo_vision_tpu_torch.parallel import sgm_sharded, streaming
 from stereo_vision_tpu_torch.parallel.mesh import ShardedTensor, create_mesh
 from stereo_vision_tpu_torch.parallel.streaming import (StereoStreamProcessor, batched_stereo_pipeline,
-                                                         make_sharded_pipeline)
+                                                         make_sharded_pipeline, stream_video_pair)
 from stereo_vision_tpu_torch.stereo import (banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, postprocess, sgbm,
                                             sgm_cuda, speckle_cuda)
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
@@ -351,8 +378,8 @@ from stereo_vision_tpu_torch.synth.boards import (add_glare, add_noise, board_vi
                                                   render_board_view)
 from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, ball_frame, ball_training_batch,
                                                   draw_ball, flash_streams, lr_maps, pose_training_batch,
-                                                  render_ball_drop_stereo, render_pose_stereo, scene, scene_occ,
-                                                  scene_truth, speckle_patterns, wta_volumes)
+                                                  render_ball_drop_stereo, render_pose_stereo, render_pool, scene,
+                                                  scene_occ, scene_truth, speckle_patterns, wta_volumes)
 from stereo_vision_tpu_torch.track.pose_pipeline import run_pose_workflow
 
 H, W, D, B = 720, 1280, 128, 4
@@ -3146,7 +3173,7 @@ def ball_pose_times(dev, card: str, balls: np.ndarray, bodies: np.ndarray, lml, 
 
 # Phase 35: the trainers' defaults (models/pretrained.py) and the checks' limits.
 TRAIN_BATCH = 16
-TRAIN_BALL_STEPS, TRAIN_POSE_STEPS, TRAIN_CHUNK = 200, 100, 25
+TRAIN_BALL_STEPS, TRAIN_POSE_STEPS, TRAIN_CHUNK = 30, 10, 25
 TRAIN_DEFAULT_STEPS = {"ball": 800, "pose": 3000}  # the schedules' lengths in the parity steps
 TRAIN_LOSS_RTOL, TRAIN_STAT_REL = 1e-4, 1e-4
 # Card against CPU: cuDNN's and the CPU's float32 sums in other orders (and
@@ -3250,7 +3277,21 @@ def train_stage_ms(dev, make, weights, objective, kw, batch, reps: int = 5) -> d
 def phase_train(dev, card: str) -> dict:
     """Phase 35: both trainers on the card: parity with the CPU on two steps
     from the in-repo weights, training from flax's initialisation, the saved
-    weights read back, times."""
+    weights read back, times. The trainers share one render pool, spawned as
+    the phase starts so that its processes start (10-11 s on the card's
+    host) while the parity checks run; each trainer would spawn its own."""
+    with render_pool() as pool:
+        for _ in range(os.cpu_count() or 1):
+            pool.submit(int, 0)
+        saved = pretrained._renderers
+        pretrained._renderers = lambda _dev: contextlib.nullcontext(pool)
+        try:
+            return _train_phase(dev, card)
+        finally:
+            pretrained._renderers = saved
+
+
+def _train_phase(dev, card: str) -> dict:
     out = {}
     rng = np.random.default_rng(35)
     t0 = time.perf_counter()
@@ -3531,6 +3572,161 @@ def phase_mesh(dev, card: str) -> dict:
     return out
 
 
+# Phase 37: two video files streamed on the card (stream_video_pair), written
+# by the port's writer as raw AVI: the stream CLI's default matcher, sgbm_hier
+# at window 32 (hier4x3, p3), at 1280x720 on 67 RGBA frames a camera (windows
+# of 32, 32 and 3), and BASELINE config #5's BM at window 8 at 1920x1080 on 19
+# Y800 frames (8, 8 and 3); the parallel rig's maps. The bench scene, seeds 0-7
+# repeated along a stream; the colour stream's channels tinted apart
+# (VIDEO_TINT added to R, G, B) so that the ring's 8.8 pack does real work.
+VIDEO_STREAMS = {"sgbm_hier": dict(params=P3, window=HIER_P, frames=67, h=H, w=W, fourcc="RGBA"),
+                 "bm": dict(params=BM_PARAMS, window=BM_B, frames=19, h=BM_H, w=BM_W, fourcc="Y800")}
+VIDEO_SEEDS, VIDEO_TINT = 8, (0, 8, -8)
+
+
+def decoder_findings() -> dict:
+    """What this machine could decode video with, found without importing
+    any of it: the ffmpeg / ffprobe programs, the av, cv2 and torchvision
+    modules, and NVDEC's library (libnvcuvid)."""
+    return {"ffmpeg": shutil.which("ffmpeg"), "ffprobe": shutil.which("ffprobe"),
+            **{f"module {m}": importlib.util.find_spec(m) is not None for m in ("av", "cv2", "torchvision")},
+            "libnvcuvid": ctypes.util.find_library("nvcuvid"), "libavcodec": ctypes.util.find_library("avcodec")}
+
+
+def video_pair(spec: dict) -> tuple[np.ndarray, np.ndarray]:
+    """A stream's (left, right) frames: (T, h, w, 3) RGB or (T, h, w) gray uint8."""
+    scenes = [scene(seed=s, H=spec["h"], W=spec["w"]) for s in range(VIDEO_SEEDS)]
+    out = []
+    for i in (0, 1):
+        g = np.stack([scenes[t % VIDEO_SEEDS][i] for t in range(spec["frames"])]).astype(np.int16)
+        if spec["fourcc"] == "RGBA":
+            g = np.stack([g + k for k in VIDEO_TINT], axis=-1)
+        out.append(np.clip(g, 0, 255).astype(np.uint8))
+    return out[0], out[1]
+
+
+def video_stream(dev, mesh, matcher: str, spec: dict, tmp: str) -> dict:
+    """One stream of phase 37: write the pair, check its decode, then
+    stream_video_pair three times (full output timed, stats_only timed,
+    full output kept and checked, each with the path's kernel counts set to
+    0 before it and read after it), decode + pack alone and the pipeline
+    alone; every window held bit for bit to batched_stereo_pipeline on the
+    same gray frames."""
+    params, window, n = spec["params"], spec["window"], spec["frames"]
+    left, right = video_pair(spec)
+    paths = [os.path.join(tmp, f"{matcher}_{side}.avi") for side in ("left", "right")]
+    t0 = time.perf_counter()
+    for path, frames in zip(paths, (left, right)):
+        io_video.write_video(path, frames, fps=30.0)
+    write_s = time.perf_counter() - t0
+    rgb = left.ndim == 4
+    for path, frames in zip(paths, (left, right)):  # the decoded frames are the frames written
+        got = 0
+        for idx, f in io_video.iter_frames(path, grayscale=not rgb):
+            if not np.array_equal(f, frames[idx]):
+                raise AssertionError(f"{path}: frame {idx} decodes to other pixels than were written")
+            got += 1
+        if got != n:
+            raise AssertionError(f"{path}: {got} frames decoded, {n} written")
+    gl, gr = (native.pack_gray(f) if rgb else f for f in (left, right))  # what the frame ring hands on
+    del left, right
+    maps, Q = parallel_rig(spec["h"], spec["w"], dev)
+    kernels = STREAM_KERNELS[matcher]
+    n_windows = -(-n // window)
+    windows = [np.minimum(np.arange(k * window, (k + 1) * window), n - 1) for k in range(n_windows)]
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    zero()
+    ref = [batched_stereo_pipeline(gl[i], gr[i], maps, Q, matcher, params, device=dev) for i in windows[:1]]
+    torch.cuda.synchronize()
+    per_call = counts()
+
+    def stream(stats_only: bool, keep: bool):
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_first, n_first, frames, kept = None, 0, 0, []
+        for item in stream_video_pair(*paths, mesh, maps, Q, matcher, params, window=window,
+                                      stats_only=stats_only):
+            frames += item[3]
+            if keep:
+                kept.append(item)
+            if t_first is None:
+                t_first, n_first = time.perf_counter(), frames
+        t_end = time.perf_counter()
+        c = counts()
+        if c != {k: v * n_windows for k, v in per_call.items()} or min(c.values()) == 0:
+            raise AssertionError(f"{matcher} stream launches {c} in {n_windows} windows, "
+                                 f"batched_stereo_pipeline's {per_call} a call")
+        if frames != n:
+            raise AssertionError(f"{matcher} stream returned {frames} frames of {n}")
+        return kept, dict(s=t_end - t0, fps=frames / (t_end - t0),
+                          fps_steady=(frames - n_first) / (t_end - t_first) if frames > n_first else None)
+
+    _, full = stream(False, keep=False)
+    stats, stats_t = stream(True, keep=True)
+    kept, _ = stream(False, keep=True)
+    for k, ((seq, disp, pts, n_valid), (sseq, st, none, sn), idx) in enumerate(zip(kept, stats, windows)):
+        nv = min(window, n - k * window)  # the tail window repeats its last frame
+        if (seq, n_valid, sseq, sn, none) != (k, nv, k, nv, None):
+            raise AssertionError(f"{matcher} window {k}: seq / n_valid {(seq, n_valid, sseq, sn)}")
+        d, p = batched_stereo_pipeline(gl[idx], gr[idx], maps, Q, matcher, params, device=dev)
+        if not (np.array_equal(disp, d.cpu().numpy()) and np.array_equal(pts, p.cpu().numpy(), equal_nan=True)):
+            raise AssertionError(f"{matcher} window {seq} differs from batched_stereo_pipeline's")
+        if not np.array_equal(st, streaming._frame_stats(d, p).cpu().numpy(), equal_nan=True):
+            raise AssertionError(f"{matcher} window {seq}: stats_only differs from _frame_stats")
+    if len(kept) != n_windows or len(stats) != n_windows:
+        raise AssertionError(f"{matcher}: {len(kept)} / {len(stats)} windows, {n_windows} expected")
+    min_x = D if matcher == "sgbm_hier" else BM_PARAMS.num_disparities
+    valid_share, within1 = quality(kept[0][1], scene_truth(spec["h"], spec["w"]), min_x)
+    del kept, ref
+    t0 = time.perf_counter()
+    decoded = sum(nv for *_, nv in StereoPairLoader(*paths, window))
+    decode_fps = decoded / (time.perf_counter() - t0)
+    run = make_sharded_pipeline(mesh, maps, Q, matcher, params)
+    lt, rt = (torch.from_numpy(g[windows[0]]).to(dev) for g in (gl, gr))
+    pipeline_ms = host_ms(lambda: run(lt, rt))
+    torch.cuda.empty_cache()
+    return dict(frames=n, window=window, size=[spec["w"], spec["h"]], fourcc=spec["fourcc"],
+                launches_per_window=per_call, write_s=write_s, full=full, stats_only=stats_t,
+                decode_pack_fps=decode_fps, pipeline_ms_per_window=pipeline_ms, valid_share=valid_share,
+                within1_share=within1)
+
+
+def phase_video(dev, card: str) -> dict:
+    """Phase 37: two video files to disparity and 3D on the card through
+    stream_video_pair, with the native frame ring and gray pack (a failed
+    g++ build fails the phase)."""
+    findings = decoder_findings()
+    print(f"phase 37 decoders on this machine: {json.dumps(findings)}", flush=True)
+    if not (native.native_available("host_ops") and native.native_available("frame_ring")):
+        raise AssertionError("the native host runtime (host_ops, frame_ring) did not build")
+    if FrameRing(1, (1,))._mod is None:
+        raise AssertionError("the frame ring is not the native one")
+    out = {"decoders": findings}
+    mesh = create_mesh(devices=[dev])
+    with tempfile.TemporaryDirectory() as tmp:
+        for matcher, spec in VIDEO_STREAMS.items():
+            r = video_stream(dev, mesh, matcher, spec, tmp)
+            out[matcher] = r
+            print(f"video stream {matcher} ({r['frames']} {r['fourcc']} frames of {r['size'][0]}x{r['size'][1]} a "
+                  f"camera, windows of {r['window']}) on {card}: decoded == written, every window == "
+                  f"batched_stereo_pipeline and stats_only == _frame_stats, launches a window "
+                  f"{json.dumps(r['launches_per_window'])}, native ring and pack; frames/s end to end "
+                  f"{r['full']['fps']:.2f} (steady {r['full']['fps_steady']:.2f}) full output, "
+                  f"{r['stats_only']['fps']:.2f} (steady {r['stats_only']['fps_steady']:.2f}) stats_only; "
+                  f"decode + pack alone {r['decode_pack_fps']:.2f} frames/s; the pipeline alone "
+                  f"{r['pipeline_ms_per_window']:.3f} ms a window; valid share {r['valid_share']:.4f}, within "
+                  f"1 px {r['within1_share']:.4f}; written in {r['write_s']:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3542,9 +3738,15 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    reports = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # g++ for the host runtime beside the nvcc processes
+        host = {name: pool.submit(native.build, name) for name in ("host_ops", "frame_ring")}
+        reports = _build.build()
+        host = {name: f.result() for name, f in host.items()}
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.2f} s for {sorted(reports) or 'nothing (already built)'}", flush=True)
+    print(f"build: {build_s:.2f} s for {sorted(reports) or 'nothing (already built)'}; host runtime "
+          f"{json.dumps({k: str(v) for k, v in host.items()})}", flush=True)
+    if None in host.values():
+        raise AssertionError(f"g++ failed to build the native host runtime: {host}")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -3670,6 +3872,11 @@ def main() -> int:
     several["phase_s"] = time.perf_counter() - t0
     print(f"phase 36: {several['phase_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    videos = phase_video(dev, card)
+    videos["phase_s"] = time.perf_counter() - t0
+    print(f"phase 37: {videos['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -3695,7 +3902,7 @@ def main() -> int:
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
                       "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream, "detection": detection,
-                      "ball_pose": ball_pose, "training": training, "mesh": several,
+                      "ball_pose": ball_pose, "training": training, "mesh": several, "video": videos,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

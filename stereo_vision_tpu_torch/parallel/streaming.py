@@ -12,18 +12,26 @@ data device holding its own copy of the maps and Q, moved there once, and
 running the batched pipeline on its frames; the processor double-buffers
 each device's host->device upload (pinned staging buffers and a copy
 stream) under the current window's compute. One host thread drives every
-device, as the JAX package's single program does. ``stream_video_pair`` is
-not ported yet.
+device, as the JAX package's single program does.
+
+``stream_video_pair`` streams two video files to disparity and 3D: decode
+and the native gray pack on host threads (``io.loader.StereoPairLoader``),
+each window's upload through the processor's pinned staging, the batched
+pipeline on the mesh, and each window's read-back into pinned host memory
+on a side stream, so that the host decodes window k + 2 while the card runs
+window k + 1 and returns window k.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable
 
 import numpy as np
 import torch
 
 from stereo_vision_tpu_torch.device import resolve_device
+from stereo_vision_tpu_torch.io.loader import StereoPairLoader
 from stereo_vision_tpu_torch.ops.remap import make_remap
 from stereo_vision_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, concat_on, on_device, split_along
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams, stereo_bm
@@ -218,6 +226,30 @@ class _Staging:
         return dl, dr, event
 
 
+def _enqueue(parts: list, devices: list, staging: list | None, left, right) -> list[tuple]:
+    """Run a host window's shares on the data devices: per device, its
+    part's output and an event recorded after it (None on the CPU). On the
+    card each share goes through its device's pinned staging and the
+    device's compute stream waits for its upload; on the CPU a share runs
+    at once, on a copy of the caller's frames."""
+    n = len(devices)
+    pending = []
+    for i, (part, dev, (lp, rp)) in enumerate(zip(parts, devices, zip(_host_pieces(left, n),
+                                                                      _host_pieces(right, n)))):
+        if staging is not None:
+            dl, dr, uploaded = staging[i].put(lp, rp)
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_event(uploaded)
+            out = part(dl, dr)
+            done = torch.cuda.Event()
+            done.record(compute)
+        else:
+            out = part(lp.clone(), rp.clone())
+            done = None
+        pending.append((out, done))
+    return pending
+
+
 class StereoStreamProcessor:
     """Double-buffered host->device streaming around the pipeline of
     :func:`make_sharded_pipeline`.
@@ -241,31 +273,17 @@ class StereoStreamProcessor:
         self.devices = mesh.axis_devices(DATA_AXIS)
         self.device = self.devices[0]
         self._parts = [_device_part(d, maps, Q, matcher, params, hier_params, False) for d in self.devices]
-        self._pending = None  # per data device: (disparity, points, event or None)
+        self._pending = None  # per data device: ((disparity, points), event or None)
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             self._staging = [_Staging(d) for d in self.devices]
 
     def submit(self, left, right) -> None:
         """Enqueue a (B, H, W) window, then wait for the previous one."""
-        n = len(self.devices)
-        pieces = list(zip(_host_pieces(left, n), _host_pieces(right, n)))
-        pending = []
-        for i, (part, dev, (lp, rp)) in enumerate(zip(self._parts, self.devices, pieces)):
-            if self._cuda:
-                dl, dr, uploaded = self._staging[i].put(lp, rp)
-                compute = torch.cuda.current_stream(dev)
-                compute.wait_event(uploaded)
-                disp, pts = part(dl, dr)
-                done = torch.cuda.Event()
-                done.record(compute)
-            else:
-                disp, pts = part(lp.clone(), rp.clone())
-                done = None
-            pending.append((disp, pts, done))
+        pending = _enqueue(self._parts, self.devices, self._staging if self._cuda else None, left, right)
         prev, self._pending = self._pending, pending
         # Keep at most one window in flight beyond the current one.
-        for *_, done in prev or ():
+        for _, done in prev or ():
             if done is not None:
                 done.synchronize()
 
@@ -277,12 +295,115 @@ class StereoStreamProcessor:
         pending, self._pending = self._pending, None
         outs = []
         for k in (0, 1):
-            shards = [p[k] for p in pending]
+            shards = [out[k] for out, _ in pending]
             b = shards[0].shape[0]
             host = torch.empty((b * len(shards), *shards[0].shape[1:]), dtype=shards[0].dtype)
-            for i, (shard, (*_, done)) in enumerate(zip(shards, pending)):
+            for i, (shard, (_, done)) in enumerate(zip(shards, pending)):
                 if done is not None:
                     done.synchronize()
                 host[i * b:(i + 1) * b].copy_(shard)
             outs.append(host.numpy())
         return tuple(outs)
+
+
+def _read_back(pending: list, streams: list) -> tuple[list, list]:
+    """Start copying a window's per-device outputs (a tensor or a tuple of
+    them) into pinned host tensors of the whole window, each device's share
+    on its read-back stream once the share is computed; returns the host
+    tensors and the copies' events. The device outputs are kept from reuse
+    until their copies are done."""
+    outs = [out if isinstance(out, tuple) else (out,) for out, _ in pending]
+    hosts = []
+    for k in range(len(outs[0])):
+        shard = outs[0][k]
+        hosts.append(torch.empty((shard.shape[0] * len(outs), *shard.shape[1:]), dtype=shard.dtype, pin_memory=True))
+    events = []
+    for i, ((_, done), stream) in enumerate(zip(pending, streams)):
+        stream.wait_event(done)
+        with torch.cuda.stream(stream):
+            for host, shard in zip(hosts, outs[i]):
+                b = shard.shape[0]
+                host[i * b:(i + 1) * b].copy_(shard, non_blocking=True)
+                shard.record_stream(stream)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        events.append(copied)
+    return hosts, events
+
+
+def stream_video_pair(
+    left_path,
+    right_path,
+    mesh: Mesh,
+    maps,
+    Q,
+    matcher: str = "sgbm_hier",
+    params=None,
+    hier_params=None,
+    window: int = 8,
+    left_start: int = 0,
+    right_start: int = 0,
+    max_frames: int | None = None,
+    depth: int = 3,
+    stats_only: bool = False,
+):
+    """Decode -> disparity -> 3D streaming over a synchronized video pair.
+
+    Three overlapped stages replace the reference's serial per-frame loop
+    (3dpose.py:358, ball_drop.py:380):
+
+      1. host decode + native RGB->gray pack (``io.loader.StereoPairLoader``:
+         a decode thread a video and the C++ frame ring),
+      2. the upload of the next window through pinned staging on a copy
+         stream while
+      3. the mesh's devices run the current window's remap -> matcher -> Q
+         (:func:`make_sharded_pipeline`'s parts), its results copied back
+         into pinned host memory on a side stream.
+
+    Yields ``(seq, disparity (T, H, W), points3d (T, H, W, 3), n_valid)``
+    per window as numpy arrays, in stream order; the final window is padded
+    to the window size by repeating its last frame, ``n_valid`` marking the
+    real frames. ``window`` must match the matcher's pack size for
+    ``sgbm_hier`` (8 for HIER_FAST) and divide by the mesh's ``data`` axis.
+    At most one window is in flight beyond the one being returned, and the
+    host waits on the card only for a window's read-back. With
+    ``stats_only`` the tuple becomes ``(seq, stats (T, 2), None, n_valid)``:
+    two floats a frame cross the bus (``_frame_stats``). A decode error is
+    raised here, on the consumer side; the loader is closed when the
+    generator ends or is closed.
+    """
+    _check_matcher(matcher, params)
+    devices = mesh.axis_devices(DATA_AXIS)
+    parts = [_device_part(d, maps, Q, matcher, params, hier_params, stats_only) for d in devices]
+    cuda = devices[0].type == "cuda"
+    staging = [_Staging(d) for d in devices] if cuda else None
+    readback = [torch.cuda.Stream(d) for d in devices] if cuda else None
+    loader = StereoPairLoader(left_path, right_path, window, left_start=left_start, right_start=right_start,
+                              max_frames=max_frames, depth=depth)
+
+    def dispatch(wl, wr):
+        pending = _enqueue(parts, devices, staging, wl, wr)
+        if cuda:
+            return _read_back(pending, readback)
+        out = concat_on([out for out, _ in pending], devices[0])
+        return list(out) if isinstance(out, tuple) else [out], []
+
+    def emit(item):
+        seq, n_valid, (hosts, events) = item
+        for e in events:
+            e.synchronize()
+        out = [h.numpy() for h in hosts]
+        return (seq, out[0], None, n_valid) if stats_only else (seq, out[0], out[1], n_valid)
+
+    inflight: collections.deque = collections.deque()
+    try:
+        for seq, wl, wr, n_valid in loader:
+            # The card starts on this window while the loader's threads
+            # decode the next one; then the previous window is returned.
+            inflight.append((seq, n_valid, dispatch(wl, wr)))
+            if len(inflight) > 1:
+                yield emit(inflight.popleft())
+        while inflight:
+            yield emit(inflight.popleft())
+    finally:
+        loader.close()

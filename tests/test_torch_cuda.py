@@ -26,12 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_vision_tpu_torch import calib, detect, ops, sync, track
+from stereo_vision_tpu_torch import calib, detect, native, ops, sync, track
+from stereo_vision_tpu_torch.io import video as io_video
 from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained, yolov8
 from stereo_vision_tpu_torch.parallel import sgm_sharded
 from stereo_vision_tpu_torch.parallel.mesh import create_mesh, host_cpu_mesh
-from stereo_vision_tpu_torch.parallel.streaming import (StereoStreamProcessor, batched_stereo_pipeline,
-                                                         make_sharded_pipeline)
+from stereo_vision_tpu_torch.parallel.streaming import (StereoStreamProcessor, _frame_stats,
+                                                         batched_stereo_pipeline, make_sharded_pipeline,
+                                                         stream_video_pair)
 from stereo_vision_tpu_torch.stereo import banded_cuda, bm, bm_cuda, cost_cuda, hier, lr_cuda, sgm_cuda, speckle_cuda
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER_FAST
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, lr_fail, stereo_sgbm
@@ -1826,3 +1828,44 @@ def test_sharded_pipeline_on_two_data_shards_cuda_matches_cpu(dev, matcher):
     ref = make_sharded_pipeline(host_cpu_mesh(2), maps, Q, matcher, params)(left, right)
     assert out[0].device.type == "cuda" and torch.equal(out[0].cpu(), ref[0])
     np.testing.assert_allclose(out[1].cpu().numpy(), ref[1].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("matcher,window,fourcc,shards", [("sgbm_hier", 8, "RGBA", 1), ("bm", 4, "Y800", 2)])
+@pytest.mark.parametrize("stats_only", [False, True], ids=["full", "stats"])
+def test_stream_video_pair_cuda_matches_batched_pipeline(dev, tmp_path, matcher, window, fourcc, shards, stats_only):
+    """A short AVI pair written by the port (10 frames of 64x256) streamed on
+    the card through the native ring and pack, under a non-default compute
+    stream, on one card or on two logical shards of it: every window equals
+    the card's batched pipeline on the same gray frames (stats_only its
+    _frame_stats), the tail window padded by its last frame."""
+    assert native.native_available("host_ops") and native.native_available("frame_ring")
+    H, W, n = 64, 256, 10
+    frames = [scene(seed=s, H=H, W=W) for s in range(n)]
+    gray = [np.stack([f[i] for f in frames]).astype(np.uint8) for i in (0, 1)]
+    paths = []
+    for side, g in zip(("l", "r"), gray):
+        path = tmp_path / f"{side}.avi"
+        io_video.write_video(path, np.stack([g, g // 2 + 60, 255 - g], -1) if fourcc == "RGBA" else g)
+        paths.append(path)
+    if fourcc == "RGBA":
+        gray = [native.pack_gray(np.stack([g, g // 2 + 60, 255 - g], -1)) for g in gray]
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    maps = (xx + 0.3 * np.sin(yy / 11.0), yy + 0.2 * np.cos(xx / 13.0), xx - 0.1, yy + 0.2 * np.cos(xx / 13.0))
+    Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
+    params = (StereoSGBMParams(num_disparities=128, block_size=5, uniqueness_ratio=10, disp12_max_diff=1,
+                               speckle_window_size=30, speckle_range=2, num_paths=3) if matcher == "sgbm_hier"
+              else bm.StereoBMParams(num_disparities=64, block_size=9))
+    mesh = create_mesh(shards, 1, devices=[dev] * shards)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        out = list(stream_video_pair(*paths, mesh, maps, Q, matcher, params, window=window, stats_only=stats_only))
+    k = -(-n // window)
+    assert [(s, nv) for s, *_, nv in out] == [(i, min(window, n - i * window)) for i in range(k)]
+    for seq, a, b, _ in out:
+        idx = np.minimum(np.arange(seq * window, (seq + 1) * window), n - 1)
+        d, p = batched_stereo_pipeline(gray[0][idx], gray[1][idx], maps, Q, matcher, params)
+        if stats_only:
+            assert b is None
+            np.testing.assert_array_equal(a, _frame_stats(d, p).cpu().numpy())
+        else:
+            np.testing.assert_array_equal(a, d.cpu().numpy())
+            np.testing.assert_array_equal(b, p.cpu().numpy())
