@@ -220,7 +220,8 @@ After 18:
      flags equal, corners within 5e-3 px, every view within 0.5 px of the
      render's truth), then calibrate_camera and calibrate_stereo on the card
      from the detected corners, held to phase 32's truth limits; 4 views
-     each under noise, glare, low contrast and motion blur, the success
+     each under noise, glare, low contrast, motion blur, an occluding disk
+     and perspective foreshortening (synth.boards' OpenCV-free forms), the success
      share and mean error against the truth, card and CPU (ok flags
      equal); validate-distance on the card (a board 2500 mm away seen by
      both cameras: detect -> undistort_points with R1/P1, R2/P2 from
@@ -301,7 +302,13 @@ After 18:
      PoseNet w32 (in-repo weights, eval mode, Adam 1e-3, 256x256, batch 16)
      on 2x2 against 1x1, two steps: losses within rtol 1e-5, parameters
      within 1e-4 of the largest, the Dense kernel's shards its output rows
-     on the space devices; host ms a step.
+     on the space devices; host ms a step; the 1x1 step's host ms with its
+     TorchFunctionMode and without, in turns (the same losses); then ROADMAP
+     C.9's repair: a forward pass in train() mode (PoseNet w32 at 128x128,
+     batch 8, and torch's Linear -> BatchNorm1d -> Linear), three steps at
+     lr 0 on 2x1 and 2x2 against 1x1 (cuDNN deterministic): loss within rtol
+     1e-5, every gradient within 1e-5 of its leaf's largest + 1e-6, batch
+     statistics unmoved; host ms a step (the first on 2x1 and 2x2 probes).
  37. (run after 36) two video files to disparity and 3D through
      stream_video_pair on the card: the machine's decoders listed (ffmpeg,
      ffprobe, the av / cv2 / torchvision modules, NVDEC's library), both
@@ -320,6 +327,28 @@ After 18:
      both outputs, decode + pack alone (StereoPairLoader) and the pipeline
      alone (make_sharded_pipeline on card-resident frames, ms a window),
      with the card's name and power limit.
+ 38. (run after 37) the CLI on the card: pipeline.cli.main in process, at
+     its default --device cuda, through one temporary test directory (see
+     CLI_*): whether matplotlib imports here (printed); intrinsic ->
+     extrinsic -> rectify on raw AVI videos of 12 rendered 1920x1080 views a
+     camera (phase 33's rig, the CLI's default 7x4 board), held to
+     find_chessboard_corners + calibrate_camera / calibrate_stereo /
+     stereo_rectify + init_undistort_rectify_map on the card (phase 32's
+     tolerances, maps within 1e-3 px, phase 32's truth limits); sync on a
+     1280x720 pair (the command samples every 15th frame, as the
+     reference's: a 15-frame lag is an offset of 1) equal to
+     synchronize_streams; stream at its default windows for sgbm_hier (32),
+     sgbm (8, with --video-out) at 1280x720 and bm (8) at 1920x1080, D =
+     128, two windows each: the per-frame stats (and sgbm's --video-out
+     frames) equal to stream_video_pair's and the path's kernel launches
+     equal to its (counts set to 0 before each, some kernel launched); disparity (sgbm and bm, D = 64) on a 1280x720
+     PNG pair bit-equal to stereo_sgbm / stereo_bm, launches equal;
+     validate-distance on a rendered board pair (within 1% of the truth),
+     ball-drop and pose on 1920x1080 renders equal to the library calls,
+     smooth equal to MotionSmoother, measure equal to measure_clicks;
+     ball-drop --animate, animate and analyze draw with matplotlib, and
+     where it is missing must raise the documented ImportError; each
+     command's host seconds with the card's name and power limit.
 Phase 20 also holds ROADMAP C.1-C.4's and C.7's settings card against CPU: a
 frame no wider than its range (stereo_sgbm, no kernel launched; the
 per-frame and batched hier at 32x64), BM on frames smaller than the block
@@ -347,8 +376,10 @@ import ctypes
 import ctypes.util
 import dataclasses
 import importlib.util
+import io
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -374,8 +405,8 @@ from stereo_vision_tpu_torch.stereo import (banded_cuda, bm, bm_cuda, cost_cuda,
 from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm, subpixel_disp16
-from stereo_vision_tpu_torch.synth.boards import (add_glare, add_noise, board_views, low_contrast, motion_blur,
-                                                  render_board_view)
+from stereo_vision_tpu_torch.synth.boards import (add_glare, add_noise, board_views, low_contrast, motion_blur, occlude,
+                                                  render_board_view, warp_perspective)
 from stereo_vision_tpu_torch.synth.scenes import (LR_MODES, WTA_MODES, agreement, ball_frame, ball_training_batch,
                                                   draw_ball, flash_streams, lr_maps, pose_training_batch,
                                                   render_ball_drop_stereo, render_pose_stereo, render_pool, scene,
@@ -2748,7 +2779,7 @@ DET_T = np.array([-100.0, 0.0, 0.0])
 # 1e-2 px, the card to the CPU is held tighter.
 DET_CARD_CPU_PX = 5e-3
 DET_TRUTH_PX = 0.5  # every clean view's corners against the render's truth
-DEGRADED = ("noise", "glare", "low_contrast", "blur")
+DEGRADED = ("noise", "glare", "low_contrast", "blur", "occlusion", "foreshorten")
 DEGRADED_VIEWS = 4  # views of camera 1 under each degradation
 VALIDATE_MM, VALIDATE_TOL = 2500.0, 10.0  # validate-distance's truth and the CLI's --tolerance default
 # The ball: a 1280x720 frame, radius 32 px at the centre (synth.scenes.ball_frame).
@@ -2758,15 +2789,20 @@ BALL_CROP = 120  # half-size of the crop the CPU's Hough runs on (holds every ri
 HOUGH_KW = dict(min_radius=20, max_radius=100)  # the highlight (r = 8) is no ball
 
 
-def degrade(kind: str, img: np.ndarray, rng) -> np.ndarray:
-    """One of phase 33's degradations (the cv2-free forms of synth.boards)."""
+def degrade(kind: str, img: np.ndarray, truth: np.ndarray, rng) -> tuple[np.ndarray, np.ndarray]:
+    """One of phase 33's degradations (the cv2-free forms of synth.boards):
+    the image and its corners' truth (moved by the perspective warp)."""
     if kind == "noise":
-        return add_noise(img, 12.0, rng)
+        return add_noise(img, 12.0, rng), truth
     if kind == "glare":
-        return add_glare(img, rng)
+        return add_glare(img, rng), truth
     if kind == "low_contrast":
-        return add_noise(low_contrast(img), 6.0, rng)
-    return motion_blur(img, 9, rng.uniform(0, 180))
+        return add_noise(low_contrast(img), 6.0, rng), truth
+    if kind == "occlusion":
+        return occlude(img, truth, rng, frac=0.05), truth
+    if kind == "foreshorten":
+        return warp_perspective(img, truth, 0.15, rng)
+    return motion_blur(img, 9, rng.uniform(0, 180)), truth
 
 
 def detect_both(img: np.ndarray, dev) -> tuple:
@@ -2834,8 +2870,8 @@ def phase_detect(dev, card: str) -> dict:
     for kind in DEGRADED:
         found = {"card": [], "cpu": []}
         for i in range(DEGRADED_VIEWS):
-            img, truth = views[0][i]
-            ok, c, c_cpu, _ = detect_both(degrade(kind, img, rng), dev)
+            img, truth = degrade(kind, *views[0][i], rng)
+            ok, c, c_cpu, _ = detect_both(img, dev)
             if ok:
                 found["card"].append(float(np.linalg.norm(c - truth, axis=1).mean()))
                 found["cpu"].append(float(np.linalg.norm(c_cpu - truth, axis=1).mean()))
@@ -3482,20 +3518,24 @@ def mesh_processor(dev, make_mesh, cache: dict) -> dict:
     return dict(windows=MESH_WINDOWS, frames_a_window=2 * H16_P, ms_submits_and_drain=ms)
 
 
-def mesh_train_steps(dev, m, x, gt) -> tuple[list, dict, list, dict]:
-    """MESH_TRAIN_STEPS steps of PoseNet w32 (in-repo weights, eval mode,
-    pose_loss, Adam 1e-3) on the mesh ``m``: the losses, the parameters whole
-    on ``dev``, host ms a step, and copies of the split parameters' shards
-    as the initial state holds them."""
+def mesh_train_steps(dev, m, x, gt, steps: int | None = None,
+                     batch_stats: bool = True) -> tuple[list, dict, list, dict]:
+    """``steps`` (MESH_TRAIN_STEPS) steps of PoseNet w32 (in-repo weights, eval mode, pose_loss,
+    Adam 1e-3) on the mesh ``m``: the losses, the parameters whole on
+    ``dev``, host ms a step, and copies of the split parameters' shards as
+    the initial state holds them. Without ``batch_stats`` the variables
+    hold none (the net reads its own buffers), so a 1x1 step runs without
+    the step's TorchFunctionMode."""
     net = convert.load_tree(pretrained.POSE_WEIGHTS, pretrained._pose_model()).to(dev).eval()
     init, step = train_models.make_train_step(
         m, lambda v, a: torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,)),
         lambda out, g: pose.pose_loss(out, g), lambda p: torch.optim.Adam(p, lr=1e-3))
-    state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+    state = init({"params": dict(net.named_parameters()),
+                  "batch_stats": dict(net.named_buffers()) if batch_stats else {}})
     split = {k: {pos: t.detach().clone() for pos, t in v.shards.items()}
              for k, v in state.params.items() if isinstance(v, ShardedTensor)}
     losses, ms = [], []
-    for _ in range(MESH_TRAIN_STEPS):
+    for _ in range(steps or MESH_TRAIN_STEPS):
         t0 = time.perf_counter()
         state, loss = step(state, x, gt)
         losses.append(loss.item())
@@ -3504,20 +3544,36 @@ def mesh_train_steps(dev, m, x, gt) -> tuple[list, dict, list, dict]:
     return losses, params, ms, split
 
 
+# The 1x1 step's host ms with the batch statistics given (the step's
+# TorchFunctionMode on) and without (off), in turns, MESH_MODE_STEPS steps a
+# turn, the first of each dropped; both compute the same in eval mode.
+MESH_MODE_TURNS, MESH_MODE_STEPS = 3, 5
+
+
 def mesh_train(dev, make_mesh) -> dict:
     """PoseNet w32's training step from the in-repo weights: MESH_TRAIN_STEPS
     steps on 2x2 (the wide Dense kernel's storage split by output rows over
     space) against the same on 1x1, cuDNN's deterministic algorithms on both
     (its other weight-gradient sums vary run to run, and Adam's first steps
     move a parameter whose gradient is near 0 by up to ~lr whatever the
-    gradient's size)."""
+    gradient's size); then the 1x1 step with and without its
+    TorchFunctionMode (MESH_MODE_*)."""
     rng = np.random.default_rng(36)
     x, gt = pose_training_batch(rng, MESH_TRAIN_BATCH, *MESH_TRAIN_HW)
     mesh = make_mesh(*MESH_TRAIN_MESH)
+    one_mesh = create_mesh(1, 1, devices=[dev])
     w = convert.load_tree(pretrained.POSE_WEIGHTS, pretrained._pose_model()).get_parameter("Dense_1.weight").detach()
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        (l1, p1, ms1, _), (l4, p4, ms4, split) = (mesh_train_steps(dev, m, x, gt)
-                                                  for m in (create_mesh(1, 1, devices=[dev]), mesh))
+        (l1, p1, ms1, _), (l4, p4, ms4, split) = (mesh_train_steps(dev, m, x, gt) for m in (one_mesh, mesh))
+        mode_ms: dict = {"on": [], "off": []}
+        mode_losses = {}
+        for _ in range(MESH_MODE_TURNS):
+            for key, given in (("on", True), ("off", False)):
+                losses, _, ms, _ = mesh_train_steps(dev, one_mesh, x, gt, MESH_MODE_STEPS, batch_stats=given)
+                mode_ms[key] += ms[1:]
+                mode_losses[key] = losses
+    if mode_losses["on"] != mode_losses["off"]:
+        raise AssertionError(f"the 1x1 step with and without its mode: losses {mode_losses}")
     n = MESH_TRAIN_MESH[1]
     rows = w.shape[0] // n
     shards = split.get("Dense_1.weight", {})
@@ -3532,7 +3588,71 @@ def mesh_train(dev, make_mesh) -> dict:
         raise AssertionError(f"the 2x2 step against 1x1: losses {rel:.2e} apart, parameters {apart:.2e} "
                              f"(largest {top:.3f})")
     return dict(losses={"1x1": l1, "2x2": l4}, loss_rel=rel, params_apart=apart, params_largest=top,
-                step_ms={"1x1": ms1, "2x2": ms4})
+                step_ms={"1x1": ms1, "2x2": ms4},
+                mode_step_ms={k: dict(median=float(np.median(v)), all=v) for k, v in mode_ms.items()})
+
+
+# ROADMAP C.9 on the card: a forward pass that reads batch statistics (a
+# batch norm in training form) takes the whole batch's on every mesh. PoseNet
+# w32 (in-repo weights) in train() mode at 128x128, batch 8, and torch's
+# Linear -> BatchNorm1d -> Linear, MESH_BN_STEPS SGD steps at lr 0 (the
+# gradients stay to be read) on 1x1, 2x1 and 2x2; cuDNN's deterministic
+# algorithms; the loss within rtol 1e-5 of the 1x1 step's, each gradient
+# within 1e-5 of its leaf's largest (+ 1e-6), the batch statistics unmoved;
+# host ms a step (on several data devices the first step probes).
+MESH_BN_MESHES, MESH_BN_BATCH, MESH_BN_HW, MESH_BN_STEPS = ((2, 1), (2, 2)), 8, (128, 128), 3
+MESH_BN_RTOL, MESH_BN_GRAD_FRAC, MESH_BN_ATOL = 1e-5, 1e-5, 1e-6
+
+
+def mesh_bn_grads(dev, m, net, x, gt, loss_fn) -> tuple[float, dict, list]:
+    """MESH_BN_STEPS steps at lr 0 of ``net`` (train() mode) on the mesh
+    ``m``: the last loss, every parameter's gradient whole on ``dev``, and
+    host ms a step; the batch statistics must not move."""
+    init, step = train_models.make_train_step(
+        m, lambda v, a: torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,)), loss_fn,
+        lambda p: torch.optim.SGD(p, lr=0.0))
+    state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+    before = {k: v.clone() for k, v in state.batch_stats.items()}
+    ms = []
+    for _ in range(MESH_BN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, gt)
+        loss = loss.item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if any(not torch.equal(v, before[k]) for k, v in state.batch_stats.items()):
+        raise AssertionError("the training step moved the batch statistics")
+    grads = {k: (torch.cat([p.shards[pos].grad.to(dev) for pos in sorted(p.shards)]) if isinstance(p, ShardedTensor)
+                 else p.grad.to(dev)) for k, p in state.params.items()}
+    return loss, grads, ms
+
+
+def mesh_train_bn(dev, make_mesh) -> dict:
+    """ROADMAP C.9's repair on the card (see MESH_BN_*)."""
+    rng = np.random.default_rng(37)
+    x, gt = pose_training_batch(rng, MESH_BN_BATCH, *MESH_BN_HW)
+    pose_net = convert.load_tree(pretrained.POSE_WEIGHTS, pretrained._pose_model()).to(dev).train()
+    torch.manual_seed(0)
+    small = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.BatchNorm1d(8), torch.nn.Linear(8, 1)).to(dev).train()
+    xs = (torch.randn(8, 4) * torch.arange(1, 9)[:, None]).numpy()
+    ys = torch.randn(8).numpy()
+    cases = {"PoseNet w32": (pose_net, x, gt, lambda out, g: pose.pose_loss(out, g)),
+             "Linear-BatchNorm1d-Linear": (small, xs, ys, lambda out, t: ((out[:, 0] - t) ** 2).mean())}
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        for name, (net, a, b, loss_fn) in cases.items():
+            one_loss, one, one_ms = mesh_bn_grads(dev, create_mesh(1, 1, devices=[dev]), net, a, b, loss_fn)
+            r = {"1x1 loss": one_loss, "1x1 step_ms": one_ms}
+            for shape in MESH_BN_MESHES:
+                loss, grads, ms = mesh_bn_grads(dev, make_mesh(*shape), net, a, b, loss_fn)
+                apart = max(float((grads[k] - g).abs().max() / (g.abs().max() * MESH_BN_GRAD_FRAC + MESH_BN_ATOL))
+                            for k, g in one.items())
+                rel = abs(loss - one_loss) / abs(one_loss)
+                if rel > MESH_BN_RTOL or apart > 1.0:
+                    raise AssertionError(f"{name} in train() mode on {shape} against 1x1: loss {rel:.2e} apart, "
+                                         f"gradients {apart:.2f} of their limit")
+                r[f"{shape[0]}x{shape[1]}"] = dict(loss=loss, loss_rel=rel, grads_of_limit=apart, step_ms=ms)
+            out[name] = r
+    return out
 
 
 def phase_mesh(dev, card: str) -> dict:
@@ -3566,7 +3686,11 @@ def phase_mesh(dev, card: str) -> dict:
         t = r["train"]
         print(f"mesh ({layout}) make_train_step PoseNet w32 2x2 against 1x1 on {card}: losses {t['losses']} "
               f"({t['loss_rel']:.1e} apart), parameters {t['params_apart']:.1e} apart (largest "
-              f"{t['params_largest']:.3f}); step host ms {json.dumps(t['step_ms'])}", flush=True)
+              f"{t['params_largest']:.3f}); step host ms {json.dumps(t['step_ms'])}; 1x1 step host ms with its "
+              f"TorchFunctionMode and without, in turns: {json.dumps(t['mode_step_ms'])}", flush=True)
+        r["train_bn"] = mesh_train_bn(dev, make_mesh)
+        print(f"mesh ({layout}) make_train_step in train() mode (batch statistics of the whole batch, ROADMAP C.9) "
+              f"2x1 and 2x2 against 1x1 on {card}: {json.dumps(r['train_bn'])}", flush=True)
         out[layout] = r
         torch.cuda.empty_cache()
     return out
@@ -3727,6 +3851,391 @@ def phase_video(dev, card: str) -> dict:
     return out
 
 
+# Phase 38: the CLI on the card (pipeline.cli.main, in process, its default
+# --device cuda) through one test directory: intrinsic -> extrinsic -> rectify
+# on raw AVI board videos of phase 33's 1920x1080 rig (the CLI's default 7x4
+# board of 100 mm squares, CLI_VIEWS views a camera); sync on a 1280x720 pair
+# whose flash the command's sampling (every 15th frame, as the reference's)
+# sees one sampled frame apart; stream on it for each matcher at phase 37's
+# sizes (sgbm_hier window 32 and sgbm window 8 at 1280x720, bm window 8 at
+# 1920x1080; D = 128, the default) and disparity (D = 64, the default) on a
+# 1280x720 PNG pair; then validate-distance, ball-drop and pose on short
+# renders and smooth, animate, measure and analyze on what they wrote. Each
+# output is held to the same library calls made directly on the card.
+CLI_VIEWS = 12
+CLI_SYNC_FRAMES, CLI_FLASH, CLI_LAG = 96, 75, 15
+# The windows are the command's defaults (one card): 32 for sgbm_hier, 8 else.
+CLI_STREAMS = {"sgbm_hier": dict(window=32, frames=64, h=H, w=W), "sgbm": dict(window=8, frames=16, h=H, w=W),
+               "bm": dict(window=8, frames=16, h=BM_H, w=BM_W)}
+CLI_BALL_FRAMES, CLI_POSE_FRAMES = 16, 8
+
+
+def cli_run(dev, tmp: str, seconds: dict, name: str, *argv) -> tuple[int, list[dict]]:
+    """``pipeline.cli.main(argv)`` in process, on ``dev`` (the CLI's own
+    default, ``--device cuda``, on the card): its exit code and JSON lines;
+    its host seconds under ``name``."""
+    from stereo_vision_tpu_torch.pipeline import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv] if dev.type == "cuda" else [*argv, "--device", dev.type])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    if rc != 0:
+        raise AssertionError(f"cli {name} exited {rc}: {lines}")
+    return rc, lines
+
+
+def counted_launches(kernels: dict, fn):
+    """``fn()`` with the kernels' launch counts set to 0 before it and read
+    after it."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def same_launches(what: str, got: dict, ref: dict) -> None:
+    """The CLI's launches equal the library call's, and some kernel of the
+    path launched (which of the LR check and the speckle filter run is the
+    command's parameters' business)."""
+    if got != ref or not any(got.values()):
+        raise AssertionError(f"{what}: the CLI launched {got}, the library call {ref}")
+
+
+def cli_calibrate(dev, tmp: str, seconds: dict) -> dict:
+    """intrinsic -> extrinsic -> rectify, each held to the library on the card."""
+    from stereo_vision_tpu_torch.pipeline import ArtifactStore
+
+    obj, c1, c2, p1, p2 = board_views(CLI_VIEWS, 38, DET_K, np.zeros(5), (DET_W, DET_H), DET_K, np.zeros(5),
+                                      np.eye(3), DET_T, cols=DET_BOARD[0], rows=DET_BOARD[1], square=DET_SQUARE,
+                                      noise=0.0, margin=150.0, depth=(1800.0, 3500.0), return_poses=True)
+    views = [np.stack([render_board_view(DET_K, p[0][i], p[1][i], (DET_W, DET_H), *DET_BOARD, DET_SQUARE,
+                                         device=dev)[0] for i in range(CLI_VIEWS)]) for p in (p1, p2)]
+    os.makedirs(os.path.join(tmp, "videos"))
+    for stage in ("intrinsic", "extrinsic"):
+        for side, frames in zip(("left", "right"), views):
+            io_video.write_video(os.path.join(tmp, "videos", f"{side}_{stage}.avi"), frames)
+    sampling = ["--start-frame", "0", "--frame-interval", "1", "--max-frames", str(CLI_VIEWS)]
+    _, intr = cli_run(dev, tmp, seconds, "intrinsic", "intrinsic", "--test-dir", tmp, *sampling)
+    _, (extr,) = cli_run(dev, tmp, seconds, "extrinsic", "extrinsic", "--test-dir", tmp, *sampling)
+    _, (rect,) = cli_run(dev, tmp, seconds, "rectify", "rectify", "--test-dir", tmp, "--size", f"{DET_W}x{DET_H}")
+    store = ArtifactStore(tmp)
+    found = []
+    for frames in views:
+        det = [detect.find_chessboard_corners(f, DET_BOARD, device=dev) for f in frames]
+        found.append({i: c for i, (ok, c) in enumerate(det) if ok})
+    objp = calib.checkerboard_object_points(*DET_BOARD, DET_SQUARE, device=dev)
+    out = {}
+    cams = []
+    for name, f, line in zip(("left", "right"), found, intr):
+        cam = calib.calibrate_camera(objp, np.stack(list(f.values())), (DET_W, DET_H), device=dev)
+        K, dist = store.load_intrinsics(name)
+        for field, a, b in (("K", K, cam.K), ("dist", dist, cam.dist)):
+            if not (np.abs(a - b) <= CAL_RTOL[field] * np.abs(b) + 1e-12).all():
+                raise AssertionError(f"cli intrinsic {name}: {field} {a.tolist()} against the library's {b.tolist()}")
+        if abs(line["rms_px"] - cam.rms) > CAL_ATOL["rms"] or line["frames"] != len(cam.kept_frames):
+            raise AssertionError(f"cli intrinsic {name}: {line} against rms {cam.rms}, {len(cam.kept_frames)} frames")
+        check_truth_limits(f"cli {name}", K, line["rms_px"])
+        cams.append((K, dist))
+        out[f"intrinsic {name}"] = dict(rms_px=line["rms_px"], frames=line["frames"], status=line["status"])
+    common = sorted(set(found[0]) & set(found[1]))
+    st = calib.calibrate_stereo(objp, np.stack([found[0][i] for i in common]), np.stack([found[1][i] for i in common]),
+                                *cams[0], *cams[1], (DET_W, DET_H), device=dev)
+    R, T = store.load_extrinsics()
+    if not (np.abs(R - st.R) <= CAL_ATOL["R"]).all() or not (np.abs(T.ravel() - st.T) <= CAL_RTOL["T"] * np.abs(
+            st.T) + 1e-9).all() or abs(extr["baseline_mm"] / np.linalg.norm(DET_T) - 1) > 0.01:
+        raise AssertionError(f"cli extrinsic: R {R.tolist()}, T {T.ravel().tolist()} against the library's "
+                             f"{st.R.tolist()}, {st.T.tolist()}; baseline {extr['baseline_mm']}")
+    out["extrinsic"] = dict(rms_px=extr["rms_px"], baseline_mm=extr["baseline_mm"], pairs=len(common))
+    rig = store.load_rig()
+    t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    res = ops.stereo_rectify(t64(rig.K1), t64(rig.d1), t64(rig.K2), t64(rig.d2), (DET_W, DET_H), t64(rig.R),
+                             t64(rig.T), alpha=0.0)
+    for a, b in zip(store.load_rectification(), res):
+        if not np.allclose(a, b.cpu().numpy(), rtol=1e-9, atol=1e-9):
+            raise AssertionError("cli rectify: the rectification differs from stereo_rectify's on the card")
+    maps = np.load(store.rectify_dir / "maps.npy")
+    ref = [ops.init_undistort_rectify_map(t64(K), t64(d), Rr, Pr, (DET_W, DET_H))
+           for (K, d), Rr, Pr in ((cams[0], res.R1, res.P1), (cams[1], res.R2, res.P2))]
+    apart = max(float(np.abs(m - r.cpu().numpy()).max()) for m, r in zip(maps, [x for pair in ref for x in pair]))
+    if apart > 1e-3:
+        raise AssertionError(f"cli rectify: maps {apart} px from init_undistort_rectify_map's on the card")
+    out["rectify"] = dict(status=rect["status"], maps_px_apart=apart, Q_diag=rect["Q_diag"])
+    return out
+
+
+def cli_frames(h: int, w: int, n: int, flash: int | None, lag: int) -> tuple[np.ndarray, np.ndarray]:
+    """(left, right) gray streams: the bench scene of seed t % 8 at instant
+    t, the right camera ``lag`` frames late, a flash (+80) at left frame
+    ``flash`` and right frame ``flash + lag``; between them the light is
+    flat, so that a flash is the one jump either sampling sees."""
+    scenes = [scene(seed=s, H=h, W=w) for s in range(8)]
+    out = []
+    for side in (0, 1):
+        frames = np.zeros((n, h, w), np.uint8)
+        for j in range(n):
+            t = j - (lag if side else 0)
+            g = scenes[t % 8][side].astype(np.int16)
+            level = np.full_like(g, 80) if flash is not None and t == flash else 0
+            # every frame's mean brought to scene 0's, so that only the flash jumps
+            frames[j] = np.clip(g - int(g.mean()) + int(scenes[0][side].mean()) + level, 0, 255)
+        out.append(frames)
+    return out[0], out[1]
+
+
+def cli_sync_stream(dev, tmp: str, seconds: dict) -> dict:
+    """sync, then stream for each matcher (launch counts and per-frame
+    stats against stream_video_pair on the card), then disparity."""
+    from stereo_vision_tpu_torch.pipeline import ArtifactStore
+    from stereo_vision_tpu_torch.io.png import write_png
+
+    out = {}
+    left, right = cli_frames(H, W, CLI_SYNC_FRAMES, CLI_FLASH, CLI_LAG)
+    paths = {"720": [os.path.join(tmp, f"stream720_{s}.avi") for s in ("left", "right")]}
+    for path, frames in zip(paths["720"], (left, right)):
+        io_video.write_video(path, frames)
+    _, (line,) = cli_run(dev, tmp, seconds, "sync", "sync", "--test-dir", tmp, "--left", paths["720"][0], "--right",
+                         paths["720"][1])
+    sampled = [io_video.extract_frames(p, max_frames=900, grayscale=True)[0] for p in paths["720"]]
+    ref = sync.synchronize_streams(*sampled, device=dev)
+    if line["offset"] != ref.offset or ref.offset != 1 or (line["left_flash"], line["right_flash"]) != (
+            ref.left_flash, ref.right_flash):
+        raise AssertionError(f"cli sync: {line} against synchronize_streams' {ref}")
+    offset = ArtifactStore(tmp).load_sync()["frame_offset"]
+    out["sync"] = dict(offset=offset, left_flash=line["left_flash"], right_flash=line["right_flash"])
+    bl, br = cli_frames(BM_H, BM_W, CLI_STREAMS["bm"]["frames"] + offset, None, 0)
+    paths["1080"] = [os.path.join(tmp, f"stream1080_{s}.avi") for s in ("left", "right")]
+    for path, frames in zip(paths["1080"], (bl, br)):
+        io_video.write_video(path, frames)
+    store = ArtifactStore(tmp)
+    rig, (R1, R2, P1, P2, Q) = store.load_rig(), store.load_rectification()
+    t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    mesh = create_mesh(devices=[dev])
+    for matcher, spec in CLI_STREAMS.items():
+        src = paths["1080" if matcher == "bm" else "720"]
+        size = (spec["w"], spec["h"])
+        kernels = STREAM_KERNELS[matcher]
+        argv = ["stream", "--test-dir", tmp, "--left", src[0], "--right", src[1], "--matcher", matcher,
+                "--max-frames", str(spec["frames"])]
+        if matcher == "sgbm":
+            argv += ["--video-out", os.path.join(tmp, "disparity_sgbm.mp4")]
+        (_, (line,)), cli_counts = counted_launches(
+            kernels, lambda: cli_run(dev, tmp, seconds, f"stream {matcher}", *argv))
+        stats = json.loads((store.results / "stream" / "stream_stats.json").read_text())
+        saved = np.load(store.rectify_dir / "maps.npy")  # the command's maps: the saved ones where their size fits
+        if saved.shape[1:] == (spec["h"], spec["w"]):
+            maps = tuple(torch.as_tensor(m, device=dev) for m in saved)
+        else:
+            maps = (*ops.init_undistort_rectify_map(t64(rig.K1), t64(rig.d1), t64(R1), t64(P1), size),
+                    *ops.init_undistort_rectify_map(t64(rig.K2), t64(rig.d2), t64(R2), t64(P2), size))
+        if matcher == "bm":
+            params = StereoBMParams(num_disparities=128, block_size=5)
+        else:
+            params = StereoSGBMParams(num_disparities=128, block_size=5, uniqueness_ratio=10)
+        full = matcher == "sgbm"
+
+        vis = []  # the --video-out frames the library's disparity gives
+
+        def direct():
+            rows = []
+            for seq, disp, pts, n in stream_video_pair(*src, mesh, maps, t64(Q), matcher, params,
+                                                       window=spec["window"], left_start=0, right_start=offset,
+                                                       max_frames=spec["frames"], stats_only=not full):
+                for k in range(n):
+                    if full:
+                        valid = disp[k] > 0
+                        z = pts[k, ..., 2][valid]
+                        rows.append({"frame": seq * spec["window"] + k, "valid_fraction": float(valid.mean()),
+                                     "median_depth_mm": float(np.median(z)) if z.size else None})
+                        v = np.zeros_like(disp[k])
+                        if valid.any():
+                            v[valid] = disp[k][valid] / max(float(disp[k][valid].max()), 1e-6) * 255
+                        vis.append(v.astype(np.uint8))
+                    else:
+                        med = float(disp[k, 1])
+                        rows.append({"frame": seq * spec["window"] + k, "valid_fraction": float(disp[k, 0]),
+                                     "median_depth_mm": None if np.isnan(med) else med})
+            return rows
+
+        ref_rows, ref_counts = counted_launches(kernels, direct)
+        same_launches(f"cli stream {matcher}", cli_counts, ref_counts)
+        if stats != ref_rows or line["frames"] != spec["frames"] or line["size"] != list(size):
+            raise AssertionError(f"cli stream {matcher}: its per-frame stats differ from stream_video_pair's "
+                                 f"({line['frames']} frames)")
+        r = dict(frames=line["frames"], window=spec["window"], size=line["size"], launches=cli_counts,
+                 fps=line["fps"], fps_steady=line["fps_steady"], mpx_per_s=line["mpx_per_s"],
+                 valid_fraction_first=stats[0]["valid_fraction"])
+        if full:
+            written = line["video_out"]
+            frames = io_video.extract_frames(written, interval=1, max_frames=spec["frames"] + 1, grayscale=True)[0]
+            if len(frames) != spec["frames"] or not np.array_equal(frames, np.stack(vis)):
+                raise AssertionError(f"cli stream --video-out {written}: {len(frames)} frames, not the library's")
+            r["video_out"] = os.path.basename(written)
+        out[f"stream {matcher}"] = r
+        torch.cuda.empty_cache()
+
+    l0, r0 = scene(seed=0, H=H, W=W)
+    for name, img in (("pair_left.png", l0), ("pair_right.png", r0)):
+        write_png(os.path.join(tmp, name), img.astype(np.uint8))
+    lt, rt = (torch.as_tensor(a.astype(np.int32), device=dev) for a in (l0, r0))
+    for matcher, kernels, fn, params in (
+            ("sgbm", EXACT_KERNELS, stereo_sgbm, StereoSGBMParams(num_disparities=64, block_size=5,
+                                                                  uniqueness_ratio=10)),
+            ("bm", {"bm_disparity": bm_cuda.bm_disparity}, bm.stereo_bm,
+             StereoBMParams(num_disparities=64, block_size=5))):
+        (_, (line,)), cli_counts = counted_launches(kernels, lambda: cli_run(
+            dev, tmp, seconds, f"disparity {matcher}", "disparity", "--test-dir", tmp, "--left",
+            os.path.join(tmp, "pair_left.png"), "--right", os.path.join(tmp, "pair_right.png"), "--matcher", matcher))
+        got = np.load(store.results / "disparity" / "disparity.npy")
+        ref, ref_counts = counted_launches(kernels, lambda: fn(lt, rt, params).cpu().numpy())
+        same_launches(f"cli disparity {matcher}", cli_counts, ref_counts)
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"cli disparity {matcher} differs from the library call on the same arrays")
+        out[f"disparity {matcher}"] = dict(launches=cli_counts, valid_fraction=line["valid_fraction"])
+    return out
+
+
+def matplotlib_finding() -> dict:
+    """Whether matplotlib imports here, found without importing it."""
+    spec = importlib.util.find_spec("matplotlib")
+    return {"matplotlib": spec is not None, "origin": getattr(spec, "origin", None)}
+
+
+def cli_plotting(dev, tmp: str, seconds: dict, name: str, plots: bool, *argv) -> tuple[int, list[dict]] | str:
+    """A command that draws with matplotlib: run where it is installed;
+    where it is not, the documented ImportError must come, and is the
+    result."""
+    from stereo_vision_tpu_torch.pipeline.reporting import MATPLOTLIB_MISSING
+
+    if plots:
+        return cli_run(dev, tmp, seconds, name, *argv)
+    try:
+        cli_run(dev, tmp, seconds, name, *argv)
+    except ImportError as e:
+        if str(e) != MATPLOTLIB_MISSING:
+            raise
+        return "ImportError: " + str(e)
+    raise AssertionError(f"cli {name} ran without matplotlib")
+
+
+def cli_track(dev, tmp: str, seconds: dict, plots: bool) -> dict:
+    """validate-distance, ball-drop, pose, smooth, animate, measure, analyze."""
+    from stereo_vision_tpu_torch.io.png import write_png
+    from stereo_vision_tpu_torch.pipeline import ArtifactStore, measure
+
+    out = {}
+    store = ArtifactStore(tmp)
+    rig = store.load_rig()
+    offset = store.load_sync()["frame_offset"]
+    obj, c1, c2, p1, p2 = board_views(1, 39, DET_K, np.zeros(5), (DET_W, DET_H), DET_K, np.zeros(5), np.eye(3), DET_T,
+                                      cols=DET_BOARD[0], rows=DET_BOARD[1], square=DET_SQUARE, noise=0.0,
+                                      margin=150.0, depth=(VALIDATE_MM - 100, VALIDATE_MM + 100), return_poses=True)
+    for side, p in (("left", p1), ("right", p2)):
+        write_png(os.path.join(tmp, f"board_{side}.png"), render_board_view(DET_K, p[0][0], p[1][0], (DET_W, DET_H),
+                                                                            *DET_BOARD, DET_SQUARE, device=dev)[0])
+    R = ops.rodrigues(torch.as_tensor(p1[0][0])).numpy()
+    truth = float(np.linalg.norm((R @ obj.T).T.mean(0) + p1[1][0]))
+    _, (line,) = cli_run(dev, tmp, seconds, "validate-distance", "validate-distance", "--test-dir", tmp, "--left",
+                         os.path.join(tmp, "board_left.png"), "--right", os.path.join(tmp, "board_right.png"),
+                         "--actual-distance", f"{truth:.1f}")
+    if not line["passed"] or line["error_percent"] > 1.0:
+        raise AssertionError(f"cli validate-distance: {line} against the render's {truth:.1f} mm")
+    out["validate-distance"] = dict(measured=line["measured"], expected=line["expected"],
+                                    error_percent=line["error_percent"])
+
+    lf, rf, *_ = render_ball_drop_stereo(rig, T=CLI_BALL_FRAMES + offset, fps=240.0, H=E2E_H, W=E2E_W,
+                                         hold_frames=8, ball_radius_mm=110.0, seed=5)
+    pl, pr, _ = render_pose_stereo(rig, T=CLI_POSE_FRAMES + offset, H=E2E_H, W=E2E_W, seed=6)
+    for name, frames in (("ball_left", lf), ("ball_right", rf), ("pose_left", pl), ("pose_right", pr)):
+        io_video.write_video(os.path.join(tmp, f"{name}.avi"), frames)
+    _, (line,) = cli_run(dev, tmp, seconds, "ball-drop", "ball-drop", "--test-dir", tmp, "--left",
+                         os.path.join(tmp, "ball_left.avi"), "--right", os.path.join(tmp, "ball_right.avi"),
+                         "--fps", "240")
+    ld = pretrained.detect_balls_in_frames(lf[:CLI_BALL_FRAMES], device=dev)
+    rd = pretrained.detect_balls_in_frames(rf[offset:offset + CLI_BALL_FRAMES], device=dev)
+    report = track.drop_report(track.analyze_ball_drop(rig, ld, rd, fps=240.0, device=dev))
+    if line != json.loads(json.dumps({"stage": "ball_drop", "sync_offset": offset, **report})):
+        raise AssertionError(f"cli ball-drop: {line} against the library's {report}")
+    out["ball-drop"] = {k: line.get(k) for k in ("frames", "valid_detections", "drop_start_index", "gravity_mm_s2")}
+    anim = cli_plotting(dev, tmp, seconds, "ball-drop --animate", plots, "ball-drop", "--test-dir", tmp, "--left",
+                        os.path.join(tmp, "ball_left.avi"), "--right", os.path.join(tmp, "ball_right.avi"),
+                        "--fps", "240", "--animate")
+    out["ball-drop --animate"] = anim if isinstance(anim, str) else os.path.basename(anim[1][0]["animation"])
+
+    _, (line,) = cli_run(dev, tmp, seconds, "pose", "pose", "--test-dir", tmp, "--left",
+                         os.path.join(tmp, "pose_left.avi"), "--right", os.path.join(tmp, "pose_right.avi"))
+    lml = pretrained.pose_landmarks_in_frames(pl[:CLI_POSE_FRAMES], device=dev)
+    lmr = pretrained.pose_landmarks_in_frames(pr[offset:offset + CLI_POSE_FRAMES], device=dev)
+    res = run_pose_workflow(rig, lml, lmr, device=dev)
+    pose_dir = store.results / "pose"
+    with open(pose_dir / "pose_3d_original.pkl", "rb") as f:
+        poses = pickle.load(f)
+    apart = float(np.nanmax(np.abs(poses - res.poses_raw))) if np.isfinite(res.poses_raw).any() else 0.0
+    if line["frames"] != CLI_POSE_FRAMES or not np.array_equal(np.isfinite(poses), np.isfinite(res.poses_raw)) \
+            or apart > E2E_FUSE_MM:
+        raise AssertionError(f"cli pose: {line['frames']} frames, poses {apart} mm from the library's")
+    out["pose"] = dict(frames=line["frames"], valid_pose_fraction=line["valid_pose_fraction"], poses_mm_apart=apart,
+                       plots=sorted(p.name for p in pose_dir.glob("*.png")))
+    _, (line,) = cli_run(dev, tmp, seconds, "smooth", "smooth", "--input", str(pose_dir / "pose_3d_original.pkl"))
+    with open(pose_dir / "pose_3d_resmoothed.pkl", "rb") as f:
+        got = pickle.load(f)
+    ref = track.MotionSmoother("smalliphone", device=dev).smooth_pose_sequence(np.asarray(poses, np.float64))
+    if not np.array_equal(got, ref, equal_nan=True):
+        raise AssertionError("cli smooth differs from MotionSmoother on the card")
+    out["smooth"] = dict(jitter_reduction_pct=line["jitter_reduction_pct"])
+    anim = cli_plotting(dev, tmp, seconds, "animate", plots, "animate", "--raw", str(pose_dir / "pose_3d_original.pkl"),
+                        "--smoothed", str(pose_dir / "pose_3d_resmoothed.pkl"), "--out",
+                        os.path.join(tmp, "pose_comparison.mp4"), "--fps", "4", "--duration", "1")
+    out["animate"] = anim if isinstance(anim, str) else os.path.basename(anim[1][0]["output"])
+
+    X = np.array([[0.0, 0.0, 2000.0], [300.0, 50.0, 2300.0]])
+    pix = lambda P: (lambda h: h[:, :2] / h[:, 2:])((P @ np.c_[X, np.ones(2)].T).T)  # noqa: E731
+    measure.save_clicks(os.path.join(tmp, "clicks.json"), [measure.ClickMeasurement(
+        "pair", pix(rig.P1), pix(rig.P2), expected_mm=float(np.linalg.norm(X[0] - X[1])))])
+    _, (line,) = cli_run(dev, tmp, seconds, "measure", "measure", "--test-dir", tmp, "--clicks",
+                         os.path.join(tmp, "clicks.json"))
+    P1 = np.asarray(rig.K1) @ np.hstack([np.eye(3), np.zeros((3, 1))])  # as the command builds them
+    P2 = np.asarray(rig.K2) @ np.hstack([np.asarray(rig.R), np.asarray(rig.T).reshape(3, 1)])
+    ref = [r.to_dict() for r in measure.measure_clicks(measure.load_clicks(os.path.join(tmp, "clicks.json")), rig.K1,
+                                                       rig.d1, rig.K2, rig.d2, P1, P2, device=dev)]
+    if line != json.loads(json.dumps({"stage": "measure", "measurements": ref})):
+        raise AssertionError(f"cli measure: {line} against measure_clicks' {ref}")
+    out["measure"] = dict(distance_mm=line["measurements"][0]["distance_mm"])
+    res = cli_plotting(dev, tmp, seconds, "analyze", plots, "analyze", "--results-dir", str(store.results))
+    out["analyze"] = res if isinstance(res, str) else dict(runs=res[1][0]["runs"])
+    return out
+
+
+def phase_cli(dev, card: str) -> dict:
+    """Phase 38: the CLI's commands on the card (see CLI_*)."""
+    finding = matplotlib_finding()
+    print(f"phase 38 matplotlib on this machine: {json.dumps(finding)}", flush=True)
+    seconds: dict = {}
+    out = {"matplotlib": finding}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["calibrate"] = cli_calibrate(dev, tmp, seconds)
+        print(f"cli intrinsic -> extrinsic -> rectify ({CLI_VIEWS} views a camera, {DET_W}x{DET_H}) on {card}: "
+              f"equal to the library calls on the card; {json.dumps(out['calibrate'])}", flush=True)
+        torch.cuda.empty_cache()
+        out["sync_stream"] = cli_sync_stream(dev, tmp, seconds)
+        print(f"cli sync, stream and disparity on {card}: each equal to the library call, its launches counted; "
+              f"{json.dumps(out['sync_stream'])}", flush=True)
+        torch.cuda.empty_cache()
+        out["track"] = cli_track(dev, tmp, seconds, finding["matplotlib"])
+        print(f"cli validate-distance, ball-drop, pose, smooth, animate, measure, analyze on {card}: "
+              f"{json.dumps(out['track'])}", flush=True)
+    out["seconds"] = seconds
+    print(f"cli host seconds a command on {card}: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3877,6 +4386,11 @@ def main() -> int:
     videos["phase_s"] = time.perf_counter() - t0
     print(f"phase 37: {videos['phase_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli_phase = phase_cli(dev, card)
+    cli_phase["phase_s"] = time.perf_counter() - t0
+    print(f"phase 38: {cli_phase['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -3902,7 +4416,7 @@ def main() -> int:
                       "cost_kernel": cost_kernel, "vertical_cluster": vertical_cluster, "bm_rows": bm_rows,
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
                       "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream, "detection": detection,
-                      "ball_pose": ball_pose, "training": training, "mesh": several, "video": videos,
+                      "ball_pose": ball_pose, "training": training, "mesh": several, "video": videos, "cli": cli_phase,
                       "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,19 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function_unary
+
+
+def batch_statistics(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax's batch statistics of an NCHW batch over (N, H, W): the mean and
+    the biased variance in its fast form, E[x^2] - E[x]^2 clamped at 0, with
+    the gradient through both. A ``TorchFunctionMode`` sees the call, as it
+    sees ``F.batch_norm`` (``models.train.make_train_step``'s probe stops
+    there)."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(batch_statistics, (x,), x)
+    mean = x.mean(dim=(0, 2, 3))
+    return mean, torch.maximum((x * x).mean(dim=(0, 2, 3)) - mean * mean, x.new_zeros(()))
 
 
 class BatchNorm(nn.Module):
@@ -37,7 +50,7 @@ class BatchNorm(nn.Module):
     gradient through both, and the buffers moved to ``momentum * r + (1 -
     momentum) * stat`` without a gradient. (``F.batch_norm(training=True)``
     weighs the buffers the other way round and stores the unbiased
-    variance.)"""
+    variance.) The batch's statistics come from :func:`batch_statistics`."""
 
     momentum = 0.97
 
@@ -53,8 +66,7 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.maximum((x * x).mean(dim=(0, 2, 3)) - mean * mean, x.new_zeros(()))
+        mean, var = batch_statistics(x)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)

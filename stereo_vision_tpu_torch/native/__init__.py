@@ -1,5 +1,5 @@
 """Native host runtime: multi-threaded C++ preprocessing with numpy
-fallbacks (grayscale packing, brightness scans) and the frame-window ring
+fallbacks (grayscale packing, brightness scans, PNG's row filters) and the frame-window ring
 that feeds the card's staging (``io/loader.py``). The port's copy of
 ``stereo_vision_tpu/native``: the same sources and the same fallbacks,
 built by :mod:`.build` on first use, never on import."""
@@ -54,6 +54,54 @@ def brightness_series(frames: np.ndarray) -> np.ndarray:
     return frames.mean(axis=(1, 2)).astype(np.float64)
 
 
+def png_unfilter(filtered: np.ndarray, rows: int, stride: int, bpp: int) -> np.ndarray:
+    """A PNG image's inflated scanlines (``rows`` of a filter-type byte and
+    ``stride`` bytes, uint8) -> (rows, stride) uint8 pixels, each row's
+    filter undone (None, Sub, Up, Average, Paeth; ``bpp`` bytes a pixel).
+
+    C++ when available; a Python loop otherwise (Average and Paeth are
+    sequential along a row), the same bytes.
+
+    Raises:
+      ValueError: a filter type above 4, or too few bytes.
+    """
+    filtered = np.ascontiguousarray(filtered, np.uint8).reshape(-1)
+    m = _native()
+    if m is not None and hasattr(m, "png_unfilter"):
+        return np.frombuffer(m.png_unfilter(filtered, rows, stride, bpp), np.uint8).reshape(rows, stride).copy()
+    if filtered.size < rows * (stride + 1):
+        raise ValueError("png_unfilter: the data is shorter than rows x (stride + 1)")
+    lines = filtered[: rows * (stride + 1)].reshape(rows, stride + 1)
+    out = np.zeros((rows, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    for y in range(rows):
+        kind, raw = int(lines[y, 0]), lines[y, 1:].astype(np.int64)
+        if kind == 0:
+            row = raw
+        elif kind == 1:
+            row = np.cumsum(raw.reshape(-1, bpp), axis=0).reshape(-1) % 256
+        elif kind == 2:
+            row = (raw + prev) % 256
+        elif kind in (3, 4):
+            r, up = raw.tolist(), prev.tolist()
+            for i in range(stride):
+                a = r[i - bpp] if i >= bpp else 0
+                b, c = up[i], (up[i - bpp] if i >= bpp else 0)
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                r[i] = (r[i] + pred) & 255
+            row = np.asarray(r, np.int64)
+        else:
+            raise ValueError(f"png_unfilter: unknown filter type {kind}")
+        out[y] = row
+        prev = row
+    return out
+
+
 def frame_ring_module():
     """The compiled _frame_ring module, or None (callers fall back to a
     queue.Queue path — see io/loader.py)."""
@@ -66,5 +114,6 @@ __all__ = [
     "native_available",
     "pack_gray",
     "brightness_series",
+    "png_unfilter",
     "frame_ring_module",
 ]

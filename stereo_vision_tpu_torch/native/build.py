@@ -11,7 +11,7 @@ back to numpy / ``queue.Queue`` paths when the toolchain or the module is
 unavailable (``load`` returns None).
 
 Modules:
-  host_ops   — grayscale pack + brightness scans (host_ops.cpp)
+  host_ops   — grayscale pack, brightness scans, PNG row filters (host_ops.cpp)
   frame_ring — blocking frame-window ring buffer (frame_ring.cpp)
 """
 

@@ -8,6 +8,7 @@
 //
 //   pack_gray(frames_u8[T,H,W,3]) -> gray_u8[T,H,W]   (BT.601, x256 fixed point)
 //   brightness_series(frames_u8[T,H,W] or [T,H,W,3]) -> float64[T]
+//   png_unfilter(filtered, rows, stride, bpp) -> bytes   (PNG's five row filters)
 //
 // Build: stereo_vision_tpu_torch/native/build.py (g++ -O3 -fopenmp, cached .so).
 
@@ -120,11 +121,65 @@ PyObject* BrightnessSeries(PyObject*, PyObject* args) {
   return out;  // caller wraps via np.frombuffer(dtype=float64)
 }
 
+// A PNG image's inflated scanlines (each a filter-type byte and ``stride``
+// bytes) back to its pixels: None, Sub, Up, Average and Paeth (PNG 1.2
+// section 6), ``bpp`` bytes a pixel. Each row needs the previous one
+// decoded, and Average and Paeth the pixel to their left: a sequential loop.
+PyObject* PngUnfilter(PyObject*, PyObject* args) {
+  PyObject* data;
+  Py_ssize_t rows, stride, bpp;
+  if (!PyArg_ParseTuple(args, "Onnn", &data, &rows, &stride, &bpp)) return nullptr;
+  BufferGuard g;
+  if (!GetContiguousU8(data, &g, 1, 1)) return nullptr;
+  if (rows < 0 || stride < 0 || bpp < 1 || g.view.shape[0] < rows * (stride + 1)) {
+    PyErr_SetString(PyExc_ValueError, "png_unfilter: the data is shorter than rows x (stride + 1)");
+    return nullptr;
+  }
+  PyObject* out = PyBytes_FromStringAndSize(nullptr, rows * stride);
+  if (!out) return nullptr;
+  uint8_t* dst = reinterpret_cast<uint8_t*>(PyBytes_AS_STRING(out));
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(g.view.buf);
+  int bad = -1;
+  Py_BEGIN_ALLOW_THREADS
+  for (Py_ssize_t y = 0; y < rows && bad < 0; ++y) {
+    const uint8_t* in = src + y * (stride + 1) + 1;
+    const int type = src[y * (stride + 1)];
+    uint8_t* row = dst + y * stride;
+    const uint8_t* up = y ? row - stride : nullptr;
+    for (Py_ssize_t i = 0; i < stride; ++i) {
+      const int a = i >= bpp ? row[i - bpp] : 0, b = up ? up[i] : 0, c = (up && i >= bpp) ? up[i - bpp] : 0;
+      int pred;
+      switch (type) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: {
+          const int p = a + b - c, pa = p > a ? p - a : a - p, pb = p > b ? p - b : b - p, pc = p > c ? p - c : c - p;
+          pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          break;
+        }
+        default: pred = 0; bad = type;
+      }
+      row[i] = static_cast<uint8_t>(in[i] + pred);
+    }
+  }
+  Py_END_ALLOW_THREADS
+  if (bad >= 0) {
+    Py_DECREF(out);
+    PyErr_Format(PyExc_ValueError, "png_unfilter: unknown filter type %d", bad);
+    return nullptr;
+  }
+  return out;  // caller wraps via np.frombuffer().reshape(rows, stride)
+}
+
 PyMethodDef kMethods[] = {
     {"pack_gray", PackGray, METH_VARARGS,
      "pack_gray(frames_u8[T,H,W,3]) -> bytes of gray_u8[T,H,W]"},
     {"brightness_series", BrightnessSeries, METH_VARARGS,
      "brightness_series(frames_u8[T,H,W[,3]]) -> bytes of float64[T]"},
+    {"png_unfilter", PngUnfilter, METH_VARARGS,
+     "png_unfilter(filtered_u8, rows, stride, bpp) -> bytes of the unfiltered rows"},
     {nullptr, nullptr, 0, nullptr},
 };
 

@@ -9,12 +9,19 @@ images for the corner detector.
   without distortion), anti-aliased by supersampling, with its true
   corners;
 - numpy copies of the JAX package's ``synth/boards.py`` ``render_board``,
-  ``add_noise``, ``add_glare`` and ``low_contrast``, and a ``motion_blur``
-  without OpenCV. These make other pixels than the JAX package's OpenCV
-  renders; the tests hand both detectors the JAX package's images.
+  ``add_noise``, ``add_glare`` and ``low_contrast``, and the rest of it
+  without OpenCV: ``motion_blur``, ``warp_perspective``, ``rotate``,
+  ``occlude`` and ``degraded_board`` over ``DEGRADATIONS``. The transforms
+  are OpenCV's to the bit (``getPerspectiveTransform``'s LU solve,
+  ``getRotationMatrix2D``), so the truth points equal the reference's; the
+  warps (an inverse-mapped bilinear sample on OpenCV's 1/32 px grid, border
+  255), the blur and the anti-aliased disk make other pixels than OpenCV's,
+  within the mean absolute differences ``tests/test_torch_boards.py`` holds.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -25,6 +32,7 @@ from stereo_vision_tpu_torch.ops import project_points, rodrigues, rodrigues_inv
 # render_board_view's gray levels and its samples a pixel along each axis.
 _BLACK, _WHITE, _BACKGROUND = 20.0, 235.0, 120.0
 _SUPERSAMPLE = 4
+_DISK_RIM = 0.7  # fill_disk's growth of the radius (OpenCV's anti-aliased rim)
 
 
 def board_views(n_frames: int, seed: int, K1, dist1, size: tuple[int, int], K2=None, dist2=None, R=None, T=None,
@@ -179,3 +187,185 @@ def motion_blur(img: np.ndarray, length: int, angle_deg: float) -> np.ndarray:
     for (dy, dx), wgt in taps.items():
         out += np.float32(wgt) * src[r + dy : r + dy + h, r + dx : r + dx + w]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def perspective_transform(src, dst) -> np.ndarray:
+    """(3, 3) float64 homography taking the four float32 points ``src`` to
+    ``dst``, as ``cv2.getPerspectiveTransform`` computes it: the 8x8 system
+    (its products in float32, as OpenCV's Point2f) solved by Gaussian
+    elimination with partial pivoting (OpenCV's LU: rows scaled by -1 /
+    pivot, back substitution divided by the pivot), bit for bit."""
+    src, dst = np.asarray(src, np.float32), np.asarray(dst, np.float32)
+    a = [[0.0] * 8 for _ in range(8)]
+    b = [0.0] * 8
+    for i in range(4):
+        (x, y), (u, v) = src[i], dst[i]
+        a[i][0] = a[i + 4][3] = float(x)
+        a[i][1] = a[i + 4][4] = float(y)
+        a[i][2] = a[i + 4][5] = 1.0
+        a[i][6], a[i][7] = -float(x * u), -float(y * u)
+        a[i + 4][6], a[i + 4][7] = -float(x * v), -float(y * v)
+        b[i], b[i + 4] = float(u), float(v)
+    for i in range(8):
+        k = max(range(i, 8), key=lambda j: (abs(a[j][i]), -j))
+        a[i], a[k], b[i], b[k] = a[k], a[i], b[k], b[i]
+        d = -1.0 / a[i][i]
+        for j in range(i + 1, 8):
+            alpha = a[j][i] * d
+            for c in range(i + 1, 8):
+                a[j][c] += alpha * a[i][c]
+            b[j] += alpha * b[i]
+    for i in range(7, -1, -1):
+        s = b[i]
+        for c in range(i + 1, 8):
+            s -= a[i][c] * b[c]
+        b[i] = s / a[i][i]
+    return np.array(b + [1.0]).reshape(3, 3)
+
+
+def rotation_matrix_2d(center: tuple[float, float], angle_deg: float, scale: float = 1.0) -> np.ndarray:
+    """(2, 3) float64 rotation about ``center`` (float32, as OpenCV's
+    Point2f), as ``cv2.getRotationMatrix2D`` computes it, bit for bit."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    angle = angle_deg * (math.pi / 180)
+    alpha, beta = math.cos(angle) * scale, math.sin(angle) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy], [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def warp_inverse(img: np.ndarray, inv: np.ndarray, border: int = 255) -> np.ndarray:
+    """uint8 (H, W) image resampled at ``inv`` (3x3: output pixel (x, y, 1)
+    -> source) bilinearly, the source position rounded to 1/32 px (OpenCV's
+    INTER_LINEAR grid), taps outside the image ``border``; rounded to
+    uint8. The same size as ``img``."""
+    h, w = img.shape
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    den = inv[2, 0] * x + inv[2, 1] * y + inv[2, 2]
+    den = np.where(den != 0, 1.0 / np.where(den != 0, den, 1.0), 0.0)
+    sx = np.rint((inv[0, 0] * x + inv[0, 1] * y + inv[0, 2]) * den * 32) / 32
+    sy = np.rint((inv[1, 0] * x + inv[1, 1] * y + inv[1, 2]) * den * 32) / 32
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    pad = np.pad(img.astype(np.float64), 1, constant_values=border)
+
+    def tap(yy, xx):
+        yi = np.clip(yy + 1, 0, h + 1).astype(np.int64)
+        xi = np.clip(xx + 1, 0, w + 1).astype(np.int64)
+        inside = (yy >= -1) & (yy <= h) & (xx >= -1) & (xx <= w)
+        return np.where(inside, pad[yi, xi], float(border))
+
+    out = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
+           + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def warp_perspective(img: np.ndarray, gt: np.ndarray, tilt: float, rng):
+    """Projective foreshortening: ``tilt`` in [0, 1) pulls the top edge
+    inward (tilt 0.35 ~ a board at 60 deg+ to the camera axis)."""
+    h, w = img.shape
+    jx = rng.uniform(-0.05, 0.05)
+    src = np.float32([[0, 0], [w, 0], [w, h], [0, h]])
+    dst = np.float32(
+        [
+            [w * (tilt + jx), h * 0.08],
+            [w * (1 - tilt + jx), h * 0.08],
+            [w * 0.98, h * 0.95],
+            [w * 0.02, h * 0.95],
+        ]
+    )
+    H = perspective_transform(src, dst)
+    out = warp_inverse(img, np.linalg.inv(H))
+    gt_h = np.c_[gt, np.ones(len(gt))] @ H.T
+    return out, gt_h[:, :2] / gt_h[:, 2:3]
+
+
+def rotate(img: np.ndarray, gt: np.ndarray, angle_deg: float):
+    """The image and its truth points rotated by ``angle_deg`` about the
+    image's centre (``cv2.warpAffine`` with border 255)."""
+    h, w = img.shape
+    M = rotation_matrix_2d((w / 2, h / 2), angle_deg, 1.0)
+    out = warp_inverse(img, np.linalg.inv(np.vstack([M, [0.0, 0.0, 1.0]])))
+    return out, np.c_[gt, np.ones(len(gt))] @ M.T
+
+
+def fill_disk(img: np.ndarray, center: tuple[int, int], radius: int, value: int) -> np.ndarray:
+    """An anti-aliased filled disk (in place; returns ``img``): each pixel
+    blended towards ``value`` by the share of its 4 x 4 samples within
+    ``radius`` + 0.7 of ``center`` (OpenCV's LINE_AA disk covers the pixels
+    ``radius`` away and a fifth of the next: its measured rim), rounded."""
+    h, w = img.shape[:2]
+    cx, cy = center
+    y0, y1 = max(cy - radius - 1, 0), min(cy + radius + 2, h)
+    x0, x1 = max(cx - radius - 1, 0), min(cx + radius + 2, w)
+    if y0 >= y1 or x0 >= x1:
+        return img
+    sub = (np.arange(4) + 0.5) / 4 - 0.5
+    ys = (np.arange(y0, y1)[:, None] + sub).reshape(-1)
+    xs = (np.arange(x0, x1)[:, None] + sub).reshape(-1)
+    inside = (xs[None, :] - cx) ** 2 + (ys[:, None] - cy) ** 2 <= (radius + _DISK_RIM) ** 2
+    cover = inside.reshape(y1 - y0, 4, x1 - x0, 4).mean(axis=(1, 3))
+    patch = img[y0:y1, x0:x1].astype(np.float64)
+    if patch.ndim == 3:
+        cover = cover[..., None]
+    img[y0:y1, x0:x1] = np.clip(np.rint(patch * (1 - cover) + np.asarray(value, np.float64) * cover), 0, 255)
+    return img
+
+
+def occlude(img: np.ndarray, gt: np.ndarray, rng, frac: float = 0.12) -> np.ndarray:
+    """Cover a patch of the board margin / outer squares with a gray disk
+    (a hand or cable). Inner corners stay visible, so full detection
+    remains possible."""
+    h, w = img.shape
+    out = img.copy()
+    x0, y0 = gt.min(axis=0)
+    x1, y1 = gt.max(axis=0)
+    # the disk's centre outside the inner-corner hull but touching the board
+    side = rng.integers(0, 4)
+    r = int(frac * max(h, w))
+    safety = r + 12  # keep every inner corner's subpixel window clear
+    if side == 0:
+        cx, cy = rng.uniform(x0, x1), y0 - safety
+    elif side == 1:
+        cx, cy = rng.uniform(x0, x1), y1 + safety
+    elif side == 2:
+        cx, cy = x0 - safety, rng.uniform(y0, y1)
+    else:
+        cx, cy = x1 + safety, rng.uniform(y0, y1)
+    return fill_disk(out, (int(cx), int(cy)), r, 128)
+
+
+def degraded_board(kind: str, seed: int, cols: int = 7, rows: int = 4):
+    """One (image, truth) sample of the named degradation class."""
+    rng = np.random.default_rng(seed)
+    img, gt = render_board(cols, rows, square_px=40, margin=70)
+    angle = rng.uniform(-25, 25)
+    img, gt = rotate(img, gt, angle)
+
+    if kind == "clean":
+        pass
+    elif kind == "noise":
+        img = add_noise(img, 18.0, rng)
+    elif kind == "blur":
+        img = motion_blur(img, 9, rng.uniform(0, 180))
+    elif kind == "blur_heavy":
+        img = motion_blur(img, 15, rng.uniform(0, 180))
+    elif kind == "glare":
+        img = add_glare(img, rng)
+    elif kind == "occlusion":
+        img = occlude(img, gt, rng)
+    elif kind == "foreshorten":
+        img, gt = warp_perspective(img, gt, 0.32, rng)
+    elif kind == "low_contrast_noise":
+        img = add_noise(low_contrast(img), 10.0, rng)
+    elif kind == "combined":
+        img, gt = warp_perspective(img, gt, 0.22, rng)
+        img = motion_blur(img, 7, rng.uniform(0, 180))
+        img = add_noise(img, 8.0, rng)
+    else:
+        raise ValueError(f"unknown degradation {kind!r}")
+    return img, gt
+
+
+DEGRADATIONS = (
+    "clean", "noise", "blur", "blur_heavy", "glare", "occlusion",
+    "foreshorten", "low_contrast_noise", "combined",
+)

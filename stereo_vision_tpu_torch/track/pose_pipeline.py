@@ -4,9 +4,9 @@ Port of ``stereo_vision_tpu/track/pose_pipeline.py``: synchronised
 landmark sequences in, the fused and smoothed 3D poses and their joint
 angles out, with the reference's artifact set: the pose pickles (before
 and after smoothing), the angle CSV, the smoothing stats JSON and the
-per-joint angle statistics (text and CSV). The JAX package also draws
-``angles.png`` and ``trajectory.png`` through its ``pipeline.reporting``;
-the port has no reporting module yet and writes neither.
+per-joint angle statistics (text and CSV), and, best-effort as in the JAX
+package, ``angles.png`` and ``trajectory.png`` through ``pipeline.reporting``
+(skipped where they cannot be drawn, e.g. without matplotlib).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ class PoseWorkflowResult(NamedTuple):
     smoothing_stats: dict
 
 
-def _write_artifacts(out: Path, poses, smoothed, ang_sm, stats: dict, fps: float) -> None:
+def _write_artifacts(out: Path, poses, smoothed, ang_raw, ang_sm, stats: dict, fps: float) -> None:
     out.mkdir(parents=True, exist_ok=True)
     with open(out / "pose_3d_original.pkl", "wb") as f:
         pickle.dump(poses, f)
@@ -68,6 +68,13 @@ def _write_artifacts(out: Path, poses, smoothed, ang_sm, stats: dict, fps: float
         w.writerow(["joint", "mean", "median", "std", "min", "max"])
         for name, mean, med, std, lo, hi in stat_rows:
             w.writerow([name] + [f"{v:.2f}" for v in (mean, med, std, lo, hi)])
+    try:
+        from stereo_vision_tpu_torch.pipeline.reporting import save_angle_series, save_trajectory_3d
+
+        save_angle_series(ang_raw, fps, out / "angles.png", smoothed=ang_sm)
+        save_trajectory_3d(smoothed, out / "trajectory.png")
+    except Exception:  # plotting is best-effort (headless variations)
+        pass
 
 
 def run_pose_workflow(
@@ -98,5 +105,5 @@ def run_pose_workflow(
     ang_raw = pose_angles(poses, dev).cpu().numpy()
     ang_sm = pose_angles(smoothed, dev).cpu().numpy()
     if out_dir is not None:
-        _write_artifacts(Path(out_dir), poses, smoothed, ang_sm, smoother.stats, fps)
+        _write_artifacts(Path(out_dir), poses, smoothed, ang_raw, ang_sm, smoother.stats, fps)
     return PoseWorkflowResult(poses, smoothed, ang_raw, ang_sm, smoother.stats)

@@ -1,9 +1,10 @@
 """The port's checkerboard detector (``detect/checkerboard.py``) against the
 JAX package's, on the CPU.
 
-The images are the JAX package's degraded boards (``synth.boards``, its
-OpenCV renders; JAX is called with ``backend="jax"``, since "auto" would
-take OpenCV's path here). Tolerances: the saddle response within 1e-5 of
+The images are the port's degraded boards (``synth.boards.degraded_board``,
+OpenCV-free; ``tests/test_torch_boards.py`` holds them to the JAX
+package's OpenCV renders), handed to both detectors; JAX is called with
+``backend="jax"``, since "auto" would take OpenCV's path here. Tolerances: the saddle response within 1e-5 of
 its largest value, Harris within 1e-3 (float32 running sums); the local maxima (on JAX's own
 response) in the same order with the same scores, bit for bit;
 ``_order_grid`` bit for bit; refined corners within 1e-2 px; the detector's
@@ -17,10 +18,10 @@ import torch
 
 from stereo_vision_tpu.detect import checkerboard as jcb
 from stereo_vision_tpu.synth import boards as jboards
-from stereo_vision_tpu.synth.boards import DEGRADATIONS, degraded_board
 from stereo_vision_tpu_torch.detect import checkerboard as cb
 from stereo_vision_tpu_torch.synth import boards
-from stereo_vision_tpu_torch.synth.boards import add_noise, board_views, motion_blur, render_board_view
+from stereo_vision_tpu_torch.synth.boards import (DEGRADATIONS, add_noise, board_views, degraded_board, motion_blur,
+                                                  render_board_view)
 
 BOARD = (7, 4)
 

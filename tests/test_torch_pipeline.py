@@ -150,16 +150,20 @@ def test_params_from_reference():
 
 
 def test_port_imports_no_jax():
-    """Importing every port module (and chip_smoke.py) leaves jax, flax,
-    orbax, cv2 and stereo_vision_tpu out of sys.modules."""
+    """Importing every port module (``pipeline.*`` and ``__main__`` among
+    them) and chip_smoke.py leaves jax, flax, orbax, cv2, matplotlib (only
+    the functions that plot import it) and stereo_vision_tpu out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, runpy, sys\n"
         "import stereo_vision_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "assert {p.__name__ + '.__main__', p.__name__ + '.pipeline.cli', p.__name__ + '.io.png'} <= set(names)\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax', 'cv2', 'stereo_vision_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax', 'cv2', 'matplotlib', 'stereo_vision_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('stereo_vision_tpu_torch')]))\n"
     )

@@ -305,8 +305,8 @@ def test_run_pose_workflow_artifacts_match_jax(tmp_path):
     for a, b in zip(res[:4], jres[:4]):
         _close(a, b)
     port_files = sorted(p.name for p in (tmp_path / "port").iterdir())
-    jax_files = sorted(p.name for p in (tmp_path / "jax").iterdir() if p.suffix != ".png")
-    assert port_files == jax_files and len(port_files) == 6
+    jax_files = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert port_files == jax_files and len(port_files) == 8  # the plots: angles.png, trajectory.png
     for name in ("pose_3d_original.pkl", "pose_3d_smoothed.pkl"):
         with open(tmp_path / "port" / name, "rb") as f, open(tmp_path / "jax" / name, "rb") as g:
             _close(pickle.load(f), pickle.load(g))

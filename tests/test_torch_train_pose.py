@@ -39,7 +39,18 @@ bottom rows gray 114). Tolerances:
   measured: the split kernel's gradient is summed over the two data
   devices in another order, and Adam's first steps move a parameter whose
   gradient is near 0 by up to ~lr whatever its size) and within 4 lr of
-  JAX's (as the step test above).
+  JAX's (as the step test above);
+- with a batch norm in training form (ROADMAP C.9): torch's ``Linear(4, 8)``
+  -> ``BatchNorm1d(8)`` -> ``Linear(8, 1)`` (MSE, SGD 0.1) on 1, 2 and 4 CPU
+  devices: the 1x1 step's loss and gradients bit for bit those of the plain
+  forward and backward, the 2x1 and 4x1 steps' losses and gradients within
+  rtol 1e-5 / atol 1e-6 of the 1x1 step's (equal measured), two steps' losses
+  and parameters within rtol 1e-5 / atol 1e-6 of JAX's ``make_train_step``
+  on as many devices (flax ``BatchNorm(use_running_average=False)`` on the
+  same tree), the batch statistics unmoved; the narrow PoseNet in
+  ``train()`` mode on 2x2 (SGD at lr 0, so the gradients stay to be read):
+  loss and gradients within rtol 1e-5 / atol 1e-6 of the 1x1 step's and
+  held to JAX's training-mode loss and gradients as the network test above.
 """
 
 import jax
@@ -48,6 +59,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax import linen as fnn
+from torch import nn
 
 from stereo_vision_tpu.models import pretrained as jp
 from stereo_vision_tpu.models import train as jtrain
@@ -343,3 +356,128 @@ def test_make_train_step_on_a_2x2_mesh_matches_one_device_and_jax(cpu_mesh):
         if path[0] == "params":
             mine = _flax_layout(path, params[key])
             assert np.abs(mine - _at(jstate.params, path[1:])).max() <= 4e-3, path
+
+
+def _repro_net():
+    """ROADMAP C.9's repro: the net in training form, its batch and targets."""
+    torch.manual_seed(0)
+    net = nn.Sequential(nn.Linear(4, 8), nn.BatchNorm1d(8), nn.Linear(8, 1)).train()
+    x = torch.randn(8, 4) * torch.arange(1, 9)[:, None]
+    return net, x, torch.randn(8)
+
+
+def _repro_steps(n: int):
+    """Two SGD steps of the repro on ``host_cpu_mesh(n)``: the losses, the
+    first step's gradients and the parameters after each step."""
+    net, x, y = _repro_net()
+    init, step = models.make_train_step(
+        host_cpu_mesh(n), lambda v, a: torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,)),
+        lambda out, t: ((out[:, 0] - t) ** 2).mean(), lambda p: torch.optim.SGD(p, lr=0.1))
+    state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+    before = {k: v.clone() for k, v in state.batch_stats.items()}
+    losses, grads, params = [], None, []
+    for _ in range(2):
+        state, loss = step(state, x, y)
+        losses.append(loss.item())
+        grads = grads or {k: p.grad.clone() for k, p in state.params.items()}
+        params.append({k: p.detach().clone() for k, p in state.params.items()})
+    for k, v in state.batch_stats.items():
+        assert torch.equal(v, before[k]), k  # running statistics and num_batches_tracked unmoved
+    return losses, grads, params
+
+
+def test_make_train_step_batch_norm_in_training_one_device_is_the_plain_step():
+    net, x, y = _repro_net()
+    loss = ((net(x)[:, 0] - y) ** 2).mean()
+    loss.backward()
+    losses, grads, _ = _repro_steps(1)
+    assert losses[0] == loss.item()
+    for k, p in net.named_parameters():
+        assert torch.equal(grads[k], p.grad), k
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_make_train_step_batch_norm_in_training_takes_the_whole_batch(n):
+    one_losses, one_grads, one_params = _repro_steps(1)
+    losses, grads, params = _repro_steps(n)
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-5, atol=1e-6)
+    for k, g in one_grads.items():
+        np.testing.assert_allclose(grads[k].numpy(), g.numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
+
+    class Net(fnn.Module):
+        @fnn.compact
+        def __call__(self, a):
+            a = fnn.Dense(8)(a)
+            return fnn.Dense(1)(fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)(a))
+
+    net, x, y = _repro_net()
+    sd = {k: v.detach().numpy() for k, v in net.state_dict().items()}
+    tree = {"params": {"Dense_0": {"kernel": sd["0.weight"].T, "bias": sd["0.bias"]},
+                       "BatchNorm_0": {"scale": sd["1.weight"], "bias": sd["1.bias"]},
+                       "Dense_1": {"kernel": sd["2.weight"].T, "bias": sd["2.bias"]}},
+            "batch_stats": {"BatchNorm_0": {"mean": sd["1.running_mean"], "var": sd["1.running_var"]}}}
+    jnet = Net()
+    jinit, jstep = jtrain.make_train_step(
+        jcreate_mesh(n, 1, devices=jax.devices("cpu")[:n]),
+        lambda v, a: jnet.apply(v, a, mutable=["batch_stats"])[0],
+        lambda out, t: jnp.mean((out[:, 0] - t) ** 2), optax.sgd(0.1))
+    jstate = jinit(tree)
+    names = {"0.weight": ("Dense_0", "kernel"), "0.bias": ("Dense_0", "bias"), "1.weight": ("BatchNorm_0", "scale"),
+             "1.bias": ("BatchNorm_0", "bias"), "2.weight": ("Dense_1", "kernel"), "2.bias": ("Dense_1", "bias")}
+    for i in range(2):
+        jstate, jloss = jstep(jstate, jnp.asarray(x.numpy()), jnp.asarray(y.numpy()))
+        np.testing.assert_allclose(losses[i], float(jloss), rtol=1e-5, atol=1e-6)
+        for k, path in names.items():
+            ref = _at(jstate.params, path)
+            mine = params[i][k].numpy()
+            np.testing.assert_allclose(mine.T if mine.ndim == 2 else mine, ref, rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_make_train_step_pose_net_in_training_on_a_2x2_mesh(posenet):
+    def grads(mesh):
+        net = _port(posenet["tree"]).train()
+        init, step = models.make_train_step(
+            mesh, lambda v, a: torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,),
+                                                          {"return_heatmap": True}),
+            lambda out, g: pose.pose_loss_full(out[0], out[1], g), lambda p: torch.optim.SGD(p, lr=0.0))
+        state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+        before = {k: v.clone() for k, v in state.batch_stats.items()}
+        state, loss = step(state, posenet["x"], posenet["gt"])
+        assert all(torch.equal(v, before[k]) for k, v in state.batch_stats.items())
+        return loss.item(), {k: p.grad for k, p in state.params.items()}, net
+
+    one_loss, one, _ = grads(create_mesh(1, 1, devices=[CPU]))
+    loss, mine, net = grads(host_cpu_mesh(4, n_space=2))
+    np.testing.assert_allclose(loss, one_loss, rtol=1e-5, atol=1e-6)
+    for k, g in one.items():
+        np.testing.assert_allclose(mine[k].numpy(), g.numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(loss, posenet["loss"], rtol=1e-5)
+    floor = 1e-5 * max(np.abs(g).max() for g in jax.tree_util.tree_leaves(posenet["grads"]))
+    for path, key in convert.reference_leaves(net):
+        if path[0] == "params":
+            ref = _at(posenet["grads"], path[1:])
+            err = np.abs(_flax_layout(path, mine[key]) - ref).max()
+            assert err <= max(1e-2 * np.abs(ref).max(), floor), (path, err)
+
+
+@pytest.mark.parametrize("batch_norm", [True, False])
+def test_make_train_step_probes_for_batch_statistics_once(batch_norm):
+    """On two data devices a net with a batch norm in training form is
+    probed in its first step only (the probe stops at the batch norm, and
+    that step and the next run the whole batch on one device: 3 calls of
+    ``apply_fn``); a net without one runs each share each step (4 calls)."""
+    net, x, y = _repro_net()
+    if not batch_norm:
+        net = nn.Sequential(net[0], net[2])
+    calls = []
+
+    def apply_fn(v, a):
+        calls.append(a.shape[0])
+        return torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,))
+
+    init, step = models.make_train_step(host_cpu_mesh(2), apply_fn, lambda out, t: ((out[:, 0] - t) ** 2).mean(),
+                                        lambda p: torch.optim.SGD(p, lr=0.1))
+    state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+    for _ in range(2):
+        state, _ = step(state, x, y)
+    assert calls == ([4, 8, 8] if batch_norm else [4, 4, 4, 4])
