@@ -446,7 +446,11 @@ BM_PLAIN_FRAMES = 2  # frames the plain form runs on beside the 8-frame kernel c
 BM_VALID_FLOOR, BM_WITHIN1_FLOOR = 0.80, 0.85
 # BENCH_r05.json's agreement against exact8 (the round-5 run of bench.py), per scene.
 BENCH_R05_AGREEMENT = {"hier4x3": {"rampbox": 0.9952, "occl": 0.9966, "jump110": 0.9923},
-                       "hier16x3": {"rampbox": 0.9953, "occl": 0.9974, "jump110": 0.9935}}
+                       "hier16x3": {"rampbox": 0.9953, "occl": 0.9974, "jump110": 0.9935},
+                       "fast4": {"rampbox": 0.9991, "occl": 0.9996, "jump110": 0.9988},
+                       "hier4": {"rampbox": 0.9947, "occl": 0.9971, "jump110": 0.9915},
+                       "hier16": {"rampbox": 0.9954, "occl": 0.9975, "jump110": 0.9935},
+                       "hier8x3": {"rampbox": 0.9953, "occl": 0.9968, "jump110": 0.9926}}
 # The hier16x3 path: bench.py's hier16x3 mode (HIER_FAST with p3, 8 frames a
 # call, bench.py:185-186), which matcher="sgbm_hier" picks for 8 frames.
 H16_P, H16_HP = 8, hier.HIER_FAST
@@ -485,6 +489,11 @@ KERNELS = {
                      "stereo_vision_tpu/stereo/bm_pallas.py:183 bm_stats_pallas:135 (_bm_kernel:27)"),
     "banded_wta_fused": (banded_cuda.banded_wta_fused, SOURCES["banded_wta"],
                          "stereo_vision_tpu/stereo/banded_pallas.py:1204 _wta_fused_kernel:888"),
+    "cost": (cost_cuda.cost_volume, SOURCES["cost"], "stereo_vision_tpu/stereo/cost_pallas.py:107 _cost_kernel"),
+    "vertical": (sgm_cuda.vertical, SOURCES["sgm"], "stereo_vision_tpu/stereo/sgm_pallas.py:70 _vertical_kernel"),
+    "horizontal": (sgm_cuda.horizontal, SOURCES["sgm"],
+                   "stereo_vision_tpu/stereo/sgm_pallas.py:143 _horizontal_kernel"),
+    "wta4": (sgm_cuda.wta4, SOURCES["sgm"], "stereo_vision_tpu/stereo/sgm_pallas.py:331 _wta4_kernel"),
 }
 HIER_KERNEL_NAMES = ("downsample_pyramid", "banded_cost", "banded_vertical", "banded_horizontal", "banded_wta",
                      "lr_fail_packed", "speckle_filter")
@@ -513,6 +522,10 @@ PLAIN = {
     "horizontal_rl_wta": sgm_cuda.horizontal_rl_wta_plain,
     "bm_disparity": bm.valid_disparity_plain,
     "banded_wta_fused": lambda volumes, s, uniq, **_: banded_cuda.banded_wta_fused_plain(volumes, s, uniq),
+    "cost": lambda left, right, *, dtype=None, **kw: cost_cuda.cost_volume_plain(left, right, **kw),
+    "vertical": lambda C, P1, P2, with_diagonals, cost_bound: sgm_cuda.vertical_plain(C, P1, P2, with_diagonals),
+    "horizontal": lambda C, P1, P2, reverse, cost_bound: sgm_cuda.horizontal_plain(C, P1, P2, reverse),
+    "wta4": sgm_cuda.wta4_plain,
 }
 PLAIN["banded_vertical_diag"] = PLAIN["banded_vertical"]
 
@@ -716,19 +729,25 @@ def phase_main_path(dev, rows: list[dict]) -> tuple[dict, dict, torch.Tensor]:
                 frames_per_s=B / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
 
 
-def record_exact_call(dev, disp_main: torch.Tensor) -> list[dict]:
-    """One more exact main-path call with the cost, LR and speckle kernels'
-    arguments recorded; its disparity must equal the main path's."""
+# Where the exact path calls each of its kernels.
+EXACT_TARGETS = {"cost": (sgbm, "cost_volume"), "vertical": (sgm_cuda, "vertical"),
+                 "horizontal": (sgm_cuda, "horizontal"), "wta4": (sgm_cuda, "wta4"), "lr_fail": (lr_cuda, "lr_fail"),
+                 "speckle_filter": (sgbm, "speckle_filter")}
+
+
+def record_exact_call(dev, disp_main: torch.Tensor, params: StereoSGBMParams = PARAMS, label: str = "exact8",
+                      names: tuple[str, ...] = ("cost", "lr_fail", "speckle_filter")) -> list[dict]:
+    """One more exact main-path call (B frames, ``params``) with the
+    arguments of the kernels ``names`` recorded; its disparity must equal
+    the main path's."""
     maps, Q = rig(H, W)
     frames = [scene(seed=s) for s in range(B)]
     lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
-    targets = {"cost": (sgbm, "cost_volume"), "lr_fail": (lr_cuda, "lr_fail"),
-               "speckle_filter": (sgbm, "speckle_filter")}
-    with Recorder(targets, ("exact8",), keep=True) as rec:
-        disp, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
+    with Recorder({name: EXACT_TARGETS[name] for name in names}, (label,), keep=True) as rec:
+        disp, _ = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm", params=params, device=dev)
     torch.cuda.synchronize()
     if not torch.equal(disp, disp_main):
-        raise AssertionError("the recorded exact call differs from the main path")
+        raise AssertionError(f"the recorded {label} call differs from the main path")
     return rec.calls
 
 
@@ -883,12 +902,13 @@ class Recorder:
 
 
 def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool, params: StereoSGBMParams = P3,
-                     maps_q=None, levels=("coarse", "mid", "full")) -> tuple[dict, list[dict]]:
+                     maps_q=None, levels=("coarse", "mid", "full"), hp=None) -> tuple[dict, list[dict]]:
     """One hier main-path call with its stages recorded: the per-stage
     CUDA-event ms (summed per stage and level) and the records of every
     kernel wrapper's calls, with (``keep``) the arguments the kernel checks
     reuse. The call's disparity must equal the main path's. ``maps_q``:
-    the (maps, Q) of the call (default: :func:`rig`)."""
+    the (maps, Q) of the call (default: :func:`rig`); ``hp``: the
+    pipeline's ``hier_params`` (None: its pick by batch size)."""
     maps, Q = maps_q or rig(H, W)
     targets = {
         "matcher": (streaming, "stereo_sgbm_hier_batch"), "reproject": (streaming, "reproject_disparity_to_3d"),
@@ -904,7 +924,8 @@ def record_hier_call(dev, lt, rt, disp_main: torch.Tensor, keep: bool, params: S
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with Recorder(targets, levels, keep) as rec:
         start.record()
-        disp, _ = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev)
+        disp, _ = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, hier_params=hp,
+                                          device=dev)
         end.record()
     torch.cuda.synchronize()
     if not torch.equal(disp, disp_main):
@@ -951,7 +972,7 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
     elements): BM ~8 per (valid pixel, disparity) (an absolute difference,
     vertical and horizontal running sums, min and argmin), the fused R->L
     scan + WTA ~21 per (pixel, disparity), banded cost ~20 + 4 bs per lane,
-    a scan step ~10 per lane and carry (two directions; three carries each
+    exact cost ~20 + 2 (bs - 1) per (pixel, disparity), a scan step ~10 per lane and carry (two directions; three carries each
     with diagonals), WTA ~10
     per lane, LR ~20 per pixel, the pyramid one add per input pixel, speckle
     ~30 per pixel (a union-find labelling's O(1) work a pixel; the capped
@@ -959,13 +980,17 @@ def _ops(name: str, args, kwargs, elems: int) -> int:
     which can only lower its bound)."""
     if name == "banded_cost":
         return elems * (20 + 4 * kwargs["block_size"])
+    if name == "cost":  # BT of two channels, shift and add, the separable box
+        return elems * (20 + 2 * (kwargs["block_size"] - 1))
+    if name == "vertical":
+        return (6 if args[3] else 2) * elems * 10
     if name == "banded_vertical":
         return 2 * elems * 10
     if name == "banded_vertical_diag":
         return 6 * elems * 10
     if name == "speckle_filter":
         return elems * 30
-    if name in ("banded_wta", "banded_wta_fused"):
+    if name in ("banded_wta", "banded_wta_fused", "wta4"):
         return args[0][0].numel() * 10
     if name == "downsample_pyramid":
         return 2 * args[0].numel()
@@ -980,9 +1005,10 @@ def _storage(name: str, args, out) -> torch.dtype | None:
     """The dtype a kernel call's volumes are stored in (None: it has none)."""
     if name in ("banded_cost", "cost"):
         return out.dtype
-    if name in ("banded_vertical", "banded_vertical_diag", "banded_horizontal", "horizontal_rl_wta"):
+    if name in ("banded_vertical", "banded_vertical_diag", "banded_horizontal", "horizontal_rl_wta", "vertical",
+                "horizontal"):
         return args[0].dtype
-    if name in ("banded_wta", "banded_wta_fused"):
+    if name in ("banded_wta", "banded_wta_fused", "wta4"):
         return args[0][0].dtype
     return None
 
@@ -1144,27 +1170,33 @@ def phase_hier_small_pipeline(dev) -> None:
 
 
 def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str, maps_q=None,
-                         names: tuple[str, ...] = HIER_KERNEL_NAMES) -> tuple[dict, dict, torch.Tensor]:
-    """One hier main-path call of ``lt.shape[0]`` frames with the counts of
-    the kernels ``names`` set to 0 before it and read after it (each must
-    have launched), its output's shape and quality floors, then ms per call
-    over 3 calls. ``maps_q``: the (maps, Q) of the call (default: :func:`rig`)."""
+                         names: tuple[str, ...] = HIER_KERNEL_NAMES, hp=None,
+                         matcher: str = "sgbm_hier") -> tuple[dict, dict, torch.Tensor]:
+    """One main-path call (``matcher``, the hier one by default) of
+    ``lt.shape[0]`` frames with the counts of the kernels ``names`` set to 0
+    before it and read after it (each must have launched; the pyramid, where
+    it runs, once), its output's shape and quality floors, then ms per call
+    over 3 calls. ``maps_q``: the (maps, Q) of the call (default:
+    :func:`rig`); ``hp``: the pipeline's ``hier_params`` (None: its pick by
+    batch size)."""
     maps, Q = maps_q or rig(H, W)
     P = lt.shape[0]
+    run = lambda: batched_stereo_pipeline(lt, rt, maps, Q, matcher=matcher, params=params, hier_params=hp,
+                                          device=dev)
     wrappers = {name: KERNELS[name][0] for name in names}
     for fn in wrappers.values():
         fn.launches = 0
     banded_cuda.banded_vertical.diagonal_launches = 0
-    disp, pts = batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev)
+    disp, pts = run()
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    if params.num_paths == 8:  # banded_vertical counts both kernels: split them
+    if params.num_paths == 8 and "banded_vertical" in counts:  # banded_vertical counts both kernels: split them
         counts["banded_vertical_diag"] = banded_cuda.banded_vertical.diagonal_launches
         counts["banded_vertical"] -= counts["banded_vertical_diag"]
     print(f"{label} main path launches:", json.dumps(counts), flush=True)
     if min(counts.values()) == 0:
         raise AssertionError(f"a kernel of the {label} main path never launched: {counts}")
-    if counts["downsample_pyramid"] != 1:
+    if counts.get("downsample_pyramid", 1) != 1:
         raise AssertionError(f"the {label} pyramid took {counts['downsample_pyramid']} launches, not 1")
 
     d = disp.cpu().numpy()
@@ -1178,23 +1210,29 @@ def phase_hier_main_path(dev, lt, rt, params: StereoSGBMParams, label: str, maps
     if valid_share < VALID_FLOOR or within1 < WITHIN1_FLOOR:
         raise AssertionError(f"{label} main path quality below its floor")
 
-    ms = host_ms(lambda: batched_stereo_pipeline(lt, rt, maps, Q, matcher="sgbm_hier", params=params, device=dev))
+    ms = host_ms(run)
     print(f"{label} main path 1280x720 D={D} P={P}: {ms:.2f} ms per call, {P * H * W / ms / 1e3:.2f} "
           f"Mpx/s, {P / ms * 1e3:.2f} frames/s", flush=True)
     return dict(ms_per_call=ms, frames_per_call=P, mpx_per_s=P * H * W / ms / 1e3,
                 frames_per_s=P / ms * 1e3, valid_share=valid_share, within1_share=within1), counts, disp
 
 
-def phase_agreement(dev) -> dict:
-    """bench.py's gate: hier4x3 and hier4x8 (32 copies per call) and
-    hier16x3 (8 copies, unfused and with ``hier._FUSED_STATS`` set) against
-    exact8 on the first frame of each scene, straight to the matchers (no
-    remap). hier4x3 and both hier16x3 forms must equal BENCH_r05.json's
-    values to its four decimals."""
+# bench.py's modes against exact8 (bench.py:181-189): name -> (params, hier
+# preset (None: the exact path), copies a call, hier._FUSED_STATS).
+AGREEMENT_MODES = {"hier4x3": (P3, HP, HIER_P, False), "hier4x8": (P8, HP, HIER_P, False),
+                   "hier16x3": (P3, H16_HP, H16_P, False), "hier16x3 fused": (P3, H16_HP, H16_P, True)}
+
+
+def phase_agreement(dev, modes: dict = AGREEMENT_MODES) -> dict:
+    """bench.py's gate: each of ``modes`` (by default hier4x3 and hier4x8,
+    32 copies per call, and hier16x3, 8 copies, unfused and with
+    ``hier._FUSED_STATS`` set) against exact8 on the first frame of each
+    scene, straight to the matchers (no remap). Every mode that
+    BENCH_r05.json names (all but hier4x8) must equal its values to four
+    decimals."""
     scenes = {"rampbox": scene(0), "occl": scene_occ(2), "jump110": scene(3, box_disp=110.0)}
-    modes = {"hier4x3": (P3, HP, HIER_P, False), "hier4x8": (P8, HP, HIER_P, False),
-             "hier16x3": (P3, H16_HP, H16_P, False), "hier16x3 fused": (P3, H16_HP, H16_P, True)}
     out = {mode: {} for mode in modes}
+    want = {mode: BENCH_R05_AGREEMENT[mode.split()[0]] for mode in modes if mode.split()[0] in BENCH_R05_AGREEMENT}
     prev = hier._FUSED_STATS
     try:
         for name, (l, r) in scenes.items():
@@ -1202,19 +1240,18 @@ def phase_agreement(dev) -> dict:
             exact = stereo_sgbm(lt[None], rt[None], PARAMS)[0].cpu().numpy()
             for mode, (params, hp, n, fused) in modes.items():
                 hier._FUSED_STATS = fused
-                disp = hier.stereo_sgbm_hier_batch(lt.expand(n, -1, -1), rt.expand(n, -1, -1), params, hp)[0]
-                out[mode][name] = agreement(disp.cpu().numpy(), exact)
+                ln, rn = lt.expand(n, -1, -1), rt.expand(n, -1, -1)
+                disp = stereo_sgbm(ln, rn, params) if hp is None else hier.stereo_sgbm_hier_batch(ln, rn, params, hp)
+                out[mode][name] = agreement(disp[0].cpu().numpy(), exact)
             print(f"agreement vs exact8, {name}: " + ", ".join(f"{m} {a[name]:.4f}" for m, a in out.items())
-                  + f" (BENCH_r05.json hier4x3 {BENCH_R05_AGREEMENT['hier4x3'][name]}, hier16x3 "
-                  f"{BENCH_R05_AGREEMENT['hier16x3'][name]})", flush=True)
+                  + " (BENCH_r05.json " + ", ".join(f"{m} {w[name]}" for m, w in want.items()) + ")", flush=True)
     finally:
         hier._FUSED_STATS = prev
     for mode, agree in out.items():
         if min(agree.values()) < 0.98:
             raise AssertionError(f"{mode} agreement below the bench gate 0.98: {agree}")
-        want = BENCH_R05_AGREEMENT.get(mode.split()[0]) if mode != "hier4x8" else None
-        if want and {k: round(v, 4) for k, v in agree.items()} != want:
-            raise AssertionError(f"{mode} agreement {agree} differs from BENCH_r05.json's {want}")
+        if mode in want and {k: round(v, 4) for k, v in agree.items()} != want[mode]:
+            raise AssertionError(f"{mode} agreement {agree} differs from BENCH_r05.json's {want[mode]}")
     return out
 
 
@@ -3858,15 +3895,17 @@ def phase_video(dev, card: str) -> dict:
 # whose flash the command's sampling (every 15th frame, as the reference's)
 # sees one sampled frame apart; stream on it for each matcher at phase 37's
 # sizes (sgbm_hier window 32 and sgbm window 8 at 1280x720, bm window 8 at
-# 1920x1080; D = 128, the default) and disparity (D = 64, the default) on a
+# 1920x1080; D = 128, the default), sgbm_hier at --window 16 (HIER8_FAST) and disparity (D = 64, the default) on a
 # 1280x720 PNG pair; then validate-distance, ball-drop and pose on short
 # renders and smooth, animate, measure and analyze on what they wrote. Each
 # output is held to the same library calls made directly on the card.
 CLI_VIEWS = 12
 CLI_SYNC_FRAMES, CLI_FLASH, CLI_LAG = 96, 75, 15
-# The windows are the command's defaults (one card): 32 for sgbm_hier, 8 else.
+# The windows are the command's defaults (one card): 32 for sgbm_hier, 8 else;
+# "sgbm_hier --window 16" passes its window, the one sgbm_hier takes for HIER8_FAST.
 CLI_STREAMS = {"sgbm_hier": dict(window=32, frames=64, h=H, w=W), "sgbm": dict(window=8, frames=16, h=H, w=W),
-               "bm": dict(window=8, frames=16, h=BM_H, w=BM_W)}
+               "bm": dict(window=8, frames=16, h=BM_H, w=BM_W),
+               "sgbm_hier --window 16": dict(window=16, frames=32, h=H, w=W, matcher="sgbm_hier")}
 CLI_BALL_FRAMES, CLI_POSE_FRAMES = 16, 8
 
 
@@ -4017,7 +4056,8 @@ def cli_sync_stream(dev, tmp: str, seconds: dict) -> dict:
     rig, (R1, R2, P1, P2, Q) = store.load_rig(), store.load_rectification()
     t64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
     mesh = create_mesh(devices=[dev])
-    for matcher, spec in CLI_STREAMS.items():
+    for case, spec in CLI_STREAMS.items():
+        matcher = spec.get("matcher", case)
         src = paths["1080" if matcher == "bm" else "720"]
         size = (spec["w"], spec["h"])
         kernels = STREAM_KERNELS[matcher]
@@ -4025,8 +4065,10 @@ def cli_sync_stream(dev, tmp: str, seconds: dict) -> dict:
                 "--max-frames", str(spec["frames"])]
         if matcher == "sgbm":
             argv += ["--video-out", os.path.join(tmp, "disparity_sgbm.mp4")]
+        if case != matcher:
+            argv += ["--window", str(spec["window"])]
         (_, (line,)), cli_counts = counted_launches(
-            kernels, lambda: cli_run(dev, tmp, seconds, f"stream {matcher}", *argv))
+            kernels, lambda: cli_run(dev, tmp, seconds, f"stream {case}", *argv))
         stats = json.loads((store.results / "stream" / "stream_stats.json").read_text())
         saved = np.load(store.rectify_dir / "maps.npy")  # the command's maps: the saved ones where their size fits
         if saved.shape[1:] == (spec["h"], spec["w"]):
@@ -4064,9 +4106,9 @@ def cli_sync_stream(dev, tmp: str, seconds: dict) -> dict:
             return rows
 
         ref_rows, ref_counts = counted_launches(kernels, direct)
-        same_launches(f"cli stream {matcher}", cli_counts, ref_counts)
+        same_launches(f"cli stream {case}", cli_counts, ref_counts)
         if stats != ref_rows or line["frames"] != spec["frames"] or line["size"] != list(size):
-            raise AssertionError(f"cli stream {matcher}: its per-frame stats differ from stream_video_pair's "
+            raise AssertionError(f"cli stream {case}: its per-frame stats differ from stream_video_pair's "
                                  f"({line['frames']} frames)")
         r = dict(frames=line["frames"], window=spec["window"], size=line["size"], launches=cli_counts,
                  fps=line["fps"], fps_steady=line["fps_steady"], mpx_per_s=line["mpx_per_s"],
@@ -4077,7 +4119,7 @@ def cli_sync_stream(dev, tmp: str, seconds: dict) -> dict:
             if len(frames) != spec["frames"] or not np.array_equal(frames, np.stack(vis)):
                 raise AssertionError(f"cli stream --video-out {written}: {len(frames)} frames, not the library's")
             r["video_out"] = os.path.basename(written)
-        out[f"stream {matcher}"] = r
+        out[f"stream {case}"] = r
         torch.cuda.empty_cache()
 
     l0, r0 = scene(seed=0, H=H, W=W)
@@ -4236,6 +4278,156 @@ def phase_cli(dev, card: str) -> dict:
     return out
 
 
+# Phase 39: the presets and modes no earlier phase runs, at 1280x720, D=128,
+# with bench.py's base parameters (bench.py:162-189) and rig() maps: hier8x3
+# (HIER8_FAST, p3, 16 frames: what matcher="sgbm_hier" picks for 16 frames,
+# the CLI's --window 16), hier4 (HierParams(), p4, 4 frames: band 32 and the
+# 6-stat WTA, the coarse LR check, the uncapped speckle filter), the
+# two-level mid_levels chain of tests/test_banded_pallas.py (p3, 16 frames,
+# its pyramid's factors 8, 4, 2 in one launch) and hier16 (HIER_FAST, p4, 8
+# frames); fast4 (the exact path at 4 paths, 4 frames); the per-frame
+# stereo_sgbm_hier with every default; bench.py's agreement of fast4, hier4,
+# hier16 and hier8x3.
+P4 = PARAMS._replace(num_paths=4)
+TWO_LEVEL = hier.HIER8_FAST._replace(coarse_factor=8, mid_levels=(
+    hier.MidLevel(4, 16, 8, tile=2, margin=4.0, local_window=1, paths=2),
+    hier.MidLevel(2, 8, 4, tile=2, margin=2.5, local_window=1, paths=2)))
+# name -> (params, the pipeline's hier_params (None: its pick by batch size),
+# frames a call, the preset the call runs, its levels coarse to fine)
+PRESET_PATHS = {"hier8x3": (P3, None, 16, hier.HIER8_FAST, ("coarse", "mid", "full")),
+                "hier4": (P4, None, 4, hier.HierParams(), ("coarse", "full")),
+                "two-level": (P3, TWO_LEVEL, 16, TWO_LEVEL, ("coarse", "mid 1/4", "mid 1/2", "full")),
+                "hier16": (P4, None, 8, hier.HIER_FAST, ("coarse", "full"))}
+PRESET_AGREEMENT = {"fast4": (P4, None, B, False), "hier4": (P4, hier.HierParams(), 4, False),
+                    "hier16": (P4, hier.HIER_FAST, H16_P, False), "hier8x3": (P3, hier.HIER8_FAST, 16, False)}
+PRESET_PLAIN_FRAMES = 2  # frames the plain forms run on beside a recorded call's kernels
+# The per-frame entry's kernels: the exact coarse pass, then the banded core.
+PER_FRAME_KERNEL_NAMES = ("downsample_pyramid", "cost", "vertical", "horizontal", "wta4", "lr_fail", "banded_cost",
+                          "banded_vertical", "banded_horizontal", "banded_wta")
+
+
+def remapped(dev, lt, rt) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frames as the pipeline hands them to its matcher: remapped with
+    :func:`rig`'s maps and rounded to integers, on the card."""
+    mx1, my1, mx2, my2 = (torch.from_numpy(m).to(dev) for m in rig(H, W)[0])
+    return (torch.round(remap_bilinear(lt.float(), mx1, my1)).to(torch.int32),
+            torch.round(remap_bilinear(rt.float(), mx2, my2)).to(torch.int32))
+
+
+def per_frame_on_cpu(jobs: dict) -> dict:
+    """Each job's (label -> (left, right, card, params, hp)) per-frame
+    ``stereo_sgbm_hier`` on the CPU, equal bit for bit to ``card``, that
+    frame's disparity on the card; host seconds of each. One after another:
+    the plain forms are Python loops over rows, so threads only contend for
+    the GIL (a pool of five took longer on the card's 8-core host)."""
+    seconds = {}
+    for label, (left, right, card, params, hp) in jobs.items():
+        t0 = time.perf_counter()
+        cpu = hier.stereo_sgbm_hier(left.cpu(), right.cpu(), params, hp)
+        seconds[label] = time.perf_counter() - t0
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"{label}: the card's frame differs from the CPU's per-frame stereo_sgbm_hier")
+    print(f"per-frame stereo_sgbm_hier on the CPU, frame 0 of each: card == CPU bit for bit for {list(jobs)} "
+          f"(host s {json.dumps({k: round(v, 2) for k, v in seconds.items()})})", flush=True)
+    return seconds
+
+
+def preset_path(dev, name: str, lt, rt) -> tuple[dict, list[dict], tuple]:
+    """One of PRESET_PATHS: the main-path call (launch counts, the pyramid
+    once, floors, ms per call), a recorded call's stage breakdown, another
+    with every kernel on its arguments against the plain form (one row per
+    kernel), the pyramid's
+    device launches (one, from the captured graph), then the batch entry on
+    the remapped frames and the per-frame entry on the first frame, equal
+    to the pipeline on the card. Returns the CPU's job for that frame
+    (:func:`per_frame_on_cpu`)."""
+    params, pick, n, hp, levels = PRESET_PATHS[name]
+    lt, rt = lt[:n], rt[:n]
+    out, counts, disp = phase_hier_main_path(dev, lt, rt, params, name, hp=pick)
+    out["breakdown"], _ = record_hier_call(dev, lt, rt, disp, False, params, levels=levels, hp=pick)
+    print(f"{name} breakdown ms per {n}-frame call:", json.dumps(out["breakdown"]), flush=True)
+    _, records = record_hier_call(dev, lt, rt, disp, True, params, levels=levels, hp=pick)
+    if [c["level"] for c in records if c["name"] == "banded_wta"] != list(levels):
+        raise AssertionError(f"{name}: the recorded levels are not {levels}")
+    pyr = next(c for c in records if c["name"] == "downsample_pyramid")
+    launched = graph_kernels(lambda: pyr["fn"](*pyr["args"]))
+    if len(launched) != 1 or "downsample_pyramid_kernel" not in launched[0]:
+        raise AssertionError(f"{name}: the pyramid {pyr['args'][2]} launched {launched} on the device")
+    out.update(pyramid_factors=[list(f) for f in pyr["args"][2]], pyramid_device_launches=1, launches=counts)
+    rows = phase_recorded_kernels(records, counts, PRESET_PLAIN_FRAMES, name)
+    del records, pyr
+    SPECKLE_RECORDS.clear()
+    PYRAMID_LR_RECORDS.clear()
+    torch.cuda.empty_cache()
+
+    li, ri = remapped(dev, lt, rt)
+    batch = hier.stereo_sgbm_hier_batch(li, ri, params, hp)
+    card = hier.stereo_sgbm_hier(li[0], ri[0], params, hp)
+    if not torch.equal(batch, disp) or not torch.equal(card, batch[0]):
+        raise AssertionError(f"{name}: the batch entry, the per-frame entry and the pipeline differ on the card")
+    print(f"{name}: the pipeline == the batch entry == the per-frame entry on frame 0 on the card", flush=True)
+    return out, rows, (li[0], ri[0], card, params, hp)
+
+
+def preset_fast4(dev, lt, rt) -> tuple[dict, list[dict]]:
+    """bench.py's fast4 through the exact pipeline (p4, 4 frames): launch
+    counts, floors, ms per call, and a recorded call with each kernel on its
+    arguments against the plain form."""
+    out, counts, disp = phase_hier_main_path(dev, lt[:B], rt[:B], P4, "fast4", names=tuple(EXACT_TARGETS),
+                                             matcher="sgbm")
+    out["launches"] = counts
+    records = record_exact_call(dev, disp, P4, "fast4", tuple(EXACT_TARGETS))
+    rows = phase_recorded_kernels(records, counts, PRESET_PLAIN_FRAMES, "fast4")
+    del records
+    SPECKLE_RECORDS.clear()
+    PYRAMID_LR_RECORDS.clear()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def preset_defaults(dev, lt, rt) -> tuple[dict, tuple]:
+    """The library's default call, ``stereo_sgbm_hier(left, right)`` (8 paths,
+    HierParams(), no LR check or speckle at the full level), on the first
+    remapped frame: every kernel of its path launched (the pyramid once),
+    ms per call. Returns the CPU's job for the frame (:func:`per_frame_on_cpu`)."""
+    li, ri = remapped(dev, lt[:1], rt[:1])
+    wrappers = {name: KERNELS[name][0] for name in PER_FRAME_KERNEL_NAMES}
+    (card,), counts = counted_launches(wrappers, lambda: (hier.stereo_sgbm_hier(li[0], ri[0]),))
+    print("per-frame defaults launches:", json.dumps(counts), flush=True)
+    if min(counts.values()) == 0 or counts["downsample_pyramid"] != 1:
+        raise AssertionError(f"a kernel of the per-frame default call never launched, or the pyramid did not "
+                             f"launch once: {counts}")
+    if card.shape != (H, W) or not torch.isfinite(card).all():
+        raise AssertionError(f"bad per-frame output {tuple(card.shape)}")
+    ms = host_ms(lambda: hier.stereo_sgbm_hier(li[0], ri[0]))
+    valid = float((card > -1).float().mean())
+    print(f"per-frame stereo_sgbm_hier defaults 1280x720: valid share {valid:.4f}, {ms:.2f} ms per call, "
+          f"{H * W / ms / 1e3:.2f} Mpx/s", flush=True)
+    return (dict(launches=counts, ms_per_call=ms, mpx_per_s=H * W / ms / 1e3, valid_share=valid),
+            (li[0], ri[0], card, StereoSGBMParams(), hier.HierParams()))
+
+
+def phase_presets(dev) -> tuple[dict, list[dict]]:
+    """Phase 39 (see PRESET_PATHS): each preset path, fast4, the per-frame
+    defaults, the first frame of each hier call against the CPU's per-frame
+    entry, then the agreement of bench.py's four modes."""
+    lt, rt = hier_frames(dev)
+    out, rows, jobs = {}, [], {}
+    for name in PRESET_PATHS:
+        out[name], r, jobs[name] = preset_path(dev, name, lt, rt)
+        rows += r
+        torch.cuda.empty_cache()
+    out["fast4"], r = preset_fast4(dev, lt, rt)
+    rows += r
+    out["per-frame defaults"], jobs["per-frame defaults"] = preset_defaults(dev, lt, rt)
+    del lt, rt
+    torch.cuda.empty_cache()
+    out["cpu_per_frame_s"] = per_frame_on_cpu(jobs)
+    del jobs
+    out["agreement"] = phase_agreement(dev, PRESET_AGREEMENT)
+    return out, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4391,6 +4583,12 @@ def main() -> int:
     cli_phase["phase_s"] = time.perf_counter() - t0
     print(f"phase 38: {cli_phase['phase_s']:.2f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    presets, preset_rows = phase_presets(dev)
+    rows += preset_rows
+    presets["phase_s"] = time.perf_counter() - t0
+    print(f"phase 39: {presets['phase_s']:.2f} s", flush=True)
+    torch.cuda.empty_cache()
     for r in rows:  # the copy time of the same bytes beside each #20 / #10 / #5 / #19 row of a main path
         levels = {k: v for k, v in wta_lr.get(r["name"], {}).items() if k.startswith(f"{r['path']} ")}
         if levels and all(f"{r['path']} {lv}" in levels for lv in r["ms_by_level"]):
@@ -4417,7 +4615,7 @@ def main() -> int:
                       "banded_vertical": banded_vertical, "wta_lr": wta_lr, "fused_kernels": fused_kernels,
                       "pyramid_lr": pyramid_lr, "calibrate_stream": calibrate_stream, "detection": detection,
                       "ball_pose": ball_pose, "training": training, "mesh": several, "video": videos, "cli": cli_phase,
-                      "build_s": build_s}), flush=True)
+                      "presets": presets, "build_s": build_s}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -230,7 +230,32 @@ def test_hier_pipeline_cuda_matches_cpu(dev):
     torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("f,fx,H,W", [(2, None, 48, 97), (4, None, 45, 130), (4, 8, 32, 64), (3, 2, 17, 26)])
+@pytest.mark.parametrize("B,num_paths", [(16, 3), (4, 4)])
+def test_hier_preset_pipeline_cuda_matches_cpu(dev, B, num_paths):
+    """The presets the pipeline picks for 16 frames (HIER8_FAST: band 8
+    behind a band-8 mid level) and 4 (HierParams(): band 32, the coarse LR
+    check, the uncapped speckle filter), card against CPU at 64x256."""
+    H, W = 64, 256
+    frames = [scene(seed=s, H=H, W=W) for s in range(B)]
+    lb, rb = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    maps = (xx + 0.3 * np.sin(yy / 11.0), yy + 0.2 * np.cos(xx / 13.0), xx - 0.1, yy)
+    Q = np.array([[1, 0, 0, -W / 2], [0, 1, 0, -H / 2], [0, 0, 0, 500.0], [0, 0, 10.0, 0]], np.float32)
+    p = StereoSGBMParams(num_disparities=128, uniqueness_ratio=10, disp12_max_diff=1, speckle_window_size=100,
+                         speckle_range=2, num_paths=num_paths)
+    n_ds, n_lr = banded_cuda.downsample_pyramid.launches, lr_cuda.lr_fail_packed.launches
+    n_sp = speckle_cuda.speckle_filter.launches
+    d_gpu, p_gpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p)
+    assert banded_cuda.downsample_pyramid.launches == n_ds + 1
+    assert lr_cuda.lr_fail_packed.launches == n_lr + (2 if B == 4 else 1)  # HierParams() checks its coarse level
+    assert speckle_cuda.speckle_filter.launches == n_sp + 1
+    d_cpu, p_cpu = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm_hier", params=p, device="cpu")
+    assert d_gpu.device.type == "cuda" and (d_cpu > -1).float().mean() > 0.2
+    assert torch.equal(d_gpu.cpu(), d_cpu)
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-6, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("f,fx,H,W",[(2, None, 48, 97), (4, None, 45, 130), (4, 8, 32, 64), (3, 2, 17, 26)])
 def test_downsample_kernel_matches_plain(dev, f, fx, H, W):
     img = next(_images(f * H, 3, H, W))
     img[0, :2, :4] = torch.tensor([[0, 1, 1, 2], [1, 0, 1, 2]])  # .5 ties at f=2
