@@ -303,12 +303,18 @@ After 18:
      on 2x2 against 1x1, two steps: losses within rtol 1e-5, parameters
      within 1e-4 of the largest, the Dense kernel's shards its output rows
      on the space devices; host ms a step; the 1x1 step's host ms with its
-     TorchFunctionMode and without, in turns (the same losses); then ROADMAP
-     C.9's repair: a forward pass in train() mode (PoseNet w32 at 128x128,
-     batch 8, and torch's Linear -> BatchNorm1d -> Linear), three steps at
-     lr 0 on 2x1 and 2x2 against 1x1 (cuDNN deterministic): loss within rtol
-     1e-5, every gradient within 1e-5 of its leaf's largest + 1e-6, batch
-     statistics unmoved; host ms a step (the first on 2x1 and 2x2 probes).
+     TorchFunctionMode and without, in turns (the same losses); then the
+     data-parallel step in train() mode, the model handed to it (a replica
+     a data device, the shares' batch statistics meeting at every batch
+     norm): torch's Linear -> BatchNorm1d -> Linear, PoseNet w32 at 128x128,
+     batch 8 and at 256x256, batch 16, YOLOv8n at 128x128, batch 16, on 2x1
+     and 2x2 against 1x1, SGD at lr 0: in float64 (one step) the loss within
+     rtol 1e-5, every gradient within 1e-5 of its leaf's largest + 1e-6; in
+     float32 (three steps, cuDNN deterministic) the loss so and the
+     gradients no farther from the float64 1x1 step than twice the float32
+     1x1 step's distance, or than rtol 1e-5 / atol 1e-6; batch statistics
+     unmoved, each data device's replica run once a step on its B / n rows;
+     host ms a step.
  37. (run after 36) two video files to disparity and 3D through
      stream_video_pair on the card: the machine's decoders listed (ffmpeg,
      ffprobe, the av / cv2 / torchvision modules, NVDEC's library), both
@@ -372,6 +378,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import ctypes
 import ctypes.util
 import dataclasses
@@ -3629,66 +3636,134 @@ def mesh_train(dev, make_mesh) -> dict:
                 mode_step_ms={k: dict(median=float(np.median(v)), all=v) for k, v in mode_ms.items()})
 
 
-# ROADMAP C.9 on the card: a forward pass that reads batch statistics (a
-# batch norm in training form) takes the whole batch's on every mesh. PoseNet
-# w32 (in-repo weights) in train() mode at 128x128, batch 8, and torch's
-# Linear -> BatchNorm1d -> Linear, MESH_BN_STEPS SGD steps at lr 0 (the
-# gradients stay to be read) on 1x1, 2x1 and 2x2; cuDNN's deterministic
-# algorithms; the loss within rtol 1e-5 of the 1x1 step's, each gradient
-# within 1e-5 of its leaf's largest (+ 1e-6), the batch statistics unmoved;
-# host ms a step (on several data devices the first step probes).
+# The data-parallel step for a model whose forward pass reads batch
+# statistics (a batch norm in training form), on the card: the model itself
+# handed to make_train_step, one replica a data device, the shares'
+# statistics meeting at every batch norm. Cases: torch's Linear ->
+# BatchNorm1d -> Linear (batch 8), PoseNet w32 (in-repo weights) at 128x128,
+# batch 8, and the trainers' networks at their batch and
+# size: PoseNet w32 at 256x256, batch 16 (MESH_TRAIN_*), pose_loss, and
+# YOLOv8n (in-repo weights) at 128x128, batch 16, detection_loss on the
+# rendered boxes. MESH_BN_STEPS SGD steps at lr 0 (the gradients stay to be
+# read) on 1x1 and on MESH_BN_MESHES. In float64 (the step's arithmetic, one
+# step): the loss within rtol 1e-5 of the 1x1 step's, each gradient within
+# 1e-5 of its leaf's largest (+ 1e-6). In float32 (the trainers' dtype,
+# cuDNN's deterministic algorithms, timed): the loss so, and the gradients no
+# farther from the float64 1x1 step than MESH_BN_F32_FACTOR times the float32
+# 1x1 step is, or than 1, in units of 1e-6 + 1e-5 |g| (the float32 1x1 step
+# is itself outside rtol 1e-5 of the float64 one: tests/test_torch_train_dp.py). The
+# batch statistics unmoved; each data device's replica run once a step, on
+# its B / n rows, on its device; host ms a step.
 MESH_BN_MESHES, MESH_BN_BATCH, MESH_BN_HW, MESH_BN_STEPS = ((2, 1), (2, 2)), 8, (128, 128), 3
 MESH_BN_RTOL, MESH_BN_GRAD_FRAC, MESH_BN_ATOL = 1e-5, 1e-5, 1e-6
+MESH_BN_F32_FACTOR = 2.0
 
 
-def mesh_bn_grads(dev, m, net, x, gt, loss_fn) -> tuple[float, dict, list]:
-    """MESH_BN_STEPS steps at lr 0 of ``net`` (train() mode) on the mesh
-    ``m``: the last loss, every parameter's gradient whole on ``dev``, and
-    host ms a step; the batch statistics must not move."""
-    init, step = train_models.make_train_step(
-        m, lambda v, a: torch.func.functional_call(net, {**v["params"], **v["batch_stats"]}, (a,)), loss_fn,
-        lambda p: torch.optim.SGD(p, lr=0.0))
+def mesh_bn_grads(m, net, x, gt, loss_fn, dtype: torch.dtype, steps: int) -> tuple[float, dict, list, dict]:
+    """``steps`` steps at lr 0 of ``net`` (train() mode, in ``dtype``) on the
+    mesh ``m`` through the module form: the last loss, every parameter's
+    gradient whole on the mesh's first device, host ms a step, and each
+    replica's forward calls; the batch statistics must not move, and each
+    data device's replica must run once a step on its share."""
+    init, step = train_models.make_train_step(m, net, loss_fn, lambda p: torch.optim.SGD(p, lr=0.0))
+    devices = m.axis_devices("data")
+    calls: list = []
+    for i, r in enumerate(step.replicas):
+        r.register_forward_pre_hook(lambda mod, a, i=i: calls.append((i, a[0].device, a[0].shape[0])))
     state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
     before = {k: v.clone() for k, v in state.batch_stats.items()}
-    ms = []
-    for _ in range(MESH_BN_STEPS):
+    xs, ts = torch.as_tensor(x).to(dtype), torch.as_tensor(gt)
+    ts = ts.to(dtype) if ts.is_floating_point() else ts
+    ms, seen = [], {f"replica {i} ({d})": dict(calls=0, rows=[]) for i, d in enumerate(devices)}
+    for _ in range(steps):
+        calls.clear()
         t0 = time.perf_counter()
-        state, loss = step(state, x, gt)
+        state, loss = step(state, xs, ts)
         loss = loss.item()
         ms.append((time.perf_counter() - t0) * 1e3)
+        if sorted(c[0] for c in calls) != list(range(len(devices))) or any(
+                d != devices[i] or rows != xs.shape[0] // len(devices) for i, d, rows in calls):
+            raise AssertionError(f"the replicas' forward calls in one step: {calls}, data devices {devices}")
+        for i, d, rows in calls:
+            seen[f"replica {i} ({d})"]["calls"] += 1
+            seen[f"replica {i} ({d})"]["rows"].append(rows)
     if any(not torch.equal(v, before[k]) for k, v in state.batch_stats.items()):
         raise AssertionError("the training step moved the batch statistics")
-    grads = {k: (torch.cat([p.shards[pos].grad.to(dev) for pos in sorted(p.shards)]) if isinstance(p, ShardedTensor)
-                 else p.grad.to(dev)) for k, p in state.params.items()}
-    return loss, grads, ms
+    grads = {k: (torch.cat([p.shards[pos].grad.to(m.first) for pos in sorted(p.shards)])
+                 if isinstance(p, ShardedTensor) else p.grad.to(m.first)) for k, p in state.params.items()}
+    return loss, grads, ms, seen
 
 
-def mesh_train_bn(dev, make_mesh) -> dict:
-    """ROADMAP C.9's repair on the card (see MESH_BN_*)."""
+def grad_units(a: dict, ref: dict) -> float:
+    """The largest distance of ``a``'s gradients from ``ref``'s, in units of
+    MESH_BN_ATOL + MESH_BN_RTOL |ref|."""
+    return max(float(((a[k].double() - r.double()).abs() / (MESH_BN_ATOL + MESH_BN_RTOL * r.double().abs())).max())
+               for k, r in ref.items())
+
+
+def grads_of_limit(a: dict, ref: dict) -> float:
+    """The largest distance of ``a``'s gradients from ``ref``'s over its
+    limit, MESH_BN_GRAD_FRAC of the leaf's largest + MESH_BN_ATOL."""
+    return max(float((a[k].double() - g.double()).abs().max() / (g.double().abs().max() * MESH_BN_GRAD_FRAC
+                                                                   + MESH_BN_ATOL)) for k, g in ref.items())
+
+
+def mesh_bn_cases(dev) -> dict:
+    """name -> (net in train() mode on ``dev``, inputs, targets, loss)."""
     rng = np.random.default_rng(37)
-    x, gt = pose_training_batch(rng, MESH_BN_BATCH, *MESH_BN_HW)
+    x8, gt8 = pose_training_batch(rng, MESH_BN_BATCH, *MESH_BN_HW)
+    x16, gt16 = pose_training_batch(np.random.default_rng(36), MESH_TRAIN_BATCH, *MESH_TRAIN_HW)
+    bx, boxes, classes, valid = ball_training_batch(np.random.default_rng(38), MESH_TRAIN_BATCH,
+                                                    *pretrained.BALL_IMG_HW)
+    c, v = torch.from_numpy(classes).to(dev), torch.from_numpy(valid).to(dev)
     pose_net = convert.load_tree(pretrained.POSE_WEIGHTS, pretrained._pose_model()).to(dev).train()
+    ball_net = convert.load_tree(pretrained.BALL_WEIGHTS, pretrained._ball_model()).to(dev).train()
     torch.manual_seed(0)
     small = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.BatchNorm1d(8), torch.nn.Linear(8, 1)).to(dev).train()
     xs = (torch.randn(8, 4) * torch.arange(1, 9)[:, None]).numpy()
     ys = torch.randn(8).numpy()
-    cases = {"PoseNet w32": (pose_net, x, gt, lambda out, g: pose.pose_loss(out, g)),
-             "Linear-BatchNorm1d-Linear": (small, xs, ys, lambda out, t: ((out[:, 0] - t) ** 2).mean())}
+    return {"Linear-BatchNorm1d-Linear": (small, xs, ys, lambda out, t: ((out[:, 0] - t) ** 2).mean()),
+            f"PoseNet w32 {MESH_BN_HW[0]}x{MESH_BN_HW[1]} batch {MESH_BN_BATCH}": (
+                pose_net, x8, gt8, lambda out, g: pose.pose_loss(out, g)),
+            f"PoseNet w32 {MESH_TRAIN_HW[0]}x{MESH_TRAIN_HW[1]} batch {MESH_TRAIN_BATCH}": (
+                pose_net, x16, gt16, lambda out, g: pose.pose_loss(out, g)),
+            f"YOLOv8n {pretrained.BALL_IMG_HW[0]}x{pretrained.BALL_IMG_HW[1]} batch {MESH_TRAIN_BATCH}": (
+                ball_net, bx, boxes, lambda out, b: yolov8.detection_loss(out, b, c, v, pretrained.BALL_IMG_HW, 1))}
+
+
+def mesh_train_bn(dev, make_mesh) -> dict:
+    """The data-parallel step in train() mode on the card (see MESH_BN_*)."""
     out = {}
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        for name, (net, a, b, loss_fn) in cases.items():
-            one_loss, one, one_ms = mesh_bn_grads(dev, create_mesh(1, 1, devices=[dev]), net, a, b, loss_fn)
-            r = {"1x1 loss": one_loss, "1x1 step_ms": one_ms}
-            for shape in MESH_BN_MESHES:
-                loss, grads, ms = mesh_bn_grads(dev, make_mesh(*shape), net, a, b, loss_fn)
-                apart = max(float((grads[k] - g).abs().max() / (g.abs().max() * MESH_BN_GRAD_FRAC + MESH_BN_ATOL))
-                            for k, g in one.items())
-                rel = abs(loss - one_loss) / abs(one_loss)
-                if rel > MESH_BN_RTOL or apart > 1.0:
-                    raise AssertionError(f"{name} in train() mode on {shape} against 1x1: loss {rel:.2e} apart, "
-                                         f"gradients {apart:.2f} of their limit")
-                r[f"{shape[0]}x{shape[1]}"] = dict(loss=loss, loss_rel=rel, grads_of_limit=apart, step_ms=ms)
-            out[name] = r
+    for name, (net, a, b, loss_fn) in mesh_bn_cases(dev).items():
+        r: dict = {}
+        for dtype, steps, det in ((torch.float64, 1, False), (torch.float32, MESH_BN_STEPS, True)):
+            model = copy.deepcopy(net).to(dtype)
+            key = str(dtype).removeprefix("torch.")
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=det, allow_tf32=False):
+                one_loss, one, one_ms, _ = mesh_bn_grads(create_mesh(1, 1, devices=[dev]), model, a, b, loss_fn,
+                                                         dtype, steps)
+                r[key] = {"1x1": dict(loss=one_loss, step_ms=one_ms)}
+                if dtype == torch.float64:
+                    exact = one
+                else:
+                    r[key]["1x1"]["units_from_float64"] = one_units = grad_units(one, exact)
+                for shape in MESH_BN_MESHES:
+                    loss, grads, ms, seen = mesh_bn_grads(make_mesh(*shape), model, a, b, loss_fn, dtype, steps)
+                    rel = abs(loss - one_loss) / abs(one_loss)
+                    res = dict(loss=loss, loss_rel=rel, grads_of_limit=grads_of_limit(grads, one), step_ms=ms,
+                               replicas=seen)
+                    if dtype == torch.float64:
+                        bad = res["grads_of_limit"] > 1.0
+                    else:
+                        res["units_from_float64"] = grad_units(grads, exact)
+                        bad = res["units_from_float64"] > max(MESH_BN_F32_FACTOR * one_units, 1.0)
+                    if rel > MESH_BN_RTOL or bad:
+                        raise AssertionError(f"{name} in train() mode, {key}, on {shape} against 1x1: loss "
+                                             f"{rel:.2e} apart, gradients {json.dumps(res)}")
+                    r[key][f"{shape[0]}x{shape[1]}"] = res
+            del model
+        out[name] = r
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3725,9 +3800,14 @@ def phase_mesh(dev, card: str) -> dict:
               f"({t['loss_rel']:.1e} apart), parameters {t['params_apart']:.1e} apart (largest "
               f"{t['params_largest']:.3f}); step host ms {json.dumps(t['step_ms'])}; 1x1 step host ms with its "
               f"TorchFunctionMode and without, in turns: {json.dumps(t['mode_step_ms'])}", flush=True)
+        t0 = time.perf_counter()
         r["train_bn"] = mesh_train_bn(dev, make_mesh)
-        print(f"mesh ({layout}) make_train_step in train() mode (batch statistics of the whole batch, ROADMAP C.9) "
-              f"2x1 and 2x2 against 1x1 on {card}: {json.dumps(r['train_bn'])}", flush=True)
+        r["train_bn_s"] = time.perf_counter() - t0
+        for name, v in r["train_bn"].items():
+            print(f"mesh ({layout}) make_train_step in train() mode, data parallel (a replica a data device, the "
+                  f"batch statistics meeting at every batch norm), {name}, 2x1 and 2x2 against 1x1 on {card}: "
+                  f"{json.dumps(v)}", flush=True)
+        print(f"mesh ({layout}) train() mode cases: {r['train_bn_s']:.2f} s", flush=True)
         out[layout] = r
         torch.cuda.empty_cache()
     return out

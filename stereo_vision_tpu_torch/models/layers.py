@@ -34,8 +34,8 @@ def batch_statistics(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """flax's batch statistics of an NCHW batch over (N, H, W): the mean and
     the biased variance in its fast form, E[x^2] - E[x]^2 clamped at 0, with
     the gradient through both. A ``TorchFunctionMode`` sees the call, as it
-    sees ``F.batch_norm`` (``models.train.make_train_step``'s probe stops
-    there)."""
+    sees ``F.batch_norm`` (there ``models.train.make_train_step`` gives each
+    share of a batch the whole batch's statistics)."""
     if has_torch_function_unary(x):
         return handle_torch_function(batch_statistics, (x,), x)
     mean = x.mean(dim=(0, 2, 3))

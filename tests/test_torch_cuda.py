@@ -19,14 +19,19 @@ largest, one step of each trainer within rtol 1e-4 on the loss, the
 parameters unmoved (lr 0) and the running statistics within 1e-4 of each
 leaf's largest; the sharded SGM and the data-parallel pipeline on
 logical shards of the card against the same calls on the CPU, bit for bit
-(points within float32 rtol 1e-6).
+(points within float32 rtol 1e-6); the data-parallel training step in
+train() mode on two logical shards against one device, in float64 within
+rtol 1e-5 / atol 1e-6, in float32 as close to the float64 step as the
+one-device step (``tests/test_torch_train_dp.py``).
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
-from stereo_vision_tpu_torch import calib, detect, native, ops, sync, track
+from stereo_vision_tpu_torch import calib, detect, models, native, ops, sync, track
 from stereo_vision_tpu_torch.io import video as io_video
 from stereo_vision_tpu_torch.models import convert, layers, pose, pretrained, yolov8
 from stereo_vision_tpu_torch.parallel import sgm_sharded
@@ -1853,6 +1858,56 @@ def test_sharded_pipeline_on_two_data_shards_cuda_matches_cpu(dev, matcher):
     ref = make_sharded_pipeline(host_cpu_mesh(2), maps, Q, matcher, params)(left, right)
     assert out[0].device.type == "cuda" and torch.equal(out[0].cpu(), ref[0])
     np.testing.assert_allclose(out[1].cpu().numpy(), ref[1].numpy(), rtol=1e-6)
+
+
+def _bn_step(mesh, net, x, y, loss_fn, dtype):
+    """One SGD step at lr 0 of ``net`` through the module form of
+    make_train_step on ``mesh`` in ``dtype``: the loss, the gradients and
+    each replica's (device, rows)."""
+    net = copy.deepcopy(net).to(dtype)
+    init, step = models.make_train_step(mesh, net, loss_fn, lambda p: torch.optim.SGD(p, lr=0.0))
+    calls = []
+    for r in step.replicas:
+        r.register_forward_pre_hook(lambda m, a: calls.append((a[0].device, a[0].shape[0])))
+    state = init({"params": dict(net.named_parameters()), "batch_stats": dict(net.named_buffers())})
+    state, loss = step(state, x.to(dtype), y.to(dtype) if y.is_floating_point() else y)
+    return loss.item(), {k: p.grad.double() for k, p in state.params.items()}, calls
+
+
+def _bn_units(a: dict, ref: dict) -> float:
+    return max(float(((a[k] - r).abs() / (1e-6 + 1e-5 * r.abs())).max()) for k, r in ref.items())
+
+
+@pytest.mark.parametrize("case", ["repro", "posenet"])
+def test_batch_norm_training_step_on_two_logical_shards_cuda_matches_one_device(dev, case):
+    """The module form of make_train_step in train() mode on two logical
+    shards of the card against one: each replica once, on its 4 rows, on
+    the card; in float64 the loss and gradients within rtol 1e-5 / atol
+    1e-6 of the one-device step's, in float32 the loss so and the gradients
+    no farther from the float64 step than twice the one-device float32
+    step's distance, or than 1 (units of 1e-6 + 1e-5 |g|)."""
+    torch.manual_seed(0)
+    if case == "repro":
+        net = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.BatchNorm1d(8), torch.nn.Linear(8, 1))
+        x, y = torch.randn(8, 4) * torch.arange(1, 9)[:, None], torch.randn(8)
+        loss_fn = lambda out, t: ((out[:, 0] - t) ** 2).mean()  # noqa: E731
+    else:
+        net = layers.init_flax_style(pose.PoseNet(width=8), torch.Generator().manual_seed(3))
+        x, y = (torch.from_numpy(a) for a in scenes.pose_training_batch(np.random.default_rng(5), 8, 64, 64))
+        loss_fn = lambda out, g: pose.pose_loss(out, g)  # noqa: E731
+    net = net.to(dev).train()
+    x, y = x.to(dev), y.to(dev)
+    one, two = create_mesh(1, 1, devices=[dev]), _logical(dev, 2, 1)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        loss64, exact, _ = _bn_step(one, net, x, y, loss_fn, torch.float64)
+        loss, g, calls = _bn_step(two, net, x, y, loss_fn, torch.float64)
+        np.testing.assert_allclose(loss, loss64, rtol=1e-5, atol=1e-6)
+        assert _bn_units(g, exact) <= 1.0
+        loss32, g32, _ = _bn_step(one, net, x, y, loss_fn, torch.float32)
+        loss, g, calls32 = _bn_step(two, net, x, y, loss_fn, torch.float32)
+    np.testing.assert_allclose(loss, loss32, rtol=1e-5)
+    assert _bn_units(g, exact) <= max(2 * _bn_units(g32, exact), 1.0)
+    assert sorted(calls) == sorted(calls32) == [(two.first, 4)] * 2
 
 
 @pytest.mark.parametrize("matcher,window,fourcc,shards", [("sgbm_hier", 8, "RGBA", 1), ("bm", 4, "Y800", 2)])
