@@ -21,14 +21,22 @@ With the native extension unavailable, a queue.Queue fallback keeps the
 same API (pack via numpy; still overlaps decode with compute because file
 reads and numpy release the GIL for the heavy parts).
 
+Both backends count their waits (:func:`ring_counters`, read through
+``utils.profiling.counters``), and the decode threads and the consumer
+record spans (``utils.profiling.span``): ``loader.read`` a frame,
+``loader.put`` a window into the ring, ``loader.get`` a window out of it,
+each with the window's seq and its clip ("left" or "right").
+
 ``VideoPrefetcher`` streams one video; ``StereoPairLoader`` zips two
 prefetchers into aligned (left, right) windows.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
+import time
 from pathlib import Path
 from typing import Iterator
 
@@ -36,6 +44,33 @@ import numpy as np
 
 from stereo_vision_tpu_torch import native
 from stereo_vision_tpu_torch.io import video
+from stereo_vision_tpu_torch.utils.profiling import span
+
+_WAIT_KEYS = ("put_wait_ns", "puts", "get_wait_ns", "gets")
+_fallback_totals = dict.fromkeys(_WAIT_KEYS, 0)  # every fallback ring's, closed ones too
+_fallback_lock = threading.Lock()
+
+
+def ring_counters() -> dict[str, int]:
+    """Nanoseconds waited and calls, on each side, summed over every frame
+    ring of the process since it started, closed ones too: ``put_wait_ns``
+    and ``puts`` (producers waiting for a free slot), ``get_wait_ns`` and
+    ``gets`` (consumers waiting for a filled slot); both backends."""
+    with _fallback_lock:
+        totals = dict(_fallback_totals)
+    for k, v in zip(_WAIT_KEYS, native.frame_ring_totals()):
+        totals[k] += v
+    return totals
+
+
+def _tally(waits: dict, side: str, t0: int | None) -> None:
+    """Add a fallback call and its wait since ``t0`` (None: it did not wait)
+    to the ring's ``waits`` and to the process's totals."""
+    waited = 0 if t0 is None else time.monotonic_ns() - t0
+    with _fallback_lock:
+        for d in (waits, _fallback_totals):
+            d[f"{side}_wait_ns"] += waited
+            d[f"{side}s"] += 1
 
 
 class FrameRing:
@@ -48,6 +83,12 @@ class FrameRing:
     the claim+enqueue pair — an unlocked read-then-increment of ``_seq``
     double-assigns seqs under producer contention, and enqueue-after-claim
     without the lock would publish out of seq order.
+
+    Each put and get adds its wait to the ring's :meth:`waits` and to
+    :func:`ring_counters`: from the call's first try that finds the lock
+    taken or the slot not ready to the slot's release. The fallback times
+    the same waits (its producers' lock included) but not the queue's own
+    internal lock, which it holds only for an append or a pop.
     """
 
     def __init__(self, slots: int, slot_shape: tuple[int, ...]):
@@ -63,6 +104,7 @@ class FrameRing:
             self._seq = 0
             self._closed = threading.Event()
             self._plock = threading.Lock()
+            self._waits = dict.fromkeys(_WAIT_KEYS, 0)
 
     # -- producer side -------------------------------------------------
     def put_gray(self, rgb: np.ndarray) -> int:
@@ -99,17 +141,25 @@ class FrameRing:
         # ring; if multi-producer throughput ever matters, claim
         # self._seq under the lock but wait for queue space OUTSIDE it on
         # a condition variable.
-        with self._plock:
+        t0 = None  # set at the first try that finds the lock taken or the ring full
+        if not self._plock.acquire(blocking=False):
+            t0 = time.monotonic_ns()
+            self._plock.acquire()
+        try:
             while True:
                 if self._closed.is_set():
                     raise RuntimeError("put on closed ring")
                 try:
-                    self._q.put((self._seq, arr), timeout=0.05)
+                    self._q.put((self._seq, arr), block=t0 is not None, timeout=0.05)
                 except queue.Full:
+                    t0 = time.monotonic_ns() if t0 is None else t0
                     continue
                 seq = self._seq
                 self._seq += 1
                 return seq
+        finally:
+            _tally(self._waits, "put", t0)
+            self._plock.release()
 
     # -- consumer side ---------------------------------------------------
     def get(self, timeout: float | None = None) -> tuple[int, np.ndarray] | None:
@@ -130,21 +180,33 @@ class FrameRing:
                         raise queue.Empty()
                     continue  # spurious wake under infinite wait
                 return seq, out
-        while True:
-            try:
-                item = self._q.get(timeout=0.05 if timeout is None else timeout)
-                return item
-            except queue.Empty:
-                if self._closed.is_set() and self._q.empty():
-                    return None
-                if timeout is not None:
-                    raise
+        t0 = None  # set at the first try that finds the ring empty
+        try:
+            while True:
+                try:
+                    return self._q.get(block=t0 is not None, timeout=0.05 if timeout is None else timeout)
+                except queue.Empty:
+                    if self._closed.is_set() and self._q.empty():
+                        return None
+                    if t0 is None:
+                        t0 = time.monotonic_ns()
+                    elif timeout is not None:
+                        raise
+        finally:
+            _tally(self._waits, "get", t0)
 
     def close(self) -> None:
         if self._mod is not None:
             self._mod.ring_close(self._h)
         else:
             self._closed.set()
+
+    def waits(self) -> dict[str, int]:
+        """This ring's ``put_wait_ns``, ``puts``, ``get_wait_ns`` and ``gets``."""
+        if self._mod is not None:
+            return dict(zip(_WAIT_KEYS, self._mod.ring_waits(self._h)))
+        with _fallback_lock:
+            return dict(self._waits)
 
     def stats(self) -> tuple[int, int, bool]:
         """(occupied, slots, closed)."""
@@ -169,7 +231,8 @@ class VideoPrefetcher:
     reports ``n_valid < T``. The decode thread blocks when ``depth``
     windows are already buffered (bounded memory). Raises IOError at once
     for a video that cannot be opened or decoded here (``io.video``); an
-    error while decoding is raised on the consumer side.
+    error while decoding is raised on the consumer side. ``clip`` ("left"
+    or "right") tags the spans of its decode thread and its gets.
     """
 
     def __init__(
@@ -180,6 +243,7 @@ class VideoPrefetcher:
         interval: int = 1,
         max_frames: int | None = None,
         depth: int = 3,
+        clip: str | None = None,
     ):
         reader = video._open(video_path)
         if reader.width <= 0 or reader.height <= 0:
@@ -187,6 +251,7 @@ class VideoPrefetcher:
         self.window = int(window)
         self.height, self.width = reader.height, reader.width
         self.fps = reader.fps
+        self.clip = clip
         self._ring = FrameRing(depth, (self.window, self.height, self.width))
         # Single-producer seq counter mirrors the ring's; metadata for a
         # seq is recorded BEFORE its put so the consumer never misses it.
@@ -197,6 +262,7 @@ class VideoPrefetcher:
             target=self._produce,
             args=(reader, start, interval, max_frames),
             daemon=True,
+            name=f"decode-{clip}" if clip else None,
         )
         self._thread.start()
 
@@ -208,7 +274,7 @@ class VideoPrefetcher:
         put = self._ring.put if gray else self._ring.put_gray
         n = 0
         try:
-            for _ in reader.frames(start, interval, max_frames, into=win):
+            for _ in reader.frames(start, interval, max_frames, into=win, clip=self.clip):
                 n += 1
                 if n == self.window:
                     self._emit(put, win, n)
@@ -222,13 +288,16 @@ class VideoPrefetcher:
             self._ring.close()
 
     def _emit(self, put, win: np.ndarray, n_valid: int) -> None:
-        self._meta[self._next_seq] = n_valid
+        seq = self._next_seq
+        self._meta[seq] = n_valid
         self._next_seq += 1
-        put(win)  # copies (or packs) into a ring slot before it returns
+        with span("loader.put", seq, self.clip):
+            put(win)  # copies (or packs) into a ring slot before it returns
 
     def __iter__(self) -> Iterator[tuple[int, np.ndarray, int]]:
-        while True:
-            item = self._ring.get()
+        for expected in itertools.count():  # the ring's seqs are dense, in put order
+            with span("loader.get", expected, self.clip):
+                item = self._ring.get()
             if item is None:
                 if self._err:
                     raise self._err[0]
@@ -262,10 +331,10 @@ class StereoPairLoader:
         depth: int = 3,
     ):
         self.left = VideoPrefetcher(
-            left_path, window, left_start, interval, max_frames, depth
+            left_path, window, left_start, interval, max_frames, depth, clip="left"
         )
         self.right = VideoPrefetcher(
-            right_path, window, right_start, interval, max_frames, depth
+            right_path, window, right_start, interval, max_frames, depth, clip="right"
         )
 
     def __iter__(self):

@@ -35,6 +35,8 @@ from typing import Iterator
 
 import numpy as np
 
+from stereo_vision_tpu_torch.utils.profiling import span
+
 VIDEO_EXTENSIONS = (".mp4", ".mov", ".avi", ".MP4", ".MOV")  # intrinsic.py:489-495
 
 # Raw video formats read and written in numpy: fourcc -> (bits a pixel, channels of the decoded frame).
@@ -168,12 +170,14 @@ class _AviReader:
         return [(off, n) for cid, off, n in _chunks(f, start + 4, end) if cid in ids]
 
     def frames(self, start: int, interval: int, max_frames: int | None,
-               into: np.ndarray | None = None) -> Iterator[tuple[int, np.ndarray]]:
+               into: np.ndarray | None = None, clip: str | None = None) -> Iterator[tuple[int, np.ndarray]]:
         """(index, frame) from ``start`` every ``interval`` frames, at most
         ``max_frames`` (at least one, as the reference's loop tests after its
         yield). Frames are (H, W) gray or (H, W, 3) RGB uint8; with ``into``
         ((N, H, W[, 3])) the k-th frame is read into ``into[k % N]``, else
-        each is a fresh array."""
+        each is a fresh array. Each frame's read is a ``loader.read`` span
+        (``utils.profiling.span``) tagged ``clip``, its seq the window
+        ``k // N`` it fills (None without ``into``)."""
         shape = (self.height, self.width) if self.channels == 1 else (self.height, self.width, 3)
         rgba = np.empty((self.height, self.width, 4), np.uint8) if self.channels == 3 else None
         with open(self.path, "rb", buffering=0) as f:
@@ -185,7 +189,9 @@ class _AviReader:
                                   f"frame of {self.width}x{self.height} {self.frame_bytes}")
                 f.seek(off)
                 buf = out if rgba is None else rgba
-                if f.readinto(memoryview(buf).cast("B")) != size:
+                with span("loader.read", None if into is None else k // len(into), clip):
+                    got = f.readinto(memoryview(buf).cast("B"))
+                if got != size:
                     raise IOError(f"{self.path}: frame {idx} is cut short")
                 if rgba is not None:
                     for c in range(3):  # a plane at a time: ~4x faster than one (H, W, 3) strided copy
@@ -288,9 +294,9 @@ class _FfmpegReader:
         self.frame_count = int(nb) if nb and nb != "N/A" else int(np.floor(duration * self.fps + 0.5))
 
     def frames(self, start: int, interval: int, max_frames: int | None,
-               into: np.ndarray | None = None) -> Iterator[tuple[int, np.ndarray]]:
+               into: np.ndarray | None = None, clip: str | None = None) -> Iterator[tuple[int, np.ndarray]]:
         """As :meth:`_AviReader.frames`; frames before ``start`` are decoded
-        and dropped."""
+        and dropped (their reads are spans without a seq)."""
         shape = (self.height, self.width, 3)
         nbytes = int(np.prod(shape))
         proc = subprocess.Popen([self.ffmpeg, "-v", "error", "-nostdin", "-i", str(self.path), "-f", "rawvideo",
@@ -303,11 +309,14 @@ class _FfmpegReader:
                 out = (np.empty(shape, np.uint8) if into is None else into[k % len(into)]) if keep else scratch
                 view = memoryview(out).cast("B")
                 got = 0
-                while got < nbytes:
-                    n = proc.stdout.readinto(view[got:])
-                    if not n:
-                        return
-                    got += n
+                with span("loader.read", k // len(into) if keep and into is not None else None, clip):
+                    while got < nbytes:
+                        n = proc.stdout.readinto(view[got:])
+                        if not n:
+                            break
+                        got += n
+                if got < nbytes:
+                    return
                 if keep:
                     yield idx, out
                     k += 1

@@ -108,6 +108,14 @@ def frame_ring_module():
     return _native("frame_ring")
 
 
+def frame_ring_totals() -> tuple[int, int, int, int]:
+    """(put_wait_ns, puts, get_wait_ns, gets) summed over every native ring
+    since the module loaded; zeros where it is not loaded (nothing is built
+    for this)."""
+    m = _mods.get("frame_ring")
+    return (0, 0, 0, 0) if m is None else tuple(m.ring_totals())
+
+
 __all__ = [
     "build",
     "load",
@@ -116,4 +124,5 @@ __all__ = [
     "brightness_series",
     "png_unfilter",
     "frame_ring_module",
+    "frame_ring_totals",
 ]

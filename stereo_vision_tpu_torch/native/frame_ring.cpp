@@ -14,7 +14,15 @@
 //   ring_get_into(handle, out_u8, timeout_ms) -> seq | -1 timeout | -2 drained
 //   ring_close(handle)                       EOF: drain then get -> -2
 //   ring_stats(handle) -> (occupied, slots, closed)
+//   ring_waits(handle) -> (put_wait_ns, puts, get_wait_ns, gets) of the ring
+//   ring_totals() -> the same summed over every ring since the module loaded,
+//                    destroyed rings included
 //   ring_destroy(handle)
+//
+// A put's or get's wait, for a free or a filled slot, is read on
+// steady_clock from before the ring's mutex is taken (time spent taking it
+// counts as waiting) to the condition variable's release. A call that finds
+// the mutex free and its slot ready reads no clock.
 //
 // Sequence numbers are assigned at put time (0, 1, 2, ...) so a single
 // producer's windows arrive strictly in decode order; metadata keyed by
@@ -25,6 +33,7 @@
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
+#include <atomic>
 #include <chrono>
 #include <condition_variable>
 #include <cstdint>
@@ -53,7 +62,32 @@ struct Ring {
   Py_ssize_t count = 0;
   bool closed = false;
   int64_t next_seq = 0;
+  int64_t put_wait_ns = 0, puts = 0, get_wait_ns = 0, gets = 0;  // under mu
 };
+
+// Every ring's waits and calls since the module loaded.
+std::atomic<int64_t> g_put_wait_ns{0}, g_puts{0}, g_get_wait_ns{0}, g_gets{0};
+
+// Takes `lock` (made with std::try_to_lock) and waits on `cv` until
+// `ready()` or, with timeout_ms >= 0, the timeout; returns whether ready()
+// held and adds the nanoseconds waited to *wait_ns. The clock is read only
+// where the mutex was busy or the slot not ready.
+template <typename Ready>
+bool TimedWait(std::unique_lock<std::mutex>& lock, std::condition_variable& cv,
+               long long timeout_ms, Ready ready, int64_t* wait_ns) {
+  if (lock.owns_lock() && ready()) return true;
+  const auto t0 = std::chrono::steady_clock::now();
+  if (!lock.owns_lock()) lock.lock();
+  bool ok = true;
+  if (timeout_ms < 0) {
+    cv.wait(lock, ready);
+  } else {
+    ok = cv.wait_for(lock, std::chrono::milliseconds(timeout_ms), ready);
+  }
+  *wait_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                  std::chrono::steady_clock::now() - t0).count();
+  return ok;
+}
 
 std::mutex g_registry_mu;
 std::unordered_map<int64_t, std::shared_ptr<Ring>> g_rings;
@@ -113,9 +147,14 @@ template <typename Fill>
 int64_t PutCommon(Ring& ring, Fill fill) {
   int64_t out_seq = -2;
   {
-    std::unique_lock<std::mutex> lock(ring.mu);
-    ring.not_full.wait(lock,
-                       [&] { return ring.count < ring.slots || ring.closed; });
+    std::unique_lock<std::mutex> lock(ring.mu, std::try_to_lock);
+    int64_t waited = 0;
+    TimedWait(lock, ring.not_full, -1,
+              [&] { return ring.count < ring.slots || ring.closed; }, &waited);
+    ring.put_wait_ns += waited;
+    ring.puts++;
+    g_put_wait_ns.fetch_add(waited, std::memory_order_relaxed);
+    g_puts.fetch_add(1, std::memory_order_relaxed);
     if (ring.closed) return -2;
     uint8_t* slot = ring.storage.data() +
                     static_cast<size_t>(ring.head) * ring.slot_bytes;
@@ -219,16 +258,14 @@ PyObject* RingGetInto(PyObject*, PyObject* args) {
   int64_t seq = -1;
   Py_BEGIN_ALLOW_THREADS
   {
-    std::unique_lock<std::mutex> lock(ring->mu);
-    auto ready = [&] { return ring->count > 0 || ring->closed; };
-    bool ok;
-    if (timeout_ms < 0) {
-      ring->not_empty.wait(lock, ready);
-      ok = true;
-    } else {
-      ok = ring->not_empty.wait_for(
-          lock, std::chrono::milliseconds(timeout_ms), ready);
-    }
+    std::unique_lock<std::mutex> lock(ring->mu, std::try_to_lock);
+    int64_t waited = 0;
+    bool ok = TimedWait(lock, ring->not_empty, timeout_ms,
+                        [&] { return ring->count > 0 || ring->closed; }, &waited);
+    ring->get_wait_ns += waited;
+    ring->gets++;
+    g_get_wait_ns.fetch_add(waited, std::memory_order_relaxed);
+    g_gets.fetch_add(1, std::memory_order_relaxed);
     if (!ok || ring->count == 0) {
       seq = (ring->count == 0 && ring->closed) ? -2 : -1;
     } else {
@@ -275,6 +312,24 @@ PyObject* RingStats(PyObject*, PyObject* args) {
                        ring->closed ? 1 : 0);
 }
 
+PyObject* RingWaits(PyObject*, PyObject* args) {
+  long long handle;
+  if (!PyArg_ParseTuple(args, "L", &handle)) return nullptr;
+  auto ring = LookupRing(handle);
+  if (!ring) {
+    PyErr_SetString(PyExc_ValueError, "unknown ring handle");
+    return nullptr;
+  }
+  std::lock_guard<std::mutex> lock(ring->mu);
+  return Py_BuildValue("(LLLL)", (long long)ring->put_wait_ns, (long long)ring->puts,
+                       (long long)ring->get_wait_ns, (long long)ring->gets);
+}
+
+PyObject* RingTotals(PyObject*, PyObject*) {
+  return Py_BuildValue("(LLLL)", (long long)g_put_wait_ns.load(), (long long)g_puts.load(),
+                       (long long)g_get_wait_ns.load(), (long long)g_gets.load());
+}
+
 PyObject* RingDestroy(PyObject*, PyObject* args) {
   long long handle;
   if (!PyArg_ParseTuple(args, "L", &handle)) return nullptr;
@@ -312,6 +367,10 @@ PyMethodDef kMethods[] = {
     {"ring_close", RingClose, METH_VARARGS, "ring_close(handle)"},
     {"ring_stats", RingStats, METH_VARARGS,
      "ring_stats(handle) -> (occupied, slots, closed)"},
+    {"ring_waits", RingWaits, METH_VARARGS,
+     "ring_waits(handle) -> (put_wait_ns, puts, get_wait_ns, gets)"},
+    {"ring_totals", RingTotals, METH_NOARGS,
+     "ring_totals() -> (put_wait_ns, puts, get_wait_ns, gets) over every ring"},
     {"ring_destroy", RingDestroy, METH_VARARGS, "ring_destroy(handle)"},
     {nullptr, nullptr, 0, nullptr},
 };

@@ -38,6 +38,7 @@ from stereo_vision_tpu_torch.stereo.bm import StereoBMParams, stereo_bm
 from stereo_vision_tpu_torch.stereo.depth import reproject_disparity_to_3d
 from stereo_vision_tpu_torch.stereo.hier import HIER4_FAST, HIER8_FAST, HIER_FAST, HierParams, stereo_sgbm_hier_batch
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams, stereo_sgbm
+from stereo_vision_tpu_torch.utils.profiling import span
 
 
 def _frame_stats(disp: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -200,51 +201,61 @@ class _Staging:
         self.slots: list[tuple | None] = [None, None]  # per slot: (left, right, upload event)
         self.slot = 0
 
-    def put(self, left: torch.Tensor, right: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.cuda.Event]:
+    def put(self, left: torch.Tensor, right: torch.Tensor, seq: int | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.cuda.Event]:
         """Copy the pieces into the next pinned slot and upload them on the
-        copy stream; returns the device tensors and the upload's event."""
-        slot = self.slots[self.slot]
-        if slot is not None:
-            slot[2].synchronize()  # the slot's previous upload has read it
-        if slot is None or any(b.shape != a.shape or b.dtype != a.dtype for b, a in zip(slot[:2], (left, right))):
-            slot = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True) for a in (left, right))
-        pl, pr = slot[0], slot[1]
-        pl.copy_(left)
-        pr.copy_(right)
-        event = torch.cuda.Event()
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self.copy_stream):
-            dl = pl.to(self.device, non_blocking=True)
-            dr = pr.to(self.device, non_blocking=True)
-            event.record(self.copy_stream)
-        # The inputs were allocated on the copy stream: keep their memory
-        # from reuse until the compute stream's work on them is done.
-        dl.record_stream(compute)
-        dr.record_stream(compute)
-        self.slots[self.slot] = (pl, pr, event)
-        self.slot ^= 1
-        return dl, dr, event
+        copy stream; returns the device tensors and the upload's event. The
+        whole put is a ``staging.put`` span of window ``seq``, the wait for
+        the slot ``staging.slot_wait`` and the copy ``staging.copy``."""
+        with span("staging.put", seq):
+            slot = self.slots[self.slot]
+            if slot is not None:
+                with span("staging.slot_wait", seq):
+                    slot[2].synchronize()  # the slot's previous upload has read it
+            if slot is None or any(b.shape != a.shape or b.dtype != a.dtype for b, a in zip(slot[:2], (left, right))):
+                slot = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True) for a in (left, right))
+            pl, pr = slot[0], slot[1]
+            with span("staging.copy", seq):
+                pl.copy_(left)
+                pr.copy_(right)
+            event = torch.cuda.Event()
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.copy_stream):
+                dl = pl.to(self.device, non_blocking=True)
+                dr = pr.to(self.device, non_blocking=True)
+                event.record(self.copy_stream)
+            # The inputs were allocated on the copy stream: keep their memory
+            # from reuse until the compute stream's work on them is done.
+            dl.record_stream(compute)
+            dr.record_stream(compute)
+            self.slots[self.slot] = (pl, pr, event)
+            self.slot ^= 1
+            return dl, dr, event
 
 
-def _enqueue(parts: list, devices: list, staging: list | None, left, right) -> list[tuple]:
+def _enqueue(parts: list, devices: list, staging: list | None, left, right, seq: int | None = None) -> list[tuple]:
     """Run a host window's shares on the data devices: per device, its
     part's output and an event recorded after it (None on the CPU). On the
     card each share goes through its device's pinned staging and the
     device's compute stream waits for its upload; on the CPU a share runs
-    at once, on a copy of the caller's frames."""
+    at once, on a copy of the caller's frames. Each part's call is a
+    ``stream.launch`` span of window ``seq``."""
     n = len(devices)
     pending = []
     for i, (part, dev, (lp, rp)) in enumerate(zip(parts, devices, zip(_host_pieces(left, n),
                                                                       _host_pieces(right, n)))):
         if staging is not None:
-            dl, dr, uploaded = staging[i].put(lp, rp)
+            dl, dr, uploaded = staging[i].put(lp, rp, seq)
             compute = torch.cuda.current_stream(dev)
             compute.wait_event(uploaded)
-            out = part(dl, dr)
+            with span("stream.launch", seq):
+                out = part(dl, dr)
             done = torch.cuda.Event()
             done.record(compute)
         else:
-            out = part(lp.clone(), rp.clone())
+            lp, rp = lp.clone(), rp.clone()
+            with span("stream.launch", seq):
+                out = part(lp, rp)
             done = None
         pending.append((out, done))
     return pending
@@ -360,6 +371,13 @@ def stream_video_pair(
          (:func:`make_sharded_pipeline`'s parts), its results copied back
          into pinned host memory on a side stream.
 
+    Each step is a span (``utils.profiling.span``, recorded only inside a
+    ``recording()``) carrying its window's seq: ``stream.open`` (the call's
+    set-up, to the loader's first window), ``staging.put``,
+    ``stream.launch``, ``stream.readback``, ``stream.card_wait`` (the host
+    waiting for a window's read-back) and ``stream.close``; the loader's
+    ``loader.get``, ``loader.read`` and ``loader.put`` (``io.loader``).
+
     Yields ``(seq, disparity (T, H, W), points3d (T, H, W, 3), n_valid)``
     per window as numpy arrays, in stream order; the final window is padded
     to the window size by repeating its last frame, ``n_valid`` marking the
@@ -372,6 +390,8 @@ def stream_video_pair(
     raised here, on the consumer side; the loader is closed when the
     generator ends or is closed.
     """
+    opened = span("stream.open")
+    opened.__enter__()  # ends at the loader's first window, or with the call
     _check_matcher(matcher, params)
     devices = mesh.axis_devices(DATA_AXIS)
     parts = [_device_part(d, maps, Q, matcher, params, hier_params, stats_only) for d in devices]
@@ -381,29 +401,37 @@ def stream_video_pair(
     loader = StereoPairLoader(left_path, right_path, window, left_start=left_start, right_start=right_start,
                               max_frames=max_frames, depth=depth)
 
-    def dispatch(wl, wr):
-        pending = _enqueue(parts, devices, staging, wl, wr)
+    def dispatch(seq, wl, wr):
+        pending = _enqueue(parts, devices, staging, wl, wr, seq)
         if cuda:
-            return _read_back(pending, readback)
+            with span("stream.readback", seq):
+                return _read_back(pending, readback)
         out = concat_on([out for out, _ in pending], devices[0])
         return list(out) if isinstance(out, tuple) else [out], []
 
     def emit(item):
         seq, n_valid, (hosts, events) = item
-        for e in events:
-            e.synchronize()
+        with span("stream.card_wait", seq):
+            for e in events:
+                e.synchronize()
         out = [h.numpy() for h in hosts]
         return (seq, out[0], None, n_valid) if stats_only else (seq, out[0], out[1], n_valid)
 
     inflight: collections.deque = collections.deque()
     try:
         for seq, wl, wr, n_valid in loader:
+            if opened is not None:
+                opened.__exit__(None, None, None)
+                opened = None
             # The card starts on this window while the loader's threads
             # decode the next one; then the previous window is returned.
-            inflight.append((seq, n_valid, dispatch(wl, wr)))
+            inflight.append((seq, n_valid, dispatch(seq, wl, wr)))
             if len(inflight) > 1:
                 yield emit(inflight.popleft())
         while inflight:
             yield emit(inflight.popleft())
     finally:
-        loader.close()
+        if opened is not None:
+            opened.__exit__(None, None, None)
+        with span("stream.close"):
+            loader.close()

@@ -273,6 +273,7 @@ def cmd_stream(args) -> int:
     from stereo_vision_tpu_torch.pipeline.artifacts import ArtifactStore
     from stereo_vision_tpu_torch.stereo.bm import StereoBMParams
     from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
+    from stereo_vision_tpu_torch.utils.profiling import counters
 
     dev = _device(args)
     store = ArtifactStore(args.test_dir)
@@ -351,6 +352,7 @@ def cmd_stream(args) -> int:
     n_frames = 0
     t_first = None  # end of the FIRST window: excludes the kernels' first build and launch
     n_first = 0
+    waits0 = counters()
     t0 = time.perf_counter()
     # Without --video-out the per-frame stats are computed ON DEVICE and
     # only two floats/frame cross the host link (streaming._frame_stats —
@@ -394,6 +396,7 @@ def cmd_stream(args) -> int:
     dt = time.perf_counter() - t0
     dt_steady = (time.perf_counter() - t_first) if t_first is not None else 0.0
     n_steady = n_frames - n_first
+    waits = {k: v - waits0[k] for k, v in counters().items()}
 
     if sink is not None:
         sink.close()
@@ -411,6 +414,13 @@ def cmd_stream(args) -> int:
         "mpx_per_s": n_frames * size[0] * size[1] / dt / 1e6 if dt > 0 else None,
         "note": "fps includes the first window (the kernels' one-time build "
                 "and first launch); fps_steady excludes the first window",
+        # Whether decode or the card paced the run: the stream waiting on the
+        # frame rings for decoded windows, and the decode threads waiting on
+        # them for free slots (the stream consuming slower than decode).
+        "loader_wait_s": waits["ring.get_wait_ns"] * 1e-9,
+        "loader_gets": waits["ring.gets"],
+        "ring_put_wait_s": waits["ring.put_wait_ns"] * 1e-9,
+        "ring_puts": waits["ring.puts"],
         "stats": str(stats_path),
         **({"video_out": str(video_out)} if video_out else {}),
     }

@@ -9,14 +9,22 @@
   (``chrome://tracing``, Perfetto) for per-kernel breakdowns.
 - ``StageTimer``: wall-clock per-stage accumulator whose dict plugs into a
   stage report's metrics, so runs report per-stage milliseconds and Mpx/s.
+- ``span`` / ``recording``: the program's own spans (the stream's loader,
+  ring, staging copy, launch and wait on the card), recorded on any thread
+  while a ``recording()`` block is open and free otherwise. A span's times
+  are ``time.time_ns()``, the clock of ``torch.profiler``'s events, so the
+  spans line up with a device trace taken beside them.
+- ``counters``: process-wide totals of the frame ring's waits, always on.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import threading
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree
@@ -96,19 +104,113 @@ def time_jitted(
     return (time.perf_counter() - t0) / n
 
 
+class Span(NamedTuple):
+    """One recorded span: ``seq`` is the stream window's sequence number
+    (None where there is none), ``clip`` "left" or "right" on a decode
+    thread, ``thread`` the ``threading.get_ident()`` of the thread it ran
+    on; the times are Unix-epoch nanoseconds. Spans of one thread nest."""
+
+    name: str
+    seq: int | None
+    thread: int
+    start_ns: int
+    end_ns: int
+    clip: str | None = None
+
+
+_records: list[Span] | None = None  # the open recording's list; None: recording is off
+_thread_names: dict[int, str] = {}  # the threads' names, for the Chrome trace
+
+
+_OFF = contextlib.nullcontext()  # the span of a recording that is off: nothing read, nothing kept
+
+
+class _On:
+    __slots__ = ("out", "name", "seq", "clip", "start")
+
+    def __init__(self, out: list, name: str, seq, clip):
+        self.out, self.name, self.seq, self.clip = out, name, seq, clip
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self.out is _records:  # a span still open when its recording ended is dropped
+            thread = threading.get_ident()  # reused by a later thread: its name is the latest
+            _thread_names[thread] = threading.current_thread().name
+            self.out.append(Span(self.name, self.seq, thread, self.start, end, self.clip))
+        return False
+
+
+def span(name: str, seq: int | None = None, clip: str | None = None):
+    """``with span("stream.launch", seq): ...`` records the block's start
+    and end while a :func:`recording` is open. Off, it returns one shared
+    object that does nothing: no allocation and no clock read."""
+    out = _records
+    if out is None:
+        return _OFF
+    return _On(out, name, seq, clip)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every :func:`span` entered on any thread while the block runs;
+    yields the list the spans are appended to as they end. A recording
+    opened inside another takes the spans until it closes."""
+    global _records
+    prev, out = _records, []
+    _records = out
+    try:
+        yield out
+    finally:
+        _records = prev
+
+
+def counters() -> dict[str, int]:
+    """Process-wide totals since the process started: ``ring.put_wait_ns``
+    and ``ring.puts`` (a producer waiting for a free slot of a frame ring,
+    and its puts), ``ring.get_wait_ns`` and ``ring.gets`` (a consumer
+    waiting for a filled slot, and its gets), over every ring, closed ones
+    too (``io.loader.ring_counters``)."""
+    from stereo_vision_tpu_torch.io import loader
+
+    return {f"ring.{k}": v for k, v in loader.ring_counters().items()}
+
+
+def _chrome_events(spans: list[Span], base_ns: int) -> list[dict]:
+    """The spans as Chrome trace events in microseconds from ``base_ns`` (the
+    ``baseTimeNanoseconds`` of ``torch.profiler``'s export), one track a
+    thread, named after the thread."""
+    pid = "program spans"
+    out = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid, "args": {"name": _thread_names[tid]}}
+           for tid in sorted({s.thread for s in spans})]
+    for s in spans:
+        args = {k: v for k, v in (("seq", s.seq), ("clip", s.clip)) if v is not None}
+        out.append({"ph": "X", "name": s.name, "pid": pid, "tid": s.thread, "ts": (s.start_ns - base_ns) / 1e3,
+                    "dur": (s.end_ns - s.start_ns) / 1e3, "args": args})
+    return out
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler trace of the block (CPU, and the card's kernels where
-    there is one), written as a Chrome trace to ``log_dir/trace.json``; the
-    profiler is yielded for ``key_averages()``."""
+    there is one), written as a Chrome trace to ``log_dir/trace.json`` with
+    the program's spans of the block (:func:`span`) on tracks of their own;
+    the profiler is yielded for ``key_averages()``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with recording() as spans, profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(str(out / "trace.json"))
+    path = out / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    doc.setdefault("traceEvents", []).extend(_chrome_events(spans, int(doc.get("baseTimeNanoseconds", 0))))
+    path.write_text(json.dumps(doc))
 
 
 class StageTimer:

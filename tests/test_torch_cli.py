@@ -286,6 +286,18 @@ def test_stream_command_equals_stream_video_pair(flow):
     assert video.video_info(root / "d_bm.avi")["frame_count"] == 9
 
 
+def test_stream_summary_counts_the_ring_waits(flow):
+    """The stream command's summary says whether decode or the card paced
+    the run: the stream's waits on the frame rings for decoded windows and
+    the decode threads' waits for free slots, in seconds, with their calls
+    (two rings a run, a get and a put a window of each, and the end)."""
+    for m in ("bm", "sgbm_hier"):
+        _, (line,) = flow[f"stream_{m}"]
+        for key in ("loader_wait_s", "ring_put_wait_s"):
+            assert isinstance(line[key], float) and line[key] >= 0.0, (m, key)
+        assert line["loader_gets"] >= 2 and line["ring_puts"] >= 2, m
+
+
 def test_validate_distance_and_analyze_commands(flow):
     root = flow["root"]
     rc, (line,) = flow["validate"]

@@ -12,6 +12,8 @@ import os
 import stat
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import cv2
@@ -24,7 +26,7 @@ from stereo_vision_tpu.io import video as jvideo
 from stereo_vision_tpu.utils import filenames as jfilenames
 from stereo_vision_tpu_torch import native
 from stereo_vision_tpu_torch.io import loader, video
-from stereo_vision_tpu_torch.utils import StageTimer, filenames, highest_precision, time_jitted, trace
+from stereo_vision_tpu_torch.utils import StageTimer, filenames, highest_precision, profiling, time_jitted, trace
 
 ROOT = Path(__file__).resolve().parents[1]
 T, H = 7, 48
@@ -390,6 +392,86 @@ def test_stage_timer_and_trace(tmp_path):
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
     assert any("matmul" in e.key for e in prof.key_averages())
+
+
+def test_span_off_records_and_allocates_nothing():
+    """Without a recording, ``span`` hands out one shared object whatever it
+    is given, and a recording opened afterwards holds none of those spans."""
+    first = profiling.span("a", 1, "left")
+    assert all(profiling.span(f"s{i}", i) is first for i in range(100))
+    with first, profiling.span("b"):
+        pass
+    with profiling.recording() as spans:
+        pass
+    assert spans == []
+
+
+def test_span_on_records_name_seq_thread_and_nesting():
+    """Spans from two threads, each with its seq and clip and its thread's
+    ident; a span entered inside another on one thread lies within it; a
+    span still open when the recording ends is dropped."""
+    def work(clip):
+        with profiling.span("outer", 3, clip):
+            with profiling.span("inner", 3, clip):
+                time.sleep(0.002)
+
+    with profiling.recording() as spans:
+        t = threading.Thread(target=work, args=("right",))
+        t.start()
+        work("left")
+        t.join()
+        late = profiling.span("late")
+        late.__enter__()
+    late.__exit__(None, None, None)
+    assert sorted((s.name, s.seq, s.clip) for s in spans) == [
+        ("inner", 3, "left"), ("inner", 3, "right"), ("outer", 3, "left"), ("outer", 3, "right")]
+    assert {s.thread for s in spans if s.clip == "left"} == {threading.get_ident()}
+    assert {s.thread for s in spans if s.clip == "right"} == {t.ident}
+    for clip in ("left", "right"):
+        inner, outer = (next(s for s in spans if s.name == n and s.clip == clip) for n in ("inner", "outer"))
+        assert outer.start_ns <= inner.start_ns < inner.end_ns <= outer.end_ns
+        assert inner.end_ns - inner.start_ns >= 2_000_000
+
+
+def test_span_clock_is_the_profilers():
+    """A span's start lies within 2 ms of a ``torch.profiler``
+    ``record_function`` event entered on the same line: both are Unix-epoch
+    nanoseconds."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profiling.recording() as spans, profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm-up"):  # the profiler's first event can come late
+            pass
+        for i in range(5):
+            with record_function(f"rf{i}"), profiling.span(f"rf{i}"):
+                sum(range(1000))
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    gaps = sorted(abs(s.start_ns - events[s.name].start_ns()) for s in spans)
+    assert len(gaps) == 5 and gaps[2] < 2_000_000, gaps  # the median: one preempted span may lie further
+
+
+def test_trace_writes_the_program_spans(tmp_path):
+    """``trace`` records the block's spans and writes them into its Chrome
+    trace, on a track of each thread, near the profiler's own events."""
+    def decode():
+        with profiling.span("loader.read", 0, "left"):
+            time.sleep(0.001)
+
+    with trace(str(tmp_path / "tr")):
+        with profiling.span("stream.launch", 0):
+            torch.ones(8).add(1)
+        t = threading.Thread(target=decode, name="decode-left")
+        t.start()
+        t.join()
+    events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+    mine = {e["name"]: e for e in events if e.get("pid") == "program spans" and e["ph"] == "X"}
+    assert set(mine) == {"stream.launch", "loader.read"}
+    assert mine["loader.read"]["args"] == {"seq": 0, "clip": "left"}
+    assert mine["stream.launch"]["tid"] != mine["loader.read"]["tid"]
+    names = {e["tid"]: e["args"]["name"] for e in events if e.get("pid") == "program spans" and e["ph"] == "M"}
+    assert names[mine["loader.read"]["tid"]] == "decode-left"
+    torch_ts = [e["ts"] for e in events if e.get("ph") == "X" and e.get("pid") != "program spans"]
+    assert abs(mine["stream.launch"]["ts"] - min(torch_ts)) < 1e5  # microseconds, on one clock
 
 
 def test_highest_precision_turns_tf32_off_and_restores():

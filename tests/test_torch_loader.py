@@ -17,6 +17,7 @@ the port equals), on maps whose weights are such ties; this rig's are not.
 by window (JAX's hier in interpret mode takes about a minute a call).
 """
 
+import gc
 import queue
 import threading
 import time
@@ -39,6 +40,7 @@ from stereo_vision_tpu_torch.parallel import streaming
 from stereo_vision_tpu_torch.parallel.mesh import host_cpu_mesh
 from stereo_vision_tpu_torch.stereo.sgbm import StereoSGBMParams
 from stereo_vision_tpu_torch.synth.scenes import scene
+from stereo_vision_tpu_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True)
@@ -130,6 +132,68 @@ def test_ring_close_wakes_every_blocked_producer(ring_backend):
     assert len(raised) == 3
     assert r.get()[0] == 0
     assert r.get() is None
+
+
+def _waits():
+    return profiling.counters()
+
+
+def test_ring_counts_a_consumers_wait(ring_backend):
+    """A consumer blocked on an empty ring until a put 100 ms later adds at
+    least 40 ms to ``ring.get_wait_ns`` and one get, on the ring and in the
+    totals (the margin is for a loaded machine's scheduling); a get that
+    finds a window ready adds a get and next to no wait."""
+    r = FrameRing(2, (4,))
+    before = _waits()
+    threading.Timer(0.1, r.put, args=(np.zeros(4, np.uint8),)).start()
+    assert r.get()[0] == 0
+    after = _waits()
+    assert after["ring.get_wait_ns"] - before["ring.get_wait_ns"] >= 40_000_000
+    assert after["ring.gets"] - before["ring.gets"] >= 1  # other tests' threads may add to the totals
+    assert r.waits()["get_wait_ns"] >= 40_000_000 and r.waits()["gets"] == 1
+    r.put(np.zeros(4, np.uint8))
+    ready = r.waits()
+    assert r.get()[0] == 1
+    done = r.waits()
+    assert done["gets"] == 2 and done["get_wait_ns"] - ready["get_wait_ns"] < 40_000_000
+
+
+def test_ring_counts_a_producers_wait(ring_backend):
+    """A producer blocked on a full ring until a get adds that wait to
+    ``ring.put_wait_ns``."""
+    r = FrameRing(1, (4,))
+    r.put(np.zeros(4, np.uint8))
+    before = _waits()
+    threading.Timer(0.1, r.get).start()
+    r.put(np.ones(4, np.uint8))
+    after = _waits()
+    assert after["ring.put_wait_ns"] - before["ring.put_wait_ns"] >= 40_000_000
+    assert after["ring.puts"] - before["ring.puts"] >= 1
+    assert r.waits()["puts"] == 2 and r.waits()["put_wait_ns"] >= 40_000_000
+
+
+def test_ring_counters_survive_the_rings_close(ring_backend):
+    """The totals keep a ring's waits once it is closed and freed."""
+    r = FrameRing(1, (4,))
+    before = _waits()
+    threading.Timer(0.1, r.put, args=(np.zeros(4, np.uint8),)).start()
+    r.get()
+    r.close()
+    assert r.get() is None
+    del r
+    gc.collect()
+    after = _waits()
+    assert after["ring.get_wait_ns"] - before["ring.get_wait_ns"] >= 40_000_000
+    assert after["ring.gets"] - before["ring.gets"] >= 2 and after["ring.puts"] - before["ring.puts"] >= 1
+
+
+def test_ring_counters_names_on_both_backends(ring_backend):
+    """Both backends give the same four counters, whole numbers."""
+    FrameRing(1, (4,)).put(np.zeros(4, np.uint8))
+    c = _waits()
+    assert sorted(c) == ["ring.get_wait_ns", "ring.gets", "ring.put_wait_ns", "ring.puts"]
+    assert all(isinstance(v, int) and v >= 0 for v in c.values())
+    assert set(FrameRing(1, (4,)).waits()) == {"put_wait_ns", "puts", "get_wait_ns", "gets"}
 
 
 @pytest.mark.parametrize("n_prod,n_cons", [(4, 1), (1, 4), (4, 3)])

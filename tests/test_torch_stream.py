@@ -13,6 +13,9 @@ minute a call, so the hier closure is held to the port's batched pipeline
 only (which tests/test_torch_hier.py holds to JAX), pack by pack.
 """
 
+import collections
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -279,3 +282,54 @@ def test_mesh_and_processor_without_device_raise_when_cuda_is_absent(monkeypatch
         mesh.create_mesh()
     with pytest.raises(RuntimeError, match="CUDA"):
         streaming.StereoStreamProcessor(mesh.create_mesh(devices=[None]), maps, Q)
+
+
+def test_stream_video_pair_records_its_spans(tmp_path):
+    """``stream_video_pair`` on the CPU with a recording open: for each
+    window one ``loader.get`` a clip, one ``stream.launch`` and one
+    ``stream.card_wait`` on the consumer's thread, a ``loader.read`` a frame
+    and a ``loader.put`` a window on each clip's decode thread, one
+    ``stream.open`` and one ``stream.close``; the ring's counters count the
+    gets and puts; the outputs are bit-equal to a run with recording off."""
+    from stereo_vision_tpu_torch.io.video import VideoSink
+    from stereo_vision_tpu_torch.utils import profiling
+
+    n, window = 10, 4
+    paths = []
+    for name, frames in zip(("l", "r"), _frames(n)):
+        sink = VideoSink(tmp_path / f"{name}.avi", is_rgb=False)
+        for f in frames:
+            sink.append(f)
+        sink.close()
+        paths.append(tmp_path / f"{name}.avi")
+    maps, Q = _rig()
+
+    def run():
+        return list(streaming.stream_video_pair(*paths, _cpu_mesh(), maps, Q, "sgbm", _params("sgbm"),
+                                                window=window, stats_only=True))
+
+    off = run()
+    before = profiling.counters()
+    with profiling.recording() as spans:
+        on = run()
+    after = profiling.counters()
+    assert [(s, k) for s, *_, k in on] == [(s, k) for s, *_, k in off] == [(0, 4), (1, 4), (2, 2)]
+    for (_, a, _, _), (_, b, _, _) in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+    me = threading.get_ident()
+    count = collections.Counter((s.name, s.seq, s.clip) for s in spans)
+    for seq in range(3):
+        for clip in ("left", "right"):
+            assert count["loader.get", seq, clip] == 1
+            assert count["loader.put", seq, clip] == 1
+            assert count["loader.read", seq, clip] == (4 if seq < 2 else 2)
+        assert count["stream.launch", seq, None] == count["stream.card_wait", seq, None] == 1
+    assert count["stream.open", None, None] == count["stream.close", None, None] == 1
+    assert {s.thread for s in spans if s.name.startswith("stream.")} == {me}
+    assert {s.thread for s in spans if s.name == "loader.get"} == {me}
+    decode = {c: {s.thread for s in spans if s.name in ("loader.read", "loader.put") and s.clip == c}
+              for c in ("left", "right")}
+    assert all(len(t) == 1 and me not in t for t in decode.values())  # a thread's ident may be reused
+    gets = sum(count[k] for k in count if k[0] == "loader.get")
+    assert after["ring.gets"] - before["ring.gets"] >= gets  # the totals are the process's
+    assert after["ring.puts"] - before["ring.puts"] >= 6
