@@ -133,12 +133,17 @@ After 18:
      cap 150; odd D, negative and positive min_disparity, ragged and narrow
      frames, H = block, rejecting thresholds, constant frames whose every
      disparity ties), card against plain, with the form each takes;
- 27. (run right after 25) the vertical scan (#2): its cluster plan on the
-     exact8 cost volume the recorded call made (cluster size, columns and
-     warps a block, carries, clusters resident), one device launch,
-     exact on the first frame, five timed runs; then its grid (D = 16, 128,
-     200, 1000; one column to 16 blocks of a cluster; H = 1 to 9; B = 1, 2,
-     5; int16 and int32; with and without diagonals), card against plain.
+ 27. (run right after 25) the vertical scan (#2): its plan on the exact8
+     cost volume the recorded call made (form, cluster size, warps and
+     columns a block, columns a warp, clusters resident, waves), one device
+     launch of the register form (``vertical.launches_by_form``), exact on
+     the first frame, five timed runs; the same at 1, 8 (the benchmark's
+     windows) and 16 frames of 720 x 1152 x 128 int16 (five timed runs
+     each, exact on the first frame's first 24 rows of the down set and
+     last 24 of the up set); then its grid (D =
+     16, 128, 200, 1000; one column to 16 blocks of a cluster; H = 1 to 9;
+     B = 1, 2, 5; int16 and int32; with and without diagonals), card
+     against plain, with the form each takes.
  28. (run last, after 23) the banded vertical scan (#17): on the arguments
      each hier main path's recorded call gave it (hier4x3's coarse, mid and
      full levels, hier16x3's coarse and full, hier4x8's full level with
@@ -702,14 +707,18 @@ def phase_main_path(dev, rows: list[dict]) -> tuple[dict, dict, torch.Tensor]:
     for fn in wrappers.values():
         fn.launches = 0
     sgm_cuda.vertical.device_launches = 0
+    sgm_cuda.vertical.launches_by_form = dict.fromkeys(sgm_cuda.FORMS, 0)
     disp, pts = batched_stereo_pipeline(lb, rb, maps, Q, matcher="sgbm", params=PARAMS, device=dev)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in wrappers.items()}
     plan = sgm_cuda.vertical.plan
     print("main path launches:", json.dumps(counts), f"(vertical: {sgm_cuda.vertical.device_launches} device "
-          f"launch, clusters of {plan['cluster']} blocks of {plan['columns']} columns)", flush=True)
+          f"launch, {plan['form']} form, clusters of {plan['cluster']} blocks of {plan['columns']} columns)",
+          flush=True)
     if sgm_cuda.vertical.device_launches != 1:
         raise AssertionError(f"the exact8 vertical scan made {sgm_cuda.vertical.device_launches} device launches")
+    if sgm_cuda.vertical.launches_by_form["registers"] != 1:
+        raise AssertionError(f"the exact8 vertical scan ran {sgm_cuda.vertical.launches_by_form}, not the register form")
     for row in rows:
         row["launches"] = counts[row["name"]]
         if row["name"] == "vertical":
@@ -2083,36 +2092,63 @@ def phase_bm_rows(dev, record: dict) -> dict:
     return dict(form=form, runs_ms=runs, grid_cases=cases)
 
 
-# Phase 27: the cluster vertical scan's settings (the cuda tests'): D at 1,
-# 4, 8 and 32 values a lane, (B, H, W) from one column to 16 blocks of a
-# cluster, int16 and int32, with and without diagonals.
+# Phase 27: the vertical scan's settings (the cuda tests'): D at 1, 4, 8 and
+# 32 values a lane, (B, H, W) from one column to 16 blocks of a cluster,
+# int16 and int32, with and without diagonals; and its time at 1, 8 and 16
+# frames of the exact path's 720 x 1152 x 128 volume (the benchmark's
+# windows are 8 frames).
 VERTICAL_GRID_D = (16, 128, 200, 1000)
 VERTICAL_GRID_SHAPES = ((1, 1, 1), (5, 2, 2), (1, 7, 37), (2, 9, 300), (1, 3, 1152))
+VERTICAL_TIMED_FRAMES = (1, 8, 16)
 
 
 def phase_vertical_cluster(dev, C: torch.Tensor) -> dict:
     """The vertical scan (#2) on the exact8 cost volume the recorded call
-    made: its plan (cluster size, columns and warps a block, where the
-    carries are, clusters resident), exact against its plain form on the
-    first frame, one device launch a call, five timed runs of 5 calls; then
-    the grid, card against plain."""
+    made: its plan (``sgm_cuda.vertical_plan``: form, cluster size, warps
+    and columns, clusters resident, waves), exact against its plain form on
+    the first frame, one device launch of the register form a call, five
+    timed runs of 5 calls; the same plan and runs at VERTICAL_TIMED_FRAMES
+    frames of that shape (random costs below the bound, exact on the first
+    frame's first 24 rows of the down set and last 24 of the up set); then
+    the grid, card against plain, with the
+    form each case took (``vertical.launches_by_form``)."""
     p = PARAMS
-    plan = sgm_cuda.vertical_plan(C)
-    kern = lambda: sgm_cuda.vertical(C, p.P1, p.P2, True, p.cost_bound)
-    n = sgm_cuda.vertical.device_launches
-    got = kern()
-    torch.cuda.synchronize()
-    if sgm_cuda.vertical.device_launches != n + 1:
-        raise AssertionError(f"the vertical scan made {sgm_cuda.vertical.device_launches - n} device launches")
-    ref = sgm_cuda.vertical_plain(C[:1], p.P1, p.P2, True)
-    if any(max_abs_err(a[:1], r) != 0 for a, r in zip(got, ref)):
-        raise AssertionError("the cluster vertical scan differs from its plain form on exact8's cost volume")
-    del got, ref
-    runs = [event_ms(kern, 5) for _ in range(5)]
-    print(f"kernel vertical (exact8 recorded): plan {json.dumps(plan)}, runs {[round(r, 4) for r in runs]} ms",
-          flush=True)
+    forms = sgm_cuda.vertical.launches_by_form
+
+    def timed(Cv: torch.Tensor, label: str, rows: int | None = None) -> dict:
+        plan = sgm_cuda.vertical_plan(Cv, True, p.P1)
+        kern = lambda: sgm_cuda.vertical(Cv, p.P1, p.P2, True, p.cost_bound)
+        n, nf = sgm_cuda.vertical.device_launches, dict(forms)
+        got = kern()
+        torch.cuda.synchronize()
+        moved = {k: v - nf[k] for k, v in forms.items() if v != nf[k]}
+        if sgm_cuda.vertical.device_launches != n + 1 or moved != {"registers": 1}:
+            raise AssertionError(f"the vertical scan at {label} made {sgm_cuda.vertical.device_launches - n} device "
+                                 f"launches of the forms {moved}, not one of the register form")
+        if rows is None:
+            ref = sgm_cuda.vertical_plain(Cv[:1], p.P1, p.P2, True)
+            bad = any(max_abs_err(a[:1], r) != 0 for a, r in zip(got, ref))
+        else:  # the down set's first rows and the up set's last depend on those rows alone
+            bad = (max_abs_err(got[0][:1, :rows], sgm_cuda.vertical_plain(Cv[:1, :rows], p.P1, p.P2, True)[0]) != 0
+                   or max_abs_err(got[1][:1, -rows:], sgm_cuda.vertical_plain(Cv[:1, -rows:], p.P1, p.P2, True)[1]) != 0)
+        if bad:
+            raise AssertionError(f"the vertical scan differs from its plain form at {label}")
+        del got
+        runs = [event_ms(kern, 5) for _ in range(5)]
+        print(f"kernel vertical ({label}): plan {json.dumps(plan)}, runs {[round(r, 4) for r in runs]} ms", flush=True)
+        return dict(plan=plan, runs_ms=runs, ms=min(runs))
+
+    out = {"exact8 recorded": timed(C, "exact8 recorded")}
+    Bc, Hc, Wc, Dc = C.shape
+    for frames in VERTICAL_TIMED_FRAMES:
+        gen = torch.Generator(device=dev).manual_seed(frames)
+        Cv = torch.randint(0, p.cost_bound + 1, (frames, Hc, Wc, Dc), generator=gen, device=dev, dtype=torch.int16)
+        out[f"{frames} frames"] = timed(Cv, f"{frames} x {Hc} x {Wc} x {Dc}", rows=24)
+        del Cv
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cases = 0
+    taken = dict.fromkeys(sgm_cuda.FORMS, 0)
     for D_ in VERTICAL_GRID_D:
         for B_, H_, W_ in VERTICAL_GRID_SHAPES:
             for dtype in (torch.int16, torch.int32):
@@ -2122,16 +2158,18 @@ def phase_vertical_cluster(dev, C: torch.Tensor) -> dict:
                 Cd = Cc.to(dev)
                 for diag in (True, False):
                     n = sgm_cuda.vertical.device_launches
-                    out = sgm_cuda.vertical(Cd, P1, P2, diag, bound)
+                    out_ = sgm_cuda.vertical(Cd, P1, P2, diag, bound)
+                    taken[sgm_cuda.vertical.plan["form"]] += 1
                     ok = sgm_cuda.vertical.device_launches == n + 1 and all(
                         torch.equal(a.cpu().to(torch.int32), r)
-                        for a, r in zip(out, sgm_cuda.vertical_plain(Cc, P1, P2, diag)))
+                        for a, r in zip(out_, sgm_cuda.vertical_plain(Cc, P1, P2, diag)))
                     if not ok:
                         raise AssertionError(f"vertical grid B={B_} H={H_} W={W_} D={D_} {dtype} diagonals={diag} "
-                                             f"(plan {sgm_cuda.vertical_plan(Cd)}) differs from its plain form")
+                                             f"(plan {sgm_cuda.vertical.plan}) differs from its plain form")
                     cases += 1
-    print(f"kernel vertical grid: {cases} cases exact ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return dict(plan=plan, runs_ms=runs, grid_cases=cases)
+    print(f"kernel vertical grid: {cases} cases exact, by form {json.dumps(taken)} "
+          f"({time.perf_counter() - t0:.1f} s); launches by form {json.dumps(forms)}", flush=True)
+    return dict(out, grid_cases=cases, grid_forms=taken)
 
 
 class _KernelNodeParams(ctypes.Structure):

@@ -2,7 +2,8 @@
 //
 // Replaces the kernel bodies of stereo_vision_tpu/stereo/sgm_pallas.py:
 //   _vertical_kernel   -> vertical_cluster (3 down + 3 up directions; the
-//                         sgm_reduce_pallas and aggregate_8_pallas sites)
+//                         sgm_reduce_pallas and aggregate_8_pallas sites;
+//                         its register form and its cluster form)
 //   _horizontal_kernel -> horizontal_scan (L->R, or R->L; both sites)
 //   _wta4_kernel       -> wta_kernel     (sum of 2-4 direction volumes ->
 //                                         min/argmin/uniqueness/subpixel samples)
@@ -33,15 +34,39 @@
 // the cost and three volumes (850 MB) and writes only the maps. The scans
 // are also latency-bound chains: H (or W) dependent steps.
 //
-// Vertical design (redesigned for Hopper): a diagonal moves one
-// column per row, so a block that owns a column strip needs its neighbours'
+// Vertical design (redesigned for Hopper, twice): a diagonal moves one
+// column per row, so whatever owns a column strip needs its neighbours'
 // edge carries every row. The first design launched once a row (720
 // launches an exact8 call, 9.3 us each, carries round-tripping through L2).
 // vertical_cluster makes it one launch: a thread block cluster per (frame,
-// set) whose blocks split the columns and walk all H rows, the carries in
-// shared memory, the strip edges' carries read from the neighbour blocks'
-// shared memory (distributed shared memory) behind a split cluster barrier
-// a row.
+// set) whose blocks split the columns and walk all H rows.
+//
+// What bounded that cluster kernel was neither bytes nor the barrier but
+// instruction issue and SM coverage: each column step loaded and stored
+// its three carries in shared memory with their address and border
+// arithmetic and 16x2 adds (__vadd2 / __vsub2, several instructions each),
+// ~330 instructions a column; and its carry rows (1.5 KB a column) held a
+// block to 72 or 144 columns, so 8 frames (16 chains) ran as 3 waves of 7,
+// 7 and 2 clusters of 16 (9.3 ms a call, 6.1x its bytes' time). The
+// register form (vertical_cluster<N, CPW>) keeps every carry of a
+// warp's CPW columns in registers for the whole scan, normalized (L - min
+// L, no minimum carried), with plain 32-bit adds where no halfword can
+// carry; only a warp's two edge carries leave it, pushed into its
+// neighbours' shared memory with st.async on an mbarrier (no fence on the
+// volume's stores, no cluster-wide barrier a row); one block an SM, and
+// the plan (sgm_cuda.register_plan) splits each chain over a cluster and
+// the cluster's warps from the clusters the card holds at once. ~92
+// instructions a column; at 8 frames one wave of clusters of 6 over 96 SMs
+// runs into HBM (2.4 ms a call against 2.3 ms for torch's copy of the same
+// bytes). Which form runs where:
+//  - register form: int16, with diagonals, D = 64, 128 or 256 (every
+//    lane's 2N values real), P1 <= 0x7fff, W within 16 blocks of the
+//    widest warps the card's registers allow (3072 columns at D = 128):
+//    every main path (exact8, aggregate_8);
+//  - the cluster kernel below (carry rows in shared memory, or in scratch
+//    where they do not fit): int32, no diagonals, the other D up to 1024
+//    (VPL 1, 16, 32 among them) and wider rows;
+//  - above 1024 disparities, a launch a row (vertical_step_wide).
 //
 // Horizontal design: one warp per (frame, row) keeps its carry in registers
 // and walks the W columns, prefetching the next column's costs.
@@ -152,7 +177,8 @@ __device__ __forceinline__ int sgm_step(const int (&c)[VPL], const int (&L)[VPL]
 
 // ------------------------------------------------ the vertical scans
 
-// One thread block cluster per (frame, set): blockIdx.y = frame, blockIdx.z
+// The cluster form (every vertical scan the register form below does not
+// take). One thread block cluster per (frame, set): blockIdx.y = frame, blockIdx.z
 // = set (0: the down set on rows 0..H-1; 1: the up set on rows H-1..0, the
 // reference's y-flipped scan with the SAME column shifts), blockIdx.x = the
 // block's rank in its cluster of CS blocks, which owns columns rank * SW ..
@@ -406,6 +432,310 @@ vertical_cluster(VerticalArgs a) {
     __syncthreads();
     if (diag) cluster_wait();
   }
+}
+
+// ------------------------------------------------ the register form of #2
+
+// vertical_cluster's register form: the packed int16 step with diagonals at
+// D = 64 N (N = 1, 2, 4 words a lane, every lane's 2N values real). A
+// cluster of CS blocks a (frame, set), one block an SM; warp g of the chain
+// (block rank * NW + warp) owns columns g * CPW .. g * CPW + CPW - 1 (the
+// last warps fewer or none) for the whole scan and keeps their three
+// carries in registers, each as H = L - min L (so that no minimum is
+// carried: L' = c + min(H, H[d-1] + P1, H[d+1] + P1, P2), H' = L' - min L').
+// The only carries that leave a warp are its edges' (its last column's x-1
+// carry, its first column's x+1 carry): at each row the warp pushes them
+// with st.async into its neighbour warps' inboxes (shared memory, across
+// blocks the cluster's), each inbox a ping-pong pair of slots whose
+// mbarrier counts the bytes in. A row: wait for the neighbours' edges of
+// the previous row, the warp's two edge columns, their st.async, then the
+// interior columns, which hide the neighbours' latency. No fence orders the
+// volume's stores and no barrier spans the cluster: a warp waits only for
+// its two neighbours. The interior's costs are loaded a column ahead from
+// L2, where the previous row prefetched them; the sums stream out
+// evict-first. Every value a half holds is below 2^15 (int16 storage of
+// three carries: c + P2 < 2^15 / 3), so the sums and differences of packed
+// words are plain 32-bit adds with no carry between halves.
+constexpr int kRegMaxCluster = 16;
+
+// Threads a block of the register form may have at N words a lane and CPW
+// columns a warp: the launch bound that leaves registers for the 3N x CPW
+// words of carries a lane holds.
+__host__ __device__ constexpr int reg_threads(int N, int CPW) {
+  return 3 * N * CPW <= 72 ? 512 : 3 * N * CPW <= 108 ? 384 : 256;
+}
+// The columns a warp the form is built for: 1-12, 14 and 16 at one or two
+// words a lane, 1-8 at four.
+__host__ __device__ constexpr bool reg_built(int N, int CPW) {
+  return CPW >= 1 && (N >= 4 ? CPW <= 8 : CPW <= 12 || CPW == 14 || CPW == 16);
+}
+
+// Shared-memory addresses (32-bit) and the mbarrier / st.async operations
+// of the register form's edge exchange.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// The address in the cluster's shared window of `addr` in block `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// Arrive on the mbarrier, expecting `bytes` of transactions for its phase.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of the given parity has completed (acquire, cluster
+// scope: the bytes came from other blocks' st.async).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, "
+        "p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// A lane's N words into the cluster's shared memory at `addr`, completing
+// their bytes on the mbarrier at `bar` (both in the receiver's block).
+template <int N>
+__device__ __forceinline__ void st_async(uint32_t addr, const unsigned (&w)[N], uint32_t bar) {
+  if constexpr (N == 1)
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];" ::"r"(addr), "r"(w[0]),
+                 "r"(bar)
+                 : "memory");
+  else if constexpr (N == 2)
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];" ::"r"(addr),
+                 "r"(w[0]), "r"(w[1]), "r"(bar)
+                 : "memory");
+  else
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.u32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(
+                     addr),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]), "r"(bar)
+                 : "memory");
+}
+
+// A lane's N words to device memory, evict-first (st.global.cs).
+template <int N>
+__device__ __forceinline__ void st_stream(int16_t* p, const unsigned (&w)[N]) {
+  if constexpr (N == 1)
+    __stcs(reinterpret_cast<unsigned*>(p), w[0]);
+  else if constexpr (N == 2)
+    __stcs(reinterpret_cast<uint2*>(p), make_uint2(w[0], w[1]));
+  else
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+}
+
+// Bring the line at p into L2 (no register waits for it).
+__device__ __forceinline__ void prefetch_l2(const void* p) { asm volatile("prefetch.global.L2 [%0];" ::"l"(p)); }
+
+// The register form's value beyond d = 0 and d = D - 1: at least P2 (int16
+// storage of three carries keeps P2 < 2^15 / 3), so that no minimum takes
+// it, and small enough that it + P1 + c never passes 16 bits.
+constexpr unsigned kRegEdge = 10923;  // ceil(2^15 / 3)
+
+// One normalized packed step from the predecessor's carry Hp over the
+// costs c: L' (Ln, the real values, for the sum) and H' = L' - min L' (Hn).
+// pc and p2c are P1 + c and P2 + c, halfword by halfword. The sentinel
+// beyond the lane's edges is a halfword maximum rather than a predicate:
+// edge_lo holds it in the high half on lane 0 (the value below d = 0; lane
+// 0's shuffle returns its own word, whose halves are below the sentinel),
+// edge_hi in the low half on lane 31 (the value above d = D - 1), zero
+// elsewhere.
+template <int N>
+__device__ __forceinline__ void reg_step(const unsigned (&c)[N], const unsigned (&pc)[N], const unsigned (&p2c)[N],
+                                         const unsigned (&Hp)[N], unsigned edge_lo, unsigned edge_hi,
+                                         unsigned (&Ln)[N], unsigned (&Hn)[N]) {
+  const unsigned below = __vmaxu2(__shfl_up_sync(kFullMask, Hp[N - 1], 1), edge_lo);  // high half: H at d - 1
+  const unsigned above = __vmaxu2(__shfl_down_sync(kFullMask, Hp[0], 1), edge_hi);    // low half: H at d + 2N
+  unsigned Hm[N + 1];  // Hm[w]: H at d - 1 of word w; Hm[w + 1]: H at d + 1
+  Hm[0] = __byte_perm(below, Hp[0], 0x5432);
+#pragma unroll
+  for (int w = 1; w < N; ++w) Hm[w] = __byte_perm(Hp[w - 1], Hp[w], 0x5432);
+  Hm[N] = __byte_perm(Hp[N - 1], above, 0x5432);
+  unsigned lo = 0;
+#pragma unroll
+  for (int w = 0; w < N; ++w) {
+    // c + min(H, H[d-1] + P1, H[d+1] + P1, P2) = min(min(H[d-1], H[d+1]) + P1 + c, min(H + c, P2 + c))
+    Ln[w] = __viaddmin_u16x2(__vminu2(Hm[w], Hm[w + 1]), pc[w], __viaddmin_u16x2(Hp[w], c[w], p2c[w]));
+    lo = w == 0 ? Ln[0] : __vminu2(lo, Ln[w]);
+  }
+  lo = __vminu2(lo, __byte_perm(lo, 0, 0x1032));  // both halves: the lane's minimum
+  const unsigned m = __reduce_min_sync(kFullMask, lo);
+#pragma unroll
+  for (int w = 0; w < N; ++w) Hn[w] = Ln[w] - m;
+}
+
+struct RegArgs {
+  const int16_t* C;
+  int16_t* s_dn;
+  int16_t* s_up;
+  int H, W, P1, P2;
+};
+
+// A lane's N words of one carry, as one shared-memory access.
+template <int N>
+struct __align__(4 * N) RegVec {
+  unsigned w[N];
+};
+
+template <int N, int CPW>
+__global__ void __launch_bounds__(reg_threads(N, CPW), 1) vertical_cluster(const RegArgs a) {
+  using V = RegVec<N>;
+  extern __shared__ __align__(16) unsigned char vsm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y, set = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, NW = blockDim.x >> 5;
+  const int H = a.H, W = a.W;
+  constexpr int D = 64 * N;  // every lane holds 2N disparities
+  // This warp's first column and its columns, through the warp's reduction
+  // so that the compiler sees values the whole warp shares (its branches on
+  // them then keep the warp converged).
+  const int x0 = static_cast<int>(__reduce_min_sync(kFullMask, static_cast<unsigned>((rank * NW + warp) * CPW)));
+  const int nv = max(0, min(CPW, W - x0));
+  // This warp's inboxes, [slot][side][lane] words, side 0 from its left
+  // neighbour (that warp's last column's x-1 carry), side 1 from its right
+  // (its first column's x+1 carry), and their mbarriers [slot][side]: kBox
+  // bytes a warp. A sender writes a row's edge into slot row & 1 of its
+  // neighbour's inbox with st.async, which completes the transaction bytes
+  // its receiver expects on the mbarrier beside it.
+  constexpr int kData = 2 * 2 * 32 * (int)sizeof(V), kBox = kData + 4 * 8;
+  const uint32_t box = smem_u32(vsm) + warp * kBox;
+  const bool has_left = nv > 0 && x0 > 0, has_right = nv == CPW && x0 + CPW < W;
+  if (lane == 0)
+    for (int k = 0; k < 4; ++k) mbar_init(box + kData + 8 * k);
+  fence_mbar_init();
+  cluster.sync();  // every block's mbarriers are ready before any st.async
+  // The left neighbour's side-1 inbox (slot 0) and mbarrier, the right's side-0.
+  const int gl = rank * NW + warp - 1, gr = rank * NW + warp + 1;
+  const uint32_t to_left = has_left ? map_rank(smem_u32(vsm) + (gl % NW) * kBox, gl / NW) : 0;
+  const uint32_t to_right = has_right ? map_rank(smem_u32(vsm) + (gr % NW) * kBox, gr / NW) : 0;
+  const uint32_t lane_off = lane * (uint32_t)sizeof(V);
+
+  const unsigned edge_lo = lane == 0 ? kRegEdge << 16 : 0u, edge_hi = lane == 31 ? kRegEdge : 0u;
+  const unsigned p1 = static_cast<unsigned>(a.P1) * 0x10001u, p2 = static_cast<unsigned>(a.P2) * 0x10001u;
+  const long long rs = static_cast<long long>(W) * D;  // a row's values
+  const long long start = ((long long)b * H + (set ? H - 1 : 0)) * rs + (long long)x0 * D;
+  // A lane's words of column j at base + j * D.
+  const int16_t* cp = a.C + start + lane * 2 * N;
+  int16_t* sp = (set ? a.s_up : a.s_dn) + start + lane * 2 * N;
+  const long long step = set ? -rs : rs;
+  auto load = [&](const int16_t* p, unsigned (&w)[N]) {
+    const V v = *reinterpret_cast<const V*>(p);
+#pragma unroll
+    for (int q = 0; q < N; ++q) w[q] = v.w[q];
+  };
+
+  unsigned H0[CPW][N], H1[CPW][N], H2[CPW][N];  // the carries, L - min L
+#pragma unroll
+  for (int j = 0; j < CPW; ++j)
+#pragma unroll
+    for (int w = 0; w < N; ++w) H0[j][w] = H1[j][w] = H2[j][w] = 0;
+  // The costs of the two edge columns of the coming row; the interior's are
+  // loaded a column ahead, from L2, where the row before prefetched them
+  // (one row ahead: further, the prefetched rows and the stores crowd L2).
+  unsigned ce0[N] = {}, ce1[N] = {};
+  if (nv > 0) load(cp, ce0);
+  if (nv == CPW && CPW > 1) load(cp + (CPW - 1) * D, ce1);
+
+  // One row; kTail: a warp with fewer than CPW columns (its others stay the
+  // zero carry, which is what a column past the frame gives).
+  auto row = [&](int i, auto tail) {
+    constexpr bool kTail = decltype(tail)::value;
+    unsigned lb[N], rb[N];  // column x0 - 1's x-1 carry, column x0 + CPW's x+1 carry
+#pragma unroll
+    for (int w = 0; w < N; ++w) lb[w] = rb[w] = 0;
+    if (i > 0) {  // the neighbours' edges of the previous row
+      const uint32_t slot = ((i - 1) & 1) * (kData / 2), parity = ((i - 1) >> 1) & 1;
+      if (has_left) {
+        mbar_wait(box + kData + (((i - 1) & 1) * 2 + 0) * 8, parity);
+        const V v = *reinterpret_cast<const V*>(vsm + warp * kBox + slot + lane_off);
+#pragma unroll
+        for (int w = 0; w < N; ++w) lb[w] = v.w[w];
+      }
+      if (has_right) {
+        mbar_wait(box + kData + (((i - 1) & 1) * 2 + 1) * 8, parity);
+        const V v = *reinterpret_cast<const V*>(vsm + warp * kBox + slot + 32 * sizeof(V) + lane_off);
+#pragma unroll
+        for (int w = 0; w < N; ++w) rb[w] = v.w[w];
+      }
+    }
+    const bool more = i + 1 < H;
+    if (more && lane == 0) {  // this row's edges from the neighbours, read at the next
+      if (has_left) mbar_expect(box + kData + ((i & 1) * 2 + 0) * 8, 32 * sizeof(V));
+      if (has_right) mbar_expect(box + kData + ((i & 1) * 2 + 1) * 8, 32 * sizeof(V));
+    }
+    unsigned N0[CPW][N], N1[CPW][N], N2[CPW][N];
+    const int16_t* next = cp + (more ? step : 0);  // the last row's loads stay in its own
+    auto column = [&](int j, const unsigned (&c)[N]) {
+      if (kTail && j >= nv) {
+#pragma unroll
+        for (int w = 0; w < N; ++w) N0[j][w] = H0[j][w], N1[j][w] = H1[j][w], N2[j][w] = H2[j][w];
+        return;
+      }
+      unsigned pc[N], p2c[N], in1[N], in2[N], L0[N], L1[N], L2[N];
+#pragma unroll
+      for (int w = 0; w < N; ++w) {
+        pc[w] = p1 + c[w];
+        p2c[w] = p2 + c[w];
+        in1[w] = j == 0 ? lb[w] : H1[j > 0 ? j - 1 : 0][w];
+        in2[w] = j == CPW - 1 ? rb[w] : H2[j < CPW - 1 ? j + 1 : j][w];
+      }
+      reg_step<N>(c, pc, p2c, H0[j], edge_lo, edge_hi, L0, N0[j]);
+      reg_step<N>(c, pc, p2c, in1, edge_lo, edge_hi, L1, N1[j]);
+      reg_step<N>(c, pc, p2c, in2, edge_lo, edge_hi, L2, N2[j]);
+      V acc;
+#pragma unroll
+      for (int w = 0; w < N; ++w) acc.w[w] = L0[w] + L1[w] + L2[w];
+      st_stream<N>(sp + j * D, acc.w);  // read by a later kernel, not from L2 by this one
+      if (more) prefetch_l2(next + j * D);
+    };
+    unsigned cn[N] = {};  // the next interior column's costs
+    if (CPW > 2 && (!kTail || nv > 1)) load(cp + D, cn);
+    column(0, ce0);
+    if (CPW > 1) column(CPW - 1, ce1);
+    if (more) {  // the edges, into the neighbours' inboxes (slot i & 1)
+      const uint32_t slot = (i & 1) * (kData / 2);
+      if (has_right)
+        st_async<N>(to_right + slot + lane_off, N1[CPW - 1], to_right + kData + ((i & 1) * 2 + 0) * 8);
+      if (has_left)
+        st_async<N>(to_left + slot + 32 * sizeof(V) + lane_off, N2[0], to_left + kData + ((i & 1) * 2 + 1) * 8);
+    }
+#pragma unroll
+    for (int j = 1; j < CPW - 1; ++j) {
+      unsigned c[N];
+#pragma unroll
+      for (int w = 0; w < N; ++w) c[w] = cn[w];
+      if (j + 1 < CPW - 1 && (!kTail || j + 1 < nv)) load(cp + (j + 1) * D, cn);
+      column(j, c);
+    }
+    if (!kTail || nv > 0) load(next, ce0);
+    if (CPW > 1 && !kTail) load(next + (CPW - 1) * D, ce1);
+#pragma unroll
+    for (int j = 0; j < CPW; ++j)
+#pragma unroll
+      for (int w = 0; w < N; ++w) H0[j][w] = N0[j][w], H1[j][w] = N1[j][w], H2[j][w] = N2[j][w];
+    cp += step;
+    sp += step;
+  };
+  if (nv == CPW) {
+#pragma unroll 1
+    for (int i = 0; i < H; ++i) row(i, std::false_type{});
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < H; ++i) row(i, std::true_type{});
+  }
+  cluster.sync();  // no block leaves while a neighbour's st.async may be under way
 }
 
 // One warp per (frame, row): the L->R (reverse: R->L) scan over W columns.
@@ -1139,6 +1469,85 @@ struct VerticalFn {
   }
 };
 
+// The register form's launch geometry: grid (CS, B, 2), clusters of CS,
+// NW warps a block and enough dynamic shared memory that no two blocks
+// share an SM (the warps' inboxes need (512 N + 32) NW bytes).
+cudaError_t reg_config(int CS, int B, int NW, int N, cudaStream_t st, cudaLaunchConfig_t* cfg,
+                       cudaLaunchAttribute* attr) {
+  int dev = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e != cudaSuccess) return e;
+  const size_t smem = std::max((size_t)(512 * N + 32) * NW, (size_t)per_sm / 2 + 1);
+  *cfg = cluster_config(CS, B, NW, smem, st, attr);
+  return cudaSuccess;
+}
+
+template <int N, int CPW>
+struct RegFn {
+  static constexpr int kN = N, kCPW = CPW;
+  static auto kernel() { return vertical_cluster<N, CPW>; }
+  static cudaError_t prepare(int NW, int CS, int B, cudaStream_t st, cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr) {
+    cudaError_t e = reg_config(CS, B, NW, N, st, cfg, attr);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg->dynamicSmemBytes);
+    return e;
+  }
+  // Warps a block may have: the launch bound and the registers allow, 0
+  // where the build keeps anything in local memory.
+  static int warps() {
+    cudaFuncAttributes fa;
+    if (cudaFuncGetAttributes(&fa, kernel()) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    return fa.localSizeBytes > 0 ? 0 : std::min(fa.maxThreadsPerBlock, reg_threads(N, CPW)) / 32;
+  }
+  static int clusters(int NW, int CS) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int active = 0;
+    if (prepare(NW, CS, 1, nullptr, &cfg, &attr) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&active, kernel(), &cfg) != cudaSuccess) {
+      cudaGetLastError();  // a cluster the card does not hold
+      return 0;
+    }
+    return active;
+  }
+  static cudaError_t launch(const RegArgs& a, int B, int NW, int CS, cudaStream_t st) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t e = prepare(NW, CS, B, st, &cfg, &attr);
+    if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kernel(), a);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
+};
+
+// f(RegFn<N, CPW>{}) for N words a lane and CPW columns a warp, where that
+// form is built; `refused` otherwise.
+template <int N, int CPW = 1, typename F, typename R>
+R by_columns(int cpw, F f, R refused) {
+  if constexpr (CPW > 16) {
+    return refused;
+  } else {
+    if constexpr (reg_built(N, CPW))
+      if (cpw == CPW) return f(RegFn<N, CPW>{});
+    return by_columns<N, CPW + 1>(cpw, f, refused);
+  }
+}
+
+// The same over D = 64 N disparities (64, 128 or 256: the packed step with
+// every lane's VPL = 2N values real).
+template <typename F, typename R>
+R by_form(int D, int cpw, F f, R refused) {
+  if (D == 64) return by_columns<1>(cpw, f, refused);
+  if (D == 128) return by_columns<2>(cpw, f, refused);
+  if (D == 256) return by_columns<4>(cpw, f, refused);
+  return refused;
+}
+
 template <typename T, int VPL>
 struct HorizontalFn {
   static cudaError_t run(const void* C, void* out, int rows, int W, int D, int P1, int P2, int reverse,
@@ -1241,6 +1650,42 @@ SVT_EXPORT int svt_sgm_vertical(const void* C, void* s_dn, void* s_up, void* scr
   }
   if (p.CS < 1) return cudaErrorInvalidValue;
   return dispatch<VerticalFn>(bytes, D, p, C, s_dn, s_up, scratch, B, H, W, D, P1, P2, with_diag, st);
+}
+
+// The register form of the vertical scan (int16, with diagonals; D % VPL
+// == 0 at VPL 2, 4 or 8): warps a block of `cpw` columns a warp may have
+// (0: not built for D and cpw, or the build spills).
+SVT_EXPORT int svt_sgm_vertical_registers_warps(int D, int cpw) {
+  return by_form(D, cpw, [](auto fn) { return decltype(fn)::warps(); }, 0);
+}
+
+// Clusters of `cs` blocks of `nw` warps (cpw columns a warp) the card holds
+// at once, one block an SM; 0 where it holds none or the form is not built.
+SVT_EXPORT int svt_sgm_vertical_registers_clusters(int D, int cpw, int nw, int cs) {
+  if (cs < 1 || cs > kRegMaxCluster || nw < 1) return 0;
+  return by_form(D, cpw, [&](auto fn) { return decltype(fn)::clusters(nw, cs); }, 0);
+}
+
+// (B, H, W, D) int16 cost -> down-set and up-set sums with diagonals, the
+// register form: clusters of `cs` blocks of `nw` warps, `cpw` columns a
+// warp (cs * nw * cpw >= W), one device launch; P1 <= 0x7fff and every
+// stored value below 2^15 / 3 (sgm_cuda.storage_dtype at three carries:
+// the caller's cost bound + P2, so P2 below kRegEdge).
+SVT_EXPORT int svt_sgm_vertical_registers(const void* C, void* s_dn, void* s_up, int B, int H, int W, int D, int P1,
+                                          int P2, int cs, int nw, int cpw, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || P1 < 0 || P1 > (int)kPackedOut || P2 < 0 || P2 >= (int)kRegEdge || cs < 1 ||
+      cs > kRegMaxCluster || nw < 1 || (long long)cs * nw * cpw < W)
+    return cudaErrorInvalidValue;
+  const RegArgs a{static_cast<const int16_t*>(C), static_cast<int16_t*>(s_dn), static_cast<int16_t*>(s_up), H, W, P1,
+                  P2};
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_form(
+      D, cpw,
+      [&](auto fn) {
+        using Fn = decltype(fn);
+        return 32 * nw > reg_threads(Fn::kN, Fn::kCPW) ? cudaErrorInvalidValue : Fn::launch(a, B, nw, cs, st);
+      },
+      cudaErrorInvalidValue);
 }
 
 // (B, H, W, D) cost -> one horizontal direction volume of the same type.

@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from stereo_vision_tpu_torch import _build
-from stereo_vision_tpu_torch.device import stream_handle
+from stereo_vision_tpu_torch.device import device_index, stream_handle
 
 _BIG = 1 << 29  # out-of-range d±1 neighbour: far above any reachable L
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -44,6 +44,12 @@ _SIGNATURES = {
     "svt_sgm_vertical": [_P] * 4 + [_I] * 8 + [_P, _P],
     # B, H, W, D, bytes, plan out (8 long longs)
     "svt_sgm_vertical_plan": [_I] * 5 + [_P],
+    # C, s_dn, s_up, B, H, W, D, P1, P2, cluster, warps, columns a warp, stream
+    "svt_sgm_vertical_registers": [_P] * 3 + [_I] * 9 + [_P],
+    # D, columns a warp -> warps a block of the register form (0: not built / spills)
+    "svt_sgm_vertical_registers_warps": [_I] * 2,
+    # D, columns a warp, warps, cluster -> clusters the card holds at once (one block an SM)
+    "svt_sgm_vertical_registers_clusters": [_I] * 4,
     # C, out, B, H, W, D, P1, P2, reverse, bytes, stream
     "svt_sgm_horizontal": [_P] * 2 + [_I] * 8 + [_P],
     # v0..v3, nvol, minS, best, sm, s0, sp, uok, npix, D, uniq, bytes, stream
@@ -72,7 +78,29 @@ _FUSED_RL_WTA = False
 # block, scratch bytes, device launches.
 _PLAN_FIELDS = ("cluster", "columns", "warps", "carries_in_smem", "active_clusters", "smem_bytes", "scratch_bytes",
                 "device_launches")
-_plans: dict[tuple, tuple] = {}
+# (device, B, H, W, D, bytes, words) -> the plan, and the cluster form's
+# plan as svt_sgm_vertical takes it (None for the register form).
+_plans: dict[tuple, tuple[dict, ctypes.Array | None]] = {}
+# The forms of the vertical scan (#2), as vertical_plan names them and
+# vertical.launches_by_form counts them: "registers", a warp's columns'
+# carries in registers for the whole scan (the packed int16 step with
+# diagonals at D = 64, 128, 256, :func:`packed_words`); "shared" and
+# "scratch", the cluster kernel with a block's carry rows in shared memory
+# or in device scratch (every other scan up to 1024 disparities); "wide", a
+# launch a row above.
+FORMS = ("registers", "shared", "scratch", "wide")
+# Columns a warp the register form is built for (csrc/sgm.cu reg_built), by
+# the 32-bit words a lane holds of a D-vector (D / 64: 1, 2, 4).
+REGISTER_COLUMNS = {1: (*range(1, 13), 14, 16), 2: (*range(1, 13), 14, 16), 4: tuple(range(1, 9))}
+# The register form's model of a block's row (an SM's, one block an SM), in
+# cycles: each of the SM's four schedulers issues ~COLUMN_ISSUE instructions
+# a column for ceil(warps / 4) warps, and a warp takes at least
+# ~COLUMN_LATENCY cycles a column (its three steps' dependent chains), plus
+# ~ROW_CYCLES a row (the edge exchange). Fitted to one H100's rows at B = 1
+# (PERF.md).
+COLUMN_ISSUE, COLUMN_LATENCY, ROW_CYCLES = 100, 350, 600
+_REG_LIMITS: dict[tuple, int] = {}  # (device, D, columns a warp) -> warps a block
+_REG_CLUSTERS: dict[tuple, int] = {}  # (device, D, columns a warp, warps, cluster) -> clusters at once
 # The fields of svt_sgm_rl_wta_plan (the fused R->L WTA's launch): its form
 # (_RL_FORMS), rows (warps) a block, ring columns a row, shared-memory bytes
 # a block.
@@ -268,36 +296,117 @@ def _maps(like: torch.Tensor):
         torch.empty(shape, dtype=torch.bool, device=like.device)
 
 
-def _plan(C: torch.Tensor):
-    """svt_sgm_vertical_plan's long longs for the CUDA volume ``C``, cached by
-    device, shape and type."""
+def packed_words(D: int, dtype: torch.dtype, with_diagonals: bool, P1: int) -> int:
+    """The 32-bit words a lane holds of a D-vector in the register form of
+    the vertical scan (1, 2 or 4), or 0 where the form does not apply: it is
+    the packed int16 step (two values a word, P1 <= 0x7fff) with diagonals,
+    at D = 64, 128 or 256 (every lane's 2, 4 or 8 values real)."""
+    if dtype != torch.int16 or not with_diagonals or D not in (64, 128, 256) or P1 > 0x7FFF:
+        return 0
+    return D // 64
+
+
+def register_plan(B: int, W: int, D: int, *, active_clusters, max_warps) -> dict | None:
+    """The register form's launch for B frames of W columns of D disparities
+    (D packable, :func:`packed_words`), or None where no cluster of at most
+    16 blocks holds W columns in registers.
+
+    A chain (frame, set) is a cluster of ``cluster`` blocks, one block an SM;
+    a block has ``warps`` warps, a warp ``cols_per_warp`` consecutive columns
+    (the last warps of the chain fewer or none). ``max_warps(cpw)`` says how
+    many warps a block of cpw columns a warp may have (0: none),
+    ``active_clusters(cs, nw, cpw)`` how many such clusters the card holds
+    at once. Of the splits that cover W, the one whose waves of clusters
+    times its modelled row (COLUMN_ISSUE, COLUMN_LATENCY, ROW_CYCLES) is least,
+    then the fewer waves, the smaller cluster, the fewer columns a warp.
+    Returns the fields of ``_PLAN_FIELDS`` and ``form``, ``cols_per_warp``,
+    ``waves`` and ``sms`` (the SMs of the first wave)."""
+    words = D // 64
+    chains = 2 * B
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+    best = None
+    for cpw in REGISTER_COLUMNS[words]:
+        nw_max = max_warps(cpw)
+        for cs in range(1, 17):
+            nw = ceil(W, cs * cpw)
+            if nw > nw_max or (cs - 1) * nw * cpw >= W:
+                continue  # too many warps for a block, or a block with no column
+            active = active_clusters(cs, nw, cpw)
+            if active < 1:
+                continue
+            waves = ceil(chains, active)
+            row = max(ceil(nw, 4) * cpw * COLUMN_ISSUE, cpw * COLUMN_LATENCY) + ROW_CYCLES
+            key = (waves * row, waves, cs, cpw)
+            if best is None or key < best[0]:
+                best = (key, dict(cluster=cs, columns=nw * cpw, warps=nw, carries_in_smem=0, active_clusters=active,
+                                  smem_bytes=0, scratch_bytes=0, device_launches=1, form="registers",
+                                  cols_per_warp=cpw, waves=waves, sms=min(chains, active) * cs))
+    return None if best is None else best[1]
+
+
+def _device_register_plan(C: torch.Tensor) -> dict | None:
+    """:func:`register_plan` for the CUDA volume C, with the warps each build
+    of the form allows on its card (launch bounds, registers, no spills) and
+    its occupancy calculator's clusters."""
+    lib = _lib()
+    dev = device_index(C)
     B, H, W, D = C.shape
-    key = (C.device.index, B, H, W, D, C.element_size())
-    plan = _plans.get(key)
-    if plan is None:
-        lib = _lib()
-        plan = (ctypes.c_longlong * len(_PLAN_FIELDS))()
-        with torch.cuda.device(C.device):
-            err = lib.svt_sgm_vertical_plan(B, H, W, D, C.element_size(), plan)
-        _build.check(lib, err, "svt_sgm_vertical_plan")
-        _plans[key] = plan
-    return plan
+
+    def max_warps(cpw: int) -> int:
+        key = (dev, D, cpw)
+        if key not in _REG_LIMITS:
+            with torch.cuda.device(dev):
+                _REG_LIMITS[key] = lib.svt_sgm_vertical_registers_warps(D, cpw)
+        return _REG_LIMITS[key]
+
+    def active(cs: int, nw: int, cpw: int) -> int:
+        key = (dev, D, cpw, nw, cs)
+        if key not in _REG_CLUSTERS:
+            with torch.cuda.device(dev):
+                _REG_CLUSTERS[key] = max(0, lib.svt_sgm_vertical_registers_clusters(D, cpw, nw, cs))
+        return _REG_CLUSTERS[key]
+
+    return register_plan(B, W, D, active_clusters=active, max_warps=max_warps)
 
 
-def vertical_plan(C: torch.Tensor) -> dict:
-    """How :func:`vertical` launches on a (B, H, W, D) CUDA cost volume: the
-    fields of ``_PLAN_FIELDS`` (one cluster launch, or above 1024 disparities
-    H row launches)."""
-    return dict(zip(_PLAN_FIELDS, _plan(C)))
+def _plan(C: torch.Tensor, with_diagonals: bool, P1: int) -> tuple[dict, ctypes.Array | None]:
+    """:func:`vertical_plan`'s plan, cached by device, shape, type and form,
+    with the cluster form's long longs for svt_sgm_vertical."""
+    B, H, W, D = C.shape
+    words = packed_words(D, C.dtype, with_diagonals, P1)
+    key = (device_index(C), B, H, W, D, C.element_size(), words)
+    entry = _plans.get(key)
+    if entry is None:
+        plan, out = _device_register_plan(C) if words else None, None
+        if plan is None:
+            lib = _lib()
+            out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+            with torch.cuda.device(C.device):
+                err = lib.svt_sgm_vertical_plan(B, H, W, D, C.element_size(), out)
+            _build.check(lib, err, "svt_sgm_vertical_plan")
+            plan = dict(zip(_PLAN_FIELDS, out))
+            plan["form"] = "wide" if plan["cluster"] == 0 else "shared" if plan["carries_in_smem"] else "scratch"
+        entry = _plans[key] = (plan, out)
+    return entry
+
+
+def vertical_plan(C: torch.Tensor, with_diagonals: bool = True, P1: int = 0) -> dict:
+    """How :func:`vertical` launches on a (B, H, W, D) CUDA cost volume
+    stored as C is (with or without diagonals, at P1): the fields of
+    ``_PLAN_FIELDS`` and ``form`` (:data:`FORMS`; the register form also
+    ``cols_per_warp``, ``waves`` and ``sms``, :func:`register_plan`). One
+    device launch, or above 1024 disparities H row launches."""
+    return dict(_plan(C, with_diagonals, P1)[0])
 
 
 def vertical(C, P1: int, P2: int, with_diagonals: bool, cost_bound: int):
     """(B, H, W, D) cost -> (down-set sum, up-set sum) volumes.
 
     On CUDA one launch of a thread block cluster a (frame, set) walks the H
-    rows (counted in ``vertical.launches``; ``vertical.device_launches``
-    counts device launches: 1 a call, H above 1024 disparities; ``vertical.plan``
-    is the last call's :func:`vertical_plan`)."""
+    rows, by :func:`vertical_plan`'s form (counted in ``vertical.launches``
+    and, by form, ``vertical.launches_by_form``; ``vertical.device_launches``
+    counts device launches: 1 a call, H above 1024 disparities;
+    ``vertical.plan`` is the last call's plan)."""
     C = _check_volume(C, P1, P2, cost_bound, 3 if with_diagonals else 1)
     if C.device.type == "cpu":
         return vertical_plain(C, P1, P2, with_diagonals)
@@ -306,17 +415,23 @@ def vertical(C, P1: int, P2: int, with_diagonals: bool, cost_bound: int):
     s_up = torch.empty_like(C)
     if C.numel() == 0:
         return s_dn, s_up
-    plan = _plan(C)
-    nbytes = plan[_PLAN_FIELDS.index("scratch_bytes")]
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
+    plan, out = _plan(C, with_diagonals, P1)
     lib = _lib()
-    err = lib.svt_sgm_vertical(C.data_ptr(), s_dn.data_ptr(), s_up.data_ptr(),
-                               None if scratch is None else scratch.data_ptr(), B, H, W, D, P1, P2,
-                               int(with_diagonals), C.element_size(), plan, _stream(C))
-    _build.check(lib, err, "svt_sgm_vertical")
+    if out is None:  # the register form
+        err = lib.svt_sgm_vertical_registers(C.data_ptr(), s_dn.data_ptr(), s_up.data_ptr(), B, H, W, D, P1, P2,
+                                             plan["cluster"], plan["warps"], plan["cols_per_warp"], _stream(C))
+        _build.check(lib, err, "svt_sgm_vertical_registers")
+    else:
+        nbytes = plan["scratch_bytes"]
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=C.device) if nbytes else None
+        err = lib.svt_sgm_vertical(C.data_ptr(), s_dn.data_ptr(), s_up.data_ptr(),
+                                   None if scratch is None else scratch.data_ptr(), B, H, W, D, P1, P2,
+                                   int(with_diagonals), C.element_size(), out, _stream(C))
+        _build.check(lib, err, "svt_sgm_vertical")
     vertical.launches += 1
-    vertical.device_launches += plan[_PLAN_FIELDS.index("device_launches")]
-    vertical.plan = dict(zip(_PLAN_FIELDS, plan))
+    vertical.launches_by_form[plan["form"]] += 1
+    vertical.device_launches += plan["device_launches"]
+    vertical.plan = dict(plan)
     return s_dn, s_up
 
 
@@ -481,6 +596,7 @@ def sgm_reduce(C, P1: int, P2: int, uniqueness_ratio: int, *, cost_bound: int, n
 
 
 vertical.launches = 0
+vertical.launches_by_form = dict.fromkeys(FORMS, 0)
 vertical.device_launches = 0
 vertical.plan = None
 horizontal.launches = 0

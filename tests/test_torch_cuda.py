@@ -1060,27 +1060,44 @@ def test_bm_row_forms_match_plain(dev, W, H, D, bs, mindisp, cap, uniq, tex, for
     assert not valid.any() or tex <= 0
 
 
-@pytest.mark.parametrize("D", [16, 128, 200, 1000])  # 1, 4, 8 and 32 values a lane
-@pytest.mark.parametrize("B,H,W", [(1, 1, 1), (5, 2, 2), (1, 7, 37), (2, 9, 300), (1, 3, 1152)])
-@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+# The register form at its plan's edges (the card's own split): 8 and 16
+# frames of the exact path's 1152 columns (one wave of clusters of 6, and
+# two), 33 rows; widths the split leaves ragged (1151, 1153, 1000 at D =
+# 256), D = 64 and 256, and the widest width it holds at D = 128 (3072)
+# beside one column more, which takes the cluster kernel. int16.
+VERTICAL_REGISTER_CASES = [(128, 8, 33, 1152), (128, 16, 5, 1152), (128, 4, 9, 1151), (128, 2, 17, 1153),
+                           (64, 8, 9, 1152), (256, 3, 9, 1000), (128, 1, 3, 3072), (128, 1, 2, 3073)]
+VERTICAL_CASES = [(D, B, H, W, dtype) for dtype in (torch.int16, torch.int32)
+                  for B, H, W in ((1, 1, 1), (5, 2, 2), (1, 7, 37), (2, 9, 300), (1, 3, 1152))
+                  for D in (16, 128, 200, 1000)]  # 1, 4, 8 and 32 values a lane
+VERTICAL_CASES += [(D, B, H, W, torch.int16) for D, B, H, W in VERTICAL_REGISTER_CASES]
+
+
+@pytest.mark.parametrize("D,B,H,W,dtype", VERTICAL_CASES)
 def test_vertical_cluster_matches_plain(dev, D, B, H, W, dtype):
-    """The cluster vertical scan with and without diagonals: one column, two
-    (two blocks of a cluster), 37 and 300 (up to 16 blocks, W not a multiple
-    of the strip) and 1152; H = 1 and 2; B = 1, 2 and 5; int16 and int32
-    (carries in scratch where they pass the shared memory). One device
-    launch a call."""
+    """The vertical scan with and without diagonals: one column, two (two
+    blocks of a cluster), 37 and 300 (up to 16 blocks, W not a multiple of
+    the strip) and 1152; H = 1 and 2; B = 1, 2 and 5; int16 and int32
+    (carries in scratch where they pass the shared memory); and the
+    register form's cases (VERTICAL_REGISTER_CASES). One device launch a
+    call, of the form its plan names (``vertical.launches_by_form``): the
+    register form for int16 with diagonals at D = 64, 128 and 256 up to 1152
+    columns, and never where the packed step does not apply."""
     rng = np.random.default_rng(D + W + H)
     bound, (P1, P2) = (2325, (200, 800)) if dtype == torch.int16 else (40000, (8, 32000))
     C = torch.from_numpy(rng.integers(0, bound + 1, (B, H, W, D))).to(dtype)
     Cd = C.to(dev)
-    plan = sgm_cuda.vertical_plan(Cd)
-    assert plan["device_launches"] == 1 and 1 <= plan["cluster"] <= min(16, max(W, 1))
-    assert -(-W // plan["columns"]) <= plan["cluster"]
     for diag in (True, False):
-        n = sgm_cuda.vertical.device_launches
+        plan = sgm_cuda.vertical_plan(Cd, diag, P1)
+        assert plan["device_launches"] == 1 and 1 <= plan["cluster"] <= min(16, max(W, 1))
+        assert -(-W // plan["columns"]) <= plan["cluster"]
+        packed = sgm_cuda.packed_words(D, dtype, diag, P1) > 0
+        assert (plan["form"] == "registers") <= packed and (packed and W <= 1152) <= (plan["form"] == "registers")
+        n, forms = sgm_cuda.vertical.device_launches, dict(sgm_cuda.vertical.launches_by_form)
         got = sgm_cuda.vertical(Cd, P1, P2, diag, bound)
         torch.cuda.synchronize()
         assert sgm_cuda.vertical.device_launches == n + 1
+        assert sgm_cuda.vertical.launches_by_form == {**forms, plan["form"]: forms[plan["form"]] + 1}
         for a, r in zip(got, sgm_cuda.vertical_plain(C, P1, P2, diag)):
             assert a.dtype == dtype and torch.equal(a.cpu().to(torch.int32), r)
 
